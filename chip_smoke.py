@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""GPU smoke check of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
+
+  1. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
+  2. holds each kernel against its plain PyTorch version on the card, at
+     ragged shapes and at the shapes DeiT-Base gives it, and times the
+     kernel, the plain version and the one-call PyTorch equivalent;
+  3. runs CORP pruning of DeiT-Base at full width end to end through
+     ``repro_torch.launch.prune`` (seeded random weights, synthetic
+     calibration images), counting each kernel's launches in that run, and
+     checks the pruned model's output: finite, of the right shape, J* <=
+     J_uncomp for every unit, and on a reduced DeiT the same pruned output
+     on the GPU as on the CPU's plain path;
+  4. prints the card, a JSON line of per-kernel numbers, and last the
+     result line ``{"ok": true, "device": {...}}``.
+
+Any failed phase raises, so the exit code is not 0 and no result line is
+printed. TF32 is switched off for matmuls and convolutions, so every plain
+fp32 product is full fp32.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(ROOT, "build", "chip_smoke")
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 on the CUDA
+# cores (both kernels are fp32 FMA) and HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+MAIN = dict(arch="deit-base", sparsity=0.5, calib=128, calib_batch=16)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(fn, reps=20, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops, nbytes):
+    t_ops = flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_gram(x, y=None, tol=1e-5, label=""):
+    """Kernel vs plain on the card; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.gram import ops, ref
+    got = ops.gram(x) if y is None else ops.gram_cross(x, y)
+    want = ref.gram(x) if y is None else ref.gram_cross(x, y)
+    torch.cuda.synchronize()
+    err = max(float((got[k] - want[k]).abs().max()) for k in ("s2", "s1"))
+    rel = float((got["s2"] - want["s2"]).abs().max()
+                / want["s2"].abs().max())
+    ok = rel <= tol and bool(torch.isfinite(got["s2"]).all())
+    print(f"  gram{'' if y is None else '_cross'} {label:<28} "
+          f"{str(tuple(x.shape)):>18} {str(x.dtype)[6:]:>8}: "
+          f"max|ds2|/max|s2| {rel:.3e} (tol {tol:g}), max abs err "
+          f"{err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"gram {label} disagrees with its plain version")
+    return err
+
+
+def check_attention(q, k, v, causal, window, scale, label, tol=1e-4):
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    got = ops.attention(q, k, v, causal=causal, window=window, scale=scale)
+    want = ref.attention(q, k, v, causal=causal, window=window, scale=scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    print(f"  flash_attention {label:<22} q{tuple(q.shape)} "
+          f"k{tuple(k.shape)} v{tuple(v.shape)}: max abs err {err:.3e} "
+          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"flash_attention {label} disagrees with its plain version")
+    return err
+
+
+def main_path_tap(model, params, batch):
+    """The layer-stacked MLP tap of one DeiT-Base forward: (L, B*T, d_ff)."""
+    taps = {}
+    model.apply(params, batch, taps=taps)
+    h = taps["seg0/p0/h"]
+    return h.reshape(h.shape[0], -1, h.shape[-1])
+
+
+def kernel_phase(dev):
+    """Every kernel against its plain version; returns the JSON rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import resolve_config
+    from repro_torch.data import calib_stream
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.vit import num_patches
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels] each against its plain PyTorch version on the card")
+    for shape in ((197 * 2, 192), (1000, 40), (37, 5)):
+        check_gram(rand(*shape), label="ragged")
+        check_gram(rand(*shape, dtype=torch.bfloat16), tol=1e-2,
+                   label="ragged")
+    check_gram(rand(1000, 40), rand(1000, 72), label="rectangular")
+    check_gram(rand(3, 300, 130), rand(3, 300, 70), label="layer-stacked")
+
+    cfg = resolve_config(MAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    batch = next(iter(calib_stream(cfg, n_samples=MAIN["calib_batch"],
+                                   batch=MAIN["calib_batch"], device=dev)()))
+    x = main_path_tap(model, params, batch)
+    del params
+    gram_err = check_gram(x, label="main path seg0/p0/h")
+    check_gram(x.to(torch.bfloat16), tol=1e-2, label="main path, bf16")
+
+    L, N, Fd = x.shape
+    g_ms = time_ms(lambda: gram_ops.gram(x))
+    g_plain = time_ms(lambda: gram_ref.gram(x))
+    g_lib = time_ms(lambda: torch.matmul(x.mT, x))
+    g_bound, g_by = bound_ms(2.0 * L * N * Fd * Fd,
+                             4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+    print(f"  gram at {tuple(x.shape)} fp32: kernel {g_ms:.3f} ms, plain "
+          f"{g_plain:.3f} ms, torch.matmul {g_lib:.3f} ms, bound "
+          f"{g_bound:.3f} ms ({g_by})")
+    del x
+
+    B, T, H, dv = MAIN["calib_batch"], num_patches(cfg) + 1, cfg.n_heads, \
+        cfg.d_head
+    scale = 1.0 / math.sqrt(cfg.qk_full)
+    mains = {}
+    for dq in (cfg.qk_full, cfg.pruned(0, MAIN["sparsity"]).eff_qk):
+        q, k, v = rand(B, T, H, dq), rand(B, T, H, dq), rand(B, T, H, dv)
+        mains[dq] = (q, k, v, check_attention(
+            q, k, v, False, None, scale, f"main path dq={dq}"))
+    check_attention(rand(2, 150, 4, 64), rand(2, 150, 4, 64),
+                    rand(2, 150, 4, 64), True, None, 0.125, "causal")
+    check_attention(rand(2, 200, 4, 32), rand(2, 200, 4, 32),
+                    rand(2, 200, 4, 64), True, 50, 0.125, "causal window")
+    check_attention(rand(2, 130, 8, 64), rand(2, 130, 2, 64),
+                    rand(2, 130, 2, 64), True, None, 0.125, "GQA 8/2")
+    check_attention(rand(1, 70, 4, 128), rand(1, 300, 4, 128),
+                    rand(1, 300, 4, 128), True, None, 0.088, "T<S, d=128")
+    check_attention(rand(2, 100, 4, 64, dtype=torch.bfloat16),
+                    rand(2, 100, 4, 64, dtype=torch.bfloat16),
+                    rand(2, 100, 4, 64, dtype=torch.bfloat16), False, None,
+                    0.125, "bf16", tol=2e-2)
+
+    dq, dq_pruned = list(mains)
+    q, k, v, f_err = mains[dq]
+    f_ms = time_ms(lambda: flash_ops.attention(q, k, v, causal=False,
+                                               scale=scale))
+    f_plain = time_ms(lambda: flash_ref.attention(q, k, v, causal=False,
+                                                  scale=scale))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    f_lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                           scale=scale))
+    f_bound, f_by = bound_ms(2.0 * B * H * T * T * (dq + dv),
+                             4.0 * B * T * H * (2 * dq + 2 * dv))
+    qp, kp, vp, _ = mains[dq_pruned]
+    fp_ms = time_ms(lambda: flash_ops.attention(qp, kp, vp, causal=False,
+                                                scale=scale))
+    print(f"  flash_attention at B={B} T=S={T} H={H} dq={dq} dv={dv} fp32: "
+          f"kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, SDPA "
+          f"{f_lib:.3f} ms, bound {f_bound:.4f} ms ({f_by}); "
+          f"dq={dq_pruned}: kernel {fp_ms:.3f} ms")
+
+    return [
+        {"name": "gram", "route": "cuda",
+         "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
+         "replaces": "src/repro/kernels/gram/gram.py:104",
+         "launches": None, "max_abs_err": gram_err, "ms": g_ms,
+         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
+         "library_ms": g_lib},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",
+         "launches": None, "max_abs_err": f_err, "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
+         "library_ms": f_lib},
+    ]
+
+
+def prune_args(arch, device, out, extra=()):
+    return ["--arch", arch, "--sparsity", str(MAIN["sparsity"]),
+            "--calib", str(MAIN["calib"]),
+            "--calib-batch", str(MAIN["calib_batch"]),
+            "--device", device, "--out", out, *extra]
+
+
+def profile_phase(dev):
+    """Where the main path's time goes: the host time to make and upload
+    one calibration batch, then device time by kernel over ``corp_prune``
+    of the main path's model on two batches already on the card, and the
+    share of that wall time the device was busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import resolve_config
+    from repro_torch.core import PruneConfig, corp_prune
+    from repro_torch.data import calib_stream
+    from repro_torch.models import build_model
+    B = MAIN["calib_batch"]
+    cfg = resolve_config(MAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    stream = calib_stream(cfg, n_samples=2 * B, batch=B, device=dev)
+    t0 = time.time()
+    batches = list(stream())
+    torch.cuda.synchronize()
+    data_ms = 1e3 * (time.time() - t0) / len(batches)
+    pc = PruneConfig(MAIN["sparsity"], MAIN["sparsity"])
+    corp_prune(model, params, lambda: iter(batches), pc)      # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, _, report = corp_prune(model, params, lambda: iter(batches), pc)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    # device-side rows only (kernels, copies): CPU ops would count their
+    # kernels a second time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"[profile] host: {data_ms:.1f} ms to make and upload one "
+          f"calibration batch of {B} images (numpy)")
+    print(f"[profile] corp_prune of {MAIN['arch']} over {2 * B} images on "
+          f"the card, profiled: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), stages "
+          + " / ".join(f"{k} {1e3 * v:.1f} ms"
+                       for k, v in report["timing"].items()))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<5} "
+              f"{e.key[:90]}")
+
+
+def rel_err(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def main_path_phase(dev):
+    """DeiT-Base CORP pruning end to end; returns {kernel: launches}."""
+    import torch
+    from repro_torch.data import vit_batch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.launch import prune
+
+    print(f"[main path] python -m repro_torch.launch.prune "
+          f"{' '.join(prune_args(MAIN['arch'], 'cuda', OUT))}")
+    gram_ops.launches = 0
+    flash_ops.launches = 0
+    t0 = time.time()
+    res = prune.main(prune_args(MAIN["arch"], "cuda", OUT))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"gram": gram_ops.launches,
+                "flash_attention": flash_ops.launches}
+    t = res["report"]["timing"]
+    print(f"[main path] wall {wall:.3f} s; stages: " + " / ".join(
+        f"{k} {t[k]:.3f} s" for k in ("pass1", "rank", "pass2", "fold")))
+    print(f"[main path] kernel launches in this run: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the main path never launched the {name} kernel")
+
+    for unit, d in res["report"]["units"].items():
+        js, ju = d["j_star"], d["j_uncomp"]
+        bad = js > ju * (1 + 1e-5) + 1e-6
+        if bad.any():
+            fail(f"{unit}: j_star > j_uncomp at {bad.nonzero()}")
+    print("[main path] j_star <= j_uncomp for every unit and layer")
+
+    cfg = res["model"].cfg
+    held = vit_batch(0, batch=MAIN["calib_batch"], img=cfg.img_size,
+                     n_classes=cfg.n_classes, seed=1234, device=dev)
+    batch = {"images": held["images"]}
+    from repro_torch.models import build_model
+    dense = res["model"].apply(res["params"], batch)
+    pruned = build_model(res["pruned_cfg"]).apply(res["pruned_params"],
+                                                  batch)
+    if pruned.shape != (MAIN["calib_batch"], cfg.n_classes) \
+            or not bool(torch.isfinite(pruned).all()):
+        fail(f"pruned logits of shape {tuple(pruned.shape)} or not finite")
+    comp = rel_err(pruned, dense)
+    del res
+    res_nc = prune.main(prune_args(MAIN["arch"], "cuda",
+                                   OUT + "_nocomp", ["--no-compensate"]))
+    nocomp = rel_err(build_model(res_nc["pruned_cfg"]).apply(
+        res_nc["pruned_params"], batch), dense)
+    print(f"[main path] held-out batch, |pruned - dense| / |dense| logits: "
+          f"compensated {comp:.4f}, --no-compensate {nocomp:.4f} "
+          f"(d_ff {cfg.d_ff} -> {res_nc['pruned_cfg'].eff_d_ff}, qk "
+          f"{cfg.qk_full} -> {res_nc['pruned_cfg'].eff_qk})")
+    return launches
+
+
+def reference_phase(dev):
+    """Reduced DeiT-Base pruned on the GPU (kernels) and on the CPU (plain
+    path) from the same seed: the pruned outputs must agree."""
+    import torch
+    from repro_torch.data import vit_batch
+    from repro_torch.launch import prune
+    from repro_torch.models import build_model
+    arch = "deit-base-reduced"
+    outs = {}
+    for device in ("cuda", "cpu"):
+        res = prune.main(prune_args(arch, device, f"{OUT}_{device}"))
+        cfg = res["pruned_cfg"]
+        x = vit_batch(7, batch=8, img=cfg.img_size, n_classes=cfg.n_classes,
+                      seed=1234, device=device)["images"]
+        outs[device] = build_model(cfg).apply(res["pruned_params"],
+                                              {"images": x}).cpu()
+    err = rel_err(outs["cuda"], outs["cpu"])
+    # the Cholesky solves and the SVD fold run in another order on the two
+    # devices, and the SVD's paired signs may differ: outputs agree to 1e-3
+    print(f"[reference] {arch}: pruned logits GPU vs CPU relative error "
+          f"{err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("pruned model on the GPU disagrees with the CPU's plain path")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[setup] card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; TF32 off for matmul and cuDNN "
+          f"(allow_tf32 = False)")
+    t0 = time.time()
+    _build.library()
+    built = _build.build_seconds
+    print(f"[setup] kernels ready in {time.time() - t0:.2f} s ("
+          + (f"nvcc build {built:.2f} s" if built is not None
+             else "cached build") + f", {_build.BUILD_DIR})")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  ptxas:", line.strip())
+
+    rows = kernel_phase(dev)
+    launches = main_path_phase(dev)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    reference_phase(dev)
+    profile_phase(dev)
+
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Gram op: the calibration second moments X^T Y plus column sums.
+
+Replaces ``repro.kernels.gram.ops.gram`` / ``gram_cross`` (Pallas TPU
+kernels ``gram.py:104`` / ``gram.py:152``). On a CUDA tensor the wrapper
+launches the hand-written kernel in ``csrc/gram.cu`` or raises; only a CPU
+tensor takes the plain version in ``ref.py``. Leading dims (the stacked
+layer axis of a tap) become the kernel's ``gridDim.z``: one launch covers
+every layer. Accumulation is fp32 for fp32 and bf16 inputs alike.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.gram import ref as _ref
+
+launches = 0            # kernel launches in this process (chip_smoke reads it)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+             + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+
+
+def _as3d(a: torch.Tensor) -> torch.Tensor:
+    if a.ndim < 2:
+        raise ValueError(f"gram expects (..., N, F), got shape "
+                         f"{tuple(a.shape)}")
+    return a.reshape((-1,) + tuple(a.shape[-2:]))
+
+
+def gram_cross(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """x: (..., N, Fx), y: (..., N, Fy) -> {'s2': (..., Fx, Fy) fp32 X^T Y,
+    's1': (..., Fy) fp32 column sums of Y}."""
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return _ref.gram_cross(x, y)
+    global launches
+    if x.device.type != "cuda" or y.device != x.device:
+        raise ValueError(f"gram_cross: tensors on {x.device} and {y.device}; "
+                         f"need both on one CUDA device (or both on the CPU)")
+    if x.dtype not in _DTYPES or y.dtype != x.dtype:
+        raise TypeError(f"gram_cross: dtypes {x.dtype}, {y.dtype}; the "
+                        f"kernel takes float32 or bfloat16, the same for both")
+    if x.shape[:-1] != y.shape[:-1]:
+        raise ValueError(f"gram_cross: shapes {tuple(x.shape)} and "
+                         f"{tuple(y.shape)} differ before the last dim")
+    lead = tuple(x.shape[:-2])
+    x3, y3 = _as3d(x), _as3d(y)
+    L, N, Fx = x3.shape
+    Fy = y3.shape[-1]
+    s2 = torch.empty((L, Fx, Fy), dtype=torch.float32, device=x.device)
+    s1 = torch.empty((L, Fy), dtype=torch.float32, device=x.device)
+    if L and Fx and Fy:
+        fn = _build.kernel("repro_gram_cross", _ARGTYPES)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(_DTYPES[x.dtype], x3.data_ptr(), y3.data_ptr(),
+                 s2.data_ptr(), s1.data_ptr(), L, N, Fx, Fy,
+                 *x3.stride(), *y3.stride(), stream)
+        _build.check(err, "gram_cross")
+        launches += 1
+    return {"s2": s2.reshape(lead + (Fx, Fy)), "s1": s1.reshape(lead + (Fy,))}
+
+
+def gram(x: torch.Tensor) -> dict:
+    """x: (..., N, F) -> {'s2': (..., F, F) fp32 X^T X, 's1': (..., F)}."""
+    return gram_cross(x, x)

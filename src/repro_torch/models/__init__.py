@@ -1,0 +1,4 @@
+"""Models of the port (``repro.models``): the ViT path."""
+from repro_torch.models.api import Model, build_model
+
+__all__ = ["Model", "build_model"]

@@ -1,0 +1,106 @@
+"""Shared model components (``repro.models.common``): initialisers, norms,
+activations and activation taps."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# initialisers: drawn on the CPU from an explicit generator, so one seed
+# gives the same weights whatever device they are moved to
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype):
+    return (torch.randn(shape, generator=gen) * 0.02).to(dtype)
+
+
+def init_norm(cfg, d=None):
+    d = d or cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return {"scale": torch.ones(d), "bias": torch.zeros(d)}
+    return {"scale": torch.ones(d)}
+
+
+# ---------------------------------------------------------------------------
+# norms (fp32 math, result in the input dtype)
+# ---------------------------------------------------------------------------
+
+def apply_norm(p, x, cfg):
+    xf = x.float()
+    if "bias" in p:  # layernorm; biased variance, as jnp.var
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def activation(name: str):
+    """jax.nn.gelu defaults to the tanh approximation, so "gelu" is
+    ``F.gelu(approximate="tanh")`` here."""
+    return {
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "relu2": lambda x: F.relu(x).square(),
+    }[name]
+
+
+# ---------------------------------------------------------------------------
+# taps (activation tape for CORP calibration)
+# ---------------------------------------------------------------------------
+
+_TAP_DTYPE = torch.float32
+
+
+class tap_dtype:
+    """Context setting the dtype activation taps are recorded in (fp32 by
+    default; statistics accumulate in fp32 whatever the tap dtype)."""
+
+    def __init__(self, dtype):
+        self.dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+    def __enter__(self):
+        global _TAP_DTYPE
+        self._prev, _TAP_DTYPE = _TAP_DTYPE, self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        global _TAP_DTYPE
+        _TAP_DTYPE = self._prev
+        return False
+
+
+def tap(taps: dict | None, name: str, value):
+    """Record an intermediate activation; ``taps`` is None when not taping."""
+    if taps is not None:
+        taps[name] = value.to(_TAP_DTYPE)
+
+
+def merge_taps(dst: dict | None, src: dict, prefix: str):
+    if dst is not None:
+        for k, v in src.items():
+            dst[f"{prefix}/{k}" if prefix else k] = v

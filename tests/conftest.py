@@ -20,3 +20,6 @@ def pytest_configure(config):
         "markers",
         "subprocess: spawns a fresh python with its own jax backend "
         "(deselect with -m 'not subprocess')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels); skips without one")
