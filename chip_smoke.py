@@ -7,16 +7,24 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
 
   1. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
   2. holds each kernel against its plain PyTorch version on the card, at
-     ragged shapes and at the shapes DeiT-Base gives it, and times the
-     kernel, the plain version and the one-call PyTorch equivalent;
-  3. runs CORP pruning of DeiT-Base at full width end to end through
-     ``repro_torch.launch.prune`` (seeded random weights, synthetic
+     ragged shapes and at the shapes DeiT-Base and Qwen2-1.5B serving give
+     it, and times the kernel, the plain version and the one-call PyTorch
+     equivalent beside the least time the card could take;
+  3. prune path: runs CORP pruning of DeiT-Base at full width end to end
+     through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
      checks the pruned model's output: finite, of the right shape, J* <=
      J_uncomp for every unit, and on a reduced DeiT the same pruned output
-     on the GPU as on the CPU's plain path;
-  4. prints the card, a JSON line of per-kernel numbers, and last the
-     result line ``{"ok": true, "device": {...}}``.
+     on the GPU as on the CPU's plain path; then profiles one prune;
+  4. serve path: serves a ragged trace of 32 requests with Qwen2-1.5B at
+     full width (seeded random bf16 weights) through
+     ``repro_torch.launch.serve`` and the continuous-batching engine,
+     counting the kernels' launches in that run; profiles 20 shared decode
+     steps; checks at full width in fp32 that teacher-forced prefill +
+     decode logits equal one full forward, and on a reduced Qwen2 that the
+     engine's token streams on the GPU equal the CPU plain path's;
+  5. prints the card, a JSON line of per-kernel numbers with launches per
+     path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
 printed. TF32 is switched off for matmuls and convolutions, so every plain
@@ -34,12 +42,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 on the CUDA
-# cores (both kernels are fp32 FMA) and HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on
+# the CUDA cores, bf16 on the tensor cores, HBM3. A bound takes the peak of
+# its inputs' type.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 MAIN = dict(arch="deit-base", sparsity=0.5, calib=128, calib_batch=16)
+SERVE = ["--arch", "qwen2-1.5b", "--trace", "32", "--slots", "8",
+         "--max-len", "1024", "--prompt-range", "64,512",
+         "--gen-range", "32,256"]
+SERVE_REDUCED = ["--arch", "qwen2-1.5b-reduced", "--trace", "12",
+                 "--slots", "3", "--max-len", "96", "--prompt-range", "8,24",
+                 "--gen-range", "4,16"]
 
 
 def fail(msg: str):
@@ -61,8 +77,41 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_FP32_FLOPS
+def device_ms(fn, reps=50, replays=5, warmup=3):
+    """Device time per call: ``reps`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events. Unlike ``time_ms``
+    it leaves out the host's launch overhead, which is longer than a
+    decode-sized kernel. It times the kernels and the library calls alike
+    without torch.profiler, which in one process that had already profiled
+    other calls recorded no device event for cuDNN's SDPA."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    if not ms > 0:
+        fail(f"no device time measured for {fn}")
+    return ms
+
+
+def bound_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+    t_ops = flops / peak_flops
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -180,6 +229,23 @@ def kernel_phase(dev):
                     rand(2, 100, 4, 64, dtype=torch.bfloat16), False, None,
                     0.125, "bf16", tol=2e-2)
 
+    # gram_cross off the main path, at one stated shape: DeiT-Base's
+    # 16-image token batch against its d_ff and d_model columns
+    xc, yc = rand(16 * 197, cfg.d_ff), rand(16 * 197, cfg.d_model)
+    check_gram(xc, yc, label="DeiT-Base d_ff x d_model")
+    (Nc, Fx), Fy = xc.shape, yc.shape[1]
+    gc = {"shape": [Nc, Fx, Fy],
+          "ms": time_ms(lambda: gram_ops.gram_cross(xc, yc)),
+          "plain_ms": time_ms(lambda: gram_ref.gram_cross(xc, yc)),
+          "library_ms": time_ms(lambda: torch.matmul(xc.mT, yc))}
+    gc["bound_ms"], gc["bound_by"] = bound_ms(
+        2.0 * Nc * Fx * Fy, 4.0 * (Nc * Fx + Nc * Fy + Fx * Fy + Fy))
+    print(f"  gram_cross at X {tuple(xc.shape)} Y {tuple(yc.shape)} fp32: "
+          f"kernel {gc['ms']:.3f} ms, plain {gc['plain_ms']:.3f} ms, "
+          f"torch.matmul {gc['library_ms']:.3f} ms, bound "
+          f"{gc['bound_ms']:.3f} ms ({gc['bound_by']})")
+    del xc, yc
+
     dq, dq_pruned = list(mains)
     q, k, v, f_err = mains[dq]
     f_ms = time_ms(lambda: flash_ops.attention(q, k, v, causal=False,
@@ -198,6 +264,7 @@ def kernel_phase(dev):
           f"kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, SDPA "
           f"{f_lib:.3f} ms, bound {f_bound:.4f} ms ({f_by}); "
           f"dq={dq_pruned}: kernel {fp_ms:.3f} ms")
+    del mains, q, k, v, qt, kt, vt, qp, kp, vp
 
     return [
         {"name": "gram", "route": "cuda",
@@ -205,15 +272,137 @@ def kernel_phase(dev):
          "replaces": "src/repro/kernels/gram/gram.py:104",
          "launches": None, "max_abs_err": gram_err, "ms": g_ms,
          "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": g_lib},
+         "library_ms": g_lib, "gram_cross": gc},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:73",
          "launches": None, "max_abs_err": f_err, "ms": f_ms,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
-         "library_ms": f_lib},
+         "library_ms": f_lib, "serve_prefill": serve_prefill_timing(rand)},
+        decode_kernel_phase(dev, rand),
     ]
+
+
+def serve_prefill_timing(rand):
+    """flash_attention at Qwen2-1.5B's prefill shape: one prompt bucket of
+    T = 512, causal, GQA 12/2, d = 128, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    T, H, Hkv, d = 512, 12, 2, 128
+    bf = torch.bfloat16
+    q, k, v = rand(1, T, H, d, dtype=bf), rand(1, T, Hkv, d, dtype=bf), \
+        rand(1, T, Hkv, d, dtype=bf)
+    scale = 1.0 / math.sqrt(d)
+    err = check_attention(q, k, v, True, None, scale,
+                          "serve prefill T=512 bf16", tol=2e-2)
+    qt = q.transpose(1, 2)
+    kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+              for a in (k, v))
+    pairs = T * (T + 1) / 2
+    calls = {"ms": lambda: ops.attention(q, k, v, causal=True, scale=scale),
+             "plain_ms": lambda: ref.attention(q, k, v, causal=True,
+                                               scale=scale),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, scale=scale)}
+    out = {"shape": [1, T, H, Hkv, d], "max_abs_err": err,
+           **{k: device_ms(fn) for k, fn in calls.items()},
+           "wall_ms": time_ms(calls["ms"])}
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        2.0 * H * pairs * 2 * d, 2.0 * T * (2 * H + 2 * Hkv) * d,
+        PEAK_BF16_FLOPS)
+    print(f"  flash_attention at the serve prefill shape T=S={T} H={H} "
+          f"Hkv={Hkv} d={d} causal bf16, device time: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}); kernel with host launch "
+          f"{out['wall_ms']:.4f} ms")
+    return out
+
+
+def check_decode(q, k, v, valid, label, tol):
+    import torch
+    from repro_torch.kernels.flash_decode import ops, ref
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    got = ops.decode_attention(q, k, v, valid, scale=scale)
+    want = ref.decode_attention(q, k, v, valid, scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = err <= tol and bool(torch.isfinite(got).all())
+    print(f"  flash_decode {label:<26} q{tuple(q.shape)} k{tuple(k.shape)} "
+          f"v{tuple(v.shape)} {str(q.dtype)[6:]}: max abs err {err:.3e} "
+          f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"flash_decode {label} disagrees with its plain version")
+    return err
+
+
+def decode_kernel_phase(dev, rand):
+    """flash_decode against its plain version (ragged S, GQA, holes in the
+    mask, the serve path's shape and its pruned dq 64 / dv 128), then its
+    time at the path's shape (8 slots, S = max_len = 1024, every key
+    valid) beside the plain version, SDPA with a boolean mask over kv
+    heads expanded to H, and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import ops, ref
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def mask(B, S, holes=False):
+        lens = torch.randint(1, S + 1, (B, 1), generator=g, device=dev)
+        valid = torch.arange(S, device=dev)[None] < lens
+        if holes:
+            valid &= torch.rand(B, S, generator=g, device=dev) < 0.7
+            valid[:, 0] = True
+        return valid
+
+    B, S, H, Hkv, d = 8, 1024, 12, 2, 128
+    errs = {}
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        check_decode(rand(3, 4, 64, dtype=dt), rand(3, 300, 1, 64, dtype=dt),
+                     rand(3, 300, 1, 64, dtype=dt), mask(3, 300),
+                     "ragged S=300, GQA 4/1", tol)
+        check_decode(rand(2, 8, 64, dtype=dt), rand(2, 500, 2, 64, dtype=dt),
+                     rand(2, 500, 2, 64, dtype=dt), mask(2, 500, True),
+                     "GQA 8/2, holes", tol)
+        for dq in (d, 64):
+            errs[dt, dq] = check_decode(
+                rand(B, H, dq, dtype=dt), rand(B, S, Hkv, dq, dtype=dt),
+                rand(B, S, Hkv, d, dtype=dt), mask(B, S),
+                f"serve path dq={dq}", tol)
+
+    bf = torch.bfloat16
+    q, k, v = rand(B, H, d, dtype=bf), rand(B, S, Hkv, d, dtype=bf), \
+        rand(B, S, Hkv, d, dtype=bf)
+    valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+    scale = 1.0 / math.sqrt(d)
+    qt = q[:, :, None]
+    kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+              for a in (k, v))
+    m4 = valid[:, None, None, :]
+    calls = {"ms": lambda: ops.decode_attention(q, k, v, valid, scale=scale),
+             "plain_ms": lambda: ref.decode_attention(q, k, v, valid, scale),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=m4, scale=scale)}
+    row = {"name": "flash_decode", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                     "flash_decode.cu",
+           "replaces": "src/repro/kernels/flash_decode/flash_decode.py:51",
+           "launches": None, "max_abs_err": errs[bf, d],
+           **{k: device_ms(fn) for k, fn in calls.items()},
+           "wall_ms": time_ms(calls["ms"], reps=50)}
+    nbytes = B * S * Hkv * 2 * d * 2 + 2 * (B * H * d * 2) + B * S
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        2.0 * B * H * S * 2 * d, nbytes, PEAK_BF16_FLOPS)
+    print(f"  flash_decode at B={B} S={S} H={H} Hkv={Hkv} d={d} bf16 "
+          f"(split {ops.split_size(S, B * Hkv, dev)} keys), device time: "
+          f"kernel and merge {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+          f"{nbytes / 1e6:.2f} MB); kernel with host launch "
+          f"{row['wall_ms']:.4f} ms")
+    return row
 
 
 def prune_args(arch, device, out, extra=()):
@@ -356,6 +545,147 @@ def reference_phase(dev):
         fail("pruned model on the GPU disagrees with the CPU's plain path")
 
 
+def serve_phase():
+    """Qwen2-1.5B at full width serves the ragged trace through the CLI's
+    engine path; returns ({kernel: launches}, the CLI's result)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.launch import serve
+    print(f"[serve] python -m repro_torch.launch.serve {' '.join(SERVE)}")
+    gram_ops.launches = flash_ops.launches = decode_ops.launches = 0
+    t0 = time.time()
+    res = serve.main(SERVE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"gram": gram_ops.launches,
+                "flash_attention": flash_ops.launches,
+                "flash_decode": decode_ops.launches}
+    st, table = res["stats"], res["table"]
+    cfg = res["model"].cfg
+    print(f"[serve] wall {wall:.3f} s (CPU init of the seeded weights, "
+          f"warmup and the trace); kernel launches in this run: {launches}")
+    print(f"[serve] engine stats: {dict(sorted(st.items()))}")
+    print(f"[serve] table: {json.dumps(table)}")
+    for name in ("flash_attention", "flash_decode"):
+        if launches[name] <= 0:
+            fail(f"the serve path never launched the {name} kernel")
+    for c in res["completions"]:
+        if not (len(c.tokens) >= 1 and ((0 <= c.tokens)
+                                        & (c.tokens < cfg.vocab_size)).all()):
+            fail(f"request {c.rid}: tokens out of range or missing")
+    return launches, res
+
+
+def serve_profile_phase(model, params, dev, steps=20):
+    """Eight slots of ragged lengths decoding on the full-width model: host
+    ms per shared decode step, then a profile of ``steps`` steps (device
+    busy share, kernel launches, top device ops)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(model, params, n_slots=8, max_len=1024)
+    eng.begin()
+    rng = np.random.RandomState(3)
+    for i in range(8):
+        eng.admit(Request(rid=i, tokens=rng.randint(
+            0, model.cfg.vocab_size, size=128 + 48 * i).astype(np.int32),
+            gen=3 * steps + 10), i)
+    for _ in range(3):
+        eng.decode_step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        eng.decode_step()
+    step_ms = 1e3 * (time.time() - t0) / steps
+    decode_ops.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            eng.decode_step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    n_kernels = sum(e.count for e in events)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"[serve profile] {steps} decode steps, 8 slots at lengths "
+          f"128..464, max_len 1024: {step_ms:.2f} ms per step unprofiled; "
+          f"profiled wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels / steps:.0f} device "
+          f"ops and {decode_ops.launches / steps:.0f} flash_decode launches "
+          f"per step; nvidia-smi clocks.sm, power.draw, power.limit: {smi}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
+              f"{e.key[:90]}")
+
+
+def logit_phase(model, params):
+    """Full width in fp32 (TF32 off): two requests teacher-forced through
+    ragged prefill and 8 decode steps; every step's logits against one full
+    forward over the same tokens, relative error <= 1e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.interop import map_tree
+    from repro_torch.models import build_model
+    cfg = model.cfg.replace(dtype="float32")
+    m32 = build_model(cfg)
+    p32 = map_tree(lambda t: t.float(), params)
+    dev = p32["embed"].device
+    rng = np.random.RandomState(7)
+    lens, n_dec = [40, 25], 8
+    seqs = [rng.randint(0, cfg.vocab_size, size=n + n_dec).astype(np.int32)
+            for n in lens]
+    toks = np.zeros((2, max(lens)), np.int32)
+    for r, n in enumerate(lens):
+        toks[r, :n] = seqs[r][:n]
+    full = [m32.apply(p32, {"tokens": torch.from_numpy(q[None]).to(dev)})[0]
+            [0] for q in seqs]
+    logits, cache = m32.prefill(p32, {"tokens": torch.from_numpy(toks)
+                                      .to(dev)}, 64,
+                                lengths=torch.tensor(lens, device=dev))
+    errs = [rel_err(logits[r, 0], full[r][n - 1])
+            for r, n in enumerate(lens)]
+    for i in range(n_dec):
+        tok = torch.tensor([[q[n + i]] for q, n in zip(seqs, lens)],
+                           dtype=torch.int32, device=dev)
+        logits, cache = m32.decode_step(p32, tok, cache)
+        errs += [rel_err(logits[r, 0], full[r][n + i])
+                 for r, n in enumerate(lens)]
+    err = max(errs)
+    print(f"[logits] {cfg.name} fp32 at full width, prefill + {n_dec} "
+          f"teacher-forced decode steps vs one full forward: max relative "
+          f"error {err:.3e} over {len(errs)} logit rows (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("decode logits disagree with the full forward")
+
+
+def serve_reference_phase():
+    """Reduced Qwen2 (fp32) served on the GPU (kernels) and on the CPU
+    (plain path) from the same seed: the token streams must be equal."""
+    from repro_torch.launch import serve
+    streams = {}
+    for device in ("cuda", "cpu"):
+        res = serve.main(SERVE_REDUCED + ["--device", device])
+        streams[device] = [c.tokens.tolist() for c in res["completions"]]
+    same = streams["cuda"] == streams["cpu"]
+    print(f"[reference] qwen2-1.5b-reduced engine streams, GPU vs CPU: "
+          f"{sum(map(len, streams['cuda']))} tokens, "
+          f"{'identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the engine's streams on the GPU differ from the CPU's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,11 +720,18 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     rows = kernel_phase(dev)
-    launches = main_path_phase(dev)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    launches = {"prune": main_path_phase(dev)}
     reference_phase(dev)
     profile_phase(dev)
+    launches["serve"], served = serve_phase()
+    serve_profile_phase(served["model"], served["params"], dev)
+    logit_phase(served["model"], served["params"])
+    del served
+    serve_reference_phase()
+    for row in rows:
+        row["launches_by_path"] = {path: n.get(row["name"], 0)
+                                   for path, n in launches.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
 
     print(smi)
     print(json.dumps({"kernels": rows}))

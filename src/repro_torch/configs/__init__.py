@@ -1,38 +1,43 @@
-"""Config registry of the port: the DeiT ids and their reduced variants.
+"""Config registry of the port: the DeiT ids, ``qwen2-1.5b`` and their
+reduced variants.
 
-Copied from ``repro.configs``. Only the DeiT family is ported so far; the
-LM, MoE, RWKV, Mamba and enc-dec configs raise ``NotImplementedError``.
+Copied from ``repro.configs``. The other LM, MoE, RWKV, Mamba and enc-dec
+configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
+LM_IDS = ("qwen2-1.5b",)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in DEIT_IDS:
         from repro_torch.configs import deit
         return getattr(deit, arch_id.upper().replace("-", "_"))
+    if arch_id == "qwen2-1.5b":
+        from repro_torch.configs import qwen2_1_5b
+        return qwen2_1_5b.CONFIG
     raise NotImplementedError(
         f"arch {arch_id!r} is not ported to repro_torch yet (only "
-        f"{DEIT_IDS}); its config lives in repro.configs.get_config")
+        f"{DEIT_IDS + LM_IDS}); its config lives in repro.configs.get_config")
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 64,
             layers_scale: int = 1) -> ModelConfig:
-    """Reduced same-family config for CPU smoke tests (as
-    ``repro.configs.reduced`` gives it for a ViT)."""
-    if cfg.family != "vit":
+    """Reduced same-family config for CPU smoke tests, as
+    ``repro.configs.reduced`` gives it for a ViT or a dense LM."""
+    if cfg.family not in ("vit", "lm") or cfg.moe or cfg.mla or cfg.mamba \
+            or cfg.rwkv or cfg.first_k_dense or cfg.n_enc_layers:
         raise NotImplementedError(
-            "reduced() of a non-ViT config is not ported; see "
+            f"reduced() of {cfg.name} is not ported; see "
             "repro.configs.reduced")
     n_layers = max(len(cfg.pattern), 2) * layers_scale
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, n_heads * cfg.n_kv_heads // cfg.n_heads)
     n_heads = n_kv * max(1, n_heads // n_kv)
-    return cfg.replace(
-        name=cfg.name + "-reduced",
+    kw = dict(
         n_layers=n_layers,
         d_model=d_model,
         n_heads=n_heads,
@@ -43,18 +48,18 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
         sliding_window=8,
         dtype="float32",
         vocab_round=8,
-        img_size=32,
-        patch=8,
-        n_classes=min(cfg.n_classes, 10) or 10,
     )
+    if cfg.family == "vit":
+        kw.update(img_size=32, patch=8, n_classes=min(cfg.n_classes, 10) or 10)
+    return cfg.replace(name=cfg.name + "-reduced", **kw)
 
 
 def resolve_config(name: str) -> ModelConfig:
-    """``deit-base`` or ``deit-base-reduced`` -> config."""
+    """``deit-base`` or ``qwen2-1.5b-reduced`` -> config."""
     if name.endswith("-reduced"):
         return reduced(get_config(name[: -len("-reduced")]))
     return get_config(name)
 
 
-__all__ = ["ModelConfig", "DEIT_IDS", "get_config", "reduced",
+__all__ = ["ModelConfig", "DEIT_IDS", "LM_IDS", "get_config", "reduced",
            "resolve_config"]

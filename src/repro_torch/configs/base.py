@@ -8,6 +8,7 @@ model in both packages. Pruned models are the same dataclass with
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -112,6 +113,11 @@ class ModelConfig:
         return self.qk_full if self.qk_kept is None else self.qk_kept
 
     @property
+    def padded_vocab(self) -> int:
+        r = self.vocab_round
+        return ((self.vocab_size + r - 1) // r) * r
+
+    @property
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
@@ -134,6 +140,44 @@ class ModelConfig:
     def has_attention(self) -> bool:
         return any(k in ("attn", "swa") for k in self.layer_kinds) \
             or self.n_enc_layers > 0
+
+    def layout(self):
+        """Depth layout, as the JAX package stacks layer params.
+
+        Returns a list of segments; each segment is ``("unroll", [abs_idx])``
+        or ``("scan", n_reps, [abs_idx of first rep's layers])`` where every
+        rep of a scanned segment has identical per-position layer specs.
+        A scanned segment's params and cache leaves carry a leading
+        ``n_reps`` axis (``seg<i>/p<j>``); unrolled layers are ``seg<i>/l<j>``.
+        """
+        L = self.n_layers
+        segs = []
+        start = 0
+        if self.first_k_dense > 0:
+            segs.append(("unroll", list(range(self.first_k_dense))))
+            start = self.first_k_dense
+        p = len(self.pattern)
+        if self.moe is not None:
+            p = math.lcm(p, self.moe_every)
+        rem = L - start
+
+        # period must reproduce identical (kind, moe) specs across reps
+        def specs_ok(period: int) -> bool:
+            base = [self.layer_spec(start + j) for j in range(period)]
+            for r in range(1, rem // period):
+                for j in range(period):
+                    if self.layer_spec(start + r * period + j) != base[j]:
+                        return False
+            return True
+        while p > 1 and not specs_ok(p):
+            p += 1
+        n_full = rem // p
+        if n_full > 0:
+            segs.append(("scan", n_full, list(range(start, start + p))))
+        tail_start = start + n_full * p
+        if tail_start < L:
+            segs.append(("unroll", list(range(tail_start, L))))
+        return segs
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

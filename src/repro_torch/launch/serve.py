@@ -1,0 +1,238 @@
+"""Serving entry point of the port (``repro.launch.serve``).
+
+Continuous batching over a synthetic ragged trace, through the slot engine
+(``repro_torch.serve.ServeEngine.run``); prints the latency-percentile
+table and the engine's stats:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --trace 32 --slots 8 --max-len 1024 --prompt-range 64,512 \\
+        --gen-range 32,256 [--compare-static] [--prefill-chunk N]
+
+Fixed-batch baseline loop (the default without ``--trace``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --batch 4 --prompt-len 32 --gen 16
+
+Weights are seeded random (seed 0); ``--sparsity S --ckpt-in DIR`` serves
+a pruned checkpoint written by ``repro.launch.prune`` (or the port's). It
+runs on CUDA and raises without it; ``--device cpu`` runs the plain
+PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
+the front-end is not ported, so its flags (queue, deadlines, prefix cache,
+shortest-prompt-first, replicas, mesh) raise here, as do enc-dec and
+expert pruning.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import latest_step, restore_checkpoint
+from repro_torch.configs import resolve_config
+from repro_torch.models import build_model
+from repro_torch.serve import (ServeEngine, percentile_table,
+                               run_static_trace, synthetic_trace)
+from repro_torch.serve.engine import format_table
+
+# flag -> the unported layer it needs
+_UNPORTED = {
+    "queue_depth": "the serving front-end (repro/serve/frontend.py)",
+    "deadline_ms": "the serving front-end (repro/serve/frontend.py)",
+    "deadline_frac": "the serving front-end (repro/serve/frontend.py)",
+    "prefix_cache": "the prefix cache (repro/serve/prefix.py)",
+    "prefix_len": "the prefix cache (repro/serve/prefix.py)",
+    "spf": "the front-end's admission queue (repro/serve/frontend.py)",
+    "replicas": "the replica router (repro/serve/router.py)",
+    "route": "the replica router (repro/serve/router.py)",
+    "mesh_shape": "mesh-sharded serving (repro/serve/sharding.py)",
+    "serve_sharded": "mesh-sharded serving (repro/serve/sharding.py)",
+    "mem_len": "enc-dec serving (repro/models/encdec.py)",
+    "expert_sparsity": "MoE serving (repro/models/mlp.py apply_moe)",
+}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_loop(model, params, *, batch, prompt_len, gen, max_len, device,
+               seed=0, log=print):
+    """Fixed-batch prefill + greedy decode; returns exactly ``gen`` tokens
+    per request (the prefill argmax plus ``gen - 1`` timed decode steps),
+    the prefill seconds and the decode seconds."""
+    cfg = model.cfg
+    rng = np.random.RandomState(seed)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        size=(batch, prompt_len))
+                            .astype(np.int32)).to(device)
+    req = {"tokens": toks}
+
+    def argmax(logits):
+        return logits[:, -1, : cfg.vocab_size].argmax(-1)[:, None] \
+            .to(torch.int32)
+
+    # warm up (kernel build, cuBLAS handles) outside the timed region
+    logits, cache = model.prefill(params, req, max_len)
+    model.decode_step(params, argmax(logits), cache)
+    _sync(device)
+
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, req, max_len)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    tok = argmax(logits)          # first generated token (from prefill)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = model.decode_step(params, tok, cache)
+        tok = argmax(logits)
+        out_tokens.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    steps = gen - 1
+    log(f"[serve] prefill {t_prefill * 1e3:.1f} ms "
+        f"({batch}x{prompt_len} tokens); decode "
+        f"{steps} steps in {t_decode * 1e3:.1f} ms -> "
+        f"{batch * steps / max(t_decode, 1e-9):.1f} tok/s")
+    return torch.cat(out_tokens, dim=1), t_prefill, t_decode
+
+
+def serve_trace(model, params, *, n, slots, max_len, prompt_range,
+                gen_range, rate=None, seed=0, compare_static=False,
+                prefill_chunk=None, log=print):
+    """Continuous-batching engine over a synthetic ragged trace (warmed
+    first, outside the timed region). Returns (completions, table, engine
+    stats)."""
+    cfg = model.cfg
+    trace = synthetic_trace(n, cfg.vocab_size, seed=seed,
+                            prompt_range=prompt_range, gen_range=gen_range,
+                            rate=rate)
+    eng = ServeEngine(model, params, n_slots=slots, max_len=max_len)
+    eng.warmup(prompt_lens=[len(r.tokens) for r in trace],
+               prefill_chunk=prefill_chunk)
+    t0 = time.perf_counter()
+    comps = eng.run(trace, prefill_chunk=prefill_chunk)
+    wall = time.perf_counter() - t0
+    table = percentile_table(comps, wall)
+    table["mode"] = "continuous"
+    rows = [table]
+    st = eng.stats
+    prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
+    log(f"[serve] engine: {st['admits']} admits ({st['refills']} refills), "
+        f"{st['decode_steps']} decode steps at "
+        f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms/step, "
+        f"prefill {1e3 * st['prefill_s'] / max(1, prefills):.2f} ms/admit, "
+        f"lane utilization "
+        f"{st['decode_lanes'] / max(1, st['decode_steps'] * slots):.0%}, "
+        f"cache {eng.cache_bytes / 1e6:.2f} MB")
+    if compare_static:
+        comps_s = run_static_trace(model, params, trace, n_slots=slots,
+                                   max_len=max_len)
+        ts = percentile_table(comps_s, max(c.t_done for c in comps_s))
+        ts["mode"] = "static"
+        rows.append(ts)
+    keys = ["mode", "requests", "tokens", "tok_per_s", "lat_p50_ms",
+            "lat_p99_ms", "ttft_p50_ms", "ttft_p99_ms"]
+    log(format_table(rows, keys))
+    return comps, table, dict(st)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve an LM through the continuous-batching engine")
+    ap.add_argument("--arch", required=True,
+                    help="LM config name, e.g. qwen2-1.5b; a '-reduced' "
+                         "suffix shrinks it for smoke runs")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--sparsity", type=float, default=0.0,
+                    help="serve the config pruned at this sparsity (MLP "
+                         "and attention qk dims), e.g. with --ckpt-in")
+    ap.add_argument("--ckpt-in", default=None,
+                    help="checkpoint directory to load (latest valid step)")
+    ap.add_argument("--trace", type=int, default=0,
+                    help="serve N synthetic ragged requests through the "
+                         "continuous-batching engine instead of the "
+                         "fixed-batch loop")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="engine slots (concurrent requests)")
+    ap.add_argument("--max-len", type=int, default=128,
+                    help="per-slot sequence budget (prompt + gen)")
+    ap.add_argument("--prompt-range", default="8,48",
+                    help="trace prompt lengths, 'lo,hi'")
+    ap.add_argument("--gen-range", default="4,48",
+                    help="trace generation lengths, 'lo,hi'")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="trace arrival rate (req/s); default all at t=0")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-static", action="store_true",
+                    help="also run the fixed-batch baseline on the same "
+                         "trace and print both rows")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="max prompt tokens a cold admit prefills per "
+                         "engine iteration (chunked prefill)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to run (default cuda; raises without it)")
+    # flags of layers that are not ported yet: each raises when given
+    ap.add_argument("--queue-depth", type=int, default=None)
+    ap.add_argument("--deadline-ms", default=None)
+    ap.add_argument("--deadline-frac", type=float, default=None)
+    ap.add_argument("--prefix-cache", type=int, default=None)
+    ap.add_argument("--prefix-len", type=int, default=None)
+    ap.add_argument("--spf", action="store_true", default=None)
+    ap.add_argument("--replicas", type=int, default=None)
+    ap.add_argument("--route", default=None)
+    ap.add_argument("--mesh-shape", default=None)
+    ap.add_argument("--serve-sharded", action="store_true", default=None)
+    ap.add_argument("--mem-len", type=int, default=None)
+    ap.add_argument("--expert-sparsity", type=float, default=None)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns the model, params and what was served, for
+    callers that drive it in-process."""
+    args = parse_args(argv)
+    for flag, layer in _UNPORTED.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} needs {layer}, which is not "
+                f"ported to repro_torch yet")
+    device = resolve_device(args.device)
+    cfg = resolve_config(args.arch)
+    if args.sparsity > 0:
+        cfg = cfg.pruned(args.sparsity, args.sparsity)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    if args.ckpt_in:
+        last = latest_step(args.ckpt_in)
+        if last is None:
+            raise FileNotFoundError(f"no valid checkpoint in {args.ckpt_in}")
+        params, _ = restore_checkpoint(args.ckpt_in, last, params)
+        print(f"[serve] loaded {args.ckpt_in} step {last}")
+    out = {"model": model, "params": params}
+    if args.trace > 0:
+        pr = tuple(int(x) for x in args.prompt_range.split(","))
+        gr = tuple(int(x) for x in args.gen_range.split(","))
+        out["completions"], out["table"], out["stats"] = serve_trace(
+            model, params, n=args.trace, slots=args.slots,
+            max_len=args.max_len, prompt_range=pr, gen_range=gr,
+            rate=args.rate, seed=args.seed,
+            compare_static=args.compare_static,
+            prefill_chunk=args.prefill_chunk)
+    else:
+        out["tokens"], out["prefill_s"], out["decode_s"] = serve_loop(
+            model, params, batch=args.batch, prompt_len=args.prompt_len,
+            gen=args.gen, max_len=args.prompt_len + args.gen + 1,
+            device=device)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Models of the port (``repro.models``): the ViT path."""
+"""Models of the port (``repro.models``): the ViT and dense-LM paths."""
 from repro_torch.models.api import Model, build_model
 
 __all__ = ["Model", "build_model"]

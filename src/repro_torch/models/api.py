@@ -1,37 +1,81 @@
-"""Public model API (``repro.models.api``): the vit branch of
-``build_model``. LM and enc-dec families are not ported yet; they raise."""
+"""Public model API (``repro.models.api``): the vit and lm branches of
+``build_model``. ``Model`` bundles plain functions:
+
+  init(gen, device=None)                      -> params
+  apply(params, batch, taps=None)             -> logits (vit) |
+                                                 (logits, aux) (lm)
+  prefill(params, batch, max_len, lengths=None) -> (logits, cache)   (lm)
+  decode_step(params, token, cache)           -> (logits, cache)     (lm)
+  init_cache(batch, max_len, device=None)     -> empty cache         (lm)
+
+``decode_step`` updates the cache in place. The enc-dec family and the VLM
+stub frontend are not ported yet; they raise.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import map_tree
+from repro_torch.models import lm as lm_mod
 from repro_torch.models import vit as vit_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable      # init(gen: torch.Generator, device=None) -> params
-    apply: Callable     # apply(params, batch, taps=None) -> logits
+    init: Callable
+    apply: Callable
+    prefill: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    init_cache: Optional[Callable] = None
+
+
+def _tokens(batch):
+    if "patch_embeds" in batch:
+        raise NotImplementedError("the VLM stub frontend is not ported; see "
+                                  "repro.models.lm.apply_lm patch_embeds")
+    return batch["tokens"]
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "vit":
+    if cfg.family not in ("vit", "lm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; see "
             f"repro.models.api.build_model")
+    init_fn = vit_mod.init_vit if cfg.family == "vit" else lm_mod.init_lm
 
     def init(gen: torch.Generator, device=None):
         dev = resolve_device(device)
-        return map_tree(lambda a: a.to(dev), vit_mod.init_vit(gen, cfg))
+        return map_tree(lambda a: a.to(dev), init_fn(gen, cfg))
 
-    def apply(params, batch, taps=None):
-        inputs = batch["images"] if "images" in batch else batch["embeds"]
-        return vit_mod.apply_vit(params, inputs, cfg, taps=taps)
+    if cfg.family == "vit":
+        def apply(params, batch, taps=None):
+            inputs = batch["images"] if "images" in batch else batch["embeds"]
+            return vit_mod.apply_vit(params, inputs, cfg, taps=taps)
 
-    return Model(cfg=cfg, init=init, apply=apply)
+        return Model(cfg=cfg, init=init, apply=apply)
+
+    def lm_apply(params, batch, taps=None):
+        if taps is not None:
+            raise NotImplementedError("LM taps (LM pruning) are not ported; "
+                                      "see repro.models.lm.apply_lm")
+        return lm_mod.apply_lm(params, _tokens(batch), cfg)
+
+    def init_cache(batch, max_len, device=None):
+        dev = resolve_device(None) if device is None else torch.device(device)
+        return lm_mod.init_lm_cache(cfg, batch, max_len, dev)
+
+    return Model(
+        cfg=cfg, init=init, apply=lm_apply,
+        prefill=lambda params, batch, max_len, lengths=None:
+            lm_mod.lm_prefill(params, _tokens(batch), cfg, max_len,
+                              lengths=lengths),
+        decode_step=lambda params, token, cache:
+            lm_mod.lm_decode_step(params, token, cache, cfg),
+        init_cache=init_cache,
+    )

@@ -1,9 +1,15 @@
-"""Full-sequence attention mixer (``repro.models.attention``), the path a
-ViT runs: q/k/v projections with the qkv bias, the attention kernel, the
-output projection. Taps ``q`` (B,T,H,dq) and ``k`` (B,T,Hkv,dq) feed the
-CORP logit statistics.
+"""Attention mixer (``repro.models.attention``): q/k/v projections with the
+qkv bias and rope, the attention kernel, the output projection; and the
+one-token decode against a KV cache. Taps ``q`` (B,T,H,dq) and ``k``
+(B,T,Hkv,dq) feed the CORP logit statistics.
 
-Not ported yet: rope, qk-norm, MLA, cross attention and decode; they raise.
+Rope (LMs) uses per-head frequency tables ``rope_inv_q``/``rope_inv_k`` in
+the params, as the JAX package stores them. Decode updates the cache in
+place: the new K/V row and ``pos`` are written into the cache's own
+tensors, so a step never copies the cache.
+
+Not ported yet: qk-norm, MLA, cross attention and the sliding-window (swa)
+decode ring; they raise.
 """
 from __future__ import annotations
 
@@ -12,7 +18,8 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.common import dense_init, dtype_of, tap
+from repro_torch.kernels.flash_decode import ops as decode_ops
+from repro_torch.models.common import dense_init, dtype_of, rope_freqs, tap
 
 
 def _unported(cfg):
@@ -22,9 +29,10 @@ def _unported(cfg):
     if cfg.qk_norm:
         raise NotImplementedError("qk-norm is not ported; see "
                                   "repro.models.common.rms_head_norm")
-    if cfg.family == "lm" and cfg.rwkv is None:
-        raise NotImplementedError("rope attention is not ported; see "
-                                  "repro.models.attention._rope_gathered")
+
+
+def _uses_rope(cfg) -> bool:
+    return cfg.family == "lm" and cfg.rwkv is None
 
 
 def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
@@ -42,11 +50,29 @@ def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
         p["bq"] = torch.zeros(H, dq)
         p["bk"] = torch.zeros(Hkv, dq)
         p["bv"] = torch.zeros(Hkv, dv)
+    if _uses_rope(cfg):
+        theta = cfg.rope_theta_local if kind == "swa" else cfg.rope_theta
+        inv = torch.from_numpy(rope_freqs(dq, theta)).float()
+        # per-head copy so pruning can gather kept pair frequencies per head
+        p["rope_inv_q"] = inv[None, :].repeat(H, 1)
+        p["rope_inv_k"] = inv[None, :].repeat(Hkv, 1)
     return p
 
 
-def _project_qkv(p, x, cfg, taps):
-    """Q/K/V projection + bias (fp32-stored, cast to x's dtype) + tap."""
+def _rope_gathered(x, positions, inv):
+    """Rope with per-head frequency table inv: (H, D/2); positions (B, T)."""
+    ang = positions.float()[:, :, None, None] * inv      # (B,T,H,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _project_qkv(p, x, cfg, positions, taps):
+    """Q/K/V projection + bias (fp32-stored, cast to x's dtype) + rope +
+    tap."""
     dt = x.dtype
     q = torch.einsum("btd,dhq->bthq", x, p["wq"])
     k = torch.einsum("btd,dhq->bthq", x, p["wk"])
@@ -55,21 +81,96 @@ def _project_qkv(p, x, cfg, taps):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if "rope_inv_q" in p:
+        q = _rope_gathered(q, positions, p["rope_inv_q"])
+        k = _rope_gathered(k, positions, p["rope_inv_k"])
     tap(taps, "q", q)
     tap(taps, "k", k)
     return q, k, v
 
 
-def apply_attn(p, x, cfg, kind="attn", *, taps=None, mask_kind="causal"):
-    """Full-sequence attention. x: (B, T, D); mask_kind 'causal' | 'full'.
+def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
+               return_cache=False, mask_kind="causal"):
+    """Full-sequence attention. x: (B, T, D); mask_kind 'causal' | 'full';
+    ``positions`` (B, T) for rope. Returns (y, cache | None).
 
     The scale is 1/sqrt(qk_full) even after pruning: the folded weights
     carry the compensation, the logit scale stays the dense model's."""
     _unported(cfg)
-    q, k, v = _project_qkv(p, x, cfg, taps)
+    q, k, v = _project_qkv(p, x, cfg, positions, taps)
     window = cfg.sliding_window if (kind == "swa" and mask_kind != "full") \
         else None
     scale = 1.0 / math.sqrt(cfg.qk_full)
     o = flash_ops.attention(q, k, v, causal=(mask_kind != "full"),
                             window=window, scale=scale)
-    return torch.einsum("bthv,hvd->btd", o, p["wo"])
+    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
+    cache = None
+    if return_cache:
+        cache = {"k": k, "v": v,
+                 "pos": torch.full((x.shape[0],), x.shape[1],
+                                   dtype=torch.int32, device=x.device)}
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# decode (one new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+def _kv_only(cfg, kind):
+    _unported(cfg)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"{kind!r} decode (the sliding-window ring) is not ported; see "
+            f"repro.models.attention.decode_attn")
+
+
+def init_cache(cfg, kind: str, batch: int, max_len: int, device):
+    """An empty KV cache for one attention layer; ``pos`` stays int32, as
+    in the JAX package."""
+    _kv_only(cfg, kind)
+    dt = dtype_of(cfg)
+    dq, dv, Hkv = cfg.eff_qk, cfg.d_head, cfg.n_kv_heads
+    return {
+        "k": torch.zeros((batch, max_len, Hkv, dq), dtype=dt, device=device),
+        "v": torch.zeros((batch, max_len, Hkv, dv), dtype=dt, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_attn(p, x, cache, cfg, kind="attn"):
+    """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` and
+    advances ``pos`` in place; returns (y, cache)."""
+    _kv_only(cfg, kind)
+    pos = cache["pos"]                          # (B,) current length
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], None)
+    k, v = cache["k"], cache["v"]
+    S = k.shape[1]
+    _scatter_time(k, k_new[:, 0], pos)
+    _scatter_time(v, v_new[:, 0], pos)
+    valid = torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
+    scale = 1.0 / math.sqrt(cfg.qk_full)
+    y = _decode_sdpa(q, k, v, valid, scale)
+    o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
+    pos.add_(1)
+    return o, cache
+
+
+def _scatter_time(buf, val, slot):
+    """buf: (B, S, ...), val: (B, ...), slot: (B,) — write val at
+    [b, slot[b]] in place, dropping rows with slot[b] >= S as JAX drops an
+    out-of-bounds scatter (free slots keep decoding past max_len). The
+    dropped rows rewrite their own old value, so nothing syncs with the
+    host."""
+    S = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    idx = slot.long().clamp(0, S - 1)
+    keep = (slot < S)[(...,) + (None,) * (val.ndim - 1)]
+    new = torch.where(keep, val.to(buf.dtype), buf[rows, idx])
+    buf.index_put_((rows, idx), new)
+
+
+def _decode_sdpa(q, k, v, valid, scale):
+    """q: (B,1,H,dq); k/v: (B,S,Hkv,d); valid: (B,S) -> (B,H,dv), through
+    the flash_decode kernel (its plain version for CPU tensors). Softmax
+    weights stay fp32 up to the PV product, as in the TPU kernel."""
+    return decode_ops.decode_attention(q[:, 0], k, v, valid, scale=scale)

@@ -1,9 +1,10 @@
-"""Shared model components (``repro.models.common``): initialisers, norms,
-activations and activation taps."""
+"""Shared model components (``repro.models.common``): initialisers, layer
+stacking, norms, activations, rope frequencies and activation taps."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,6 +29,21 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
 
 def embed_init(gen: torch.Generator, shape, dtype):
     return (torch.randn(shape, generator=gen) * 0.02).to(dtype)
+
+
+def stack_layers(trees):
+    """Per-layer param (or cache) dicts -> one dict whose leaves carry a
+    leading layer axis, as the JAX package stacks a scanned segment."""
+    return {k: stack_layers([t[k] for t in trees])
+            if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked dict: views, so in-place writes reach the
+    stacked tensors."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 def init_norm(cfg, d=None):
@@ -67,6 +83,16 @@ def activation(name: str):
         "relu": F.relu,
         "relu2": lambda x: F.relu(x).square(),
     }[name]
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float) -> np.ndarray:
+    """Per-pair inverse frequencies in float64 (dim must be even); callers
+    cast to fp32, as the JAX package does."""
+    return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,200 @@
+"""Decoder-only language model (``repro.models.lm``): forward, prefill and
+one-token decode.
+
+Depth follows ``cfg.layout()`` exactly as the JAX package lays out its
+params: a scanned segment stores its layers stacked under ``seg<i>/p<j>``
+with the repetition axis first, unrolled layers sit under ``seg<i>/l<j>``.
+So ``interop.from_numpy`` carries JAX params across unchanged. Where JAX
+scans, the port loops over the stacked axis (views, no copies). The decode
+cache has the same tree as JAX's: a top-level ``pos`` (B,) and per layer
+``k``, ``v``, ``pos``, scanned leaves stacked (reps, B, ...); every ``pos``
+is int32. ``lm_decode_step`` updates the cache in place.
+
+Not ported yet: the VLM stub frontend (``patch_embeds``), the
+sliding-window ring (``_window_cache``), ``lm_loss`` and taps.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks as blk
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
+                                       init_norm, layer_slice, stack_layers)
+
+
+def _seg_name(si: int) -> str:
+    return f"seg{si}"
+
+
+def _each_layer(cfg):
+    """(segment, position key, repetition or None, kind, is_moe) of every
+    layer in depth order."""
+    for si, seg in enumerate(cfg.layout()):
+        name = _seg_name(si)
+        if seg[0] == "unroll":
+            for j, li in enumerate(seg[1]):
+                yield (name, f"l{j}", None) + cfg.layer_spec(li)
+        else:
+            _, reps, idxs = seg
+            for r in range(reps):
+                for j, li in enumerate(idxs):
+                    yield (name, f"p{j}", r) + cfg.layer_spec(li)
+
+
+def _at(tree, name, key, rep):
+    sub = tree[name][key]
+    return sub if rep is None else layer_slice(sub, rep)
+
+
+def _head(params):
+    head = params.get("head")
+    return params["embed"].T if head is None else head
+
+
+def init_lm(gen: torch.Generator, cfg):
+    """Parameters on the CPU, drawn from ``gen``."""
+    dt = dtype_of(cfg)
+    params = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt),
+              "final_norm": init_norm(cfg)}
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab), dt)
+    for si, seg in enumerate(cfg.layout()):
+        if seg[0] == "unroll":
+            params[_seg_name(si)] = {
+                f"l{j}": blk.init_block(gen, cfg, *cfg.layer_spec(li))
+                for j, li in enumerate(seg[1])}
+        else:
+            _, reps, idxs = seg
+            params[_seg_name(si)] = {
+                f"p{j}": stack_layers([blk.init_block(gen, cfg,
+                                                      *cfg.layer_spec(li))
+                                       for _ in range(reps)])
+                for j, li in enumerate(idxs)}
+    return params
+
+
+def _positions(B: int, T: int, device):
+    return torch.arange(T, dtype=torch.int32, device=device)[None] \
+        .expand(B, T)
+
+
+def apply_lm(params, tokens, cfg):
+    """tokens: (B, T) int -> (logits (B, T, padded_vocab), aux loss 0)."""
+    x = params["embed"][tokens]
+    B, T = tokens.shape
+    positions = _positions(B, T, x.device)
+    for name, key, rep, kind, moe in _each_layer(cfg):
+        x = blk.apply_block(_at(params, name, key, rep), x, cfg, kind, moe,
+                            positions=positions)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return x @ _head(params), torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode
+# ---------------------------------------------------------------------------
+
+def init_lm_cache(cfg, batch: int, max_len: int, device):
+    """An empty decode cache (``device="meta"`` gives its shapes only)."""
+    caches = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    for si, seg in enumerate(cfg.layout()):
+        if seg[0] == "unroll":
+            caches[_seg_name(si)] = {
+                f"l{j}": blk.init_block_cache(cfg, cfg.layer_spec(li)[0],
+                                              batch, max_len, device)
+                for j, li in enumerate(seg[1])}
+        else:
+            _, reps, idxs = seg
+            caches[_seg_name(si)] = {
+                f"p{j}": {k: torch.zeros((reps,) + a.shape, dtype=a.dtype,
+                                         device=device)
+                          for k, a in blk.init_block_cache(
+                              cfg, cfg.layer_spec(li)[0], batch, max_len,
+                              "meta").items()}
+                for j, li in enumerate(idxs)}
+    return caches
+
+
+def lm_decode_step(params, token, cache, cfg):
+    """token: (B, 1) int. Returns (logits (B, 1, V), cache); the cache is
+    updated in place (new K/V rows, every ``pos`` + 1)."""
+    x = params["embed"][token]
+    cache["pos"].add_(1)
+    for name, key, rep, kind, moe in _each_layer(cfg):
+        x, _ = blk.decode_block(_at(params, name, key, rep), x,
+                                _at(cache, name, key, rep), cfg, kind, moe)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return x @ _head(params), cache
+
+
+def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
+    """Prefill: full forward returning (last-token logits, populated cache).
+
+    ``lengths`` (B,) enables *ragged* prefill on right-padded token batches:
+    logits are gathered at position ``lengths-1`` per sample and every cache
+    ``pos`` is set to ``lengths``, so padded tail positions are never read
+    back (causality keeps rows < lengths exact). Only valid for pure
+    global-attention stacks.
+    """
+    if lengths is not None and set(cfg.layer_kinds) != {"attn"}:
+        raise ValueError("ragged prefill (lengths=) requires a pure "
+                         f"global-attention stack, got {set(cfg.layer_kinds)}")
+    B, T = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions(B, T, x.device)
+
+    def run_layer(p, x, kind, moe):
+        blk._check(kind, moe)
+        if kind != "attn":
+            raise NotImplementedError(
+                "the sliding-window prefill cache is not ported; see "
+                "repro.models.lm._window_cache")
+        h = apply_norm(p["ln1"], x, cfg)
+        y, c = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
+                                   positions=positions, return_cache=True)
+        x = x + y
+        h = apply_norm(p["ln2"], x, cfg)
+        return x + mlp_mod.apply_mlp(p["mlp"], h, cfg), _pad_cache(c, max_len)
+
+    cache = {"pos": torch.full((B,), T, dtype=torch.int32, device=x.device)}
+    per_key = {}
+    for name, key, rep, kind, moe in _each_layer(cfg):
+        x, c = run_layer(_at(params, name, key, rep), x, kind, moe)
+        per_key.setdefault((name, key, rep is not None), []).append(c)
+    for (name, key, stacked), cs in per_key.items():
+        cache.setdefault(name, {})[key] = stack_layers(cs) if stacked \
+            else cs[0]
+    if lengths is None:
+        x_last = x[:, -1:]
+    else:
+        lengths = lengths.to(x.device)
+        x_last = x[torch.arange(B, device=x.device), lengths.long() - 1][:,
+                                                                          None]
+        cache = override_cache_pos(cache, lengths)
+    x = apply_norm(params["final_norm"], x_last, cfg)
+    return x @ _head(params), cache
+
+
+def override_cache_pos(tree, lengths):
+    """Every ``pos`` leaf of a prefill cache set to per-sample ``lengths``
+    (a new tree; scanned leaves (reps, B) get the lengths broadcast). Each
+    leaf is its own copy: decode advances them in place."""
+    if isinstance(tree, dict):
+        return {k: (lengths.to(v.dtype).expand(v.shape).clone()
+                    if k == "pos" else override_cache_pos(v, lengths))
+                for k, v in tree.items()}
+    return tree
+
+
+def _pad_cache(c, max_len):
+    """Right-pad a freshly built cache to max_len time slots."""
+    out = dict(c)
+    for key in ("k", "v"):
+        T = c[key].shape[1]
+        if T < max_len:
+            pad = [0, 0] * (c[key].ndim - 2) + [0, max_len - T]
+            out[key] = F.pad(c[key], pad)
+    return out

@@ -13,21 +13,12 @@ import torch
 
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
-                                       embed_init, init_norm)
+                                       embed_init, init_norm, layer_slice,
+                                       stack_layers)
 
 
 def num_patches(cfg) -> int:
     return (cfg.img_size // cfg.patch) ** 2
-
-
-def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else torch.stack([t[k] for t in trees]) for k in trees[0]}
-
-
-def _layer(tree, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 def init_vit(gen: torch.Generator, cfg):
@@ -46,8 +37,9 @@ def init_vit(gen: torch.Generator, cfg):
         pdim = cfg.patch * cfg.patch * 3
         params["patch_w"] = dense_init(gen, (pdim, cfg.d_model), dt)
         params["patch_b"] = torch.zeros(cfg.d_model)
-    params["seg0"] = {"p0": _stack([blk.init_block(gen, cfg, "attn", False)
-                                    for _ in range(cfg.n_layers)])}
+    params["seg0"] = {"p0": stack_layers(
+        [blk.init_block(gen, cfg, "attn", False)
+         for _ in range(cfg.n_layers)])}
     return params
 
 
@@ -76,7 +68,7 @@ def apply_vit(params, inputs, cfg, *, taps=None):
     per_layer = []
     for i in range(cfg.n_layers):
         t = {} if taps is not None else None
-        x = blk.apply_block(_layer(layers, i), x, cfg, "attn", False,
+        x = blk.apply_block(layer_slice(layers, i), x, cfg, "attn", False,
                             taps=t, mask_kind="full")
         per_layer.append(t)
     if taps is not None:

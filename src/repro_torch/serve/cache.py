@@ -1,0 +1,92 @@
+"""Preallocated per-slot KV cache for the continuous-batching engine
+(``repro.serve.cache``).
+
+The engine runs ONE shared decode step over all ``n_slots`` slots; a
+request occupies a slot for its lifetime, and admitting a new request only
+overwrites that slot's rows — no reshape, no reallocation.
+
+The global cache is the model's own decode-cache tree with the batch axis
+widened to ``n_slots``. The batch axis is not uniformly the leading axis:
+scanned-segment leaves are stacked ``(reps, B, max_len, ...)``, so the
+per-leaf slot axis is inferred by comparing the cache's shapes at batch 1
+and 2 (built on the ``meta`` device: no memory). Slot writes copy a batch-1
+prefill cache into the slot in place along that axis.
+
+Per-slot validity lives in the cache itself: every layer cache carries a
+``pos`` (B,) valid-length which the decode attention turns into its key
+mask (``key_idx <= pos``). Free slots keep decoding into discarded lanes;
+their ``pos`` may walk past ``max_len``, where the decode scatter drops the
+out-of-bounds row (as JAX does), so stale slots are inert until the next
+admit overwrites them.
+
+Only the ``kv`` contract is ported; ``recurrent`` (rwkv/mamba state) and
+``encdec`` raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.interop import flatten
+
+RECURRENT_KINDS = frozenset({"mamba", "rwkv"})
+
+
+def cache_contract(cfg) -> str:
+    """Classify a config's slot-cache contract (``repro.serve.cache``):
+    ``"kv"`` (per-token KV rows up to ``max_len``, freed slots inert under
+    the ``pos`` mask), ``"recurrent"`` (fixed-size state that retire must
+    reset) or ``"encdec"`` (decoder KV plus a fixed cross-attn memory)."""
+    if cfg.family == "encdec":
+        return "encdec"
+    if set(cfg.layer_kinds) & RECURRENT_KINDS:
+        return "recurrent"
+    return "kv"
+
+
+def _infer_batch_axes(tree1, tree2):
+    """Per-leaf batch axis: the first dim that differs between the two
+    trees (built at batch 1 and batch 2)."""
+    def axis_of(a, b):
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        raise ValueError(f"no batch axis found in cache leaf "
+                         f"{tuple(a.shape)}")
+    return {k: _infer_batch_axes(v, tree2[k]) if isinstance(v, dict)
+            else axis_of(v, tree2[k]) for k, v in tree1.items()}
+
+
+def cache_bytes(tree) -> int:
+    """Total bytes held by a cache tree."""
+    return int(sum(t.numel() * t.element_size()
+                   for t in flatten(tree).values()))
+
+
+class SlotCache:
+    """n_slots-wide preallocated decode cache with per-slot writes.
+
+    ``template_fn(batch, device)`` returns the decode-cache tree at that
+    batch size (time axis ``max_len``), zero-filled.
+    """
+
+    def __init__(self, template_fn, n_slots: int, *, device):
+        meta = torch.device("meta")
+        self.batch_axes = flatten(_infer_batch_axes(template_fn(1, meta),
+                                                    template_fn(2, meta)))
+        self.cache = template_fn(n_slots, device)
+
+    def reset(self):
+        """Drop all slot contents (e.g. after warmup), in place."""
+        for t in flatten(self.cache).values():
+            t.zero_()
+
+    def write_slot(self, local_cache, slot: int):
+        """Admit: copy a batch-1 prefill cache into slot ``slot``."""
+        dst = flatten(self.cache)
+        for path, src in flatten(local_cache).items():
+            ax = self.batch_axes[path]
+            dst[path].select(ax, slot).copy_(src.select(ax, 0))
+
+    @property
+    def bytes(self) -> int:
+        return cache_bytes(self.cache)

@@ -23,6 +23,7 @@ from repro_torch import configs as pt_configs  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.data import calib_stream, vit_batch  # noqa: E402
 from repro_torch.launch import prune as pt_prune  # noqa: E402
+from repro_torch.launch import serve as pt_serve  # noqa: E402
 from repro_torch.models import build_model as pt_build  # noqa: E402
 from torch_parity import images  # noqa: E402
 
@@ -62,7 +63,7 @@ def test_port_imports_neither_jax_nor_repro():
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", jax_configs.DEIT_IDS)
+@pytest.mark.parametrize("arch", jax_configs.DEIT_IDS + pt_configs.LM_IDS)
 def test_copied_configs_equal_jax_configs(arch):
     want = jax_configs.get_config(arch)
     got = pt_configs.get_config(arch)
@@ -76,6 +77,9 @@ def test_copied_configs_equal_jax_configs(arch):
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
             assert (a.eff_qk, a.eff_d_ff, a.qk_full) \
                 == (b.eff_qk, b.eff_d_ff, b.qk_full)
+    for a, b in ((got, want), (pt_configs.reduced(got),
+                               jax_configs.reduced(want))):
+        assert (a.padded_vocab, a.layout()) == (b.padded_vocab, b.layout())
 
 
 def test_synthetic_batches_are_bit_identical_to_jax():
@@ -100,12 +104,15 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError):
         pt_prune.main(["--arch", "deit-base-reduced"])
+    with pytest.raises(RuntimeError):
+        pt_serve.main(["--arch", "qwen2-1.5b-reduced", "--trace", "2"])
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="repro.configs"):
-        pt_configs.get_config("granite-8b")
+    for arch in ("granite-8b", "gemma3-1b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError, match="repro.configs"):
+            pt_configs.get_config(arch)
     with pytest.raises(NotImplementedError, match="ckpt-in"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
                        "--ckpt-in", "x"])

@@ -15,9 +15,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention import ops as jax_flash  # noqa: E402
+from repro.kernels.flash_decode import ops as jax_decode  # noqa: E402
+from repro.kernels.flash_decode import ref as jax_decode_ref  # noqa: E402
 from repro.kernels.gram import ops as jax_gram  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as decode_ref  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
 
@@ -103,15 +107,85 @@ def test_attention_ref_matches_pallas(name):
                                rtol=0)
 
 
+# name: (B, S, H, Hkv, dq, dv, bs); bs is the Pallas kernel's split size
+# (it needs S % bs == 0); "ragged" S is not a multiple of the CUDA
+# kernel's 64-key tile
+DECODE_CASES = {
+    "gqa_12_2": (2, 128, 12, 2, 32, 32, 32),
+    "gqa_4_1": (2, 96, 4, 1, 16, 16, 32),
+    "mha": (2, 64, 4, 4, 16, 16, 16),
+    "dq_ne_dv": (2, 64, 4, 2, 8, 16, 16),
+    "ragged_s": (2, 100, 4, 2, 16, 16, 50),
+}
+
+
+def _decode_inputs(case, dtype=np.float32):
+    """q, k, v and a valid mask: row 0 has holes, row 1 a whole invalid
+    split in the middle and an invalid tail longer than a split."""
+    B, S, H, Hkv, dq, dv, bs = case
+    rng = np.random.default_rng(S * H + dq)
+    q = rng.standard_normal((B, H, dq)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, dq)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, dv)).astype(np.float32)
+    valid = np.ones((B, S), bool)
+    valid[0] = rng.random(S) < 0.7
+    valid[0, 0] = True
+    valid[1, bs:2 * bs] = False
+    valid[1, S - bs - 3:] = False
+    if dtype != np.float32:
+        q, k, v = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    return q, k, v, valid
+
+
+def _to_torch(a):
+    a = jnp.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(a.astype(jnp.float32))) \
+            .to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, RTOL),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_ref_matches_pallas(name, dtype, tol):
+    """The port's plain decode attention (and its wrapper on CPU tensors)
+    against the JAX ref and the interpret-mode Pallas kernel with its
+    logsumexp merge."""
+    case = DECODE_CASES[name]
+    q, k, v, valid = _decode_inputs(case, dtype)
+    scale = 0.25
+    args = [jnp.asarray(a) for a in (q, k, v, valid)]
+    want_ref = jax_decode_ref.decode_attention(*args, scale)
+    want_pal = jax_decode.decode_attention(*args, scale=scale, bs=case[-1],
+                                           impl="interpret")
+    tq, tk, tv = (_to_torch(a) for a in (q, k, v))
+    tvalid = torch.from_numpy(valid)
+    got = decode_ref.decode_attention(tq, tk, tv, tvalid, scale)
+    assert got.dtype == tq.dtype and tuple(got.shape) == want_ref.shape
+    got_ops = decode_ops.decode_attention(tq, tk, tv, tvalid.to(torch.int8),
+                                          scale=scale)
+    torch.testing.assert_close(got_ops, got, rtol=0, atol=0)
+    for want in (want_ref, want_pal):
+        _close(got.float(), np.asarray(jnp.asarray(want, jnp.float32)),
+               rtol=tol)
+
+
 def test_ops_take_plain_version_on_cpu_and_launch_nothing():
-    before = (gram_ops.launches, flash_ops.launches)
+    before = (gram_ops.launches, flash_ops.launches, decode_ops.launches)
     x = torch.randn(20, 6)
     g = gram_ops.gram(x)
     torch.testing.assert_close(g["s2"], x.T @ x)
     q, k, v = (torch.from_numpy(a) for a in _qkv(ATTN_CASES["gqa"]))
     o = flash_ops.attention(q, k, v, causal=True)
     torch.testing.assert_close(o, flash_ref.attention(q, k, v, causal=True))
-    assert (gram_ops.launches, flash_ops.launches) == before
+    q, k, v, valid = (torch.from_numpy(a) for a in
+                      _decode_inputs(DECODE_CASES["mha"]))
+    torch.testing.assert_close(decode_ops.decode_attention(q, k, v, valid),
+                               decode_ref.decode_attention(q, k, v, valid,
+                                                           0.25))
+    assert (gram_ops.launches, flash_ops.launches,
+            decode_ops.launches) == before
 
 
 def test_ops_refuse_a_device_without_a_kernel():
@@ -122,3 +196,7 @@ def test_ops_refuse_a_device_without_a_kernel():
     q = torch.empty(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError):
         flash_ops.attention(q, q, q)
+    k = torch.empty(1, 16, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        decode_ops.decode_attention(q[:, 0], k, k,
+                                    torch.ones(1, 16, dtype=torch.bool))
