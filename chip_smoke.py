@@ -7,9 +7,10 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
 
   1. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
   2. holds each kernel against its plain PyTorch version on the card, at
-     ragged shapes and at the shapes DeiT-Base and Qwen2-1.5B serving give
-     it, and times the kernel, the plain version and the one-call PyTorch
-     equivalent beside the least time the card could take;
+     ragged shapes and at the shapes DeiT-Base, Qwen2-1.5B serving and
+     RWKV6-3B serving give it, and times the kernel, the plain version and
+     the one-call PyTorch equivalent (where one exists) beside the least
+     time the card could take;
   3. prune path: runs CORP pruning of DeiT-Base at full width end to end
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
@@ -23,7 +24,10 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      steps; checks at full width in fp32 that teacher-forced prefill +
      decode logits equal one full forward, and on a reduced Qwen2 that the
      engine's token streams on the GPU equal the CPU plain path's;
-  5. prints the card, a JSON line of per-kernel numbers with launches per
+  5. recurrent serve path: the same for RWKV6-3B at full width under the
+     recurrent slot-cache contract (every prefill and decode step runs the
+     ``wkv6`` kernel once per layer), with its slot bytes at two max_len;
+  6. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -56,10 +60,31 @@ SERVE = ["--arch", "qwen2-1.5b", "--trace", "32", "--slots", "8",
 SERVE_REDUCED = ["--arch", "qwen2-1.5b-reduced", "--trace", "12",
                  "--slots", "3", "--max-len", "96", "--prompt-range", "8,24",
                  "--gen-range", "4,16"]
+SERVE_RWKV = ["--arch", "rwkv6-3b"] + SERVE[2:]
+SERVE_RWKV_REDUCED = ["--arch", "rwkv6-3b-reduced"] + SERVE_REDUCED[2:]
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def kernel_modules():
+    """Each kernel's wrapper module (its ``launches`` count), by name."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    return {"gram": gram_ops, "flash_attention": flash_ops,
+            "flash_decode": decode_ops, "wkv6": wkv_ops}
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -232,9 +257,12 @@ def kernel_phase(dev):
     # gram_cross off the main path, at one stated shape: DeiT-Base's
     # 16-image token batch against its d_ff and d_model columns
     xc, yc = rand(16 * 197, cfg.d_ff), rand(16 * 197, cfg.d_model)
-    check_gram(xc, yc, label="DeiT-Base d_ff x d_model")
+    gc_err = check_gram(xc, yc, label="DeiT-Base d_ff x d_model")
     (Nc, Fx), Fy = xc.shape, yc.shape[1]
-    gc = {"shape": [Nc, Fx, Fy],
+    gc = {"name": "gram_cross", "route": "cuda",
+          "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
+          "replaces": "src/repro/kernels/gram/gram.py:152",
+          "launches": None, "max_abs_err": gc_err, "shape": [Nc, Fx, Fy],
           "ms": time_ms(lambda: gram_ops.gram_cross(xc, yc)),
           "plain_ms": time_ms(lambda: gram_ref.gram_cross(xc, yc)),
           "library_ms": time_ms(lambda: torch.matmul(xc.mT, yc))}
@@ -272,7 +300,8 @@ def kernel_phase(dev):
          "replaces": "src/repro/kernels/gram/gram.py:104",
          "launches": None, "max_abs_err": gram_err, "ms": g_ms,
          "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": g_lib, "gram_cross": gc},
+         "library_ms": g_lib},
+        gc,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention.cu",
@@ -281,6 +310,7 @@ def kernel_phase(dev):
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
          "library_ms": f_lib, "serve_prefill": serve_prefill_timing(rand)},
         decode_kernel_phase(dev, rand),
+        wkv6_kernel_phase(dev),
     ]
 
 
@@ -405,6 +435,118 @@ def decode_kernel_phase(dev, rand):
     return row
 
 
+def check_wkv6(r, k, v, w, u, state, label, in_place=False):
+    """wkv6 against its plain version; returns the max abs error on y and
+    on the final state. fp32: y and state within 1e-3 abs and rel (the JAX
+    package's kernel-vs-ref bound, tests/test_kernels.py:193-198); bf16
+    inputs: y within 2e-2, the fp32 state within 1e-3 of its largest
+    entry. ``in_place``: the kernel writes over ``state``."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops, ref
+    want_y, want_s = ref.wkv6(r, k, v, w, u, state)
+    got_y, got_s = ops.wkv6(r, k, v, w, u, state,
+                            out_state=state if in_place else None)
+    torch.cuda.synchronize()
+    err_y = float((got_y.float() - want_y.float()).abs().max())
+    err_s = float((got_s - want_s).abs().max())
+    fp32 = r.dtype == torch.float32
+    tol = 1e-3 if fp32 else 2e-2
+    ok_y = bool(((got_y.float() - want_y.float()).abs()
+                 <= tol + tol * want_y.float().abs()).all())
+    if fp32:
+        ok_s = bool(((got_s - want_s).abs()
+                     <= 1e-3 + 1e-3 * want_s.abs()).all())
+    else:
+        ok_s = err_s <= 1e-3 * float(want_s.abs().max())
+    ok = ok_y and ok_s and bool(torch.isfinite(got_y).all()) \
+        and (not in_place or got_s.data_ptr() == state.data_ptr())
+    print(f"  wkv6 {label:<34} {str(tuple(r.shape)):>18} "
+          f"{str(r.dtype)[6:]:>8}: max abs err y {err_y:.3e} (tol {tol:g} "
+          f"abs + {tol:g} rel, max|y| {float(want_y.float().abs().max()):.1f})"
+          f", state {err_s:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"wkv6 {label} disagrees with its plain version")
+    return err_y, err_s
+
+
+def wkv6_flops(B, T, H, N):
+    """fp32 operations the function needs, by its plain recurrence: per
+    token and head, y = r^T S (2 N^2), the bonus (r . (u * k)) v (5 N) and
+    S' = diag(w) S + k v^T (3 N^2); 5 N^2 + 5 N in all."""
+    return float((5 * N * N + 5 * N) * B * T * H)
+
+
+def wkv6_bytes(B, T, H, N, itemsize, state_in):
+    """r, k, v, w read and y written once in their dtype, u read, the fp32
+    state written (and read when one is given)."""
+    return (5 * B * T * H * N * itemsize + 4 * H * N
+            + 4 * B * H * N * N * (2 if state_in else 1))
+
+
+def wkv6_kernel_phase(dev):
+    """wkv6 against its plain version at the serve path's shapes (the
+    shared decode step in place on a slice of a stacked state, the longest
+    prefill), a ragged fp32 T = 200 with an initial state, and T = 64 and
+    T = 1 in fp32; then device times and bounds at both serve shapes."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops, ref
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(B, T, H, N, dtype, state):
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        r, k, v = (randn(B, T, H, N).to(dtype) for _ in range(3))
+        # w as the model makes it: exp(-exp(-2 + small)) in (0, 1)
+        w = torch.exp(-torch.exp(-2.0 + 0.5 * randn(B, T, H, N))).to(dtype)
+        u = 0.1 * randn(H, N)
+        return r, k, v, w, u, (randn(B, H, N, N) if state else None)
+
+    H, N = 40, 64
+    bf, f32 = torch.bfloat16, torch.float32
+    stacked = torch.zeros((3, 8, H, N, N), dtype=f32, device=dev)
+    r, k, v, w, u, s = inputs(8, 1, H, N, bf, True)
+    stacked[1] = s
+    dec_err = check_wkv6(r, k, v, w, u, stacked[1],
+                         "decode B=8 T=1, in place", in_place=True)
+    decode = (r, k, v, w, u, stacked[1])
+    pre = inputs(1, 504, H, N, bf, False)
+    pre_err = check_wkv6(*pre, "longest prefill T=504")
+    check_wkv6(*inputs(2, 200, 8, N, f32, True), "ragged T=200, state")
+    check_wkv6(*inputs(2, 64, 8, N, f32, True), "T=64, state")
+    check_wkv6(*inputs(2, 1, 8, N, f32, True), "T=1, state")
+
+    rows = {}
+    for name, (r, k, v, w, u, s), plain_kw in (
+            ("decode", decode, {}),
+            ("prefill", pre, dict(reps=2, replays=2, warmup=1))):
+        B, T = r.shape[:2]
+        out = {"shape": [B, T, H, N]}
+        out["ms"] = device_ms(lambda: ops.wkv6(r, k, v, w, u, s,
+                                               out_state=s))
+        out["plain_ms"] = device_ms(lambda: ref.wkv6(r, k, v, w, u, s),
+                                    **plain_kw)
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            wkv6_flops(B, T, H, N),
+            wkv6_bytes(B, T, H, N, r.element_size(), s is not None))
+        rows[name] = out
+        print(f"  wkv6 at the serve {name} shape B={B} T={T} H={H} N={N} "
+              f"bf16, device time: kernel {out['ms']:.4f} ms, plain "
+              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+              f"({out['bound_by']}); no single PyTorch call computes it")
+    d = rows["decode"]
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
+            "launches": None, "max_abs_err": dec_err[0],
+            "max_abs_err_state": dec_err[1], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": None,
+            "shape": d["shape"],
+            "serve_prefill": dict(rows["prefill"],
+                                  max_abs_err=pre_err[0],
+                                  max_abs_err_state=pre_err[1])}
+
+
 def prune_args(arch, device, out, extra=()):
     return ["--arch", arch, "--sparsity", str(MAIN["sparsity"]),
             "--calib", str(MAIN["calib"]),
@@ -467,26 +609,22 @@ def main_path_phase(dev):
     """DeiT-Base CORP pruning end to end; returns {kernel: launches}."""
     import torch
     from repro_torch.data import vit_batch
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.launch import prune
 
     print(f"[main path] python -m repro_torch.launch.prune "
           f"{' '.join(prune_args(MAIN['arch'], 'cuda', OUT))}")
-    gram_ops.launches = 0
-    flash_ops.launches = 0
+    reset_launches()
     t0 = time.time()
     res = prune.main(prune_args(MAIN["arch"], "cuda", OUT))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"gram": gram_ops.launches,
-                "flash_attention": flash_ops.launches}
+    launches = read_launches()
     t = res["report"]["timing"]
     print(f"[main path] wall {wall:.3f} s; stages: " + " / ".join(
         f"{k} {t[k]:.3f} s" for k in ("pass1", "rank", "pass2", "fold")))
     print(f"[main path] kernel launches in this run: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("gram", "flash_attention"):
+        if launches[name] <= 0:
             fail(f"the main path never launched the {name} kernel")
 
     for unit, d in res["report"]["units"].items():
@@ -545,32 +683,39 @@ def reference_phase(dev):
         fail("pruned model on the GPU disagrees with the CPU's plain path")
 
 
-def serve_phase():
-    """Qwen2-1.5B at full width serves the ragged trace through the CLI's
-    engine path; returns ({kernel: launches}, the CLI's result)."""
+def serve_phase(args, tag, kernels):
+    """Serve the ragged trace through the CLI's engine path at full width;
+    every kernel in ``kernels`` must have launched. Returns ({kernel:
+    launches}, the CLI's result)."""
     import torch
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_decode import ops as decode_ops
-    from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.launch import serve
-    print(f"[serve] python -m repro_torch.launch.serve {' '.join(SERVE)}")
-    gram_ops.launches = flash_ops.launches = decode_ops.launches = 0
+    print(f"[{tag}] python -m repro_torch.launch.serve {' '.join(args)}")
+    reset_launches()
     t0 = time.time()
-    res = serve.main(SERVE)
+    res = serve.main(args)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"gram": gram_ops.launches,
-                "flash_attention": flash_ops.launches,
-                "flash_decode": decode_ops.launches}
+    launches = read_launches()
     st, table = res["stats"], res["table"]
     cfg = res["model"].cfg
-    print(f"[serve] wall {wall:.3f} s (CPU init of the seeded weights, "
+    prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
+    print(f"[{tag}] wall {wall:.3f} s (CPU init of the seeded weights, "
           f"warmup and the trace); kernel launches in this run: {launches}")
-    print(f"[serve] engine stats: {dict(sorted(st.items()))}")
-    print(f"[serve] table: {json.dumps(table)}")
-    for name in ("flash_attention", "flash_decode"):
+    print(f"[{tag}] trace: {table['wall_s']:.3f} s, {table['tokens']} "
+          f"tokens, {table['tok_per_s']:.1f} tok/s, TTFT p50/p99 "
+          f"{table['ttft_p50_ms']:.1f}/{table['ttft_p99_ms']:.1f} ms, "
+          f"latency p50/p99 {table['lat_p50_ms']:.1f}/"
+          f"{table['lat_p99_ms']:.1f} ms; "
+          f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms per "
+          f"shared decode step ({st['decode_steps']} steps), "
+          f"{1e3 * st['prefill_s'] / max(1, prefills):.2f} ms per prefill "
+          f"({prefills} prefills), {st.get('walk_steps', 0)} batch-1 walk "
+          f"steps")
+    print(f"[{tag}] engine stats: {dict(sorted(st.items()))}")
+    print(f"[{tag}] table: {json.dumps(table)}")
+    for name in kernels:
         if launches[name] <= 0:
-            fail(f"the serve path never launched the {name} kernel")
+            fail(f"the {tag} path never launched the {name} kernel")
     for c in res["completions"]:
         if not (len(c.tokens) >= 1 and ((0 <= c.tokens)
                                         & (c.tokens < cfg.vocab_size)).all()):
@@ -578,16 +723,43 @@ def serve_phase():
     return launches, res
 
 
-def serve_profile_phase(model, params, dev, steps=20):
+def recurrent_checks(launches, res):
+    """RWKV6-3B serving: every prefill, batch-1 walk step and shared decode
+    step launched wkv6 once per layer, and a slot's cache bytes do not
+    depend on max_len."""
+    from repro_torch.serve import ServeEngine
+    model = res["model"]
+
+    def calls(st):
+        return (st.get("decode_steps", 0) + st.get("walk_steps", 0)
+                + sum(v for k, v in st.items() if k.startswith("prefill_b")))
+
+    warm, trace = calls(res["warmup_stats"]), calls(res["stats"])
+    need = model.cfg.n_layers * (warm + trace)
+    print(f"[serve rwkv] wkv6 launches {launches['wkv6']} == "
+          f"{model.cfg.n_layers} layers x ({warm} warmup + {trace} trace) "
+          f"forward calls = {need}")
+    if launches["wkv6"] != need:
+        fail("the recurrent serve path's wkv6 launches do not match its "
+             "forward calls")
+    sizes = {n: ServeEngine(model, res["params"], n_slots=8, max_len=n)
+             .slotcache.slot_bytes for n in (512, 1024)}
+    print(f"[serve rwkv] slot-cache bytes per slot: max_len 512 "
+          f"{sizes[512]}, max_len 1024 {sizes[1024]}")
+    if sizes[512] != sizes[1024]:
+        fail("the recurrent slot cache grows with max_len")
+
+
+def serve_profile_phase(model, params, dev, tag, kernel, steps=20):
     """Eight slots of ragged lengths decoding on the full-width model: host
     ms per shared decode step, then a profile of ``steps`` steps (device
-    busy share, kernel launches, top device ops)."""
+    busy share, ``kernel``'s launches, top device ops)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.serve import Request, ServeEngine
+    mod = kernel_modules()[kernel]
     eng = ServeEngine(model, params, n_slots=8, max_len=1024)
     eng.begin()
     rng = np.random.RandomState(3)
@@ -602,7 +774,7 @@ def serve_profile_phase(model, params, dev, steps=20):
     for _ in range(steps):
         eng.decode_step()
     step_ms = 1e3 * (time.time() - t0) / steps
-    decode_ops.launches = 0
+    mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -619,21 +791,22 @@ def serve_profile_phase(model, params, dev, steps=20):
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(f"[serve profile] {steps} decode steps, 8 slots at lengths "
+    print(f"[{tag}] {steps} decode steps, 8 slots at lengths "
           f"128..464, max_len 1024: {step_ms:.2f} ms per step unprofiled; "
           f"profiled wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels / steps:.0f} device "
-          f"ops and {decode_ops.launches / steps:.0f} flash_decode launches "
+          f"ops and {mod.launches / steps:.0f} {kernel} launches "
           f"per step; nvidia-smi clocks.sm, power.draw, power.limit: {smi}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
               f"{e.key[:90]}")
 
 
-def logit_phase(model, params):
+def logit_phase(model, params, tag, lens):
     """Full width in fp32 (TF32 off): two requests teacher-forced through
-    ragged prefill and 8 decode steps; every step's logits against one full
-    forward over the same tokens, relative error <= 1e-3."""
+    prefill (ragged on an attention stack, of equal lengths otherwise) and
+    8 decode steps; every step's logits against one full forward over the
+    same tokens, relative error <= 1e-3."""
     import numpy as np
     import torch
     from repro_torch.interop import map_tree
@@ -643,7 +816,7 @@ def logit_phase(model, params):
     p32 = map_tree(lambda t: t.float(), params)
     dev = p32["embed"].device
     rng = np.random.RandomState(7)
-    lens, n_dec = [40, 25], 8
+    n_dec = 8
     seqs = [rng.randint(0, cfg.vocab_size, size=n + n_dec).astype(np.int32)
             for n in lens]
     toks = np.zeros((2, max(lens)), np.int32)
@@ -651,9 +824,10 @@ def logit_phase(model, params):
         toks[r, :n] = seqs[r][:n]
     full = [m32.apply(p32, {"tokens": torch.from_numpy(q[None]).to(dev)})[0]
             [0] for q in seqs]
-    logits, cache = m32.prefill(p32, {"tokens": torch.from_numpy(toks)
-                                      .to(dev)}, 64,
-                                lengths=torch.tensor(lens, device=dev))
+    ragged = set(cfg.layer_kinds) == {"attn"}
+    logits, cache = m32.prefill(
+        p32, {"tokens": torch.from_numpy(toks).to(dev)}, 64 + max(lens),
+        lengths=torch.tensor(lens, device=dev) if ragged else None)
     errs = [rel_err(logits[r, 0], full[r][n - 1])
             for r, n in enumerate(lens)]
     for i in range(n_dec):
@@ -663,27 +837,28 @@ def logit_phase(model, params):
         errs += [rel_err(logits[r, 0], full[r][n + i])
                  for r, n in enumerate(lens)]
     err = max(errs)
-    print(f"[logits] {cfg.name} fp32 at full width, prefill + {n_dec} "
-          f"teacher-forced decode steps vs one full forward: max relative "
-          f"error {err:.3e} over {len(errs)} logit rows (tol 1e-3)")
+    print(f"[{tag}] {cfg.name} fp32 at full width, prefill of {lens} + "
+          f"{n_dec} teacher-forced decode steps vs one full forward: max "
+          f"relative error {err:.3e} over {len(errs)} logit rows (tol 1e-3)")
     if not err <= 1e-3:
-        fail("decode logits disagree with the full forward")
+        fail(f"{cfg.name}: decode logits disagree with the full forward")
 
 
-def serve_reference_phase():
-    """Reduced Qwen2 (fp32) served on the GPU (kernels) and on the CPU
+def serve_reference_phase(args, tag):
+    """A reduced config (fp32) served on the GPU (kernels) and on the CPU
     (plain path) from the same seed: the token streams must be equal."""
     from repro_torch.launch import serve
     streams = {}
     for device in ("cuda", "cpu"):
-        res = serve.main(SERVE_REDUCED + ["--device", device])
+        res = serve.main(args + ["--device", device])
         streams[device] = [c.tokens.tolist() for c in res["completions"]]
     same = streams["cuda"] == streams["cpu"]
-    print(f"[reference] qwen2-1.5b-reduced engine streams, GPU vs CPU: "
+    print(f"[{tag}] {args[1]} engine streams, GPU vs CPU: "
           f"{sum(map(len, streams['cuda']))} tokens, "
           f"{'identical' if same else 'DIFFERENT'}")
     if not same:
-        fail("the engine's streams on the GPU differ from the CPU's")
+        fail(f"{args[1]}: the engine's streams on the GPU differ from the "
+             f"CPU's")
 
 
 def main() -> int:
@@ -723,11 +898,22 @@ def main() -> int:
     launches = {"prune": main_path_phase(dev)}
     reference_phase(dev)
     profile_phase(dev)
-    launches["serve"], served = serve_phase()
-    serve_profile_phase(served["model"], served["params"], dev)
-    logit_phase(served["model"], served["params"])
+    launches["serve"], served = serve_phase(
+        SERVE, "serve", ("flash_attention", "flash_decode"))
+    serve_profile_phase(served["model"], served["params"], dev,
+                        "serve profile", "flash_decode")
+    logit_phase(served["model"], served["params"], "logits", [40, 25])
     del served
-    serve_reference_phase()
+    serve_reference_phase(SERVE_REDUCED, "reference")
+    launches["serve_rwkv"], served = serve_phase(SERVE_RWKV, "serve rwkv",
+                                                 ("wkv6",))
+    recurrent_checks(launches["serve_rwkv"], served)
+    serve_profile_phase(served["model"], served["params"], dev,
+                        "serve rwkv profile", "wkv6")
+    logit_phase(served["model"], served["params"], "logits rwkv",
+                [100, 100])
+    del served
+    serve_reference_phase(SERVE_RWKV_REDUCED, "reference rwkv")
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

@@ -86,13 +86,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any):
     """Restore into the structure, dtypes and devices of ``like`` (a nested
-    dict of tensors). Returns (tree, extra)."""
+    dict of tensors). Returns (tree, extra).
+
+    Raises ``ValueError`` naming every checkpoint leaf that ``like`` lacks
+    (a compensation bias that CORP pruning added, say), rather than drop it
+    and restore a different model."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
     ext = manifest.get("dtypes", {})
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
+    unknown = sorted(set(arrays) - set(flatten(like)))
+    if unknown:
+        raise ValueError(f"{ckpt_dir} step {step}: leaves the template "
+                         f"lacks: {', '.join(unknown)}")
 
     def load(path, leaf):
         a = arrays[path]

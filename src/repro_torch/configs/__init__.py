@@ -1,15 +1,15 @@
-"""Config registry of the port: the DeiT ids, ``qwen2-1.5b`` and their
-reduced variants.
+"""Config registry of the port: the DeiT ids, ``qwen2-1.5b``, ``rwkv6-3b``
+and their reduced variants.
 
-Copied from ``repro.configs``. The other LM, MoE, RWKV, Mamba and enc-dec
+Copied from ``repro.configs``. The other LM, MoE, Mamba and enc-dec
 configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RWKVConfig
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
-LM_IDS = ("qwen2-1.5b",)
+LM_IDS = ("qwen2-1.5b", "rwkv6-3b")
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -19,6 +19,9 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id == "qwen2-1.5b":
         from repro_torch.configs import qwen2_1_5b
         return qwen2_1_5b.CONFIG
+    if arch_id == "rwkv6-3b":
+        from repro_torch.configs import rwkv6_3b
+        return rwkv6_3b.CONFIG
     raise NotImplementedError(
         f"arch {arch_id!r} is not ported to repro_torch yet (only "
         f"{DEIT_IDS + LM_IDS}); its config lives in repro.configs.get_config")
@@ -27,9 +30,9 @@ def get_config(arch_id: str) -> ModelConfig:
 def reduced(cfg: ModelConfig, *, d_model: int = 64,
             layers_scale: int = 1) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests, as
-    ``repro.configs.reduced`` gives it for a ViT or a dense LM."""
+    ``repro.configs.reduced`` gives it for a ViT, a dense LM or RWKV."""
     if cfg.family not in ("vit", "lm") or cfg.moe or cfg.mla or cfg.mamba \
-            or cfg.rwkv or cfg.first_k_dense or cfg.n_enc_layers:
+            or cfg.first_k_dense or cfg.n_enc_layers:
         raise NotImplementedError(
             f"reduced() of {cfg.name} is not ported; see "
             "repro.configs.reduced")
@@ -49,6 +52,9 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
         dtype="float32",
         vocab_round=8,
     )
+    if cfg.rwkv is not None:
+        kw.update(rwkv=RWKVConfig(head_dim=16, decay_lora=8),
+                  n_heads=d_model // 16, n_kv_heads=d_model // 16)
     if cfg.family == "vit":
         kw.update(img_size=32, patch=8, n_classes=min(cfg.n_classes, 10) or 10)
     return cfg.replace(name=cfg.name + "-reduced", **kw)

@@ -13,6 +13,11 @@ Fixed-batch baseline loop (the default without ``--trace``):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 4 --prompt-len 32 --gen 16
 
+``--arch rwkv6-3b`` serves RWKV-6 under the recurrent slot-cache contract
+(exact-length prefill, a fixed-size state per slot); ``--compare-static``
+then raises after the engine's run, as the JAX CLI does (the static
+baseline needs ragged prefill).
+
 Weights are seeded random (seed 0); ``--sparsity S --ckpt-in DIR`` serves
 a pruned checkpoint written by ``repro.launch.prune`` (or the port's). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
@@ -107,13 +112,13 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                 prefill_chunk=None, log=print):
     """Continuous-batching engine over a synthetic ragged trace (warmed
     first, outside the timed region). Returns (completions, table, engine
-    stats)."""
+    stats, the warmup's engine stats)."""
     cfg = model.cfg
     trace = synthetic_trace(n, cfg.vocab_size, seed=seed,
                             prompt_range=prompt_range, gen_range=gen_range,
                             rate=rate)
     eng = ServeEngine(model, params, n_slots=slots, max_len=max_len)
-    eng.warmup(prompt_lens=[len(r.tokens) for r in trace],
+    warm = eng.warmup(prompt_lens=[len(r.tokens) for r in trace],
                prefill_chunk=prefill_chunk)
     t0 = time.perf_counter()
     comps = eng.run(trace, prefill_chunk=prefill_chunk)
@@ -129,7 +134,10 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
         f"prefill {1e3 * st['prefill_s'] / max(1, prefills):.2f} ms/admit, "
         f"lane utilization "
         f"{st['decode_lanes'] / max(1, st['decode_steps'] * slots):.0%}, "
-        f"cache {eng.cache_bytes / 1e6:.2f} MB")
+        f"{st['walk_steps']} batch-1 walk steps, "
+        f"cache {eng.cache_bytes / 1e6:.2f} MB "
+        f"({eng.slotcache.slot_bytes / 1e6:.2f} MB per slot, "
+        f"{eng.contract} contract)")
     if compare_static:
         comps_s = run_static_trace(model, params, trace, n_slots=slots,
                                    max_len=max_len)
@@ -139,15 +147,15 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
     keys = ["mode", "requests", "tokens", "tok_per_s", "lat_p50_ms",
             "lat_p99_ms", "ttft_p50_ms", "ttft_p99_ms"]
     log(format_table(rows, keys))
-    return comps, table, dict(st)
+    return comps, table, dict(st), warm
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve an LM through the continuous-batching engine")
     ap.add_argument("--arch", required=True,
-                    help="LM config name, e.g. qwen2-1.5b; a '-reduced' "
-                         "suffix shrinks it for smoke runs")
+                    help="LM config name, e.g. qwen2-1.5b or rwkv6-3b; a "
+                         "'-reduced' suffix shrinks it for smoke runs")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -220,7 +228,8 @@ def main(argv=None) -> dict:
     if args.trace > 0:
         pr = tuple(int(x) for x in args.prompt_range.split(","))
         gr = tuple(int(x) for x in args.gen_range.split(","))
-        out["completions"], out["table"], out["stats"] = serve_trace(
+        (out["completions"], out["table"], out["stats"],
+         out["warmup_stats"]) = serve_trace(
             model, params, n=args.trace, slots=args.slots,
             max_len=args.max_len, prompt_range=pr, gen_range=gr,
             rate=args.rate, seed=args.seed,

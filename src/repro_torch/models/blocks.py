@@ -1,17 +1,23 @@
-"""Transformer block (``repro.models.blocks``): norm -> attention -> norm
--> dense MLP, pre-norm residual; full-sequence and one-token decode. Mamba,
-RWKV, MoE and cross-attention blocks are not ported yet; they raise."""
+"""Block assembly (``repro.models.blocks``): norm -> mixer -> norm -> MLP,
+pre-norm residual; full-sequence and one-token decode. The mixer is
+attention (``attn``/``swa``) with a dense MLP, or the RWKV-6 time mix with
+its channel mix (``rwkv``). Mamba, MoE and cross-attention blocks are not
+ported yet; they raise."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, init_norm, merge_taps
 
 
 def _check(kind: str, is_moe: bool):
-    if kind not in ("attn", "swa") or is_moe:
+    if kind == "mamba":
+        raise NotImplementedError("the Mamba mixer is not ported; see "
+                                  "repro.models.ssm.apply_mamba")
+    if kind not in ("attn", "swa", "rwkv") or is_moe:
         raise NotImplementedError(
             f"block kind={kind!r} is_moe={is_moe} is not ported; see "
             f"repro.models.blocks.apply_block")
@@ -20,10 +26,31 @@ def _check(kind: str, is_moe: bool):
 def init_block(gen: torch.Generator, cfg, kind: str = "attn",
                is_moe: bool = False):
     _check(kind, is_moe)
+    if kind == "rwkv":
+        return {"ln1": init_norm(cfg),
+                "mixer": ssm_mod.init_rwkv_time(gen, cfg),
+                "ln2": init_norm(cfg),
+                "mlp": ssm_mod.init_rwkv_channel(gen, cfg)}
     return {"ln1": init_norm(cfg),
             "mixer": attn_mod.init_attn(gen, cfg, kind),
             "ln2": init_norm(cfg),
             "mlp": mlp_mod.init_mlp(gen, cfg)}
+
+
+def rwkv_block(p, x, cfg, state=None, taps=None):
+    """RWKV block: ln1 -> time mix -> residual -> ln2 -> channel mix ->
+    residual. ``state`` ({"time", "channel"}) is read and updated in place
+    (decode); without one a fresh state is returned (prefill).
+    Returns (x, state)."""
+    state = state or {}
+    h = apply_norm(p["ln1"], x, cfg)
+    y, st = ssm_mod.apply_rwkv_time(p["mixer"], h, cfg, taps=taps,
+                                    state=state.get("time"))
+    x = x + y
+    h = apply_norm(p["ln2"], x, cfg)
+    y, sc = ssm_mod.apply_rwkv_channel(p["mlp"], h, cfg, taps=taps,
+                                       state=state.get("channel"))
+    return x + y, {"time": st, "channel": sc}
 
 
 def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
@@ -31,12 +58,16 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
     """Full-sequence block. Returns x after both residual sub-layers."""
     _check(kind, is_moe)
     t = {} if taps is not None else None
-    h = apply_norm(p["ln1"], x, cfg)
-    y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind, positions=positions,
-                               taps=t, mask_kind=mask_kind)
-    x = x + y
-    h = apply_norm(p["ln2"], x, cfg)
-    x = x + mlp_mod.apply_mlp(p["mlp"], h, cfg, taps=t)
+    if kind == "rwkv":
+        x, _ = rwkv_block(p, x, cfg, taps=t)
+    else:
+        h = apply_norm(p["ln1"], x, cfg)
+        y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
+                                   positions=positions, taps=t,
+                                   mask_kind=mask_kind)
+        x = x + y
+        h = apply_norm(p["ln2"], x, cfg)
+        x = x + mlp_mod.apply_mlp(p["mlp"], h, cfg, taps=t)
     if taps is not None:
         merge_taps(taps, t, "")
     return x
@@ -44,6 +75,8 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     _check(kind, False)
+    if kind == "rwkv":
+        return ssm_mod.init_rwkv_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, kind, batch, max_len, device)
 
 
@@ -51,6 +84,8 @@ def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False):
     """One-token decode. x: (B,1,D); ``cache`` is updated in place.
     Returns (x, cache)."""
     _check(kind, is_moe)
+    if kind == "rwkv":
+        return rwkv_block(p, x, cfg, state=cache)
     h = apply_norm(p["ln1"], x, cfg)
     y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
     x = x + y

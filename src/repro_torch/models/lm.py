@@ -1,5 +1,5 @@
 """Decoder-only language model (``repro.models.lm``): forward, prefill and
-one-token decode.
+one-token decode, for attention stacks and RWKV-6 stacks.
 
 Depth follows ``cfg.layout()`` exactly as the JAX package lays out its
 params: a scanned segment stores its layers stacked under ``seg<i>/p<j>``
@@ -7,8 +7,11 @@ with the repetition axis first, unrolled layers sit under ``seg<i>/l<j>``.
 So ``interop.from_numpy`` carries JAX params across unchanged. Where JAX
 scans, the port loops over the stacked axis (views, no copies). The decode
 cache has the same tree as JAX's: a top-level ``pos`` (B,) and per layer
-``k``, ``v``, ``pos``, scanned leaves stacked (reps, B, ...); every ``pos``
-is int32. ``lm_decode_step`` updates the cache in place.
+either ``k``, ``v``, ``pos`` (attention) or the recurrent state
+``{"time": {"shift", "wkv"}, "channel": {"shift"}}`` (rwkv, no per-layer
+``pos``), scanned leaves stacked (reps, B, ...); every ``pos`` is int32.
+``lm_decode_step`` updates the cache in place (new K/V rows, or the wkv
+state and shift rows overwritten).
 
 Not ported yet: the VLM stub frontend (``patch_embeds``), the
 sliding-window ring (``_window_cache``), ``lm_loss`` and taps.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.interop import map_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import mlp as mlp_mod
@@ -109,18 +113,19 @@ def init_lm_cache(cfg, batch: int, max_len: int, device):
         else:
             _, reps, idxs = seg
             caches[_seg_name(si)] = {
-                f"p{j}": {k: torch.zeros((reps,) + a.shape, dtype=a.dtype,
-                                         device=device)
-                          for k, a in blk.init_block_cache(
-                              cfg, cfg.layer_spec(li)[0], batch, max_len,
-                              "meta").items()}
+                f"p{j}": map_tree(
+                    lambda a: torch.zeros((reps,) + a.shape, dtype=a.dtype,
+                                          device=device),
+                    blk.init_block_cache(cfg, cfg.layer_spec(li)[0], batch,
+                                         max_len, "meta"))
                 for j, li in enumerate(idxs)}
     return caches
 
 
 def lm_decode_step(params, token, cache, cfg):
     """token: (B, 1) int. Returns (logits (B, 1, V), cache); the cache is
-    updated in place (new K/V rows, every ``pos`` + 1)."""
+    updated in place (new K/V rows or recurrent states, every ``pos`` +
+    1)."""
     x = params["embed"][token]
     cache["pos"].add_(1)
     for name, key, rep, kind, moe in _each_layer(cfg):
@@ -137,7 +142,7 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
     logits are gathered at position ``lengths-1`` per sample and every cache
     ``pos`` is set to ``lengths``, so padded tail positions are never read
     back (causality keeps rows < lengths exact). Only valid for pure
-    global-attention stacks.
+    global-attention stacks: a recurrent state would absorb the pad tokens.
     """
     if lengths is not None and set(cfg.layer_kinds) != {"attn"}:
         raise ValueError("ragged prefill (lengths=) requires a pure "
@@ -148,6 +153,8 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
 
     def run_layer(p, x, kind, moe):
         blk._check(kind, moe)
+        if kind == "rwkv":
+            return blk.rwkv_block(p, x, cfg)
         if kind != "attn":
             raise NotImplementedError(
                 "the sliding-window prefill cache is not ported; see "

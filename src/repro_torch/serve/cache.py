@@ -19,8 +19,9 @@ their ``pos`` may walk past ``max_len``, where the decode scatter drops the
 out-of-bounds row (as JAX does), so stale slots are inert until the next
 admit overwrites them.
 
-Only the ``kv`` contract is ported; ``recurrent`` (rwkv/mamba state) and
-``encdec`` raise.
+Under the ``recurrent`` contract (rwkv) a slot holds a fixed-size state
+instead (``RecurrentSlotCache``): there is no mask to hide a stale lane
+behind, so retire resets it. ``encdec`` is not ported.
 """
 from __future__ import annotations
 
@@ -73,6 +74,7 @@ class SlotCache:
         meta = torch.device("meta")
         self.batch_axes = flatten(_infer_batch_axes(template_fn(1, meta),
                                                     template_fn(2, meta)))
+        self.n_slots = n_slots
         self.cache = template_fn(n_slots, device)
 
     def reset(self):
@@ -90,3 +92,30 @@ class SlotCache:
     @property
     def bytes(self) -> int:
         return cache_bytes(self.cache)
+
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes one slot occupies (the per-request cache cost)."""
+        return self.bytes // self.n_slots
+
+
+class RecurrentSlotCache(SlotCache):
+    """Slot cache for the *recurrent* contract: each slot holds a fixed-size
+    wkv6 state (and token-shift rows) instead of growing KV rows, so
+    ``slot_bytes`` is constant in ``max_len``.
+
+    Admit and decode are those of ``SlotCache`` (a recurrent state has no
+    time axis: the admit copy replaces the whole lane). Retire differs: a
+    state is a lossy summary of the whole history with no mask to hide
+    behind, so ``reset_slot`` writes the empty-history (zero) batch-1 state
+    back into the lane, in place.
+    """
+
+    def __init__(self, template_fn, n_slots: int, *, device):
+        super().__init__(template_fn, n_slots, device=device)
+        self._blank = template_fn(1, device)
+
+    def reset_slot(self, slot: int):
+        """Retire/cancel: return ``slot``'s lane to the empty-history
+        state."""
+        self.write_slot(self._blank, slot)

@@ -20,10 +20,15 @@ sequence positions coexist in one step. The step updates the slot cache in
 place (JAX donates it). Finished requests retire and their slot is refilled
 immediately — no batch barrier.
 
-Prompts are right-padded to the next power-of-two bucket and prefilled
-with per-sample true ``lengths`` (causal attention keeps cache rows <
-length exact — see ``lm_prefill``). That is sound for pure global-attention
-stacks, the only ones the port serves so far.
+Two slot-cache contracts are served (``serve/cache.py``):
+
+- ``kv`` (pure global-attention stacks): prompts are right-padded to the
+  next power-of-two bucket and prefilled with per-sample true ``lengths``
+  (causal attention keeps cache rows < length exact — see ``lm_prefill``).
+- ``recurrent`` (rwkv): a state would absorb pad tokens, so prefill is
+  exact-length, and the first chunk is a multiple of the smallest bucket,
+  at most ``P - 1``; the rest of the prompt walks through the batch-1
+  decode step. Retire and cancel reset the slot's state lanes to zeros.
 
 Pruned models plug in transparently: a ``cfg.pruned(...)`` config shrinks
 ``eff_qk`` and the slot cache's K rows shrink with it.
@@ -31,11 +36,11 @@ Pruned models plug in transparently: a ``cfg.pruned(...)`` config shrinks
 Besides the JAX engine's counters, ``stats`` sums the host-clock seconds
 of shared decode steps (``decode_s``) and of first-chunk prefills
 (``prefill_s``); both end in a device-to-host copy of the next tokens, so
-they include the device work.
+they include the device work. ``walk_steps`` counts the batch-1 decode
+steps that consume prompt tokens after the first chunk.
 
 Not ported yet: mesh sharding (``sharding=``), the prefix cache
-(``prefix_cache=``), and the recurrent and enc-dec slot-cache contracts;
-they raise.
+(``prefix_cache=``), and the enc-dec slot-cache contract; they raise.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ import torch
 
 from repro_torch.interop import flatten
 from repro_torch.serve import errors
-from repro_torch.serve.cache import SlotCache, cache_contract
+from repro_torch.serve.cache import (RecurrentSlotCache, SlotCache,
+                                     cache_contract)
 
 
 def _no_prefix_cache(prefix_cache):
@@ -143,10 +149,13 @@ class ServeEngine:
             raise NotImplementedError("mesh-sharded serving is not ported; "
                                       "see repro/serve/sharding.py")
         self.contract = cache_contract(cfg)
-        if self.contract != "kv":
+        if self.contract == "encdec":
             raise NotImplementedError(
                 f"{cfg.name}: the {self.contract!r} slot-cache contract is "
                 f"not ported; see repro/serve/cache.py")
+        # ragged (bucketed) prefill: sound iff every cache row < length is
+        # independent of the padded tail — pure causal global attention
+        self.ragged_ok = set(cfg.layer_kinds) == {"attn"}
         self.model, self.cfg, self.params = model, cfg, params
         self.device = next(iter(flatten(params).values())).device
         self.n_slots, self.max_len = n_slots, max_len
@@ -154,7 +163,9 @@ class ServeEngine:
             default_buckets(max_len)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.tokens = np.zeros((n_slots,), np.int32)   # next decode inputs
-        self.slotcache = SlotCache(self._cache_template, n_slots,
+        cache_cls = RecurrentSlotCache if self.contract == "recurrent" \
+            else SlotCache
+        self.slotcache = cache_cls(self._cache_template, n_slots,
                                    device=self.device)
         self.stats = collections.Counter()
         self._t0 = None
@@ -175,7 +186,7 @@ class ServeEngine:
     def _prefill(self, tokens, lengths):
         logits, cache = self.model.prefill(
             self.params, {"tokens": self._tensor(tokens)}, self.max_len,
-            lengths=self._tensor(lengths))
+            lengths=self._tensor(lengths) if self.ragged_ok else None)
         return self._argmax(logits).cpu().numpy(), cache
 
     def _decode(self, tokens, cache):
@@ -187,11 +198,33 @@ class ServeEngine:
     # -- slot management ----------------------------------------------------
 
     def _bucket(self, n: int) -> int:
+        if not self.ragged_ok:
+            return n                       # exact-length prefill
         for b in self.buckets:
             if b >= n:
                 return b
         raise ValueError(errors.msg("prompt_exceeds_bucket", n=n,
                                     bucket=self.buckets[-1]))
+
+    def _stat_bucket(self, L: int) -> int:
+        """Key of the ``prefill_b*`` stats counters: the smallest bucket
+        covering ``L``, so exact-length prefills keep the counter family
+        bounded by the bucket table."""
+        for b in self.buckets:
+            if b >= L:
+                return b
+        return self.buckets[-1]
+
+    def _first_chunk_len(self, n: int, P: int) -> int:
+        """Prompt tokens the first prefill of an admit consumes, given a
+        budget of ``n`` (<= ``P``). Ragged stacks prefill any prefix
+        (padded to a bucket); recurrent stacks prefill a multiple of the
+        smallest bucket, at most ``P - 1`` (at least 1), and leave the rest
+        to the batch-1 walk, as the JAX engine does."""
+        if self.ragged_ok:
+            return n
+        lo = self.buckets[0]
+        return max(1, lo * (min(n, P - 1) // lo))
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.free]
@@ -236,9 +269,10 @@ class ServeEngine:
         consumed and the slot is installed (first token on ``out``,
         decode-eligible).
 
-        The first chunk is a bucketed *prefix prefill* — exact because
-        every causal KV row carries only its own history — and later
-        chunks walk tokens one at a time through the batch-1 decode step.
+        The first chunk is a *prefix prefill* — exact because every causal
+        KV row, and a recurrent state, carries only its own history; padded
+        to a bucket only on ragged stacks — and later tokens walk one at a
+        time through the batch-1 decode step.
         The local cache is installed with a single slot write at the end.
         """
         s = self.slots[slot]
@@ -251,19 +285,19 @@ class ServeEngine:
         budget = P - st.consumed if budget is None else max(1, int(budget))
         nxt = None
         if st.local is None:           # first chunk: prefix prefill
-            L0 = min(budget, P)
-            bucket = self._bucket(L0)
-            toks = np.zeros((1, bucket), np.int32)
+            L0 = self._first_chunk_len(min(budget, P), P)
+            toks = np.zeros((1, self._bucket(L0)), np.int32)
             toks[0, :L0] = req.tokens[:L0]
             t0 = time.perf_counter()
             nxt, st.local = self._prefill(toks, [L0])
             self.stats["prefill_s"] += time.perf_counter() - t0
-            self.stats[f"prefill_b{bucket}"] += 1
+            self.stats[f"prefill_b{self._stat_bucket(L0)}"] += 1
             st.consumed = L0
             budget -= L0
         while budget > 0 and st.consumed < P:
             t = int(req.tokens[st.consumed])
             nxt = self._decode([[t]], st.local)
+            self.stats["walk_steps"] += 1
             st.consumed += 1
             budget -= 1
         if st.consumed < P:
@@ -316,26 +350,32 @@ class ServeEngine:
 
     def retire(self, slot: int) -> Completion:
         """Free ``slot`` and return its finished request's Completion.
-        The slot is immediately refillable (the next admit overwrites it)."""
+        The slot is immediately refillable (the next admit overwrites it);
+        under the recurrent contract its state lanes are reset to zeros."""
         s = self.slots[slot]
         comp = Completion(
             rid=s.rid, tokens=np.asarray(s.out, np.int32),
             prompt_len=len(s.req.tokens), arrival=s.req.arrival,
             t_admit=s.t_admit, t_first=s.t_first, t_done=self._now())
         s.rid, s.req, s.remaining, s.pending = -1, None, 0, None
+        if self.contract == "recurrent":
+            self.slotcache.reset_slot(slot)
         return comp
 
     def cancel(self, slot: int) -> List[int]:
         """Drop ``slot``'s request mid-generation and return the partial
         tokens produced so far. The slot is refillable on the next admit;
-        its stale cache lanes are inert (masked by ``pos``) until
-        overwritten. Cancelling a PREFILLING slot discards the partial
-        prefill (never installed): zero tokens kept."""
+        its stale cache lanes are inert (masked by ``pos``, or reset under
+        the recurrent contract) until overwritten. Cancelling a PREFILLING
+        slot discards the partial prefill (never installed): zero tokens
+        kept."""
         s = self.slots[slot]
         if s.free:
             raise ValueError(errors.msg("cancel_free_slot", slot=slot))
         partial = list(s.out)
         s.rid, s.req, s.remaining, s.pending = -1, None, 0, None
+        if self.contract == "recurrent":
+            self.slotcache.reset_slot(slot)
         self.stats["cancels"] += 1
         return partial
 
@@ -392,17 +432,22 @@ class ServeEngine:
         """Run one short request per prompt bucket the trace will use (and
         the decode step) outside any timed region — the kernels' build,
         cuBLAS handles and the allocator's first blocks — then reset the
-        engine. ``prefill_chunk`` warms the chunked path instead."""
+        engine. ``prefill_chunk`` warms the chunked path instead.
+        Exact-length (recurrent) prefills warm one prompt per bucket of the
+        table, not per length: eager PyTorch builds nothing per shape.
+        Returns the warmup run's stats."""
+        key = self._bucket if self.ragged_ok else self._stat_bucket
         reqs = []
-        for i, b in enumerate(sorted({self._bucket(p)
-                                      for p in prompt_lens})):
+        for i, b in enumerate(sorted({key(p) for p in prompt_lens})):
             # a bucket-sized prompt can overflow the per-slot budget
             # (b == max_len); shrink it — it rounds back up to the bucket
             p = max(1, min(b, self.max_len - gen))
             reqs.append(Request(rid=-(i + 1),
                                 tokens=np.zeros((p,), np.int32), gen=gen))
         self.run(reqs, prefill_chunk=prefill_chunk)
+        stats = dict(self.stats)
         self.reset()
+        return stats
 
     def reset(self):
         self.slotcache.reset()

@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as decode_ref  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv6 import ref as wkv_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +158,88 @@ def test_decode_kernel_refuses_what_it_does_not_take(dev):
     k = torch.randn(1, 8, 1, 16, device=dev)
     with pytest.raises(ValueError):               # group of 64 > 32
         decode_ops.decode_attention(q, k, k, valid)
+
+
+def _wkv_inputs(dev, B, T, H, N, dtype, seed=0, state=False):
+    """r, k, v normal, w in (0.35, 0.95), u small, an optional state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = (randn(B, T, H, N).to(dtype) for _ in range(3))
+    w = (0.35 + 0.6 * torch.sigmoid(randn(B, T, H, N))).to(dtype)
+    u = 0.1 * randn(H, N)
+    return r, k, v, w, u, randn(B, H, N, N) if state else None
+
+
+def _wkv_close(got, want, dtype):
+    """y within 1e-3 abs and rel in fp32 (the JAX package's kernel-vs-ref
+    bound), 2e-2 for bf16 outputs; the fp32 state within 1e-3 of its
+    largest entry."""
+    (gy, gs), (wy, ws) = got, want
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    assert gy.dtype == dtype and gs.dtype == torch.float32
+    torch.testing.assert_close(gy.float(), wy.float(), rtol=tol, atol=tol)
+    assert float((gs - ws).abs().max()) <= 1e-3 * float(ws.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,N,state", [
+    (1, 504, 40, 64, False),        # the longest serve prefill (RWKV6-3B)
+    (2, 200, 4, 64, True),          # ragged T with an initial state
+    (2, 64, 3, 64, True),           # one whole chunk
+    (3, 1, 5, 64, True),            # one token from a state
+    (2, 77, 4, 16, True),           # the reduced model's head dim
+])
+def test_wkv6_kernel_matches_plain(dev, B, T, H, N, state, dtype):
+    r, k, v, w, u, s0 = _wkv_inputs(dev, B, T, H, N, dtype, seed=T,
+                                    state=state)
+    before = wkv_ops.launches
+    got = wkv_ops.wkv6(r, k, v, w, u, s0)
+    assert wkv_ops.launches == before + 1
+    _wkv_close(got, wkv_ref.wkv6(r, k, v, w, u, s0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_updates_a_stacked_state_slice_in_place(dev, dtype):
+    """The decode step: T = 1 over one layer of the stacked (reps, B, H, N,
+    N) cache, r/k/v/w as strided views of a (B, T, D) projection."""
+    B, H, N = 8, 40, 64
+    stacked = torch.randn(3, B, H, N, N, device=dev)
+    keep = stacked[[0, 2]].clone()
+    proj = torch.randn(B, 1, 4 * H * N, device=dev).to(dtype)
+    r, k, v, w = (proj[..., i * H * N:(i + 1) * H * N].reshape(B, 1, H, N)
+                  for i in range(4))
+    w = (0.35 + 0.6 * torch.sigmoid(w.float())).to(dtype)
+    u = 0.1 * torch.randn(H, N, device=dev)
+    want = wkv_ref.wkv6(r, k, v, w, u, stacked[1].clone())
+    y, s = wkv_ops.wkv6(r, k, v, w, u, stacked[1], out_state=stacked[1])
+    assert s.data_ptr() == stacked[1].data_ptr()
+    _wkv_close((y, stacked[1]), want, dtype)
+    torch.testing.assert_close(stacked[[0, 2]], keep, rtol=0, atol=0)
+
+
+def test_wkv6_kernel_without_a_state_starts_from_zeros(dev):
+    r, k, v, w, u, _ = _wkv_inputs(dev, 2, 90, 3, 32, torch.float32)
+    zeros = torch.zeros(2, 3, 32, 32, device=dev)
+    y0, s0 = wkv_ops.wkv6(r, k, v, w, u)
+    y1, s1 = wkv_ops.wkv6(r, k, v, w, u, zeros)
+    torch.testing.assert_close(y0, y1, rtol=0, atol=0)
+    torch.testing.assert_close(s0, s1, rtol=0, atol=0)
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(dev):
+    r, k, v, w, u, s = _wkv_inputs(dev, 1, 8, 2, 80, torch.float32,
+                                   state=True)
+    with pytest.raises(ValueError):               # head dim 80 > 64
+        wkv_ops.wkv6(r, k, v, w, u, s)
+    r, k, v, w, u, s = _wkv_inputs(dev, 2, 8, 2, 16, torch.float32,
+                                   state=True)
+    with pytest.raises(TypeError):                # mixed dtypes
+        wkv_ops.wkv6(r, k.to(torch.bfloat16), v, w, u)
+    with pytest.raises(ValueError):               # a bf16 state
+        wkv_ops.wkv6(r, k, v, w, u, s.to(torch.bfloat16))
+    big = torch.zeros(3, 2, 16, 16, device=dev)
+    with pytest.raises(ValueError):               # overlapping, not equal
+        wkv_ops.wkv6(r, k, v, w, u, big[:2], out_state=big[1:])
