@@ -8,9 +8,11 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
   1. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
   2. holds each kernel against its plain PyTorch version on the card, at
      ragged shapes and at the shapes DeiT-Base, Qwen2-1.5B serving and
-     RWKV6-3B serving give it, and times the kernel, the plain version and
-     the one-call PyTorch equivalent (where one exists) beside the least
-     time the card could take;
+     RWKV6-3B serving give it (both attention kernels: fp32 on the CUDA
+     cores, bf16 on the tensor cores, also at T = 197 and dq != dv; gram's
+     s2 exactly symmetric at the main path's shape), and times the kernel,
+     the plain version and the one-call PyTorch equivalent (where one
+     exists) beside the least time the card could take;
   3. prune path: runs CORP pruning of DeiT-Base at full width end to end
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
@@ -221,12 +223,21 @@ def kernel_phase(dev):
     del params
     gram_err = check_gram(x, label="main path seg0/p0/h")
     check_gram(x.to(torch.bfloat16), tol=1e-2, label="main path, bf16")
+    s2 = gram_ops.gram(x)["s2"]
+    symmetric = bool(torch.equal(s2, s2.mT))
+    print(f"  gram main path {tuple(x.shape)} fp32: s2 equals its transpose "
+          f"bit for bit: {'ok' if symmetric else 'FAIL'}")
+    if not symmetric:
+        fail("gram's s2 is not exactly symmetric")
+    del s2
 
     L, N, Fd = x.shape
     g_ms = time_ms(lambda: gram_ops.gram(x))
     g_plain = time_ms(lambda: gram_ref.gram(x))
     g_lib = time_ms(lambda: torch.matmul(x.mT, x))
-    g_bound, g_by = bound_ms(2.0 * L * N * Fd * Fd,
+    # X^T X is symmetric: the function needs its upper triangle only,
+    # L N F (F + 1) operations, not the full product's 2 L N F^2
+    g_bound, g_by = bound_ms(1.0 * L * N * Fd * (Fd + 1),
                              4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
     print(f"  gram at {tuple(x.shape)} fp32: kernel {g_ms:.3f} ms, plain "
           f"{g_plain:.3f} ms, torch.matmul {g_lib:.3f} ms, bound "
@@ -249,10 +260,17 @@ def kernel_phase(dev):
                     rand(2, 130, 2, 64), True, None, 0.125, "GQA 8/2")
     check_attention(rand(1, 70, 4, 128), rand(1, 300, 4, 128),
                     rand(1, 300, 4, 128), True, None, 0.088, "T<S, d=128")
-    check_attention(rand(2, 100, 4, 64, dtype=torch.bfloat16),
-                    rand(2, 100, 4, 64, dtype=torch.bfloat16),
-                    rand(2, 100, 4, 64, dtype=torch.bfloat16), False, None,
-                    0.125, "bf16", tol=2e-2)
+    def rbf(*shape):
+        return rand(*shape, dtype=torch.bfloat16)
+
+    check_attention(rbf(2, 100, 4, 64), rbf(2, 100, 4, 64),
+                    rbf(2, 100, 4, 64), False, None, 0.125, "bf16", tol=2e-2)
+    # the tensor-core kernel at a ragged DeiT-like shape and with dq != dv
+    check_attention(rbf(B, T, H, 64), rbf(B, T, H, 64), rbf(B, T, H, 64),
+                    False, None, 0.125, f"bf16 T={T} full", tol=2e-2)
+    check_attention(rbf(2, 150, 4, 40), rbf(2, 150, 2, 40),
+                    rbf(2, 150, 2, 64), True, None, 40 ** -0.5,
+                    "bf16 dq=40 dv=64", tol=2e-2)
 
     # gram_cross off the main path, at one stated shape: DeiT-Base's
     # 16-image token batch against its d_ff and d_model columns
@@ -263,35 +281,35 @@ def kernel_phase(dev):
           "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
           "replaces": "src/repro/kernels/gram/gram.py:152",
           "launches": None, "max_abs_err": gc_err, "shape": [Nc, Fx, Fy],
-          "ms": time_ms(lambda: gram_ops.gram_cross(xc, yc)),
-          "plain_ms": time_ms(lambda: gram_ref.gram_cross(xc, yc)),
-          "library_ms": time_ms(lambda: torch.matmul(xc.mT, yc))}
+          "ms": device_ms(lambda: gram_ops.gram_cross(xc, yc)),
+          "plain_ms": device_ms(lambda: gram_ref.gram_cross(xc, yc)),
+          "library_ms": device_ms(lambda: torch.matmul(xc.mT, yc))}
     gc["bound_ms"], gc["bound_by"] = bound_ms(
         2.0 * Nc * Fx * Fy, 4.0 * (Nc * Fx + Nc * Fy + Fx * Fy + Fy))
-    print(f"  gram_cross at X {tuple(xc.shape)} Y {tuple(yc.shape)} fp32: "
-          f"kernel {gc['ms']:.3f} ms, plain {gc['plain_ms']:.3f} ms, "
-          f"torch.matmul {gc['library_ms']:.3f} ms, bound "
-          f"{gc['bound_ms']:.3f} ms ({gc['bound_by']})")
+    print(f"  gram_cross at X {tuple(xc.shape)} Y {tuple(yc.shape)} fp32, "
+          f"device time: kernel {gc['ms']:.4f} ms, plain "
+          f"{gc['plain_ms']:.4f} ms, torch.matmul {gc['library_ms']:.4f} ms, "
+          f"bound {gc['bound_ms']:.4f} ms ({gc['bound_by']})")
     del xc, yc
 
     dq, dq_pruned = list(mains)
     q, k, v, f_err = mains[dq]
-    f_ms = time_ms(lambda: flash_ops.attention(q, k, v, causal=False,
-                                               scale=scale))
-    f_plain = time_ms(lambda: flash_ref.attention(q, k, v, causal=False,
-                                                  scale=scale))
+    f_ms = device_ms(lambda: flash_ops.attention(q, k, v, causal=False,
+                                                 scale=scale))
+    f_plain = device_ms(lambda: flash_ref.attention(q, k, v, causal=False,
+                                                    scale=scale))
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    f_lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                           scale=scale))
+    f_lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                             scale=scale))
     f_bound, f_by = bound_ms(2.0 * B * H * T * T * (dq + dv),
                              4.0 * B * T * H * (2 * dq + 2 * dv))
     qp, kp, vp, _ = mains[dq_pruned]
-    fp_ms = time_ms(lambda: flash_ops.attention(qp, kp, vp, causal=False,
-                                                scale=scale))
-    print(f"  flash_attention at B={B} T=S={T} H={H} dq={dq} dv={dv} fp32: "
-          f"kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, SDPA "
-          f"{f_lib:.3f} ms, bound {f_bound:.4f} ms ({f_by}); "
-          f"dq={dq_pruned}: kernel {fp_ms:.3f} ms")
+    fp_ms = device_ms(lambda: flash_ops.attention(qp, kp, vp, causal=False,
+                                                  scale=scale))
+    print(f"  flash_attention at B={B} T=S={T} H={H} dq={dq} dv={dv} fp32, "
+          f"device time: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA "
+          f"{f_lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}); "
+          f"dq={dq_pruned}: kernel {fp_ms:.4f} ms")
     del mains, q, k, v, qt, kt, vt, qp, kp, vp
 
     return [
@@ -893,6 +911,9 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
+        elif "Compiling entry function" in line:
+            # the kernel's name and template arguments, mangled
+            print("  ptxas:", line.split("_cu_")[-1][8:].split("'")[0])
 
     rows = kernel_phase(dev)
     launches = {"prune": main_path_phase(dev)}

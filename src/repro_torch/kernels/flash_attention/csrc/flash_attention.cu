@@ -1,27 +1,68 @@
-// Forward online-softmax attention for Hopper.
+// Forward online-softmax attention for Hopper: a tensor-core kernel for
+// bf16 and a CUDA-core kernel for fp32.
 //
-// Replaces the Pallas TPU kernel flash_attention (_flash_kernel) in
-// src/repro/kernels/flash_attention/flash_attention.py. Inputs
-// q (B,T,H,dq), k (B,S,Hkv,dq), v (B,S,Hkv,dv) are read through their
-// strides (no transposes); the output o (B,T,H,dv) has q's dtype. Query head
+// Replaces the Pallas TPU kernel flash_attention (_flash_kernel,
+// src/repro/kernels/flash_attention/flash_attention.py:26, reached through
+// pl.pallas_call at :94 from flash_attention at :73). Inputs q (B,T,H,dq),
+// k (B,S,Hkv,dq), v (B,S,Hkv,dv) are read through their strides (no
+// transposes, no copies); the output o (B,T,H,dv) has q's dtype. Query head
 // h reads kv head h / (H / Hkv) (GQA). Masks: causal with right-aligned
 // queries (query row t sits at absolute position t + S - T), an optional
 // sliding window, or none. Masked logits are -1e30 and the denominator is
-// floored at 1e-30, exactly as flash_attention.py:55-68; keys past the
+// floored at 1e-30, exactly as flash_attention.py:53,67; keys past the
 // ragged end of S get zero weight, and query rows past T are not written.
+// Both kernels compute the softmax in base 2, with scale * log2(e) folded
+// into the logits.
 //
-// Bound on an H100: DeiT-Base at B = 16 is 2 B H T S (dq + dv) = 1.9 GFLOP
-// per layer against 39 MB of q, k, v and o, so fp32 work on the CUDA cores
-// (67 TFLOP/s at 700 W: 28 us) and bytes (3.35 TB/s: 12 us) are of one
-// order; the kernel is bound by operations. Design: one block per
-// (query tile of 64, head, batch); K and V tiles of 64 rows are staged in
-// shared memory, the 64 x 64 logit tile goes through shared memory, and the
-// running max, denominator and the (64, dv) accumulator stay fp32 (the
-// accumulator in registers, 4 threads per query row). kv tiles that the
-// causal or window mask hides from every row of the query tile are skipped,
-// as ops.py:112-118 does. Shared memory is dynamic (up to 114 KB at
-// d = 128, above the 48 KB static limit). Later work: tensor-core (wgmma)
-// products and TMA loads.
+// Bounds on an H100 at 700 W, at the shapes the port's paths give it:
+//   DeiT-Base, B = 16, T = S = 197, H = 12, d = 64, fp32: 2 B H T S (dq + dv)
+//   = 1.9 GFLOP against 39 MB, bound by operations on the CUDA cores
+//   (67 TFLOP/s: 28 us).
+//   Qwen2-1.5B prefill, B = 1, T = S = 512, causal, GQA 12/2, d = 128, bf16:
+//   0.81 GFLOP on the tensor cores (0.8 us at 989 TFLOP/s) against 3.7 MB
+//   (1.1 us at 3.35 TB/s), bound by bytes; in practice by the latency of
+//   the longest causal query tile (8 kv tiles on one SM).
+//
+// bf16, flash_fwd_bf16 (FlashAttention-2 structure): Q K^T and P V run on
+// the tensor cores, mma.sync.m16n8k16 (bf16 in, fp32 accumulate), with
+// operands brought from shared memory by ldmatrix (ldmatrix.trans for V).
+// A block of 8 warps owns a 64-row query tile: warp w holds rows
+// 16 (w % 4) .. + 16 and every other kv tile of the block's range (w / 4
+// picks which), so the longest causal tile walks its 8 kv tiles of the
+// Qwen2 prefill in 4 steps; the two halves merge their (max, sum,
+// accumulator) through shared memory at the end. The running max, the
+// per-thread partial sums and the (16, dv) O accumulator stay in
+// registers; row reductions are quad shuffles. P goes from the S
+// accumulator fragment straight into the A fragment of the P V product,
+// rounded to bf16 (the Pallas kernel multiplies P V in fp32: a deliberate
+// difference, inside the bf16 gate). K/V tiles of 64 rows move through a
+// ring of 4 stages (the pair being computed, the next pair in flight) of
+// 16-byte cp.async copies, one __syncthreads a pair; rows past S are
+// zero-filled. Head dims are compile-time (dq padded to 32, 64 or 128, dv
+// to 64 or 128, zeros in shared memory), so no loop over them branches
+// and ptxas can overlap the ldmatrix loads with the products; rows are
+// padded by 16 bytes so that ldmatrix is free of bank conflicts.
+//
+// fp32, flash_fwd_f32: no tensor cores (TF32 would break the 1e-4 gate). A
+// block of 8 warps owns a 64-row query tile, each warp 8 rows, so that at
+// T = 197 the last tile (5 rows) costs one warp of eight. Q, K and V are
+// staged row-major by a two-stage cp.async ring, one __syncthreads a tile.
+// Each lane owns a 4 x 4 logit micro-tile (4 rows, keys lane + 16 j) and
+// reads Q and K as float4 along d (K's row pitch keeps the 8 lanes of a
+// phase on distinct banks); the softmax runs in registers with 16-lane
+// shuffles; P goes through a per-warp 64 x 8 buffer (no block barrier),
+// and each lane owns a 4-row by (4 columns every 64) micro-tile of O,
+// reading V as float4. Head dims are compile-time as in the bf16 kernel.
+//
+// Both: query tiles are scheduled heaviest first under the causal mask
+// (reverse blockIdx.x); kv tiles that the causal or window mask hides from
+// every row of the block are skipped (ops.py:112-118), a warp skips those it
+// hides from all of its rows and those of a warp whose rows all lie past T,
+// and the mask is evaluated only on tiles that cross the diagonal, the
+// window edge or the end of S. Inputs whose last stride is not 1 or whose
+// rows are not 16-byte aligned are loaded element by element by the same
+// kernels (a flag per tensor from the wrapper). Next step where the bf16
+// kernel still loses to SDPA: wgmma on TMA-loaded tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,237 +70,637 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 256;
+typedef __nv_bfloat16 bf16;
+
+constexpr int BQ = 64;            // query rows of a block
+constexpr int BKV = 64;           // keys of a kv tile
 constexpr int DMAX = 128;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   int64_t qb, qt, qh, qd, kb, kt, kh, kd, vb, vt, vh, vd, ob, ot, oh, od;
 };
 
-inline size_t smem_bytes(int dq, int dv) {
-  return sizeof(float) * (size_t)(BQ * (dq + 1) + BKV * (dq + 1) +
-                                  BKV * (dv + 1) + BQ * (BKV + 1) + 3 * BQ);
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int t_len, s_len, n_heads, n_kv, dq, dv;
+  float scale_log2;
+  int causal, use_window, window, vec;
+  Strides st;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int t_len,
-                 int s_len, int n_heads, int n_kv, int dq, int dv, float scale,
-                 int causal, int use_window, int window, Strides st) {
-  extern __shared__ float smem[];
-  const int ldq = dq + 1, ldv = dv + 1, ldp = BKV + 1;
-  float* qs = smem;                    // (BQ, dq)
-  float* ks = qs + BQ * ldq;           // (BKV, dq)
-  float* vs = ks + BKV * ldq;          // (BKV, dv)
-  float* ps = vs + BKV * ldv;          // (BQ, BKV) logits, then weights
-  float* m_s = ps + BQ * ldp;          // running max
-  float* l_s = m_s + BQ;               // running denominator
-  float* c_s = l_s + BQ;               // this tile's rescale factor
+// 16 bytes global -> shared; bytes < 16 reads that many and zero-fills the
+// rest (0: the chunk is all zeros)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (n_heads / n_kv);
-  const int off = s_len - t_len;
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ bf16 zero<bf16>() {
+  return __float2bfloat16(0.f);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
 
-  const T* qp = q + b * st.qb + h * st.qh;
-  const T* kp = k + b * st.kb + hk * st.kh;
-  const T* vp = v + b * st.vb + hk * st.vh;
-
-  for (int e = tid; e < BQ * dq; e += THREADS) {
-    const int r = e / dq, d = e % dq;
-    qs[r * ldq + d] =
-        (q0 + r < t_len) ? to_f32(qp[(q0 + r) * st.qt + d * st.qd]) : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-
-  // logit tile: thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-  const int ty = tid / 16, tx = tid % 16;
-  // row statistics and P V: 4 threads per query row
-  const int row = tid / 4, part = tid % 4;
-  float acc[DMAX / 4];
+// Rows [r0, r0 + ROWS) of a (len, d) slice (row stride sr, element stride
+// sd) into dst (ROWS x ld), columns [0, DPAD): zero past d and past len.
+// vec: 16-byte cp.async chunks (sd == 1, rows 16-byte aligned), each thread
+// one column of chunks; else element loads by the same threads.
+template <typename T, int ROWS, int THREADS, int DPAD>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* p,
+                                          int64_t sr, int64_t sd, int r0,
+                                          int len, int d, bool vec, int tid) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    constexpr int CPR = DPAD / E;               // chunks per row
+    constexpr int STEP = THREADS / CPR;         // rows a pass covers
+    static_assert(THREADS % CPR == 0 && ROWS % STEP == 0, "tile shape");
+    const int col = (tid % CPR) * E;
+    const int bytes = col < d ? min(d - col, E) * static_cast<int>(sizeof(T))
+                              : 0;
 #pragma unroll
-  for (int j = 0; j < DMAX / 4; ++j) acc[j] = 0.f;
-
-  // absolute positions of the tile's first and last real query rows
-  const int qpos_lo = q0 + off;
-  const int qpos_hi = min(q0 + BQ, t_len) - 1 + off;
-
-  for (int k0 = 0; k0 < s_len; k0 += BKV) {
-    const int kpos_hi = min(k0 + BKV, s_len) - 1;
-    if (causal && k0 > qpos_hi) break;            // every later tile too
-    if (use_window && kpos_hi <= qpos_lo - window) continue;
-
-    __syncthreads();   // previous tile's ks, vs, ps are consumed
-    for (int e = tid; e < BKV * dq; e += THREADS) {
-      const int r = e / dq, d = e % dq;
-      ks[r * ldq + d] =
-          (k0 + r < s_len) ? to_f32(kp[(k0 + r) * st.kt + d * st.kd]) : 0.f;
+    for (int it = 0; it < ROWS / STEP; ++it) {
+      const int r = tid / CPR + it * STEP;
+      const int row = r0 + r;
+      const bool in = row < len && bytes > 0;
+      cp_async16(dst + r * ld + col, in ? p + row * sr + col : p,
+                 in ? bytes : 0);
     }
-    for (int e = tid; e < BKV * dv; e += THREADS) {
-      const int r = e / dv, d = e % dv;
-      vs[r * ldv + d] =
-          (k0 + r < s_len) ? to_f32(vp[(k0 + r) * st.vt + d * st.vd]) : 0.f;
+  } else {
+    static_assert(ROWS * DPAD % THREADS == 0, "tile shape");
+#pragma unroll 4
+    for (int it = 0; it < ROWS * DPAD / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int r = e / DPAD, col = e % DPAD;
+      const int row = r0 + r;
+      dst[r * ld + col] =
+          (row < len && col < d) ? p[row * sr + col * sd] : zero<T>();
     }
-    __syncthreads();
+  }
+}
 
-    {
-      float s[4][4];
+// The kv tiles [begin, end) that some row of query positions
+// [pos_lo, pos_hi] may see; tiles outside hold only masked keys.
+struct KvRange {
+  int begin, end;
+};
+__device__ __forceinline__ KvRange kv_range(int pos_lo, int pos_hi,
+                                            int s_len, int causal,
+                                            int use_window, int window) {
+  const int nkv = (s_len + BKV - 1) / BKV;
+  KvRange r{0, nkv};
+  if (causal) r.end = pos_hi < 0 ? 0 : min(nkv, pos_hi / BKV + 1);
+  if (use_window) {                  // first tile holding a key > e
+    const int e = pos_lo - window;
+    r.begin = e < 0 ? 0 : (e + 1 >= s_len ? nkv : (e + 1) / BKV);
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------- bf16 --
+
+// 8 warps: warp w owns query rows 16 (w % 4) .. + 16 of the block's 64 and
+// every other kv tile (w / 4 picks which), so that the longest causal
+// block walks its kv range in half the steps; the two halves merge at the
+// end.
+constexpr int TC_WARPS = 8;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// DQ, DV: the head dims rounded up to 32/64/128 (64/128 for dv); shared
+// memory holds zeros past the real dims, so every loop has a fixed count.
+// Rows are padded by 16 bytes: ldmatrix's 8 rows fall on distinct banks.
+// The ring holds two pairs of kv tiles: one pair computed, one loading.
+template <int DQ, int DV>
+struct TcShape {
+  static constexpr int LDQ = DQ + 8, LDV = DV + 8;
+  static constexpr int STAGE = BKV * (LDQ + LDV);
+  static constexpr size_t SMEM = sizeof(bf16) * (BQ * LDQ + 4 * STAGE);
+  // the merge of the two kv halves reuses the ring: per thread DV / 2
+  // accumulators, two maxima and two partial sums
+  static_assert(4 * 32 * (DV / 2 + 4) * sizeof(float) <=
+                    4 * STAGE * sizeof(bf16), "merge fits the ring");
+};
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
+  using Sh = TcShape<DQ, DV>;
+  constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // (BQ, LDQ)
+  bf16* ring = qs + BQ * LDQ;       // 4 stages of K (BKV, LDQ), V (BKV, LDV)
+  const Strides& st = p.st;
+  const int t_len = p.t_len, s_len = p.s_len;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = warp & 3, half = warp >> 2;           // row group, kv half
+  const int g = lane >> 2, tq = lane & 3;              // mma fragment coords
+  const int qtile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qtile * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.n_heads / p.n_kv);
+  const int off = s_len - t_len;
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * st.qb + h * st.qh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * st.kb + hk * st.kh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * st.vb + hk * st.vh;
+
+  const KvRange blk = kv_range(q0 + off, min(q0 + BQ, t_len) - 1 + off,
+                               s_len, p.causal, p.use_window, p.window);
+  // this warp's rows: [w0, w0 + 16) of the query axis
+  const int w0 = q0 + 16 * rg;
+  const bool active = w0 < t_len;
+  const int wpos_lo = w0 + off, wpos_hi = min(w0 + 16, t_len) - 1 + off;
+  // a warp may skip a tile only when each of its rows sees some key
+  // elsewhere (its own position): then the skipped keys weigh exactly 0
+  const KvRange wr = wpos_lo >= 0 ? kv_range(wpos_lo, wpos_hi, s_len,
+                                             p.causal, p.use_window, p.window)
+                                  : blk;
+
+  // pair i of the block's kv tiles (blk.begin + 2 i, + 1) into stages
+  // 2 (i % 2) and 2 (i % 2) + 1
+  auto issue = [&](int i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = blk.begin + 2 * i + e;
+      if (j >= blk.end) break;
+      bf16* dst = ring + (2 * (i & 1) + e) * Sh::STAGE;
+      load_tile<bf16, BKV, TC_THREADS, DQ>(dst, LDQ, kp, st.kt, st.kd,
+                                           j * BKV, s_len, p.dq, p.vec & 2,
+                                           tid);
+      load_tile<bf16, BKV, TC_THREADS, DV>(dst + BKV * LDQ, LDV, vp, st.vt,
+                                           st.vd, j * BKV, s_len, p.dv,
+                                           p.vec & 4, tid);
+    }
+  };
+  load_tile<bf16, BQ, TC_THREADS, DQ>(qs, LDQ, qp, st.qt, st.qd, q0, t_len,
+                                      p.dq, p.vec & 1, tid);
+  issue(0);
+  cp_async_commit();
+
+  uint32_t qf[DQ / 16][4];
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};   // rows g and g + 8 of the warp
+  float l_r[2] = {0.f, 0.f};           // this thread's part of the sums
+  const int mi = lane >> 3;     // the ldmatrix matrix this lane addresses
+
+  const int pairs = (blk.end - blk.begin + 1) / 2;
+  for (int i = 0; i < pairs; ++i) {
+    cp_async_wait_all();
+    __syncthreads();   // pair i is in; every warp is done with pair i - 1
+    if (i == 0 && active) {
+#pragma unroll
+      for (int kk = 0; kk < DQ / 16; ++kk)
+        ldmatrix_x4(qf[kk], qs + (16 * rg + (lane & 15)) * LDQ + kk * 16 +
+                                ((lane >> 4) << 3));
+    }
+    if (i + 1 < pairs) issue(i + 1);
+    cp_async_commit();
+    const int j = blk.begin + 2 * i + half;
+    if (!active || j >= blk.end || j < wr.begin || j >= wr.end) continue;
+
+    const bf16* ks = ring + (2 * (i & 1) + half) * Sh::STAGE;
+    const bf16* vs = ks + BKV * LDQ;
+    const int k0 = j * BKV;
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DQ / 16; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, ks + (n2 * 16 + ((mi >> 1) << 3) + (lane & 7)) * LDQ +
+                            kk * 16 + ((mi & 1) << 3));
+        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    const bool need_mask = k0 + BKV > s_len ||
+                           (p.causal && k0 + BKV - 1 > wpos_lo) ||
+                           (p.use_window && k0 <= wpos_hi - p.window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * p.scale_log2;
+        if (need_mask) {
+          const int key = k0 + n * 8 + 2 * tq + (e & 1);
+          const int pos = w0 + g + ((e >> 1) << 3) + off;
+          if (key >= s_len)
+            x = -INFINITY;                        // not a key: no weight
+          else if ((p.causal && key > pos) ||
+                   (p.use_window && key <= pos - p.window))
+            x = NEG_INF;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(s[n][e] - m_r[e >> 1]);
+        s[n][e] = pe;
+        l_r[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {           // 16 keys at a time
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < DV / 16; ++n2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + ((mi & 1) << 3) + (lane & 7)) *
+                                       LDV + n2 * 16 + ((mi >> 1) << 3));
+        mma_bf16(acc[2 * n2], pa, bv[0], bv[1]);
+        mma_bf16(acc[2 * n2 + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // merge the odd tiles' half into the even tiles' half, row by row:
+  // m = max(m0, m1), each side rescaled by exp2(m_side - m)
+  cp_async_wait_all();   // nothing left in flight when no tile ran
+  __syncthreads();       // the ring is free
+  float* xchg = reinterpret_cast<float*>(ring) + (rg * 32 + lane);
+  constexpr int XS = 4 * 32;            // stride between a thread's values
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xchg[(4 * n + e) * XS] = acc[n][e];
+    xchg[(DV / 2) * XS] = m_r[0];
+    xchg[(DV / 2 + 1) * XS] = m_r[1];
+    xchg[(DV / 2 + 2) * XS] = l_r[0];
+    xchg[(DV / 2 + 3) * XS] = l_r[1];
+  }
+  __syncthreads();
+  if (half == 1 || !active) return;
+  float c0[2], c1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = xchg[(DV / 2 + r) * XS];
+    const float m = fmaxf(m_r[r], m1);
+    c0[r] = exp2f(m_r[r] - m);
+    c1[r] = exp2f(m1 - m);
+    l_r[r] = l_r[r] * c0[r] + xchg[(DV / 2 + 2 + r) * XS] * c1[r];
+  }
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = acc[n][e] * c0[e >> 1] + xchg[(4 * n + e) * XS] * c1[e >> 1];
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = w0 + g + 8 * r;
+    if (row >= t_len) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    bf16* op = static_cast<bf16*>(p.o) + b * st.ob + row * st.ot + h * st.oh;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const int c = n * 8 + 2 * tq;
+      if (c < p.dv) store(op + c * st.od, acc[n][2 * r] / denom);
+      if (c + 1 < p.dv) store(op + (c + 1) * st.od, acc[n][2 * r + 1] / denom);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- fp32 --
+
+constexpr int F_WARPS = 8;        // 8 query rows each
+constexpr int F_THREADS = 32 * F_WARPS;
+constexpr int F_ROWS = BQ / F_WARPS;
+
+// Row pitch of Q and K: DQ plus 4, so that the pitch is 4 times an odd
+// number of words and 8 lanes reading float4 at 8 rows hit distinct banks.
+// V's rows hold DV (lanes read 4 columns every 64).
+template <int DQ, int DV>
+struct FShape {
+  static constexpr int LDQ = DQ + 4, LDV = DV;
+  static constexpr int STAGE = BKV * (LDQ + LDV);
+  static constexpr size_t SMEM =
+      sizeof(float) * (BQ * LDQ + 2 * STAGE + F_WARPS * BKV * F_ROWS);
+};
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
+  using Sh = FShape<DQ, DV>;
+  constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);      // (BQ, LDQ)
+  float* ring = qs + BQ * LDQ;      // 2 stages of K (BKV, LDQ), V (BKV, LDV)
+  const Strides& st = p.st;
+  const int t_len = p.t_len, s_len = p.s_len;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ry = lane >> 4, cx = lane & 15;
+  const int qtile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qtile * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.n_heads / p.n_kv);
+  const int off = s_len - t_len;
+  const float* qp = static_cast<const float*>(p.q) + b * st.qb + h * st.qh;
+  const float* kp = static_cast<const float*>(p.k) + b * st.kb + hk * st.kh;
+  const float* vp = static_cast<const float*>(p.v) + b * st.vb + hk * st.vh;
+  float* pw = ring + 2 * Sh::STAGE + warp * BKV * F_ROWS;   // (BKV, 8)
+
+  const KvRange blk = kv_range(q0 + off, min(q0 + BQ, t_len) - 1 + off,
+                               s_len, p.causal, p.use_window, p.window);
+  const int w0 = q0 + F_ROWS * warp;          // this warp's first row
+  const bool active = w0 < t_len;
+  const int wpos_lo = w0 + off, wpos_hi = min(w0 + F_ROWS, t_len) - 1 + off;
+  const KvRange wr = wpos_lo >= 0 ? kv_range(wpos_lo, wpos_hi, s_len,
+                                             p.causal, p.use_window, p.window)
+                                  : blk;
+
+  auto issue = [&](int j, float* dst) {
+    const int k0 = j * BKV;
+    load_tile<float, BKV, F_THREADS, DQ>(dst, LDQ, kp, st.kt, st.kd, k0,
+                                         s_len, p.dq, p.vec & 2, tid);
+    load_tile<float, BKV, F_THREADS, DV>(dst + BKV * LDQ, LDV, vp, st.vt,
+                                         st.vd, k0, s_len, p.dv, p.vec & 4,
+                                         tid);
+  };
+  load_tile<float, BQ, F_THREADS, DQ>(qs, LDQ, qp, st.qt, st.qd, q0, t_len,
+                                      p.dq, p.vec & 1, tid);
+  if (blk.begin < blk.end) issue(blk.begin, ring);
+  cp_async_commit();
+
+  // lane (ry, cx): rows 4 ry + i of the warp's 8; logits of keys cx + 16 j;
+  // O columns 64 c + 4 cx + e
+  float acc[4][DV / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DV / 16; ++c) acc[i][c] = 0.f;
+  float m_r[4], l_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_r[i] = NEG_INF;
+    l_r[i] = 0.f;
+  }
+  const float* qrow = qs + (F_ROWS * warp + 4 * ry) * LDQ;
+
+  for (int j = blk.begin; j < blk.end; ++j) {
+    const int it = j - blk.begin;
+    cp_async_wait_all();
+    __syncthreads();   // tile j is in; every warp is done with tile j - 1
+    if (j + 1 < blk.end) issue(j + 1, ring + ((it + 1) & 1) * Sh::STAGE);
+    cp_async_commit();
+    if (!active || j < wr.begin || j >= wr.end) continue;
+
+    const float* ks = ring + (it & 1) * Sh::STAGE;
+    const float* vs = ks + BKV * LDQ;
+    const int k0 = j * BKV;
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+    const float* krow = ks + cx * LDQ;
+#pragma unroll 4
+    for (int d = 0; d < DQ; d += 4) {
+      float4 a[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qrow + i * LDQ + d);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        c[jj] = *reinterpret_cast<const float4*>(krow + 16 * jj * LDQ + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      for (int d = 0; d < dq; ++d) {
-        float a[4], c[4];
+        for (int jj = 0; jj < 4; ++jj) {
+          float t = s[i][jj];
+          t = fmaf(a[i].x, c[jj].x, t);
+          t = fmaf(a[i].y, c[jj].y, t);
+          t = fmaf(a[i].z, c[jj].z, t);
+          s[i][jj] = fmaf(a[i].w, c[jj].w, t);
+        }
+    }
+
+    const bool need_mask = k0 + BKV > s_len ||
+                           (p.causal && k0 + BKV - 1 > wpos_lo) ||
+                           (p.use_window && k0 <= wpos_hi - p.window);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * ldq + d];
+    for (int i = 0; i < 4; ++i) {
+      float mx = m_r[i];
+      const int pos = w0 + 4 * ry + i + off;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * ldq + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = s[i][jj] * p.scale_log2;
+        if (need_mask) {
+          const int key = k0 + cx + 16 * jj;
+          if (key >= s_len)
+            x = -INFINITY;
+          else if ((p.causal && key > pos) ||
+                   (p.use_window && key <= pos - p.window))
+            x = NEG_INF;
+        }
+        s[i][jj] = x;
+        mx = fmaxf(mx, x);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const int qpos = q0 + r + off;
+      for (int sh = 1; sh < 16; sh <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float corr = exp2f(m_r[i] - mx);
+      m_r[i] = mx;
+      l_r[i] *= corr;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const int kpos = k0 + c;
-          float val = s[i][j] * scale;
-          if (kpos >= s_len) {
-            val = -INFINITY;                       // not a key: no weight
-          } else if ((causal && kpos > qpos) ||
-                     (use_window && kpos <= qpos - window)) {
-            val = NEG_INF;
-          }
-          ps[r * ldp + c] = val;
+      for (int c = 0; c < DV / 16; ++c) acc[i][c] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float pe = exp2f(s[i][jj] - mx);
+        s[i][jj] = pe;
+        l_r[i] += pe;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      *reinterpret_cast<float4*>(pw + (cx + 16 * jj) * F_ROWS + 4 * ry) =
+          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+    __syncwarp();
+
+    const int kv_n = min(BKV, s_len - k0);     // rows past S weigh 0
+#pragma unroll 4
+    for (int kk = 0; kk < kv_n; ++kk) {
+      const float4 pv = *reinterpret_cast<const float4*>(pw + kk * F_ROWS +
+                                                         4 * ry);
+      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int c = 0; c < DV / 64; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            vs + kk * LDV + 64 * c + 4 * cx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][4 * c] = fmaf(pr[i], vv.x, acc[i][4 * c]);
+          acc[i][4 * c + 1] = fmaf(pr[i], vv.y, acc[i][4 * c + 1]);
+          acc[i][4 * c + 2] = fmaf(pr[i], vv.z, acc[i][4 * c + 2]);
+          acc[i][4 * c + 3] = fmaf(pr[i], vv.w, acc[i][4 * c + 3]);
         }
       }
     }
-    __syncthreads();
-
-    {
-      const float m_prev = m_s[row];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = part; c < BKV; c += 4) mx = fmaxf(mx, ps[row * ldp + c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = part; c < BKV; c += 4) {
-        const float p = expf(ps[row * ldp + c] - m_new);
-        ps[row * ldp + c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[row] = l_s[row] * corr + sum;
-        m_s[row] = m_new;
-        c_s[row] = corr;
-      }
-    }
-    __syncthreads();
-
-    {
-      const float corr = c_s[row];
-#pragma unroll
-      for (int j = 0; j < DMAX / 4; ++j) acc[j] *= corr;
-      for (int kk = 0; kk < BKV; ++kk) {
-        const float p = ps[row * ldp + kk];
-        const float* vrow = vs + kk * ldv;
-#pragma unroll
-        for (int j = 0; j < DMAX / 4; ++j) {
-          const int c = part + 4 * j;
-          if (c < dv) acc[j] = fmaf(p, vrow[c], acc[j]);
-        }
-      }
-    }
+    __syncwarp();      // pw is read before the next tile writes it
   }
 
-  __syncthreads();   // l_s is final (also when every kv tile was skipped)
-  if (q0 + row < t_len) {
-    const float denom = fmaxf(l_s[row], 1e-30f);
-    T* op = o + b * st.ob + (q0 + row) * st.ot + h * st.oh;
+  cp_async_wait_all();   // nothing left in flight when no tile ran
+  if (!active) return;
 #pragma unroll
-    for (int j = 0; j < DMAX / 4; ++j) {
-      const int c = part + 4 * j;
-      if (c < dv) op[c * st.od] = from_f32<T>(acc[j] / denom);
-    }
+  for (int i = 0; i < 4; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int sh = 1; sh < 16; sh <<= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, sh);
+    const int row = w0 + 4 * ry + i;
+    if (row >= t_len) continue;
+    const float denom = fmaxf(l, 1e-30f);
+    float* op = static_cast<float*>(p.o) + b * st.ob + row * st.ot +
+                h * st.oh;
+#pragma unroll
+    for (int c = 0; c < DV / 64; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 64 * c + 4 * cx + e;
+        if (col < p.dv) op[col * st.od] = acc[i][4 * c + e] / denom;
+      }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int t_len, int s_len, int n_heads, int n_kv, int dq, int dv,
-           float scale, int causal, int use_window, int window,
-           const Strides& st, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dq, dv);
+template <typename K>
+int launch(K kernel, size_t smem, int threads, int b, const Params& p,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((t_len + BQ - 1) / BQ, n_heads, b);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, s_len, n_heads,
-      n_kv, dq, dv, scale, causal, use_window, window, st);
+  dim3 grid((p.t_len + BQ - 1) / BQ, p.n_heads, b);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// dv rounded up to 64 or 128; bf16 (dtype 1) takes the tensor-core kernel
+template <int DQ>
+int launch_dq(int dtype, int b, const Params& p, cudaStream_t s) {
+  if (dtype == 1)
+    return p.dv <= 64
+        ? launch(flash_fwd_bf16<DQ, 64>, TcShape<DQ, 64>::SMEM, TC_THREADS,
+                 b, p, s)
+        : launch(flash_fwd_bf16<DQ, 128>, TcShape<DQ, 128>::SMEM, TC_THREADS,
+                 b, p, s);
+  return p.dv <= 64
+      ? launch(flash_fwd_f32<DQ, 64>, FShape<DQ, 64>::SMEM, F_THREADS, b, p,
+               s)
+      : launch(flash_fwd_f32<DQ, 128>, FShape<DQ, 128>::SMEM, F_THREADS, b,
+               p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). strides: 16
-// int64 element strides, (b, t, h, d) of q, k, v, o in that order.
-// Requires dq, dv <= 128 and n_heads % n_kv == 0 (the wrapper checks).
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
+// q, k, v and o alike. strides: 16 int64 element strides, (b, t, h, d) of q,
+// k, v, o in that order. vec: bit 0, 1, 2 set when q, k, v may be copied 16
+// bytes at a time (last stride 1, other strides and the base 16-byte
+// aligned); others are loaded element by element. Requires 1 <= dq, dv <=
+// 128 and n_heads % n_kv == 0 (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                          const void* k, const void* v,
                                          void* o, int b, int t_len, int s_len,
                                          int n_heads, int n_kv, int dq, int dv,
                                          float scale, int causal,
-                                         int use_window, int window,
+                                         int use_window, int window, int vec,
                                          const void* strides, void* stream) {
   if (dq > DMAX || dv > DMAX || dq < 1 || dv < 1 || n_kv < 1 ||
-      n_heads % n_kv != 0)
+      n_heads % n_kv != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* s = static_cast<const int64_t*>(strides);
-  const Strides st{s[0], s[1], s[2],  s[3],  s[4],  s[5],  s[6],  s[7],
-                   s[8], s[9], s[10], s[11], s[12], s[13], s[14], s[15]};
+  const Params p{q, k, v, o, t_len, s_len, n_heads, n_kv, dq, dv,
+                 scale * LOG2E, causal, use_window, window, vec,
+                 Strides{s[0], s[1], s[2],  s[3],  s[4],  s[5],  s[6],  s[7],
+                         s[8], s[9], s[10], s[11], s[12], s[13], s[14],
+                         s[15]}};
   auto str = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, o, b, t_len, s_len, n_heads, n_kv, dq, dv,
-                         scale, causal, use_window, window, st, str);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, b, t_len, s_len, n_heads, n_kv,
-                                 dq, dv, scale, causal, use_window, window, st,
-                                 str);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dq <= 32) return launch_dq<32>(dtype, b, p, str);
+  if (dq <= 64) return launch_dq<64>(dtype, b, p, str);
+  return launch_dq<128>(dtype, b, p, str);
 }

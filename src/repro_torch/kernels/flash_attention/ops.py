@@ -3,9 +3,12 @@
 Replaces ``repro.kernels.flash_attention.ops.attention`` (Pallas TPU kernel
 ``flash_attention.py:73``). On a CUDA tensor the wrapper launches the
 hand-written kernel in ``csrc/flash_attention.cu`` or raises; only a CPU
-tensor takes the plain version in ``ref.py``. The kernel reads the
-(B, T, H, d) layout through strides, masks ragged T and S itself, and takes
-dq != dv and head dims up to 128.
+tensor takes the plain version in ``ref.py``. bf16 inputs run the
+tensor-core kernel (``mma.sync``), fp32 inputs the CUDA-core kernel; both
+read the (B, T, H, d) layout through strides, mask ragged T and S
+themselves, and take dq != dv and head dims up to 128. A tensor whose rows
+cannot be copied 16 bytes at a time is read element by element by the same
+kernel: the wrapper makes no copies.
 """
 from __future__ import annotations
 
@@ -22,7 +25,18 @@ launches = 0            # kernel launches in this process (chip_smoke reads it)
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+
+
+def rows16(t: torch.Tensor) -> bool:
+    """Whether the kernel may copy ``t``'s rows 16 bytes at a time: unit
+    last stride, every other stride (of a dim longer than 1) and the base
+    address 16-byte aligned."""
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and (t.shape[-1] == 1 or t.stride(-1) == 1)
+            and all(n == 1 or s % per == 0
+                    for n, s in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 def attention(q, k, v, *, causal: bool = True, window=None, scale=None):
@@ -66,7 +80,9 @@ def attention(q, k, v, *, causal: bool = True, window=None, scale=None):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), B, T, S, H, Hkv, dq, dv, float(scale),
                  int(causal), int(window is not None),
-                 int(window or 0), ctypes.addressof(strides), stream)
+                 int(window or 0),
+                 sum(rows16(t) << i for i, t in enumerate((q, k, v))),
+                 ctypes.addressof(strides), stream)
         _build.check(err, "flash_attention")
         launches += 1
     return o

@@ -34,7 +34,7 @@ def dev():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("shape", [(394, 192), (1000, 40), (2, 129, 300),
-                                   (1, 7, 1)])
+                                   (1, 7, 1), (500, 37), (2, 300, 130)])
 def test_gram_kernel_matches_plain(dev, shape, dtype, tol):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -60,25 +60,104 @@ def test_gram_cross_kernel_reads_strided_inputs(dev):
     torch.testing.assert_close(got["s1"], want["s1"], rtol=1e-5, atol=1e-4)
 
 
+def test_gram_kernel_output_is_exactly_symmetric(dev):
+    """Only the upper triangle of tiles runs; the lower one is written from
+    the same registers, so s2 equals its transpose bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 700, 300, generator=g, device=dev).to(dtype)
+        before = gram_ops.launches
+        s2 = gram_ops.gram(x)["s2"]
+        assert gram_ops.launches == before + 1
+        assert torch.equal(s2, s2.mT)
+
+
+def test_gram_kernel_reads_an_unaligned_view(dev):
+    """x[:, 1:] starts 4 bytes into its storage: no 16-byte copies."""
+    base = torch.randn(600, 257, device=dev)
+    x = base[:, 1:]
+    before = gram_ops.launches
+    got = gram_ops.gram(x)
+    assert gram_ops.launches == before + 1
+    want = gram_ref.gram(x)
+    rel = (got["s2"] - want["s2"]).abs().max() / want["s2"].abs().max()
+    assert rel <= 1e-5
+    torch.testing.assert_close(got["s1"], x.double().sum(dim=0).float(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_gram_cross_kernel_layer_stacked(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(3, 300, 130, generator=g, device=dev)
+    y = torch.randn(3, 300, 70, generator=g, device=dev)
+    before = gram_ops.launches
+    got = gram_ops.gram_cross(x, y)
+    assert gram_ops.launches == before + 1
+    want = gram_ref.gram_cross(x, y)
+    assert got["s2"].shape == (3, 130, 70) and got["s1"].shape == (3, 70)
+    torch.testing.assert_close(got["s2"], want["s2"], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got["s1"], y.double().sum(dim=1).float(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
+                scale=0.125, offset=0):
+    """Kernel vs plain on seeded inputs; ``offset`` > 0 makes q, k, v views
+    that start that many elements into their storage."""
+    g = torch.Generator(device=dev).manual_seed(T * 1000 + dq)
+
+    def rand(*shape):
+        full = torch.randn(*shape[:-1], shape[-1] + offset, generator=g,
+                           device=dev).to(dtype)
+        return full[..., offset:]
+
+    q, k, v = rand(B, T, H, dq), rand(B, S, Hkv, dq), rand(B, S, Hkv, dv)
+    before = flash_ops.launches
+    got = flash_ops.attention(q, k, v, causal=causal, window=window,
+                              scale=scale)
+    want = flash_ref.attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, T, H, dv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("B,T,S,H,Hkv,dq,dv,causal,window", [
     (2, 197, 197, 12, 12, 64, 64, False, None),
     (2, 197, 197, 12, 12, 32, 64, False, None),
     (1, 130, 130, 8, 2, 64, 64, True, None),
     (1, 200, 200, 4, 4, 32, 48, True, 37),
     (1, 50, 260, 2, 1, 128, 128, True, None),
+    (1, 90, 90, 3, 3, 40, 24, False, None),
 ])
 def test_flash_kernel_matches_plain(dev, B, T, S, H, Hkv, dq, dv, causal,
                                     window):
-    q = torch.randn(B, T, H, dq, device=dev)
-    k = torch.randn(B, S, Hkv, dq, device=dev)
-    v = torch.randn(B, S, Hkv, dv, device=dev)
-    before = flash_ops.launches
-    got = flash_ops.attention(q, k, v, causal=causal, window=window,
-                              scale=0.125)
-    want = flash_ref.attention(q, k, v, causal=causal, window=window,
-                               scale=0.125)
-    assert flash_ops.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    _flash_case(dev, torch.float32, 1e-4, B, T, S, H, Hkv, dq, dv, causal,
+                window)
+
+
+@pytest.mark.parametrize("B,T,S,H,Hkv,dq,dv,causal,window", [
+    (1, 512, 512, 12, 2, 128, 128, True, None),    # Qwen2-1.5B prefill
+    (2, 197, 197, 12, 12, 64, 64, False, None),    # DeiT, ragged T
+    (1, 70, 300, 4, 2, 64, 64, True, None),        # T < S, right-aligned
+    (1, 200, 200, 4, 4, 32, 48, True, 37),         # sliding window
+    (2, 130, 130, 4, 4, 40, 64, False, None),      # dq 40 != dv 64
+    (1, 100, 100, 2, 2, 8, 8, True, None),         # head dim 8
+])
+def test_flash_kernel_bf16_matches_plain(dev, B, T, S, H, Hkv, dq, dv,
+                                         causal, window):
+    """The tensor-core kernel rounds P to bf16 for the P V product (the
+    Pallas kernel keeps it fp32): held to the bf16 gate, 2e-2."""
+    _flash_case(dev, torch.bfloat16, 2e-2, B, T, S, H, Hkv, dq, dv, causal,
+                window, scale=dq ** -0.5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_kernel_reads_unaligned_views(dev, dtype, tol):
+    """q, k, v one element into their storage: element loads, no copy."""
+    _flash_case(dev, dtype, tol, 2, 150, 150, 4, 2, 64, 64, True, None,
+                offset=1)
 
 
 def test_flash_kernel_refuses_wide_heads(dev):
