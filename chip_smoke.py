@@ -10,9 +10,13 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      ragged shapes and at the shapes DeiT-Base, Qwen2-1.5B serving and
      RWKV6-3B serving give it (both attention kernels: fp32 on the CUDA
      cores, bf16 on the tensor cores, also at T = 197 and dq != dv; gram's
-     s2 exactly symmetric at the main path's shape), and times the kernel,
-     the plain version and the one-call PyTorch equivalent (where one
-     exists) beside the least time the card could take;
+     s2 exactly symmetric at the main path's shape; flash_decode and wkv6
+     bitwise equal over two calls), and times the kernel, the plain
+     version and the one-call PyTorch equivalent (where one exists) beside
+     the least time the card could take; flash_decode and wkv6 also
+     L2-cold (rotating over a stack of per-layer slices as large as the
+     path's), with the host's launch, and flash_decode at the serve step's
+     mask;
   3. prune path: runs CORP pruning of DeiT-Base at full width end to end
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
@@ -23,9 +27,10 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      full width (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
      counting the kernels' launches in that run; profiles 20 shared decode
-     steps; checks at full width in fp32 that teacher-forced prefill +
-     decode logits equal one full forward, and on a reduced Qwen2 that the
-     engine's token streams on the GPU equal the CPU plain path's;
+     steps (with the decode kernel's device time a call); checks at full
+     width in fp32 that teacher-forced prefill + decode logits equal one
+     full forward, and on a reduced Qwen2 that the engine's token streams
+     on the GPU equal the CPU plain path's;
   5. recurrent serve path: the same for RWKV6-3B at full width under the
      recurrent slot-cache contract (every prefill and decode step runs the
      ``wkv6`` kernel once per layer), with its slot bytes at two max_len;
@@ -38,6 +43,7 @@ fp32 product is full fp32.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -135,6 +141,16 @@ def device_ms(fn, reps=50, replays=5, warmup=3):
     if not ms > 0:
         fail(f"no device time measured for {fn}")
     return ms
+
+
+def cold_ms(call, layers, **kw):
+    """Device time per call (``device_ms``) with the inputs rotating over
+    ``layers`` per-layer slices of stacked buffers, as a decode step walks
+    its layers: the stack is larger than the 50 MB L2, so each call finds
+    its slice cold, where ``device_ms`` of one slice finds it L2-warm."""
+    turn = itertools.count()
+    return device_ms(lambda: call(next(turn) % layers), reps=2 * layers,
+                     **kw)
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
@@ -388,10 +404,13 @@ def check_decode(q, k, v, valid, label, tol):
 
 def decode_kernel_phase(dev, rand):
     """flash_decode against its plain version (ragged S, GQA, holes in the
-    mask, the serve path's shape and its pruned dq 64 / dv 128), then its
-    time at the path's shape (8 slots, S = max_len = 1024, every key
-    valid) beside the plain version, SDPA with a boolean mask over kv
-    heads expanded to H, and the byte bound."""
+    mask, the serve path's shape and its pruned dq 64 / dv 128, the serve
+    step's mask), two calls bitwise equal, then its time at the path's
+    shape (8 slots, S = max_len = 1024, every key valid; warm, L2-cold over
+    28 layers' caches, with the host's launch) beside the plain version,
+    SDPA with a boolean mask over kv heads expanded to H, and the byte
+    bound; and at the serve step's mask (lengths 128 + 48 i), where the
+    bound counts only the valid keys' rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops, ref
@@ -421,35 +440,78 @@ def decode_kernel_phase(dev, rand):
                 f"serve path dq={dq}", tol)
 
     bf = torch.bfloat16
-    q, k, v = rand(B, H, d, dtype=bf), rand(B, S, Hkv, d, dtype=bf), \
-        rand(B, S, Hkv, d, dtype=bf)
+    layers = 28                      # Qwen2-1.5B: one cache slice a layer
+    q = rand(B, H, d, dtype=bf)
+    k_all = rand(layers, B, S, Hkv, d, dtype=bf)
+    v_all = rand(layers, B, S, Hkv, d, dtype=bf)
+    k, v = k_all[0], v_all[0]
     valid = torch.ones(B, S, dtype=torch.bool, device=dev)
     scale = 1.0 / math.sqrt(d)
+    once = ops.decode_attention(q, k, v, valid, scale=scale)
+    again = ops.decode_attention(q, k, v, valid, scale=scale)
+    same = bool(torch.equal(once, again))
+    print(f"  flash_decode serve shape bf16: two calls bitwise equal: "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        fail("flash_decode is not deterministic")
     qt = q[:, :, None]
-    kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
-              for a in (k, v))
-    m4 = valid[:, None, None, :]
+
+    def sdpa(valid):
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for a in (k, v))
+        m4 = valid[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m4, scale=scale)
+
+    def bound(lens):
+        keys = sum(lens)
+        nbytes = keys * Hkv * 2 * d * 2 + 2 * (B * H * d * 2) + B * S
+        return (*bound_ms(2.0 * H * keys * 2 * d, nbytes, PEAK_BF16_FLOPS),
+                nbytes)
+
     calls = {"ms": lambda: ops.decode_attention(q, k, v, valid, scale=scale),
              "plain_ms": lambda: ref.decode_attention(q, k, v, valid, scale),
-             "library_ms": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, attn_mask=m4, scale=scale)}
+             "library_ms": sdpa(valid)}
+    pl = ops.plan(S, B * Hkv, ops.sm_count(0))
     row = {"name": "flash_decode", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_decode/csrc/"
                      "flash_decode.cu",
            "replaces": "src/repro/kernels/flash_decode/flash_decode.py:51",
            "launches": None, "max_abs_err": errs[bf, d],
+           "splits": pl.splits,
            **{k: device_ms(fn) for k, fn in calls.items()},
+           "cold_ms": cold_ms(lambda i: ops.decode_attention(
+               q, k_all[i], v_all[i], valid, scale=scale), layers),
            "wall_ms": time_ms(calls["ms"], reps=50)}
-    nbytes = B * S * Hkv * 2 * d * 2 + 2 * (B * H * d * 2) + B * S
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        2.0 * B * H * S * 2 * d, nbytes, PEAK_BF16_FLOPS)
+    row["bound_ms"], row["bound_by"], nbytes = bound([S] * B)
     print(f"  flash_decode at B={B} S={S} H={H} Hkv={Hkv} d={d} bf16 "
-          f"(split {ops.split_size(S, B * Hkv, dev)} keys), device time: "
-          f"kernel and merge {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-          f"{nbytes / 1e6:.2f} MB); kernel with host launch "
-          f"{row['wall_ms']:.4f} ms")
+          f"({pl.splits} splits of {pl.tiles} tiles), device time: kernel "
+          f"{row['ms']:.4f} ms (L2-cold over {layers} layers "
+          f"{row['cold_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, SDPA "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {nbytes / 1e6:.2f} MB); kernel with host "
+          f"launch {row['wall_ms']:.4f} ms")
+
+    # the serve step's mask: slots at lengths 128 + 48 i of max_len 1024
+    lens = [128 + 48 * i for i in range(B)]
+    vmask = torch.arange(S, device=dev)[None] < torch.tensor(
+        lens, device=dev)[:, None]
+    serve = {"lens": lens,
+             "max_abs_err": check_decode(q, k, v, vmask,
+                                         "serve mask 128+48i", 2e-2),
+             "ms": device_ms(lambda: ops.decode_attention(
+                 q, k, v, vmask, scale=scale)),
+             "cold_ms": cold_ms(lambda i: ops.decode_attention(
+                 q, k_all[i], v_all[i], vmask, scale=scale), layers),
+             "library_ms": device_ms(sdpa(vmask))}
+    serve["bound_ms"], serve["bound_by"], nbytes = bound(lens)
+    row["serve_mask"] = serve
+    print(f"  flash_decode at the serve mask (lengths {lens[0]}..{lens[-1]} "
+          f"of {S}), device time: kernel {serve['ms']:.4f} ms (L2-cold "
+          f"{serve['cold_ms']:.4f} ms), SDPA {serve['library_ms']:.4f} ms, "
+          f"bound {serve['bound_ms']:.4f} ms ({serve['bound_by']}, valid "
+          f"rows only, {nbytes / 1e6:.2f} MB)")
+    del k_all, v_all
     return row
 
 
@@ -533,14 +595,42 @@ def wkv6_kernel_phase(dev):
     check_wkv6(*inputs(2, 64, 8, N, f32, True), "T=64, state")
     check_wkv6(*inputs(2, 1, 8, N, f32, True), "T=1, state")
 
+    again = stacked[1].clone()
+    y1, _ = ops.wkv6(*decode[:5], again, out_state=again)
+    y2, s2 = ops.wkv6(*decode[:5], stacked[1].clone())
+    yp1, sp1 = ops.wkv6(*pre)
+    yp2, sp2 = ops.wkv6(*pre)
+    same = all(bool(torch.equal(a, b)) for a, b in
+               ((y1, y2), (again, s2), (yp1, yp2), (sp1, sp2)))
+    print(f"  wkv6 decode and prefill: two calls bitwise equal: "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        fail("wkv6 is not deterministic")
+    del y1, y2, s2, again, yp1, yp2, sp1, sp2
+
+    # L2-cold: a slice a layer of stacks as large as the path's (RWKV6-3B
+    # has 32 layers: 32 decode states of 10.5 MB, 32 prefill inputs)
+    layers = 32
+    r, k, v, w, u, _ = decode
+    st_all = stacked[1].expand(layers, *stacked.shape[1:]).clone()
+    dec_in = [torch.stack([t] * layers) for t in (r, k, v, w)]
+    pre_in = [torch.stack([t] * layers) for t in pre[:4]]
+    cold = {
+        "decode": lambda i, u=u: ops.wkv6(*(t[i] for t in dec_in), u,
+                                          st_all[i], out_state=st_all[i]),
+        "prefill": lambda i: ops.wkv6(*(t[i] for t in pre_in), pre[4])}
     rows = {}
     for name, (r, k, v, w, u, s), plain_kw in (
             ("decode", decode, {}),
             ("prefill", pre, dict(reps=2, replays=2, warmup=1))):
         B, T = r.shape[:2]
-        out = {"shape": [B, T, H, N]}
-        out["ms"] = device_ms(lambda: ops.wkv6(r, k, v, w, u, s,
-                                               out_state=s))
+        out = {"shape": [B, T, H, N],
+               "blocks": ops.Plan(B, T, H, N).blocks}
+        call = (lambda r=r, k=k, v=v, w=w, u=u, s=s:
+                ops.wkv6(r, k, v, w, u, s, out_state=s))
+        out["ms"] = device_ms(call)
+        out["cold_ms"] = cold_ms(cold[name], layers)
+        out["wall_ms"] = time_ms(call, reps=50)
         out["plain_ms"] = device_ms(lambda: ref.wkv6(r, k, v, w, u, s),
                                     **plain_kw)
         out["bound_ms"], out["bound_by"] = bound_ms(
@@ -548,9 +638,13 @@ def wkv6_kernel_phase(dev):
             wkv6_bytes(B, T, H, N, r.element_size(), s is not None))
         rows[name] = out
         print(f"  wkv6 at the serve {name} shape B={B} T={T} H={H} N={N} "
-              f"bf16, device time: kernel {out['ms']:.4f} ms, plain "
-              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-              f"({out['bound_by']}); no single PyTorch call computes it")
+              f"bf16 ({out['blocks']} blocks a launch), device time: kernel "
+              f"{out['ms']:.4f} ms (L2-cold over {layers} layers "
+              f"{out['cold_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
+              f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}); kernel "
+              f"with host launch {out['wall_ms']:.4f} ms; no single "
+              f"PyTorch call computes it")
+    del st_all, dec_in, pre_in
     d = rows["decode"]
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
@@ -559,7 +653,8 @@ def wkv6_kernel_phase(dev):
             "max_abs_err_state": dec_err[1], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": None,
-            "shape": d["shape"],
+            "shape": d["shape"], "cold_ms": d["cold_ms"],
+            "wall_ms": d["wall_ms"],
             "serve_prefill": dict(rows["prefill"],
                                   max_abs_err=pre_err[0],
                                   max_abs_err_state=pre_err[1])}
@@ -768,10 +863,12 @@ def recurrent_checks(launches, res):
         fail("the recurrent slot cache grows with max_len")
 
 
-def serve_profile_phase(model, params, dev, tag, kernel, steps=20):
+def serve_profile_phase(model, params, dev, tag, kernel, device_name,
+                        steps=20):
     """Eight slots of ragged lengths decoding on the full-width model: host
     ms per shared decode step, then a profile of ``steps`` steps (device
-    busy share, ``kernel``'s launches, top device ops)."""
+    busy share, ``kernel``'s launches, top device ops). Returns the device
+    ms per call of the device kernels whose names hold ``device_name``."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -818,6 +915,14 @@ def serve_profile_phase(model, params, dev, tag, kernel, steps=20):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} "
               f"{e.key[:90]}")
+    mine = [e for e in events if device_name in e.key]
+    calls = sum(e.count for e in mine)
+    if not calls:
+        fail(f"{tag}: no device event of {device_name}")
+    per_call = sum(e.self_device_time_total for e in mine) / 1e3 / calls
+    print(f"[{tag}] {device_name}: {1e3 * per_call:.2f} us of device time "
+          f"a call ({calls} calls in {steps} steps)")
+    return per_call
 
 
 def logit_phase(model, params, tag, lens):
@@ -921,16 +1026,19 @@ def main() -> int:
     profile_phase(dev)
     launches["serve"], served = serve_phase(
         SERVE, "serve", ("flash_attention", "flash_decode"))
-    serve_profile_phase(served["model"], served["params"], dev,
-                        "serve profile", "flash_decode")
+    by_name = {row["name"]: row for row in rows}
+    by_name["flash_decode"]["serve_step_ms"] = serve_profile_phase(
+        served["model"], served["params"], dev, "serve profile",
+        "flash_decode", "flash_decode_kernel")
     logit_phase(served["model"], served["params"], "logits", [40, 25])
     del served
     serve_reference_phase(SERVE_REDUCED, "reference")
     launches["serve_rwkv"], served = serve_phase(SERVE_RWKV, "serve rwkv",
                                                  ("wkv6",))
     recurrent_checks(launches["serve_rwkv"], served)
-    serve_profile_phase(served["model"], served["params"], dev,
-                        "serve rwkv profile", "wkv6")
+    by_name["wkv6"]["serve_step_ms"] = serve_profile_phase(
+        served["model"], served["params"], dev, "serve rwkv profile", "wkv6",
+        "wkv6_step_kernel")
     logit_phase(served["model"], served["params"], "logits rwkv",
                 [100, 100])
     del served

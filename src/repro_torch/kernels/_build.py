@@ -29,6 +29,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib = None
+_fns = {}                # bound C entry points, by name
 build_seconds = None     # wall time of the build in this process (None: cached)
 build_log = ""           # nvcc's -Xptxas -v report (registers, spills, smem)
 
@@ -106,11 +107,14 @@ def library() -> ctypes.CDLL:
 
 
 def kernel(name: str, argtypes):
-    """C entry point ``name`` with its argument types set; it returns the
-    launch's ``cudaError_t`` as an int."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry point ``name`` with its argument types set, bound once a
+    process; it returns the launch's ``cudaError_t`` as an int."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

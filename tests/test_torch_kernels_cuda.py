@@ -193,6 +193,8 @@ def _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype=torch.float32, seed=0):
     (2, 300, 4, 1, 16, 16),         # GQA 4/1, ragged S
     (2, 200, 4, 4, 32, 32),         # MHA
     (3, 77, 8, 2, 8, 24),           # dq != dv, S under two tiles
+    (2, 300, 24, 2, 64, 64),        # group of 12: two sets of warps
+    (1, 200, 32, 1, 128, 128),      # group of 32: four sets, two mma tiles
 ])
 def test_decode_kernel_matches_plain(dev, B, S, H, Hkv, dq, dv, dtype, tol):
     q, k, v, valid = _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype)
@@ -225,6 +227,114 @@ def test_decode_kernel_split_invariance(dev, bs):
     one = decode_ops.decode_attention(q, k, v, valid, bs=500)
     got = decode_ops.decode_attention(q, k, v, valid, bs=bs)
     torch.testing.assert_close(got, one, rtol=1e-5, atol=1e-5)
+
+
+def _decode_case(dev, valid, dtype=torch.bfloat16, H=12, Hkv=2, d=128,
+                 seed=3):
+    """Kernel vs plain at one launch on a given mask; returns the output."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, S = valid.shape
+    q = torch.randn(B, H, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, d, generator=g, device=dev).to(dtype)
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k, v, valid, scale=d ** -0.5)
+    assert decode_ops.launches == before + 1
+    want = decode_ref.decode_attention(q, k, v, valid, d ** -0.5)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("holes", ["first", "middle", "last", "all_but_one"])
+def test_decode_kernel_skips_whole_masked_tiles(dev, holes, dtype):
+    """Whole 64-key tiles without a valid key are never loaded; the tiles
+    around them must still give the plain result."""
+    B, S = 4, 1000                       # 16 tiles, the last one ragged
+    valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+    if holes == "first":
+        valid[:, :64] = False
+    elif holes == "middle":
+        valid[:, 320:448] = False
+        valid[1, 100:500] = False
+    elif holes == "last":
+        valid[:, 960:] = False
+    else:                                # one valid key in tile 9 alone
+        valid[:] = False
+        valid[:, 9 * 64 + 17] = True
+    _decode_case(dev, valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_valid_only_at_key_zero(dev, dtype):
+    valid = torch.ones(3, 700, dtype=torch.bool, device=dev)
+    valid[0] = False
+    valid[0, 0] = True
+    valid[2, 1:] = False
+    _decode_case(dev, valid, dtype)
+
+
+def test_decode_kernel_at_the_serve_mask(dev):
+    """The serve step's eight slots at lengths 128 + 48 i of 1024."""
+    lens = torch.tensor([128 + 48 * i for i in range(8)], device=dev)
+    valid = torch.arange(1024, device=dev)[None] < lens[:, None]
+    _decode_case(dev, valid)
+
+
+def test_decode_kernel_skips_tiles_of_a_strided_cache_slice(dev):
+    """One layer of a stacked (layers, B, S, Hkv, d) bf16 cache with an
+    int8 mask of whole masked tiles, as a decode step passes it."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    k = torch.randn(3, 4, 512, 2, 128, generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn(3, 4, 512, 2, 128, generator=g,
+                    device=dev).to(torch.bfloat16)
+    q = torch.randn(4, 12, 128, generator=g, device=dev).to(torch.bfloat16)
+    valid = (torch.arange(512, device=dev)[None] < torch.tensor(
+        [[1], [64], [200], [512]], device=dev))
+    valid[3, 128:256] = False
+    valid = valid.to(torch.int8)
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k[2], v[2], valid)
+    assert decode_ops.launches == before + 1
+    want = decode_ref.decode_attention(q, k[2], v[2], valid, 128 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_kernel_reads_unaligned_views(dev, dtype, tol):
+    """q, k, v one element into their storage: element loads into the same
+    ring, with whole masked tiles skipped."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        full = torch.randn(*shape[:-1], shape[-1] + 1, generator=g,
+                           device=dev).to(dtype)
+        return full[..., 1:]
+
+    q, k, v = rand(2, 8, 64), rand(2, 300, 2, 64), rand(2, 300, 2, 64)
+    valid = torch.ones(2, 300, dtype=torch.bool, device=dev)
+    valid[0, 64:192] = False
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k, v, valid)
+    assert decode_ops.launches == before + 1
+    want = decode_ref.decode_attention(q, k, v, valid, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic(dev, dtype):
+    """The splits merge in split order inside their cluster: two calls are
+    bitwise equal."""
+    lens = torch.tensor([128 + 48 * i for i in range(8)], device=dev)
+    valid = torch.arange(1024, device=dev)[None] < lens[:, None]
+    valid[0, 5] = False
+    once = _decode_case(dev, valid, dtype)
+    again = _decode_case(dev, valid, dtype)
+    assert torch.equal(once, again)
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(dev):
@@ -297,6 +407,69 @@ def test_wkv6_kernel_updates_a_stacked_state_slice_in_place(dev, dtype):
     assert s.data_ptr() == stacked[1].data_ptr()
     _wkv_close((y, stacked[1]), want, dtype)
     torch.testing.assert_close(stacked[[0, 2]], keep, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 15, 16, 17, 63, 64, 65, 128, 504, 1000])
+def test_wkv6_kernel_chunk_and_sub_chunk_edges(dev, T, state, dtype):
+    """Ragged T around the 16-token sub-chunks and 64-token chunks, from
+    zeros and from a state: the one-token kernel at T = 1, the
+    chunk-parallel prefill above it."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 2, T, 3, 64, dtype, seed=T,
+                                    state=state)
+    before = wkv_ops.launches
+    got = wkv_ops.wkv6(r, k, v, w, u, s0)
+    assert wkv_ops.launches == before + 1
+    _wkv_close(got, wkv_ref.wkv6(r, k, v, w, u, s0), dtype)
+
+
+def test_wkv6_kernel_batch_one_many_chunks(dev):
+    """B = 1 over 16 chunks at RWKV6-3B's 40 heads: 640 blocks a launch."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 1, 1000, 40, 64, torch.bfloat16,
+                                    seed=5, state=True)
+    assert wkv_ops.Plan(1, 1000, 40, 64).blocks == 640
+    _wkv_close(wkv_ops.wkv6(r, k, v, w, u, s0),
+               wkv_ref.wkv6(r, k, v, w, u, s0), torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 100])
+def test_wkv6_kernel_in_place_through_both_kernels(dev, T):
+    """In place on one layer of a stacked state: the one-token kernel (T =
+    1) and the prefill (T = 100) leave the other layers untouched."""
+    B, H, N = 2, 4, 64
+    stacked = torch.randn(3, B, H, N, N, device=dev)
+    keep = stacked[[0, 2]].clone()
+    r, k, v, w, u, _ = _wkv_inputs(dev, B, T, H, N, torch.float32, seed=9)
+    want = wkv_ref.wkv6(r, k, v, w, u, stacked[1].clone())
+    y, s = wkv_ops.wkv6(r, k, v, w, u, stacked[1], out_state=stacked[1])
+    assert s.data_ptr() == stacked[1].data_ptr()
+    _wkv_close((y, stacked[1]), want, torch.float32)
+    torch.testing.assert_close(stacked[[0, 2]], keep, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T", [1, 300])
+def test_wkv6_kernel_is_deterministic(dev, T):
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 2, T, 8, 64, torch.bfloat16,
+                                    seed=11, state=True)
+    y1, s1 = wkv_ops.wkv6(r, k, v, w, u, s0)
+    y2, s2 = wkv_ops.wkv6(r, k, v, w, u, s0)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("T", [1, 150])
+def test_wkv6_kernel_reads_a_strided_n_view(dev, T):
+    """r, k, v, w with an n-stride of 2: element loads, no copy."""
+    B, H, N = 2, 3, 32
+    g = torch.Generator(device=dev).manual_seed(12)
+    base = torch.randn(4, B, T, H, 2 * N, generator=g, device=dev)
+    base[3] = 0.35 + 0.6 * torch.sigmoid(base[3])
+    r, k, v, w = (base[i, ..., ::2] for i in range(4))
+    assert r.stride(-1) == 2
+    u = 0.1 * torch.randn(H, N, generator=g, device=dev)
+    s0 = torch.randn(B, H, N, N, generator=g, device=dev)
+    _wkv_close(wkv_ops.wkv6(r, k, v, w, u, s0),
+               wkv_ref.wkv6(r, k, v, w, u, s0), torch.float32)
 
 
 def test_wkv6_kernel_without_a_state_starts_from_zeros(dev):
