@@ -7,8 +7,9 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
 
   1. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
   2. holds each kernel against its plain PyTorch version on the card, at
-     ragged shapes and at the shapes DeiT-Base, Qwen2-1.5B serving and
-     RWKV6-3B serving give it (both attention kernels: fp32 on the CUDA
+     ragged shapes and at the shapes DeiT-Base (gram fp32 and bf16,
+     gram_cross at the one-traversal pass's per-sample grams), Qwen2-1.5B
+     serving and RWKV6-3B serving give it (both attention kernels: fp32 on the CUDA
      cores, bf16 on the tensor cores, also at T = 197 and dq != dv; gram's
      s2 exactly symmetric at the main path's shape; flash_decode and wkv6
      bitwise equal over two calls), and times the kernel, the plain
@@ -21,8 +22,15 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
      checks the pruned model's output: finite, of the right shape, J* <=
-     J_uncomp for every unit, and on a reduced DeiT the same pruned output
-     on the GPU as on the CPU's plain path; then profiles one prune;
+     J_uncomp for every unit; then the prune path's other modes at full
+     width, each gated on the held-out logits of the two-pass prune and on
+     its kernels' launches: the bf16 stream (``gram`` on bf16, <= 1e-2),
+     one traversal (``gram_cross`` through ``stats._bgram``, fp32 and
+     bf16 at the default margin and a sure hit at margin 1.0, <= 1e-3), an
+     interrupted and resumed calibration pass and two CLI runs on one
+     ``--calib-ckpt`` (bit-identical), and ``corp_prune_streamed`` in 3
+     groups (6 traversals, <= 1e-4); on a reduced DeiT the same pruned
+     output on the GPU as on the CPU's plain path; then profiles one prune;
   4. serve path: serves a ragged trace of 32 requests with Qwen2-1.5B at
      full width (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
@@ -89,10 +97,20 @@ def kernel_modules():
 def reset_launches():
     for mod in kernel_modules().values():
         mod.launches = 0
+    kernel_modules()["gram"].launches_by.clear()
 
 
 def read_launches():
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    """Launches by kernel since ``reset_launches``: the gram module's split
+    into ``gram`` and ``gram_cross`` and, as ``"gram bfloat16"`` and the
+    like, by input dtype."""
+    mods = kernel_modules()
+    out = {name: mod.launches for name, mod in mods.items() if name != "gram"}
+    out.update(gram=0, gram_cross=0)
+    for (op, dt), n in sorted(mods["gram"].launches_by.items()):
+        out[op] += n
+        out[f"{op} {dt}"] = n
+    return out
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -196,12 +214,18 @@ def check_attention(q, k, v, causal, window, scale, label, tol=1e-4):
     return err
 
 
-def main_path_tap(model, params, batch):
-    """The layer-stacked MLP tap of one DeiT-Base forward: (L, B*T, d_ff)."""
+def main_path_taps(model, params, batch):
+    """One DeiT-Base forward's taps as the prune path hands them to the
+    gram kernels: the layer-stacked MLP tap (L, B*T, d_ff) to ``gram``, and
+    the one-traversal pass's per-sample queries (L, B, G, T, d), whose
+    (L*B*G) per-sample grams ``stats._bgram`` takes in one ``gram_cross``
+    launch."""
+    from repro_torch.core.stats import _group_q
     taps = {}
     model.apply(params, batch, taps=taps)
     h = taps["seg0/p0/h"]
-    return h.reshape(h.shape[0], -1, h.shape[-1])
+    qg = _group_q(taps["seg0/p0/q"], model.cfg.n_kv_heads)
+    return h.reshape(h.shape[0], -1, h.shape[-1]), qg.contiguous()
 
 
 def kernel_phase(dev):
@@ -235,10 +259,9 @@ def kernel_phase(dev):
     params = model.init(torch.Generator().manual_seed(0), device=dev)
     batch = next(iter(calib_stream(cfg, n_samples=MAIN["calib_batch"],
                                    batch=MAIN["calib_batch"], device=dev)()))
-    x = main_path_tap(model, params, batch)
+    x, xq = main_path_taps(model, params, batch)
     del params
     gram_err = check_gram(x, label="main path seg0/p0/h")
-    check_gram(x.to(torch.bfloat16), tol=1e-2, label="main path, bf16")
     s2 = gram_ops.gram(x)["s2"]
     symmetric = bool(torch.equal(s2, s2.mT))
     print(f"  gram main path {tuple(x.shape)} fp32: s2 equals its transpose "
@@ -258,7 +281,22 @@ def kernel_phase(dev):
     print(f"  gram at {tuple(x.shape)} fp32: kernel {g_ms:.3f} ms, plain "
           f"{g_plain:.3f} ms, torch.matmul {g_lib:.3f} ms, bound "
           f"{g_bound:.3f} ms ({g_by})")
-    del x
+    # the bf16 stream's tap: the same values rounded to bf16, as the
+    # forward under tap_dtype(bfloat16) records them
+    xb = x.to(torch.bfloat16)
+    g_bf16 = {"shape": list(xb.shape), "max_abs_err": check_gram(
+        xb, tol=1e-2, label="main path, bf16"),
+        "ms": time_ms(lambda: gram_ops.gram(xb)),
+        "plain_ms": time_ms(lambda: gram_ref.gram(xb)),
+        "library_ms": time_ms(lambda: torch.matmul(xb.mT, xb))}
+    g_bf16["bound_ms"], g_bf16["bound_by"] = bound_ms(
+        1.0 * L * N * Fd * (Fd + 1),
+        2.0 * L * N * Fd + 4.0 * (L * Fd * Fd + L * Fd), PEAK_BF16_FLOPS)
+    print(f"  gram at {tuple(xb.shape)} bf16: kernel {g_bf16['ms']:.3f} ms, "
+          f"plain {g_bf16['plain_ms']:.3f} ms, torch.matmul (bf16 out) "
+          f"{g_bf16['library_ms']:.3f} ms, bound {g_bf16['bound_ms']:.3f} ms "
+          f"({g_bf16['bound_by']}, bf16 peak)")
+    del x, xb
 
     B, T, H, dv = MAIN["calib_batch"], num_patches(cfg) + 1, cfg.n_heads, \
         cfg.d_head
@@ -288,24 +326,24 @@ def kernel_phase(dev):
                     rbf(2, 150, 2, 64), True, None, 40 ** -0.5,
                     "bf16 dq=40 dv=64", tol=2e-2)
 
-    # gram_cross off the main path, at one stated shape: DeiT-Base's
+    gc = bgram_timing(xq)
+    del xq
+    # gram_cross at the shape timed before it had a path: DeiT-Base's
     # 16-image token batch against its d_ff and d_model columns
     xc, yc = rand(16 * 197, cfg.d_ff), rand(16 * 197, cfg.d_model)
-    gc_err = check_gram(xc, yc, label="DeiT-Base d_ff x d_model")
+    dff = {"shape": [16 * 197, cfg.d_ff, cfg.d_model],
+           "max_abs_err": check_gram(xc, yc, label="DeiT-Base d_ff x d_model"),
+           "ms": device_ms(lambda: gram_ops.gram_cross(xc, yc)),
+           "plain_ms": device_ms(lambda: gram_ref.gram_cross(xc, yc)),
+           "library_ms": device_ms(lambda: torch.matmul(xc.mT, yc))}
     (Nc, Fx), Fy = xc.shape, yc.shape[1]
-    gc = {"name": "gram_cross", "route": "cuda",
-          "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
-          "replaces": "src/repro/kernels/gram/gram.py:152",
-          "launches": None, "max_abs_err": gc_err, "shape": [Nc, Fx, Fy],
-          "ms": device_ms(lambda: gram_ops.gram_cross(xc, yc)),
-          "plain_ms": device_ms(lambda: gram_ref.gram_cross(xc, yc)),
-          "library_ms": device_ms(lambda: torch.matmul(xc.mT, yc))}
-    gc["bound_ms"], gc["bound_by"] = bound_ms(
+    dff["bound_ms"], dff["bound_by"] = bound_ms(
         2.0 * Nc * Fx * Fy, 4.0 * (Nc * Fx + Nc * Fy + Fx * Fy + Fy))
     print(f"  gram_cross at X {tuple(xc.shape)} Y {tuple(yc.shape)} fp32, "
-          f"device time: kernel {gc['ms']:.4f} ms, plain "
-          f"{gc['plain_ms']:.4f} ms, torch.matmul {gc['library_ms']:.4f} ms, "
-          f"bound {gc['bound_ms']:.4f} ms ({gc['bound_by']})")
+          f"device time: kernel {dff['ms']:.4f} ms, plain "
+          f"{dff['plain_ms']:.4f} ms, torch.matmul {dff['library_ms']:.4f} "
+          f"ms, bound {dff['bound_ms']:.4f} ms ({dff['bound_by']})")
+    gc["dff_x_dmodel"] = dff
     del xc, yc
 
     dq, dq_pruned = list(mains)
@@ -334,7 +372,7 @@ def kernel_phase(dev):
          "replaces": "src/repro/kernels/gram/gram.py:104",
          "launches": None, "max_abs_err": gram_err, "ms": g_ms,
          "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": g_lib},
+         "library_ms": g_lib, "bf16": g_bf16},
         gc,
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -346,6 +384,44 @@ def kernel_phase(dev):
         decode_kernel_phase(dev, rand),
         wkv6_kernel_phase(dev),
     ]
+
+
+def bgram_timing(xq):
+    """gram_cross at its path's shape: ``stats._bgram`` of the one-traversal
+    pass, the per-sample grams Q_b^T Q_b of every (layer, image, group) in
+    one launch, fp32 and bf16. Timed on the items as one contiguous
+    (L*B*G, T, d) stack, beside its plain version and ``torch.bmm``. The
+    bound counts X once (the function's one input, passed as x and y)."""
+    import torch
+    from repro_torch.kernels.gram import ops, ref
+    x3 = xq.reshape((-1,) + tuple(xq.shape[-2:]))
+    I, N, F = x3.shape
+    rows = {}
+    for dt, tol, peak in ((torch.float32, 1e-5, PEAK_FP32_FLOPS),
+                          (torch.bfloat16, 1e-2, PEAK_BF16_FLOPS)):
+        xd = xq.to(dt)
+        x = x3.to(dt)
+        r = {"shape": [I, N, F, F],
+             "max_abs_err": check_gram(xd, xd, tol=tol,
+                                       label="_bgram per-sample q"),
+             "ms": device_ms(lambda: ops.gram_cross(x, x)),
+             "plain_ms": device_ms(lambda: ref.gram_cross(x, x)),
+             "library_ms": device_ms(lambda: torch.bmm(x.mT, x))}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * I * N * F * F,
+            x.element_size() * I * N * F + 4.0 * (I * F * F + I * F), peak)
+        rows[str(dt)[6:]] = r
+        print(f"  gram_cross at the _bgram shape ({I}, {N}, {F}) x (..., "
+              f"{F}) {str(dt)[6:]}, device time: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, torch.bmm "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        del xd, x
+    f32 = rows["float32"]
+    return {"name": "gram_cross", "route": "cuda",
+            "source": "src/repro_torch/kernels/gram/csrc/gram.cu",
+            "replaces": "src/repro/kernels/gram/gram.py:152",
+            "launches": None, **f32, "bf16": rows["bfloat16"]}
 
 
 def serve_prefill_timing(rand):
@@ -718,10 +794,35 @@ def rel_err(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def main_path_phase(dev):
-    """DeiT-Base CORP pruning end to end; returns {kernel: launches}."""
-    import torch
+def check_report(tag, report):
+    for unit, d in report["units"].items():
+        js, ju = d["j_star"], d["j_uncomp"]
+        bad = js > ju * (1 + 1e-5) + 1e-6
+        if bad.any():
+            fail(f"{tag}: {unit}: j_star > j_uncomp at {bad.nonzero()}")
+
+
+def stages(report):
+    return " / ".join(f"{k} {v:.3f} s" for k, v in report["timing"].items())
+
+
+def held_out(cfg, dev):
+    """The held-out batch every prune phase's pruned model is read on."""
     from repro_torch.data import vit_batch
+    held = vit_batch(0, batch=MAIN["calib_batch"], img=cfg.img_size,
+                     n_classes=cfg.n_classes, seed=1234, device=dev)
+    return {"images": held["images"]}
+
+
+def pruned_logits(res, batch):
+    from repro_torch.models import build_model
+    return build_model(res["pruned_cfg"]).apply(res["pruned_params"], batch)
+
+
+def main_path_phase(dev):
+    """DeiT-Base CORP pruning end to end; returns ({kernel: launches}, the
+    held-out batch, the pruned model's logits on it)."""
+    import torch
     from repro_torch.launch import prune
 
     print(f"[main path] python -m repro_torch.launch.prune "
@@ -740,21 +841,13 @@ def main_path_phase(dev):
         if launches[name] <= 0:
             fail(f"the main path never launched the {name} kernel")
 
-    for unit, d in res["report"]["units"].items():
-        js, ju = d["j_star"], d["j_uncomp"]
-        bad = js > ju * (1 + 1e-5) + 1e-6
-        if bad.any():
-            fail(f"{unit}: j_star > j_uncomp at {bad.nonzero()}")
+    check_report("main path", res["report"])
     print("[main path] j_star <= j_uncomp for every unit and layer")
 
     cfg = res["model"].cfg
-    held = vit_batch(0, batch=MAIN["calib_batch"], img=cfg.img_size,
-                     n_classes=cfg.n_classes, seed=1234, device=dev)
-    batch = {"images": held["images"]}
-    from repro_torch.models import build_model
+    batch = held_out(cfg, dev)
     dense = res["model"].apply(res["params"], batch)
-    pruned = build_model(res["pruned_cfg"]).apply(res["pruned_params"],
-                                                  batch)
+    pruned = pruned_logits(res, batch)
     if pruned.shape != (MAIN["calib_batch"], cfg.n_classes) \
             or not bool(torch.isfinite(pruned).all()):
         fail(f"pruned logits of shape {tuple(pruned.shape)} or not finite")
@@ -762,12 +855,202 @@ def main_path_phase(dev):
     del res
     res_nc = prune.main(prune_args(MAIN["arch"], "cuda",
                                    OUT + "_nocomp", ["--no-compensate"]))
-    nocomp = rel_err(build_model(res_nc["pruned_cfg"]).apply(
-        res_nc["pruned_params"], batch), dense)
+    nocomp = rel_err(pruned_logits(res_nc, batch), dense)
     print(f"[main path] held-out batch, |pruned - dense| / |dense| logits: "
           f"compensated {comp:.4f}, --no-compensate {nocomp:.4f} "
           f"(d_ff {cfg.d_ff} -> {res_nc['pruned_cfg'].eff_d_ff}, qk "
           f"{cfg.qk_full} -> {res_nc['pruned_cfg'].eff_qk})")
+    return launches, batch, pruned
+
+
+def cli_prune_phase(tag, extra, kernels):
+    """The prune CLI at the main path's settings plus ``extra``; each of
+    ``kernels`` (a key of ``read_launches``) must have launched. Returns
+    ({kernel: launches}, the CLI's result, wall seconds)."""
+    import torch
+    from repro_torch.launch import prune
+    args = prune_args(MAIN["arch"], "cuda", f"{OUT}_{tag.replace(' ', '_')}",
+                      extra)
+    print(f"[{tag}] python -m repro_torch.launch.prune {' '.join(args)}")
+    reset_launches()
+    t0 = time.time()
+    res = prune.main(args)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    rep = res["report"]
+    print(f"[{tag}] wall {wall:.3f} s; stages: {stages(rep)}; traversals "
+          f"{rep['traversals']}; kernel launches: {launches}")
+    for name in kernels:
+        if launches.get(name, 0) <= 0:
+            fail(f"the {tag} path never launched {name}")
+    check_report(tag, rep)
+    return launches, res, wall
+
+
+def bf16_phase(batch, ref):
+    """--stats-dtype bfloat16: the taps stream in bf16 into the gram
+    kernel; the pruned logits within 1e-2 of the fp32 stream's."""
+    launches, res, _ = cli_prune_phase(
+        "main path bf16", ["--stats-dtype", "bfloat16"],
+        ("gram bfloat16", "flash_attention"))
+    logits = pruned_logits(res, batch)
+    err = rel_err(logits, ref)
+    print(f"[main path bf16] held-out batch, |bf16 stream - fp32 stream| / "
+          f"|fp32 stream| pruned logits: {err:.3e} (tol 1e-2)")
+    if not err <= 1e-2:
+        fail("the bf16-streamed pruned model is more than 1e-2 from the "
+             "fp32-streamed one")
+    return launches, logits
+
+
+def one_traversal_phase(batch, refs):
+    """--one-traversal, fp32 and bf16, each at the default margin and at
+    margin 1.0 (a sure hit): gram_cross runs (``_bgram``), and the pruned
+    logits are within 1e-4 of the two-pass run's of the same streaming
+    dtype (a miss re-passes and gives the two-pass sums; a hit rebuilds
+    them from the speculative sums of the same taps, ~1e-6 away).
+    Returns {path: launches}."""
+    out = {}
+    bf16 = ["--stats-dtype", "bfloat16"]
+    # margin 1.0, every dim a candidate: a sure hit, so the reconstruction
+    # runs at full width (Gc 144 x 64^4 fp32, 9.7 GB)
+    hit = ["--spec-margin", "1.0"]
+    for tag, dt, extra in (
+            ("one traversal", "float32", []),
+            ("one traversal bf16", "bfloat16", bf16),
+            ("one traversal hit", "float32", hit),
+            ("one traversal bf16 hit", "bfloat16", bf16 + hit)):
+        launches, res, _ = cli_prune_phase(
+            tag, ["--one-traversal", *extra], (f"gram_cross {dt}", "gram"))
+        rep = res["report"]
+        sp = rep["speculative"]
+        err = rel_err(pruned_logits(res, batch), refs[dt])
+        del res
+        print(f"[{tag}] traversals {rep['traversals']}, margin "
+              f"{sp['margin']}, candidates {sp['candidates']}, hits "
+              f"{sp['hits']}, misses {sp['misses']}; gram_cross launches "
+              f"{launches['gram_cross']}; held-out |one - two-pass| / "
+              f"|two-pass| pruned logits {err:.3e} (tol 1e-4)")
+        if not err <= 1e-4:
+            fail(f"{tag}: the one-traversal pruned model is more than 1e-4 "
+                 f"from the two-pass one")
+        if tag.endswith("hit") and (rep["traversals"] != 1 or sp["misses"]):
+            fail(f"{tag}: a full candidate set missed")
+        out[f"prune_{tag.replace(' ', '_')}"] = launches
+    return out
+
+
+def calib_ckpt_phase(dev):
+    """An interrupted and resumed phase-1 pass equals an uninterrupted one
+    bit for bit, and reduced only the batches after its checkpoint (half
+    the kernel launches); then the prune CLI twice with one --calib-ckpt:
+    the second run restores every pass whole (no kernel launch) and its
+    pruned weights equal the first's bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.core import CalibrationEngine, discover_units
+    from repro_torch.data import calib_stream
+    from repro_torch.distrib import CalibrationCheckpointer
+    from repro_torch.interop import flatten
+    from repro_torch.models import build_model
+    cfg = resolve_config(MAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    B = MAIN["calib_batch"]
+    stream = calib_stream(cfg, n_samples=4 * B, batch=B, device=dev)
+    units = discover_units(cfg)
+    ck = os.path.join(OUT + "_ckpt", "engine")
+    shutil.rmtree(OUT + "_ckpt", ignore_errors=True)
+
+    def engine():
+        return CalibrationEngine(model, units, phase=1)
+
+    t0 = time.time()
+    engine().run(params, itertools.islice(stream(), 2),
+                 checkpointer=CalibrationCheckpointer(ck, every=1))
+    t_cut = time.time() - t0
+    reset_launches()
+    t0 = time.time()
+    resumed = engine().run(params, stream(),
+                           checkpointer=CalibrationCheckpointer(ck, every=1))
+    t_resume = time.time() - t0
+    n_resumed = read_launches()
+    reset_launches()
+    whole = engine().run(params, stream())
+    n_whole = read_launches()
+    a, b = flatten(resumed), flatten(whole)
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[calib ckpt] phase-1 pass over 2 of 4 batches saving every batch "
+          f"{t_cut:.3f} s, resumed over all 4 {t_resume:.3f} s: every leaf "
+          f"equal to an uninterrupted pass's: {'ok' if same else 'FAIL'}; "
+          f"gram / flash_attention launches resumed {n_resumed['gram']} / "
+          f"{n_resumed['flash_attention']}, uninterrupted {n_whole['gram']} "
+          f"/ {n_whole['flash_attention']}")
+    if not same:
+        fail("a resumed calibration pass differs from an uninterrupted one")
+    for name in ("gram", "flash_attention"):
+        if not 0 < 2 * n_resumed[name] == n_whole[name]:
+            fail(f"the resumed pass launched {name} {n_resumed[name]} times, "
+                 f"not half of the uninterrupted pass's {n_whole[name]}: it "
+                 f"did not skip the checkpointed batches")
+    del params, resumed, whole, a, b
+
+    extra = ["--calib-ckpt", OUT + "_ckpt", "--calib-ckpt-every", "4"]
+    runs = []
+    for i in range(2):
+        launches, res, wall = cli_prune_phase(
+            f"calib ckpt run {i + 1}", extra, ("gram",) if i == 0 else ())
+        runs.append((flatten(res["pruned_params"]), wall))
+        del res
+        if i == 1 and (launches["gram"] or launches["flash_attention"]):
+            fail("the resumed prune ran a calibration forward: every pass "
+                 "should have been restored from its checkpoint")
+    (p1, w1), (p2, w2) = runs
+    same = p1.keys() == p2.keys() and all(torch.equal(p1[k], p2[k])
+                                          for k in p1)
+    print(f"[calib ckpt] CLI wall {w1:.3f} s, resumed {w2:.3f} s; pruned "
+          f"weights equal bit for bit: {'ok' if same else 'FAIL'}")
+    if not same:
+        fail("the resumed prune's weights differ from the first run's")
+    shutil.rmtree(OUT + "_ckpt", ignore_errors=True)
+
+
+def streamed_phase(dev, batch, ref):
+    """corp_prune_streamed one unit at a time: DeiT-Base's 2 stacked units
+    (attention, MLP) are 2 groups and 3 traversals (2 for the attention
+    group, 1 for the MLP group); pruned logits within 1e-4 of corp_prune's.
+    Returns {kernel: launches}."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.core import PruneConfig, corp_prune_streamed
+    from repro_torch.data import calib_stream
+    from repro_torch.models import build_model
+    cfg = resolve_config(MAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    stream = calib_stream(cfg, n_samples=MAIN["calib"],
+                          batch=MAIN["calib_batch"], device=dev)
+    reset_launches()
+    t0 = time.time()
+    new, new_cfg, rep = corp_prune_streamed(
+        model, params, stream, PruneConfig(MAIN["sparsity"], MAIN["sparsity"]),
+        unit_group_size=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    check_report("streamed", rep)
+    err = rel_err(build_model(new_cfg).apply(new, batch), ref)
+    print(f"[streamed] corp_prune_streamed(unit_group_size=1): wall "
+          f"{wall:.3f} s; stages {stages(rep)}; {rep['groups']} groups, "
+          f"{rep['traversals']} traversals; launches {launches}; held-out "
+          f"|streamed - corp_prune| / |corp_prune| pruned logits {err:.3e} "
+          f"(tol 1e-4)")
+    if rep["traversals"] != 3 or rep["groups"] != 2:
+        fail("streamed CORP did not take 2 groups and 3 traversals")
+    if not err <= 1e-4:
+        fail("streamed CORP is more than 1e-4 from corp_prune")
     return launches
 
 
@@ -1021,7 +1304,22 @@ def main() -> int:
             print("  ptxas:", line.split("_cu_")[-1][8:].split("'")[0])
 
     rows = kernel_phase(dev)
-    launches = {"prune": main_path_phase(dev)}
+    launches = {}
+    launches["prune"], held, ref = main_path_phase(dev)
+    t0 = time.time()
+    launches["prune_bf16"], ref_bf16 = bf16_phase(held, ref)
+    print(f"[main path bf16] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches.update(one_traversal_phase(held, {"float32": ref,
+                                               "bfloat16": ref_bf16}))
+    print(f"[one traversal] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    calib_ckpt_phase(dev)
+    print(f"[calib ckpt] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches["prune_streamed"] = streamed_phase(dev, held, ref)
+    print(f"[streamed] phase wall {time.time() - t0:.3f} s")
+    del held, ref, ref_bf16
     reference_phase(dev)
     profile_phase(dev)
     launches["serve"], served = serve_phase(
@@ -1047,6 +1345,11 @@ def main() -> int:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"].startswith("gram"):
+            row["launches_by_path_dtype"] = {
+                path: {dt: n.get(f"{row['name']} {dt}", 0)
+                       for dt in ("float32", "bfloat16")}
+                for path, n in launches.items()}
 
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -7,7 +7,8 @@ into place, so a half-written step never looks complete; ``latest_step``
 skips steps whose hash does not match. So the JAX package's
 ``restore_checkpoint`` loads what the port writes, and the port's loads
 what ``repro.launch.prune`` writes, bf16 leaves included (stored as raw
-uint16 with the true dtype in the manifest).
+uint16 with the true dtype in the manifest). ``AsyncCheckpointer`` writes
+from a host copy on a background thread.
 """
 from __future__ import annotations
 
@@ -15,12 +16,13 @@ import hashlib
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.interop import flatten, to_numpy
+from repro_torch.interop import flatten, map_tree, to_numpy
 
 # extended dtype named in the manifest -> (16-bit integer view the npz is
 # read through, torch dtype it is reinterpreted as)
@@ -84,42 +86,122 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like: Any):
-    """Restore into the structure, dtypes and devices of ``like`` (a nested
-    dict of tensors). Returns (tree, extra).
-
-    Raises ``ValueError`` naming every checkpoint leaf that ``like`` lacks
-    (a compensation bias that CORP pruning added, say), rather than drop it
-    and restore a different model."""
+def _read(ckpt_dir: str, step: int):
+    """-> ({path: ndarray}, {path: extended dtype}, extra) of one step."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
         manifest = json.load(f)
-    ext = manifest.get("dtypes", {})
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
+    return arrays, manifest.get("dtypes", {}), manifest["extra"]
+
+
+def _tensor(path: str, a: np.ndarray, ext: dict) -> torch.Tensor:
+    if path not in ext:
+        return torch.from_numpy(a)
+    if ext[path] not in _EXTENDED:
+        raise NotImplementedError(f"{path}: dtype {ext[path]} is not "
+                                  f"restorable by the port")
+    raw, dt = _EXTENDED[ext[path]]
+    return torch.from_numpy(a.view(raw)).view(dt)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
+                       prefix: str = ""):
+    """Restore into the structure, dtypes and devices of ``like`` (a nested
+    dict of tensors). Returns (tree, extra).
+
+    ``prefix`` restores one subtree: only the leaves whose key path starts
+    with it, the prefix taken off (``"0/"`` is the params of the
+    ``(params, opt_state)`` tuple that ``repro.launch.train`` saves).
+
+    Raises ``ValueError`` naming every checkpoint leaf (under ``prefix``)
+    that ``like`` lacks (a compensation bias that CORP pruning added, say),
+    rather than drop it and restore a different model."""
+    arrays, ext, extra = _read(ckpt_dir, step)
+    n = len(prefix)
+    arrays = {k[n:]: a for k, a in arrays.items() if k.startswith(prefix)}
+    ext = {k[n:]: d for k, d in ext.items() if k.startswith(prefix)}
     unknown = sorted(set(arrays) - set(flatten(like)))
     if unknown:
         raise ValueError(f"{ckpt_dir} step {step}: leaves the template "
-                         f"lacks: {', '.join(unknown)}")
+                         f"lacks: {', '.join(prefix + k for k in unknown)}")
 
     def load(path, leaf):
-        a = arrays[path]
-        if path in ext:
-            if ext[path] not in _EXTENDED:
-                raise NotImplementedError(f"{path}: dtype {ext[path]} is not "
-                                          f"restorable by the port")
-            raw, dt = _EXTENDED[ext[path]]
-            t = torch.from_numpy(a.view(raw)).view(dt)
-        else:
-            t = torch.from_numpy(a)
+        if path not in arrays:
+            raise ValueError(f"{ckpt_dir} step {step}: no leaf "
+                             f"{prefix + path}")
+        t = _tensor(path, arrays[path], ext)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{path}: checkpoint shape {tuple(t.shape)} != "
                              f"{tuple(leaf.shape)}")
         return t.to(device=leaf.device, dtype=leaf.dtype)
 
-    return _map_paths(load, like), manifest["extra"]
+    return _map_paths(load, like), extra
+
+
+def load_arrays(ckpt_dir: str, step: int, device=None):
+    """Template-free restore: ``({key path: tensor}, extra)``, each leaf in
+    its stored dtype, on ``device``. For a tree whose shapes the caller
+    cannot know before it has data, such as a calibration accumulator; the
+    caller rebuilds the nesting (a path does not say it, since a unit name
+    holds ``/`` too) and checks the tree's identity
+    (``repro_torch.distrib.fault`` checks a fingerprint)."""
+    arrays, ext, extra = _read(ckpt_dir, step)
+    out = {}
+    for path, a in arrays.items():
+        t = _tensor(path, a, ext)
+        out[path] = t if device is None else t.to(device)
+    return out, extra
 
 
 def _map_paths(fn, tree, prefix: str = ""):
     return {k: _map_paths(fn, v, f"{prefix}{k}/") if isinstance(v, dict)
             else fn(f"{prefix}{k}", v) for k, v in tree.items()}
+
+
+class AsyncCheckpointer:
+    """Writes checkpoints on a background thread, at most one in flight.
+
+    ``save`` copies the tree to host memory before it returns, so the
+    caller may go on updating its tensors in place (a calibration
+    accumulator is, by the next batch's ``add_``); only the serialisation
+    and the atomic rename run in the background. After each save the
+    thread removes all but the newest ``keep`` steps. ``wait`` joins the
+    save in flight and re-raises the error it hit."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[Exception] = None
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            raise self.last_error
+
+    def save(self, step: int, tree: Any, extra: dict | None = None):
+        self.wait()
+        # a copy even of a CPU tensor, whose .cpu() would be the tensor
+        snapshot = map_tree(lambda t: t.detach().to("cpu", copy=True), tree)
+
+        def work():
+            try:
+                save_checkpoint(self.ckpt_dir, step, snapshot, extra)
+                self._gc()
+            except Exception as e:      # noqa: BLE001 -- raised by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _gc(self):
+        steps = sorted(
+            int(n.split("_")[1]) for n in os.listdir(self.ckpt_dir)
+            if n.startswith("step_") and not n.endswith(".tmp"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"),
+                          ignore_errors=True)

@@ -3,17 +3,28 @@ compensate -> fold.
 
 ``corp_prune(model, params, calib_batches, pc)`` returns ``(pruned_params,
 pruned_config, report)``: a physically smaller standard model (reduced d_ff
-and per-head qk dims) that the same model code runs. This slice covers the
-ViT path: dense MLP units and class-1 attention units (no rope, no
-qk-norm), two calibration passes on one device. MoE, Mamba, RWKV, the rope
-classes 2/3, ``one_traversal``, ``mesh=``, statistics checkpoints and
-``corp_prune_streamed`` are not ported yet; they raise.
+and per-head qk dims) that the same model code runs. The port covers the
+ViT path on one device: dense MLP units and class-1 attention units (no
+rope, no qk-norm), two calibration passes or one (``one_traversal``),
+taps streamed in fp32 or bf16, resumable statistics checkpoints
+(``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``. ``mesh=``,
+MoE and expert pruning, Mamba, RWKV and the rope classes 2/3 are not
+ported yet; they raise.
+
+``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
+pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
+spec_margin)`` per group, chosen from the first batch's scores); a unit
+whose final keep-set lies inside its candidates rebuilds (G, h, t2)
+exactly with no second traversal, and the units that escaped take one
+targeted pass 2.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import os
 import time
-from typing import Callable, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -21,8 +32,11 @@ import torch
 from repro_torch.core import calibrate as calib_mod
 from repro_torch.core import ranking as rank_mod
 from repro_torch.core import solve as solve_mod
-from repro_torch.core.units import Unit, discover_units, get_block, set_block
-from repro_torch.interop import map_tree
+from repro_torch.core import stats as stats_mod
+from repro_torch.core.units import (Unit, discover_units, get_block,
+                                    set_block)
+from repro_torch.distrib.fault import CalibrationCheckpointer
+from repro_torch.interop import flatten, map_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +48,9 @@ class PruneConfig:
     rank_policy: str = "combined"
     compensate: bool = True      # False = rank-only baseline (paper ablation)
     round_to: int = 1            # kept counts rounded down to a multiple
+
+
+_ATTN_KINDS = ("attn", "mla", "cross")
 
 
 def _keep_count(full: int, sparsity: float, round_to: int) -> int:
@@ -148,57 +165,90 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
 
 
 # ---------------------------------------------------------------------------
-# pipeline
+# calibration passes
 # ---------------------------------------------------------------------------
 
-def corp_prune(model, params, calib_batches: Callable[[], Iterable],
-               pc: PruneConfig = PruneConfig(),
-               progress: Optional[Callable[[str], None]] = None,
-               ckpt_dir: Optional[str] = None, mesh=None,
-               stats_dtype="float32", one_traversal: bool = False):
-    """One-shot CORP (Alg. 1): calibrate -> rank -> compensate -> fold.
+def _checkpointer(ckpt_dir: Optional[str], tag: str, every: int):
+    if ckpt_dir is None:
+        return None
+    return CalibrationCheckpointer(os.path.join(ckpt_dir, tag), every=every)
 
-    Args:
-      model: ``repro_torch.models.Model`` (``apply`` and ``cfg``).
-      params: dense parameters (nested dict of tensors on one device); they
-        are not modified.
-      calib_batches: zero-arg callable returning a fresh iterator of
-        batches on the params' device (traversed twice: the ranking pass
-        and the attention compensation pass).
-      pc: sparsities, ridge and ranking policy (``PruneConfig``).
-      progress: optional ``fn(str)`` called at each stage.
 
-    Returns:
-      ``(pruned_params, pruned_config, report)``; ``report`` holds
-      per-unit distortion diagnostics (``j_star``, ``j_uncomp``, ...) and the
-      stage timings ``pass1 / rank / pass2 / fold`` in seconds (each stage
-      ends with a device synchronise).
-    """
-    if one_traversal:
-        raise NotImplementedError("one-traversal calibration is not ported; "
-                                  "see repro.core.pruner._speculative_pass")
-    if ckpt_dir is not None:
-        raise NotImplementedError("statistics checkpoints are not ported; "
-                                  "see repro.distrib.fault")
-    if pc.expert_sparsity > 0:
-        raise NotImplementedError("expert pruning is not ported; see "
-                                  "repro.core.pruner._fold_moe_experts")
-    cfg = model.cfg
-    units = discover_units(cfg)
-    device = next(iter(params["seg0"]["p0"]["mlp"].values())).device
-    say = progress or (lambda s: None)
-    report = {"timing": {}, "units": {}}
-    engine_kw = dict(mesh=mesh, stats_dtype=stats_dtype)
+def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
+                      spec_margin: float, stats_dtype, ckpt_dir=None,
+                      ckpt_every: int = 8):
+    """One traversal gathering pass-1 and speculative pass-2 statistics.
 
-    t0 = time.time()
-    say("pass 1: ranking/MLP statistics")
-    p1 = calib_mod.CalibrationEngine(model, units, phase=1, **engine_kw) \
-        .run(params, calib_batches())
-    _sync(device)
-    report["timing"]["pass1"] = time.time() - t0
+    The candidate keep-sets come from the first batch's attention scores
+    (one more forward of that batch, not another traversal), sized
+    ``keep_n * (1 + spec_margin)``. Returns ``(p1, spec_plan,
+    spec_stats)``."""
+    it = iter(batches)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("empty calibration stream") from None
+    # the selector needs only the attention scores, not the dense moments
+    attn_units = [u for u in units if u.kind in _ATTN_KINDS]
+    s0 = calib_mod.CalibrationEngine(model, attn_units, phase=1,
+                                     stats_dtype=stats_dtype) \
+        .run(params, [first])
+    spec_plan = {}
+    for u in attn_units:
+        st = _host(s0[u.name])
+        spec_plan[u.name] = rank_mod.candidate_attn(
+            st, _attn_keep_n(u, st["rank"].shape[-1], pc), spec_margin)
+    combined = calib_mod.CalibrationEngine(
+        model, units, phase="1+2", spec_plan=spec_plan,
+        stats_dtype=stats_dtype).run(
+            params, itertools.chain([first], it),
+            checkpointer=_checkpointer(ckpt_dir, "pass12", ckpt_every))
+    return combined["p1"], spec_plan, combined["p2spec"]
 
-    t0 = time.time()
-    plan = {}       # unit.name -> (keep, prune) numpy arrays
+
+def _resolve_attn_pass2(model, units, params, calib_batches, attn_plan,
+                        spec_plan, spec_stats, *, stats_dtype, device,
+                        ckpt_dir=None, ckpt_every: int = 8, say=None):
+    """Pass-2 statistics of every unit in ``attn_plan``.
+
+    Speculative (``spec_plan`` given): a unit whose keep-set lies inside
+    its candidates reconstructs (G, h, t2) from the speculative sums; the
+    units that escaped take ONE targeted pass 2 that reduces only theirs.
+    Two-pass (``spec_plan`` None): the full pass 2. Returns ``(p2,
+    misses)``."""
+    say = say or (lambda s: None)
+    p2, misses = {}, []
+    if spec_plan is not None:
+        for u in units:
+            if u.name not in attn_plan:
+                continue
+            keep = np.asarray(attn_plan[u.name][0])
+            if rank_mod.covers(spec_plan[u.name], keep):
+                rec = stats_mod.spec_reconstruct(
+                    _host(spec_stats[u.name]), spec_plan[u.name], keep, u)
+                p2[u.name] = {k: torch.from_numpy(v).to(device)
+                              for k, v in rec.items()}
+            else:
+                misses.append(u.name)
+        todo = {k: attn_plan[k] for k in misses}
+        if todo:
+            say(f"pass 2 (targeted): {len(todo)} unit(s) escaped the "
+                f"speculative candidates")
+    else:
+        todo = attn_plan
+        if todo:
+            say("pass 2: attention compensation statistics")
+    if todo:
+        p2.update(calib_mod.CalibrationEngine(
+            model, units, phase=2, plan=todo, stats_dtype=stats_dtype).run(
+                params, calib_batches(),
+                checkpointer=_checkpointer(ckpt_dir, "pass2", ckpt_every)))
+    return p2, misses
+
+
+def _rank(units, p1, params, pc: PruneConfig) -> Dict:
+    """unit.name -> (keep, prune) numpy index arrays, from pass 1."""
+    plan = {}
     for u in units:
         st = _host(p1[u.name])
         if u.kind == "mlp":
@@ -207,51 +257,224 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
             w2 = get_block(params, u)["wd"].cpu().numpy()
             keep_n = _keep_count(u.d_hidden, pc.mlp_sparsity, pc.round_to)
             plan[u.name] = rank_mod.rank_mlp(st, w2, keep_n, pc.rank_policy)
-        elif u.kind == "attn":
+        elif u.kind in _ATTN_KINDS:
             if pc.attn_sparsity <= 0:
                 continue
             full = st["rank"].shape[-1]
             plan[u.name] = rank_mod.rank_attn(st, _attn_keep_n(u, full, pc))
-    report["timing"]["rank"] = time.time() - t0
+    return plan
+
+
+def _tick(report, stage: str, t0: float):
+    timing = report["timing"]
+    timing[stage] = timing.get(stage, 0.0) + time.time() - t0
+
+
+def _prune_units(model, units, params, new_params, calib_batches,
+                 pc: PruneConfig, report, *, device, say, stats_dtype,
+                 one_traversal, spec_margin, ckpt_dir=None,
+                 ckpt_every: int = 8):
+    """Calibrate, rank, compensate and fold ``units``: statistics from
+    ``params``, blocks folded from ``new_params``. Returns ``({unit.name:
+    folded block}, plan)``; adds the stage times (each ending with a device
+    synchronise), the units' diagnostics and, when it speculated, its hits
+    and misses to ``report``."""
+    speculate = (one_traversal and pc.attn_sparsity > 0
+                 and any(u.kind in _ATTN_KINDS for u in units))
+    spec_plan = spec_stats = None
+    t0 = time.time()
+    if speculate:
+        say("pass 1+2: one-traversal speculative statistics")
+        p1, spec_plan, spec_stats = _speculative_pass(
+            model, units, params, calib_batches(), pc,
+            spec_margin=spec_margin, stats_dtype=stats_dtype,
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+    else:
+        say("pass 1: ranking/MLP statistics")
+        p1 = calib_mod.CalibrationEngine(
+            model, units, phase=1, stats_dtype=stats_dtype).run(
+                params, calib_batches(),
+                checkpointer=_checkpointer(ckpt_dir, "pass1", ckpt_every))
+    _sync(device)
+    _tick(report, "pass1", t0)
+
+    t0 = time.time()
+    plan = _rank(units, p1, params, pc)
+    _tick(report, "rank", t0)
 
     attn_plan = {u.name: plan[u.name] for u in units
-                 if u.kind == "attn" and u.name in plan}
+                 if u.kind in _ATTN_KINDS and u.name in plan}
     p2 = {}
     if attn_plan:
         t0 = time.time()
-        say("pass 2: attention compensation statistics")
-        p2 = calib_mod.CalibrationEngine(model, units, phase=2,
-                                         plan=attn_plan, **engine_kw) \
-            .run(params, calib_batches())
+        p2, misses = _resolve_attn_pass2(
+            model, units, params, calib_batches, attn_plan, spec_plan,
+            spec_stats, stats_dtype=stats_dtype, device=device,
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, say=say)
         _sync(device)
-        report["timing"]["pass2"] = time.time() - t0
+        _tick(report, "pass2", t0)
+        if speculate:
+            sp = report.setdefault("speculative", {
+                "margin": spec_margin, "candidates": {}, "hits": [],
+                "misses": []})
+            sp["candidates"].update({k: int(v.shape[-1])
+                                     for k, v in spec_plan.items()})
+            sp["hits"] += sorted(set(attn_plan) - set(misses))
+            sp["misses"] += sorted(misses)
+    del spec_stats          # Gc (GBs at DeiT-Base) is not needed to fold
 
     t0 = time.time()
     say("closed-form compensation + fold")
-    new_params = map_tree(torch.clone, params)
+    blocks = {}
     for u in units:
         if u.name not in plan:
             continue
         keep, prune = plan[u.name]
         block = get_block(new_params, u)
         if u.kind == "mlp":
-            block = _fold_mlp_block(block, p1[u.name], u, pc, keep, prune,
-                                    report["units"])
+            blocks[u.name] = _fold_mlp_block(block, p1[u.name], u, pc, keep,
+                                             prune, report["units"])
         else:
-            block = _fold_attn_block(block, p2[u.name], u, pc, keep, prune,
-                                     report["units"])
-        set_block(new_params, u, block)
+            blocks[u.name] = _fold_attn_block(block, p2[u.name], u, pc,
+                                              keep, prune, report["units"])
     _sync(device)
-    report["timing"]["fold"] = time.time() - t0
+    _tick(report, "fold", t0)
+    return blocks, plan
+
+
+def _counted(calib_batches):
+    """``calib_batches`` and a one-item list counting its calls (each call
+    is one traversal of the calibration set)."""
+    calls = [0]
+
+    def counted():
+        calls[0] += 1
+        return calib_batches()
+    return counted, calls
+
+
+def _pruned_cfg(cfg, pc: PruneConfig):
+    return cfg.pruned(pc.mlp_sparsity if pc.mlp_sparsity > 0 else 0.0,
+                      pc.attn_sparsity if pc.attn_sparsity > 0 else 0.0,
+                      round_to=pc.round_to)
+
+
+def _refuse_unported(pc: PruneConfig, mesh):
+    if pc.expert_sparsity > 0:
+        raise NotImplementedError("expert pruning is not ported; see "
+                                  "repro.core.pruner._fold_moe_experts")
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded calibration is not ported; "
+                                  "see repro.core.calibrate"
+                                  ".CalibrationEngine(mesh=)")
+
+
+# ---------------------------------------------------------------------------
+# pipeline
+# ---------------------------------------------------------------------------
+
+def corp_prune(model, params, calib_batches: Callable[[], Iterable],
+               pc: PruneConfig = PruneConfig(),
+               progress: Optional[Callable[[str], None]] = None,
+               ckpt_dir: Optional[str] = None, ckpt_every: int = 8,
+               mesh=None, stats_dtype="float32",
+               one_traversal: bool = False, spec_margin: float = 0.25):
+    """One-shot CORP (Alg. 1): calibrate -> rank -> compensate -> fold.
+
+    Args:
+      model: ``repro_torch.models.Model`` (``apply`` and ``cfg``).
+      params: dense parameters (nested dict of tensors on one device); they
+        are not modified.
+      calib_batches: zero-arg callable returning a fresh iterator of
+        batches on the params' device (traversed twice: the ranking pass
+        and the attention compensation pass; once with ``one_traversal`` on
+        the speculative hit path).
+      pc: sparsities, ridge and ranking policy (``PruneConfig``).
+      progress: optional ``fn(str)`` called at each stage.
+      ckpt_dir: when set, each calibration pass checkpoints its statistics
+        every ``ckpt_every`` batches under ``<ckpt_dir>/pass1``, ``pass2``
+        (``pass12`` for the one-traversal pass) and resumes from the newest
+        valid one.
+      mesh: not ported; raises.
+      stats_dtype: streaming dtype of the taps in every pass, "float32" or
+        "bfloat16" (statistics accumulate in fp32 either way).
+      one_traversal: fuse the two passes into one traversal (module
+        docstring); ``spec_margin`` sizes the candidate sets (memory grows
+        as ``(1 + margin)^4`` of pass 2's G for class-1 units).
+
+    Returns:
+      ``(pruned_params, pruned_config, report)``; ``report`` holds
+      per-unit distortion diagnostics (``j_star``, ``j_uncomp``, ...), the
+      stage timings ``pass1 / rank / pass2 / fold`` in seconds (each stage
+      ends with a device synchronise), ``traversals`` (calibration-set
+      traversals, counted) and, with ``one_traversal``, ``speculative``
+      (margin, candidate sizes, hit and missed units).
+    """
+    _refuse_unported(pc, mesh)
+    cfg = model.cfg
+    units = discover_units(cfg)
+    device = next(iter(flatten(params).values())).device
+    calib, calls = _counted(calib_batches)
+    report = {"timing": {}, "units": {}}
+    new_params = map_tree(torch.clone, params)
+    blocks, plan = _prune_units(
+        model, units, params, new_params, calib, pc, report, device=device,
+        say=progress or (lambda s: None), stats_dtype=stats_dtype,
+        one_traversal=one_traversal, spec_margin=spec_margin,
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+    for u in units:
+        if u.name in blocks:
+            set_block(new_params, u, blocks[u.name])
     report["plan_sizes"] = {k: v[0].shape for k, v in plan.items()}
-    report["traversals"] = 1 + bool(attn_plan)
-
-    new_cfg = cfg.pruned(pc.mlp_sparsity if pc.mlp_sparsity > 0 else 0.0,
-                         pc.attn_sparsity if pc.attn_sparsity > 0 else 0.0,
-                         round_to=pc.round_to)
-    return new_params, new_cfg, report
+    report["traversals"] = calls[0]
+    return new_params, _pruned_cfg(cfg, pc), report
 
 
-def corp_prune_streamed(*args, **kwargs):
-    raise NotImplementedError("memory-bounded streamed CORP is not ported; "
-                              "see repro.core.pruner.corp_prune_streamed")
+def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
+                        pc: PruneConfig = PruneConfig(), *,
+                        unit_group_size: int = 2,
+                        progress: Optional[Callable[[str], None]] = None,
+                        mesh=None, stats_dtype="float32",
+                        one_traversal: bool = False,
+                        spec_margin: float = 0.25):
+    """Memory-bounded CORP: the output of ``corp_prune`` (statistics are
+    linear, so partitioning the unit set changes nothing), with only
+    ``unit_group_size`` units' statistics resident at a time; each group
+    traverses the calibration set anew (twice for a group with attention,
+    once on a speculative hit).
+
+    Units are those of ``discover_units``, as in the JAX package: a stacked
+    unit holds all its layers (DeiT-Base has 2 units, attention and MLP).
+
+    Returns ``(pruned_params, pruned_config, report)`` as ``corp_prune``
+    (stage times summed over the groups), with ``report["groups"]``
+    counting the unit groups and ``report["traversals"]`` all traversals.
+    """
+    _refuse_unported(pc, mesh)
+    if unit_group_size < 1:
+        raise ValueError(f"unit_group_size {unit_group_size} must be >= 1")
+    cfg = model.cfg
+    all_units = discover_units(cfg)
+    say = progress or (lambda s: None)
+    device = next(iter(flatten(params).values())).device
+    calib, calls = _counted(calib_batches)
+    report = {"timing": {}, "units": {}, "groups": 0}
+    new_params = map_tree(torch.clone, params)
+    merged_plan = {}
+    groups = [all_units[i:i + unit_group_size]
+              for i in range(0, len(all_units), unit_group_size)]
+    for gi, units in enumerate(groups):
+        say(f"group {gi + 1}/{len(groups)}: "
+            + ", ".join(u.name for u in units))
+        blocks, plan = _prune_units(
+            model, units, params, new_params, calib, pc, report,
+            device=device, say=say, stats_dtype=stats_dtype,
+            one_traversal=one_traversal, spec_margin=spec_margin)
+        for u in units:
+            if u.name in blocks:
+                set_block(new_params, u, blocks[u.name])
+        merged_plan.update(plan)
+        report["groups"] += 1
+    report["plan_sizes"] = {k: v[0].shape for k, v in merged_plan.items()}
+    report["traversals"] = calls[0]
+    return new_params, _pruned_cfg(cfg, pc), report

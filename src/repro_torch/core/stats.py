@@ -11,15 +11,26 @@ Two streaming passes over the unlabeled calibration set:
       G = sum_b (Q_S^T Q_S) (x) (K_S^T K_S),  h = sum_b vec((Q_S^T Q_P)(K_P^T K_S)),
       t2 = sum_b ||Q_P K_P^T||_F^2.
 
-Every statistic is a sum over samples, accumulated in fp32. The layer-stacked
-taps (leading layer axis) are reduced for all layers at once: one gram
-launch covers every layer of a unit. Rope classes 2/3, MoE, Mamba and the
-one-traversal reductions are not ported yet; they raise.
+  one traversal (phase "1+2"): pass 1 plus speculative pass-2 sums
+    against fixed candidate keep-sets C (``spec_pass2_reduce``), from which
+    ``spec_reconstruct`` rebuilds the exact (G, h, t2) of any keep-set
+    inside C, with no second traversal:
+      Gc = sum_b A_CC (x) C_CC,  Hfull = sum_b (Q_C^T Q)(K^T K_C),
+      t2_tot = sum_b <Q^T Q, K^T K>   (A = Q^T Q, C = K^T K per sample).
+
+Every statistic is a sum over samples, accumulated in fp32. Taps arrive in
+the engine's streaming dtype (fp32 or bf16): the dense second moments and
+the per-sample grams take it into the gram kernels, which accumulate in
+fp32; every other reduction casts to fp32 first. The layer-stacked taps
+(leading layer axis) are reduced for all layers at once: one gram launch
+covers every layer of a unit. Rope classes 2/3, MoE and Mamba are not
+ported yet; they raise.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.core.units import Unit
@@ -51,11 +62,11 @@ def _group_q(q, n_groups):
         .reshape(L, B, n_groups, T * qpg, d)
 
 
-def _check_attn(unit: Unit):
+def _check_attn(unit: Unit, fn: str = "_p2_attn"):
     if unit.attn_class != 1 or unit.kind != "attn" or not unit.stacked:
         raise NotImplementedError(
             f"attention unit {unit.name} (kind {unit.kind}, class "
-            f"{unit.attn_class}) is not ported; see repro.core.stats._p2_attn")
+            f"{unit.attn_class}) is not ported; see repro.core.stats.{fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +139,113 @@ def _p2_attn(taps, unit: Unit, keep, prune):
 
 
 # ---------------------------------------------------------------------------
+# speculative pass-2 reductions (one-traversal calibration)
+# ---------------------------------------------------------------------------
+
+def _bgram(x, y):
+    """Per-sample rectangular grams through the gram_cross kernel:
+    x (..., N, Fx), y (..., N, Fy) -> (..., Fx, Fy) fp32 ``X_b^T Y_b``.
+    The kernel folds every leading dim into its work items, so all
+    samples, groups and layers take one launch; inputs keep their
+    streaming dtype."""
+    return gram_ops.gram_cross(x, y)["s2"]
+
+
+def _rows(M, idx):
+    """M (L, B, G, d, e), idx (L, G, c) -> M[l, b, g, idx[l, g], :]."""
+    L, B, G, _, e = M.shape
+    c = idx.shape[-1]
+    return torch.gather(M, 3, idx[:, None, :, :, None].expand(L, B, G, c, e))
+
+
+def _cols(M, idx):
+    """M (L, B, G, e, d), idx (L, G, c) -> M[l, b, g, :, idx[l, g]]."""
+    L, B, G, e, _ = M.shape
+    c = idx.shape[-1]
+    return torch.gather(M, 4, idx[:, None, :, None, :].expand(L, B, G, e, c))
+
+
+def _p2spec_attn(taps, unit: Unit, cand):
+    """Speculative pass-2 sums of one class-1 attention unit.
+
+    cand: int64 candidate keep-indices (L, G, c), fixed for the whole
+    traversal. Per (layer, group):
+      Gc     (c, c, c, c)  sum_b A_CC (x) C_CC, order [i, l, j, k]
+      Hfull  (c, c)        sum_b (Q_C^T Q)(K^T K_C)
+      t2_tot ()            sum_b <Q^T Q, K^T K>  (full Frobenius)
+    The taps keep their streaming dtype into ``_bgram``; the candidate
+    gathers run on its fp32 results. Gc is contracted over the batch inside
+    one product, so no per-sample (B, c, c, c, c) tensor is formed."""
+    _check_attn(unit, "_p2spec_attn")
+    q = taps[f"{unit.tap_prefix}/q"]
+    k = taps[f"{unit.tap_prefix}/k"]
+    qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
+    kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
+    A_ff = _bgram(qg, qg)                             # (L, B, G, d, d)
+    C_ff = _bgram(kg, kg)
+    A_cf = _rows(A_ff, cand)                          # Q_C^T Q (L,B,G,c,d)
+    C_fc = _cols(C_ff, cand)                          # K^T K_C (L,B,G,d,c)
+    A_cc = _cols(A_cf, cand)
+    C_cc = _rows(C_fc, cand)
+    return {"Gc": torch.einsum("xbgij,xbglk->xgiljk", A_cc, C_cc),
+            "Hfull": torch.einsum("xbgcp,xbgpu->xgcu", A_cf, C_fc),
+            "t2_tot": (A_ff * C_ff).sum(dim=(1, 3, 4))}
+
+
+def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict) -> Dict:
+    """Per-batch speculative pass-2 sums for every attention unit with a
+    candidate set in ``spec_plan`` ({unit.name: (L, G, c) int64})."""
+    out = {}
+    for u in units:
+        if u.kind in ("attn", "mla", "cross") and u.name in spec_plan:
+            out[u.name] = _p2spec_attn(taps, u, spec_plan[u.name])
+    return out
+
+
+def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
+    """Exact pass-2 statistics of ``keep`` from the speculative sums.
+
+    Host numpy with float64 intermediates (``repro.core.stats
+    .spec_reconstruct``, class 1): valid when every group's keep-set lies
+    inside its candidate set (``ranking.covers``); both are sorted. Returns
+    numpy ``{"G", "h", "t2"}`` of the shapes and dtype (fp32) that a pass-2
+    traversal gives. The complement terms are differences of candidate and
+    full sums, not direct sums over the pruned set, so they differ from
+    pass 2 in rounding only (``t2`` is clamped at 0)."""
+    if unit.attn_class != 1:
+        raise NotImplementedError(
+            f"attention unit {unit.name} of class {unit.attn_class} is not "
+            f"ported; see repro.core.stats.spec_reconstruct")
+    cand = np.asarray(cand)
+    keep = np.asarray(keep)
+    lead = cand.shape[:-1]                  # (L, G)
+    c, n = cand.shape[-1], keep.shape[-1]
+    cf = cand.reshape(-1, c)
+    kf = keep.reshape(-1, n)
+    rows = cf.shape[0]
+    Gc = np.asarray(spec["Gc"], np.float64).reshape(rows, c, c, c, c)
+    Hf = np.asarray(spec["Hfull"], np.float64).reshape(rows, c, c)
+    tt = np.asarray(spec["t2_tot"], np.float64).reshape(rows)
+    Gs, hs, t2s = [], [], []
+    for r in range(rows):
+        pos = np.searchsorted(cf[r], kf[r])
+        Gq = Gc[r]
+        Gs.append(Gq[np.ix_(pos, pos, pos, pos)].reshape(n * n, n * n))
+        # T_s = Gc[:, s, s, :] is the per-keep outer-product slice;
+        # subtracting it from H_full leaves the pruned-set cross term
+        sum_t = Gq[:, pos, pos, :].sum(axis=1)
+        hs.append((Hf[r] - sum_t)[np.ix_(pos, pos)].reshape(-1))
+        e_cc = np.einsum("iijj->ij", Gq)
+        t2 = tt[r] - 2.0 * np.diagonal(Hf[r])[pos].sum() \
+            + e_cc[np.ix_(pos, pos)].sum()
+        t2s.append(max(t2, 0.0))
+    G_arr, h_arr = np.stack(Gs), np.stack(hs)
+    return {"G": G_arr.astype(np.float32).reshape(lead + G_arr.shape[1:]),
+            "h": h_arr.astype(np.float32).reshape(lead + h_arr.shape[1:]),
+            "t2": np.asarray(t2s, np.float32).reshape(lead)}
+
+
+# ---------------------------------------------------------------------------
 # per-batch reductions over every unit
 # ---------------------------------------------------------------------------
 
@@ -158,12 +276,17 @@ def pass2_reduce(taps: Dict, units: List[Unit], plan: Dict) -> Dict:
 def tree_add(a, b):
     """a + b leafwise; ``a`` is updated in place (it is the running
     accumulator, and its largest leaf, pass 2's G, is hundreds of MB at
-    DeiT-Base), ``None`` starts a new one."""
+    DeiT-Base), ``None`` starts a new one. Raises on a leaf whose shape
+    differs (a restored accumulator of another configuration), which an
+    in-place add could otherwise broadcast."""
     if a is None:
         return b
     for k, v in b.items():
         if isinstance(v, dict):
             tree_add(a[k], v)
+        elif a[k].shape != v.shape:
+            raise ValueError(f"accumulator leaf {k}: shape "
+                             f"{tuple(a[k].shape)} != {tuple(v.shape)}")
         else:
             a[k].add_(v)
     return a

@@ -8,7 +8,9 @@ plain version in ``ref.py``. The kernel reads the cache in its own
 (B, S, Hkv, d) layout through strides, so a decode step passes one layer's
 slice of the stacked cache without a copy. It is one launch: the splits of
 a (batch row, kv head) merge inside their thread block cluster, and tiles
-without a valid key are never read.
+without a valid key are never read. A row with no valid key gives 0 on
+both devices, as the Pallas kernel does (the JAX ref gives the mean of V
+there; ``ref.py`` says why the port does not).
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ def sm_count(index: int) -> int:
 
 def decode_attention(q, k, v, valid, *, scale=None, bs=None):
     """q: (B,H,dq); k: (B,S,Hkv,dq); v: (B,S,Hkv,dv); valid: (B,S) bool or
-    int8 -> (B,H,dv) in q's dtype. ``bs`` (keys per split, rounded up to
+    int8 -> (B,H,dv) in q's dtype, 0 for a row with no valid key. ``bs`` (keys per split, rounded up to
     whole 64-key tiles, at most 8 splits) defaults to ``plan``'s choice;
     the result does not depend on it."""
     if scale is None:

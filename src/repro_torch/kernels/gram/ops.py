@@ -15,6 +15,7 @@ makes no copies.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -24,6 +25,9 @@ from repro_torch.kernels.flash_attention.ops import rows16
 from repro_torch.kernels.gram import ref as _ref
 
 launches = 0            # kernel launches in this process (chip_smoke reads it)
+# the same launches by op and input dtype: {("gram" | "gram_cross",
+# "float32" | "bfloat16"): n}
+launches_by = collections.Counter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
@@ -102,6 +106,7 @@ def _launch(x: torch.Tensor, y: torch.Tensor, sym: bool) -> dict:
                  stream)
         _build.check(err, "gram_cross")
         launches += 1
+        launches_by["gram" if sym else "gram_cross", str(x.dtype)[6:]] += 1
     return {"s2": s2.reshape(lead + (Fx, Fy)), "s1": s1.reshape(lead + (Fy,))}
 
 

@@ -4,10 +4,13 @@
         --sparsity 0.5 --calib 128 --calib-batch 16 --out /tmp/pruned
 
 Initialises dense DeiT parameters from seed 0 (no pretrained weights are in
-the repository), runs the one-shot CORP pipeline over the synthetic
-calibration stream on the GPU (``--device cpu`` for the plain PyTorch path)
-and, with ``--out``, writes the pruned checkpoint in the JAX package's
-layout plus ``report.json``.
+the repository), or loads them from a train checkpoint (``--ckpt-in``),
+runs the one-shot CORP pipeline over the synthetic calibration stream on
+the GPU (``--device cpu`` for the plain PyTorch path) and, with ``--out``,
+writes the pruned checkpoint in the JAX package's layout plus
+``report.json``. ``--one-traversal``, ``--stats-dtype bfloat16`` and
+resumable statistics checkpoints (``--calib-ckpt``) are ported; the flags
+of unported layers parse and raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -19,11 +22,28 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint import save_checkpoint
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs import resolve_config
 from repro_torch.core import PruneConfig, corp_prune
 from repro_torch.data import calib_stream
 from repro_torch.models import build_model
+
+# flags of the JAX CLI whose layers are not ported: they parse, so that
+# they are refused by name
+_UNPORTED = {
+    "expert_sparsity": "expert pruning (repro.core.pruner._fold_moe_experts"
+                       "; ROADMAP Queue 1 item 3, qwen3-moe)",
+    "calib_seq": "LM calibration streams (repro.data.synthetic.lm_batch; "
+                 "ROADMAP Queue 1 item 2)",
+    "mesh": "mesh-sharded calibration (repro.launch.mesh, repro.core"
+            ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
+    "calib_sharded": "mesh-sharded calibration (repro.core.calibrate"
+                     ".CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
+    "gram_tiles": "the TPU gram autotuner (repro.kernels.gram.autotune), "
+                  "which is not carried over: the CUDA kernel's 128x128 "
+                  "tiles are fixed",
+}
 
 
 def parse_args(argv=None):
@@ -56,12 +76,45 @@ def parse_args(argv=None):
     ap.add_argument("--lam", type=float, default=1e-4,
                     help="ridge strength, relative to mean(diag(Sigma))")
     ap.add_argument("--ckpt-in", default=None,
-                    help="dense checkpoint to load (not ported yet)")
+                    help="train checkpoint dir to load dense params from: "
+                         "the params of its (params, opt_state) tuple at "
+                         "the newest valid step (seed-0 init when omitted)")
     ap.add_argument("--out", default=None,
                     help="output dir for the pruned checkpoint + "
                          "report.json (print-only when omitted)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without it)")
+    ap.add_argument("--calib-ckpt", default=None,
+                    help="directory for resumable calibration-statistics "
+                         "checkpoints: each pass saves its accumulator every "
+                         "--calib-ckpt-every batches and resumes from the "
+                         "newest valid one")
+    ap.add_argument("--calib-ckpt-every", type=int, default=8,
+                    help="batches between calibration checkpoints")
+    ap.add_argument("--one-traversal", action="store_true",
+                    help="fuse the two calibration passes into ONE "
+                         "traversal: pass 1 also accumulates pass-2 "
+                         "statistics for top-k candidate keep-sets; units "
+                         "whose final keep-set lands inside them need no "
+                         "second pass (misses take a targeted pass 2)")
+    ap.add_argument("--spec-margin", type=float, default=0.25,
+                    help="candidate margin for --one-traversal: keep_n * "
+                         "margin extra candidate dims per kv group")
+    ap.add_argument("--stats-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="dtype the activation taps are STREAMED in during "
+                         "calibration (every statistic accumulates fp32)")
+    # not ported: parsed so that main() refuses them by name
+    ap.add_argument("--expert-sparsity", type=float, default=None,
+                    help="not ported (MoE expert pruning)")
+    ap.add_argument("--calib-seq", type=int, default=None,
+                    help="not ported (LM calibration streams)")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported (mesh-sharded calibration)")
+    ap.add_argument("--calib-sharded", action="store_true", default=None,
+                    help="not ported (mesh-sharded calibration)")
+    ap.add_argument("--gram-tiles", default=None,
+                    help="not ported (the TPU gram autotuner's tiles)")
     return ap.parse_args(argv)
 
 
@@ -69,13 +122,23 @@ def main(argv=None) -> dict:
     """Run the CLI; returns the dense and pruned params, configs and the
     report, for callers that drive it in-process."""
     args = parse_args(argv)
-    if args.ckpt_in:
-        raise NotImplementedError("--ckpt-in is not ported; see "
-                                  "repro.launch.prune --ckpt-in")
+    for flag, layer in _UNPORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} needs {layer}, which is not "
+                f"ported to repro_torch yet")
     device = resolve_device(args.device)
     cfg = resolve_config(args.arch)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device=device)
+    if args.ckpt_in:
+        last = latest_step(args.ckpt_in)
+        if last is None:
+            raise FileNotFoundError(f"no valid checkpoint in {args.ckpt_in}")
+        # train checkpoints hold (params, opt_state): restore the params
+        params, _ = restore_checkpoint(args.ckpt_in, last, params,
+                                       prefix="0/")
+        print(f"[prune] loaded step {last} from {args.ckpt_in}")
     pc = PruneConfig(
         mlp_sparsity=(args.mlp_sparsity if args.mlp_sparsity is not None
                       else args.sparsity),
@@ -89,13 +152,22 @@ def main(argv=None) -> dict:
     stream = calib_stream(cfg, n_samples=args.calib, batch=args.calib_batch,
                           device=device)
     t0 = time.time()
-    new_params, new_cfg, report = corp_prune(model, params, stream, pc,
-                                             progress=print)
+    new_params, new_cfg, report = corp_prune(
+        model, params, stream, pc, progress=print, ckpt_dir=args.calib_ckpt,
+        ckpt_every=args.calib_ckpt_every, stats_dtype=args.stats_dtype,
+        one_traversal=args.one_traversal, spec_margin=args.spec_margin)
     dt = time.time() - t0
     timing = ", ".join(f"{k} {v:.3f}s" for k, v in report["timing"].items())
     print(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
           f"d_ff {cfg.d_ff} -> {new_cfg.eff_d_ff}, "
           f"qk {cfg.qk_full} -> {new_cfg.eff_qk}")
+    if "speculative" in report:
+        sp = report["speculative"]
+        print(f"[prune] one-traversal: {report['traversals']} traversal(s), "
+              f"margin {sp['margin']}, {len(sp['hits'])} hit / "
+              f"{len(sp['misses'])} miss"
+              + (f" (re-passed: {', '.join(sp['misses'])})"
+                 if sp["misses"] else ""))
     if args.out:
         save_checkpoint(args.out, 0, new_params,
                         extra={"config": new_cfg.name,

@@ -113,9 +113,9 @@ def test_unported_paths_raise():
     for arch in ("granite-8b", "gemma3-1b", "jamba-1.5-large-398b"):
         with pytest.raises(NotImplementedError, match="repro.configs"):
             pt_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ckpt-in"):
+    with pytest.raises(NotImplementedError, match="--mesh"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
-                       "--ckpt-in", "x"])
+                       "--mesh", "2x2"])
 
 
 def test_cli_checkpoint_restores_into_jax(tmp_path):

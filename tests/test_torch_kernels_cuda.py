@@ -100,6 +100,43 @@ def test_gram_cross_kernel_layer_stacked(dev):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_gram_cross_kernel_at_the_bgram_shape(dev, dtype, tol):
+    """The one-traversal pass's per-sample grams at DeiT-Base: 12 layers x
+    16 images x 12 groups = 2304 items of (197, 64), X^T X in one launch
+    (``stats._bgram`` passes the same tensor as x and y)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(12, 16, 12, 197, 64, generator=g, device=dev).to(dtype)
+    before = gram_ops.launches_by["gram_cross", str(dtype)[6:]]
+    got = gram_ops.gram_cross(x, x)
+    assert gram_ops.launches_by["gram_cross", str(dtype)[6:]] == before + 1
+    want = gram_ref.gram_cross(x, x)
+    assert got["s2"].shape == (12, 16, 12, 64, 64)
+    rel = (got["s2"] - want["s2"]).abs().max() / want["s2"].abs().max()
+    assert rel <= tol, rel
+    # 147,456 fp32 sums of 197 terms: one that cancels towards 0 keeps the
+    # rounding of its partials (a sequential fp32 sum misses the fp64 sum
+    # by 4e-5 here), so s1 too is held relative to its largest entry
+    s1 = x.double().sum(dim=-2)
+    rel1 = (got["s1"].double() - s1).abs().max() / s1.abs().max()
+    assert rel1 <= tol, rel1
+
+
+def test_gram_kernel_bf16_at_the_main_path_shape(dev):
+    """The bf16 stream's MLP tap: (12 layers, 16 x 197 tokens, d_ff 3072)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(12, 3152, 3072, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    before = gram_ops.launches_by["gram", "bfloat16"]
+    got = gram_ops.gram(x)
+    assert gram_ops.launches_by["gram", "bfloat16"] == before + 1
+    want = gram_ref.gram(x)
+    rel = (got["s2"] - want["s2"]).abs().max() / want["s2"].abs().max()
+    assert rel <= 1e-2
+    assert torch.equal(got["s2"], got["s2"].mT)
+
+
 def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
                 scale=0.125, offset=0):
     """Kernel vs plain on seeded inputs; ``offset`` > 0 makes q, k, v views
@@ -273,6 +310,18 @@ def test_decode_kernel_row_valid_only_at_key_zero(dev, dtype):
     valid[0, 0] = True
     valid[2, 1:] = False
     _decode_case(dev, valid, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_with_no_valid_key_gives_zero(dev, dtype):
+    """Row 1 has no valid key: 0 on the card, as the plain version gives;
+    the other rows are the plain result."""
+    valid = torch.ones(3, 300, dtype=torch.bool, device=dev)
+    valid[1] = False
+    valid[2, 150:] = False
+    got = _decode_case(dev, valid, dtype)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert bool(got[0].abs().max() > 0) and bool(got[2].abs().max() > 0)
 
 
 def test_decode_kernel_at_the_serve_mask(dev):

@@ -171,6 +171,28 @@ def test_decode_ref_matches_pallas(name, dtype, tol):
                rtol=tol)
 
 
+@pytest.mark.parametrize("name", ["gqa_12_2", "dq_ne_dv"])
+def test_decode_row_with_no_valid_key_gives_zero(name):
+    """Row 1 loses every key: it is 0, as the Pallas kernel (and the CUDA
+    kernel) give, where the JAX ref gives the mean of V; row 0 stays the
+    JAX ref's and the Pallas kernel's result."""
+    case = DECODE_CASES[name]
+    q, k, v, valid = _decode_inputs(case)
+    valid[1] = False
+    args = [jnp.asarray(a) for a in (q, k, v, valid)]
+    want_pal = np.asarray(jax_decode.decode_attention(
+        *args, scale=0.25, bs=case[-1], impl="interpret"))
+    want_ref = np.asarray(jax_decode_ref.decode_attention(*args, 0.25))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = decode_ops.decode_attention(tq, tk, tv, torch.from_numpy(valid),
+                                      scale=0.25).numpy()
+    assert np.array_equal(got[1], np.zeros_like(got[1]))
+    assert np.array_equal(want_pal[1], np.zeros_like(want_pal[1]))
+    assert np.abs(want_ref[1]).max() > 0
+    for want in (want_ref, want_pal):
+        _close(got[0], want[0])
+
+
 def test_ops_take_plain_version_on_cpu_and_launch_nothing():
     before = (gram_ops.launches, flash_ops.launches, decode_ops.launches)
     x = torch.randn(20, 6)
