@@ -26,11 +26,12 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      width, each gated on the held-out logits of the two-pass prune and on
      its kernels' launches: the bf16 stream (``gram`` on bf16, <= 1e-2),
      one traversal (``gram_cross`` through ``stats._bgram``, fp32 and
-     bf16 at the default margin and a sure hit at margin 1.0, <= 1e-3), an
+     bf16 at the default margin and a sure hit at margin 1.0, <= 1e-4), an
      interrupted and resumed calibration pass and two CLI runs on one
-     ``--calib-ckpt`` (bit-identical), and ``corp_prune_streamed`` in 3
-     groups (6 traversals, <= 1e-4); on a reduced DeiT the same pruned
-     output on the GPU as on the CPU's plain path; then profiles one prune;
+     ``--calib-ckpt`` (bit-identical), and ``corp_prune_streamed`` one unit
+     a group (2 groups, 3 traversals, <= 1e-4); on a reduced DeiT the same
+     pruned output on the GPU as on the CPU's plain path; then profiles one
+     prune;
   4. serve path: serves a ragged trace of 32 requests with Qwen2-1.5B at
      full width (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
@@ -42,7 +43,22 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
   5. recurrent serve path: the same for RWKV6-3B at full width under the
      recurrent slot-cache contract (every prefill and decode step runs the
      ``wkv6`` kernel once per layer), with its slot bytes at two max_len;
-  6. prints the card, a JSON line of per-kernel numbers with launches per
+  6. LM pruning: ``gram``, ``flash_attention``, ``wkv6`` and
+     ``flash_decode`` against their plain versions at the shapes of the LM
+     prune and pruned-serve paths (``[kernels lm prune]``); CORP of
+     Qwen2-1.5B at full width (``[prune qwen2]``: GLU MLP and class-2 rope
+     attention, 128 sequences of 512 tokens from a port-only Zipf stream;
+     J* <= J_uncomp, d_ff 4480 and qk 64, held-out logits finite and
+     closer to the dense model's than an uncompensated prune's), the same
+     in one traversal (``[prune qwen2 one traversal]``: margin 1.0 a hit
+     in 1 traversal within 1e-4 of two-pass; the default margin reported),
+     RWKV6-3B (``[prune rwkv]``: ``bv_comp`` in every layer, compensated
+     beats uncompensated); the pruned Qwen2 saved and served through
+     ``launch.serve --ckpt-in`` and the pruned RWKV through the engine
+     (``[serve pruned]``); both reduced LMs pruned by ``launch.prune
+     --calib-seq 16`` on the GPU and the CPU (logits within 1e-3) and
+     served from the GPU's checkpoint on both (equal streams);
+  7. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -1267,6 +1283,461 @@ def serve_reference_phase(args, tag):
              f"CPU's")
 
 
+# ---------------------------------------------------------------------------
+# LM pruning (Qwen2-1.5B class-2 attention + GLU MLP, RWKV6-3B channel mix)
+# ---------------------------------------------------------------------------
+
+# 128 calibration sequences of 512 tokens: at 32 (16,384 tokens for 4,480
+# kept channels a layer) the ridge overfits, and the compensated Qwen2 is
+# further from the dense model on held-out tokens than plain pruning; the
+# JAX package does the same at that ratio (tests/lm_overfit_witness.py)
+LM = dict(sparsity=0.5, seqs=128, seq=512, batch=8, held=4)
+# the kernels' shapes on these paths: Qwen2-1.5B's stacked MLP tap (layers,
+# 8 x 512 tokens, d_ff); its causal GQA calibration forward (B, T, H, Hkv,
+# d); RWKV6-3B's prefill (B, T, H, N); pruned Qwen2 decode (B, S, H, Hkv,
+# dq, dv)
+LM_SHAPES = dict(gram=(28, 4096, 8960), attn=(8, 512, 12, 2, 128),
+                 wkv=(8, 512, 40, 64), decode=(8, 1024, 12, 2, 64, 128))
+PRUNED_SERVE = ["--arch", "qwen2-1.5b", "--sparsity", "0.5", "--trace",
+                "16", "--slots", "8", "--max-len", "1024",
+                "--prompt-range", "64,512", "--gen-range", "32,256"]
+
+
+def zipf_tokens(vocab, n_seqs, seq, seed, dev):
+    """The full-vocabulary LM phases' calibration tokens: drawn iid from a
+    Zipf-like unigram, p(v) proportional to 1 / (v + 1), by a seeded
+    torch.Generator on the card. This stream is the port's own and is not
+    held to the JAX package: the reference's generator needs a V x V
+    Markov table (92 GB at Qwen2-1.5B's V = 151936), so it runs only on
+    reduced vocabularies (the CPU parity tests)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float32, device=dev)
+    return torch.multinomial(p, n_seqs * seq, replacement=True,
+                             generator=g).reshape(n_seqs, seq) \
+        .to(torch.int32)
+
+
+def lm_calib(cfg, dev, seed=11):
+    """(zero-arg calibration stream of LM['seqs'] sequences in batches of
+    LM['batch'], the held-out batch of LM['held'] more sequences)."""
+    toks = zipf_tokens(cfg.vocab_size, LM["seqs"], LM["seq"], seed, dev)
+    batches = [{"tokens": toks[i:i + LM["batch"]]}
+               for i in range(0, LM["seqs"], LM["batch"])]
+    held = {"tokens": zipf_tokens(cfg.vocab_size, LM["held"], LM["seq"],
+                                  seed + 1, dev)}
+    return (lambda: iter(batches)), held
+
+
+def logits32(cfg, params, batch):
+    """Logits of an LM's params evaluated in fp32 (TF32 off): a comparison
+    of two pruned models then measures their weights, not the bf16
+    rounding of each activation."""
+    from repro_torch.interop import map_tree
+    from repro_torch.models import build_model
+    p32 = map_tree(lambda t: t.float(), params)
+    return build_model(cfg.replace(dtype="float32")).apply(p32, batch)[0]
+
+
+def lm_kernel_phase(dev, rows):
+    """Each kernel against its plain version at the shapes LM pruning and
+    pruned serving give it, timed beside its bound and one-call PyTorch
+    equivalent; the results join the JSON rows of ``kernel_phase``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_decode import ref as decode_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels lm prune] each against its plain version at the LM "
+          "prune and pruned-serve shapes")
+    # gram: Qwen2-1.5B's MLP tap, 28 layers x 8 x 512 tokens x d_ff 8960
+    L, N, Fd = LM_SHAPES["gram"]
+    gram_rows = {}
+    for dt, tol, peak in ((torch.float32, 1e-5, PEAK_FP32_FLOPS),
+                          (torch.bfloat16, 1e-2, PEAK_BF16_FLOPS)):
+        x = rand(L, N, Fd, dtype=dt)
+        err = check_gram(x, tol=tol, label="Qwen2 MLP tap")
+        if dt == torch.float32:
+            s2 = gram_ops.gram(x)["s2"]
+            symmetric = bool(torch.equal(s2, s2.mT))
+            print(f"  gram Qwen2 MLP tap {tuple(x.shape)} fp32: s2 equals "
+                  f"its transpose bit for bit: "
+                  f"{'ok' if symmetric else 'FAIL'}")
+            del s2
+            if not symmetric:
+                fail("gram's s2 is not exactly symmetric at the LM shape")
+        r = {"shape": [L, N, Fd], "max_abs_err": err,
+             "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+             "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3,
+                                 warmup=1),
+             "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                                   warmup=1)}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            1.0 * L * N * Fd * (Fd + 1),
+            x.element_size() * L * N * Fd + 4.0 * (L * Fd * Fd + L * Fd),
+            peak)
+        print(f"  gram at the Qwen2 prune shape {tuple(x.shape)} "
+              f"{str(dt)[6:]}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, torch.matmul {r['library_ms']:.3f} "
+              f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+        gram_rows[str(dt)[6:]] = r
+        del x
+        torch.cuda.empty_cache()
+    by_name["gram"]["lm_prune"] = gram_rows
+
+    # flash_attention: the Qwen2 calibration forward, causal GQA 12/2
+    B, T, H, Hkv, d = LM_SHAPES["attn"]
+    bf = torch.bfloat16
+    q, k, v = rand(B, T, H, d, dtype=bf), rand(B, T, Hkv, d, dtype=bf), \
+        rand(B, T, Hkv, d, dtype=bf)
+    scale = 1.0 / math.sqrt(d)
+    err = check_attention(q, k, v, True, None, scale,
+                          f"Qwen2 calib B={B} T={T} bf16", tol=2e-2)
+    qt = q.transpose(1, 2)
+    kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+              for a in (k, v))
+    calls = {"ms": lambda: flash_ops.attention(q, k, v, causal=True,
+                                               scale=scale),
+             "plain_ms": lambda: flash_ref.attention(q, k, v, causal=True,
+                                                     scale=scale),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, scale=scale)}
+    fa = {"shape": [B, T, H, Hkv, d], "max_abs_err": err,
+          **{key: device_ms(fn, reps=10) for key, fn in calls.items()}}
+    fa["bound_ms"], fa["bound_by"] = bound_ms(
+        2.0 * B * H * (T * (T + 1) / 2) * 2 * d,
+        2.0 * B * T * (2 * H + 2 * Hkv) * d, PEAK_BF16_FLOPS)
+    print(f"  flash_attention at the Qwen2 calibration shape B={B} T={T} "
+          f"H={H}/{Hkv} d={d} causal bf16, device time: kernel "
+          f"{fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, SDPA "
+          f"{fa['library_ms']:.4f} ms, bound {fa['bound_ms']:.4f} ms "
+          f"({fa['bound_by']})")
+    by_name["flash_attention"]["lm_calib"] = fa
+    del q, k, v, qt, kt, vt
+
+    # wkv6: the RWKV calibration forward, prefill B 8, T 512, no state
+    B, T, H, Nh = LM_SHAPES["wkv"]
+
+    def wrand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    r, kk, vv = (wrand(B, T, H, Nh).to(bf) for _ in range(3))
+    w = torch.exp(-torch.exp(-2.0 + 0.5 * wrand(B, T, H, Nh))).to(bf)
+    u = 0.1 * wrand(H, Nh)
+    err_y, err_s = check_wkv6(r, kk, vv, w, u, None,
+                              f"RWKV calib B={B} T={T}")
+    wk = {"shape": [B, T, H, Nh], "max_abs_err": err_y,
+          "max_abs_err_state": err_s,
+          "blocks": wkv_ops.Plan(B, T, H, Nh).blocks,
+          "ms": device_ms(lambda: wkv_ops.wkv6(r, kk, vv, w, u, None),
+                          reps=10),
+          "plain_ms": device_ms(lambda: wkv_ref.wkv6(r, kk, vv, w, u, None),
+                                reps=1, replays=1, warmup=1),
+          "library_ms": None}
+    wk["bound_ms"], wk["bound_by"] = bound_ms(
+        wkv6_flops(B, T, H, Nh), wkv6_bytes(B, T, H, Nh, 2, False))
+    print(f"  wkv6 at the RWKV calibration shape B={B} T={T} H={H} N={Nh} "
+          f"bf16 ({wk['blocks']} blocks), device time: kernel "
+          f"{wk['ms']:.4f} ms, plain {wk['plain_ms']:.4f} ms, bound "
+          f"{wk['bound_ms']:.4f} ms ({wk['bound_by']}); no single PyTorch "
+          f"call computes it")
+    by_name["wkv6"]["lm_calib"] = wk
+    del r, kk, vv, w
+
+    # flash_decode: pruned Qwen2 serving, dq 64, dv 128, the serve mask
+    B, S, H, Hkv, dq, dv = LM_SHAPES["decode"]
+    q = rand(B, H, dq, dtype=bf)
+    k, v = rand(B, S, Hkv, dq, dtype=bf), rand(B, S, Hkv, dv, dtype=bf)
+    lens = [128 + 48 * i for i in range(B)]
+    vmask = torch.arange(S, device=dev)[None] < torch.tensor(
+        lens, device=dev)[:, None]
+    scale = 1.0 / math.sqrt(dv)         # the dense logit scale, qk_full
+    err = check_decode(q, k, v, vmask, f"pruned dq={dq} serve mask", 2e-2)
+    kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+              for a in (k, v))
+    qt, m4 = q[:, :, None], vmask[:, None, None, :]
+    calls = {"ms": lambda: decode_ops.decode_attention(q, k, v, vmask,
+                                                       scale=scale),
+             "plain_ms": lambda: decode_ref.decode_attention(q, k, v, vmask,
+                                                             scale),
+             "library_ms": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=m4, scale=scale)}
+    fd = {"shape": [B, S, H, Hkv, dq, dv], "lens": lens, "max_abs_err": err,
+          **{key: device_ms(fn) for key, fn in calls.items()}}
+    keys = sum(lens)
+    fd["bound_ms"], fd["bound_by"] = bound_ms(
+        2.0 * H * keys * (dq + dv),
+        keys * Hkv * (dq + dv) * 2 + 2 * B * H * (dq + dv) + B * S,
+        PEAK_BF16_FLOPS)
+    print(f"  flash_decode at the pruned serve mask dq={dq} dv={dv} "
+          f"(lengths {lens[0]}..{lens[-1]} of {S}), device time: kernel "
+          f"{fd['ms']:.4f} ms, plain {fd['plain_ms']:.4f} ms, SDPA "
+          f"{fd['library_ms']:.4f} ms, bound {fd['bound_ms']:.4f} ms "
+          f"({fd['bound_by']})")
+    by_name["flash_decode"]["pruned_serve_mask"] = fd
+    del q, k, v, kt, vt
+
+
+def lm_prune_run(tag, model, params, calib, held, dense, pc, **kw):
+    """``corp_prune`` of a full-width LM, timed and counted; returns
+    (pruned params, pruned config, report, launches, held-out fp32 logits,
+    their relative error to the dense logits)."""
+    import torch
+    from repro_torch.core import corp_prune
+    marks = []
+
+    def mark(msg):          # launches so far, at the start of each stage
+        marks.append((msg.split(":")[0], read_launches()))
+    reset_launches()
+    t0 = time.time()
+    new, ncfg, rep = corp_prune(model, params, calib, pc, progress=mark,
+                                **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    marks.append(("end", launches))
+    by_pass = {a: {k: n - before.get(k, 0) for k, n in after.items()
+                   if n - before.get(k, 0) and " " not in k}
+               for (a, before), (_, after) in zip(marks, marks[1:])
+               if a.startswith("pass")}
+    check_report(tag, rep)
+    logits = logits32(ncfg, new, held)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{tag}: held-out logits are not finite")
+    err = rel_err(logits, dense)
+    print(f"[{tag}] wall {wall:.3f} s; stages {stages(rep)}; traversals "
+          f"{rep['traversals']}; launches {launches}, by pass {by_pass}; "
+          f"d_ff {model.cfg.d_ff} -> {ncfg.eff_d_ff}, qk "
+          f"{model.cfg.qk_full} -> {ncfg.eff_qk}; held-out |pruned - dense| "
+          f"/ |dense| fp32 logits {err:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return new, ncfg, rep, launches, logits, err
+
+
+def lm_model(arch, dev):
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    model = build_model(resolve_config(arch))
+    return model, model.init(torch.Generator().manual_seed(0), device=dev)
+
+
+def prune_qwen2_phase(dev):
+    """CORP of Qwen2-1.5B at full width (seeded bf16 weights, the port-only
+    Zipf stream): two-pass, compensated and not, then one traversal at
+    margin 1.0 (a sure hit, <= 1e-4 from two-pass) and at the default
+    margin (reported). Returns ({path: launches}, the compensated pruned
+    params and config)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    model, params = lm_model("qwen2-1.5b", dev)
+    calib, held = lm_calib(model.cfg, dev)
+    dense = logits32(model.cfg, params, held)
+    pc = PruneConfig(LM["sparsity"], LM["sparsity"])
+    print(f"[prune qwen2] corp_prune of qwen2-1.5b, {LM['seqs']} sequences "
+          f"of {LM['seq']} tokens in batches of {LM['batch']} (port-only "
+          f"Zipf stream), sparsity {LM['sparsity']}/{LM['sparsity']}")
+    torch.cuda.reset_peak_memory_stats()
+    new, ncfg, rep, launches, logits, comp = lm_prune_run(
+        "prune qwen2", model, params, calib, held, dense, pc)
+    want = (model.cfg.d_ff // 2, model.cfg.qk_full // 2)    # 4480, 64
+    if (ncfg.eff_d_ff, ncfg.eff_qk) != want:
+        fail(f"prune qwen2: d_ff {ncfg.eff_d_ff}, qk {ncfg.eff_qk}; want "
+             f"{want}")
+    for name in ("gram", "flash_attention"):
+        if launches[name] <= 0:
+            fail(f"prune qwen2 never launched {name}")
+    out = {"prune_qwen2": launches}
+    *_, nocomp = lm_prune_run(
+        "prune qwen2 no-compensate", model, params, calib, held, dense,
+        PruneConfig(LM["sparsity"], LM["sparsity"], compensate=False))
+    print(f"[prune qwen2] held-out fp32 logits, |pruned - dense| / |dense|: "
+          f"compensated {comp:.4f}, no-compensate {nocomp:.4f}")
+    if not comp < nocomp:
+        fail("prune qwen2: the compensated prune is not closer to the dense "
+             "model than the uncompensated one")
+    for margin, tag in ((1.0, "prune qwen2 one traversal"),
+                        (0.25, "prune qwen2 one traversal default margin")):
+        _, _, r1, l1, lg1, _ = lm_prune_run(
+            tag, model, params, calib, held, dense, pc, one_traversal=True,
+            spec_margin=margin)
+        sp = r1["speculative"]
+        err = rel_err(lg1, logits)
+        print(f"[{tag}] margin {margin}: traversals {r1['traversals']}, "
+              f"candidates {sp['candidates']}, hits {sp['hits']}, misses "
+              f"{sp['misses']}; held-out |one - two-pass| / |two-pass| fp32 "
+              f"logits {err:.3e} (tol 1e-4)")
+        if margin == 1.0:
+            if r1["traversals"] != 1 or sp["misses"]:
+                fail(f"{tag}: a full candidate set missed")
+            out["prune_qwen2_1trav"] = l1
+        if not err <= 1e-4:
+            fail(f"{tag}: more than 1e-4 from the two-pass prune")
+    del params, dense, logits
+    return out, new, ncfg
+
+
+def prune_rwkv_phase(dev):
+    """CORP of RWKV6-3B at full width: channel-mix units only, one
+    traversal, compensated (``bv_comp`` in every layer) and not. Returns
+    ({path: launches}, the compensated pruned params and config)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    model, params = lm_model("rwkv6-3b", dev)
+    calib, held = lm_calib(model.cfg, dev)
+    dense = logits32(model.cfg, params, held)
+    print(f"[prune rwkv] corp_prune of rwkv6-3b, {LM['seqs']} sequences of "
+          f"{LM['seq']} tokens in batches of {LM['batch']} (port-only Zipf "
+          f"stream), MLP sparsity {LM['sparsity']}")
+    torch.cuda.reset_peak_memory_stats()
+    new, ncfg, rep, launches, _, comp = lm_prune_run(
+        "prune rwkv", model, params, calib, held, dense,
+        PruneConfig(LM["sparsity"], LM["sparsity"]))
+    for name in ("gram", "wkv6"):
+        if launches[name] <= 0:
+            fail(f"prune rwkv never launched {name}")
+    bv = new["seg0"]["p0"]["mlp"].get("bv_comp")
+    if bv is None or tuple(bv.shape) != (model.cfg.n_layers,
+                                         model.cfg.d_model):
+        fail("prune rwkv: no bv_comp of (layers, d_model) in the channel "
+             "mixes")
+    *_, nocomp = lm_prune_run(
+        "prune rwkv no-compensate", model, params, calib, held, dense,
+        PruneConfig(LM["sparsity"], LM["sparsity"], compensate=False))
+    print(f"[prune rwkv] held-out fp32 logits, |pruned - dense| / |dense|: "
+          f"compensated {comp:.4f}, no-compensate {nocomp:.4f}; bv_comp "
+          f"{tuple(bv.shape)} in every layer, max |bv_comp| "
+          f"{float(bv.abs().max()):.3e}")
+    if not comp < nocomp:
+        fail("prune rwkv: the compensated prune is not closer to the dense "
+             "model than the uncompensated one")
+    return {"prune_rwkv": launches}, new, ncfg
+
+
+def serve_pruned_phase(dev, qwen, rwkv):
+    """The pruned Qwen2-1.5B saved with ``save_checkpoint`` and served by
+    the serve CLI through ``--ckpt-in`` (every request completes; its K
+    rows are half the dense model's); the pruned RWKV6-3B served through
+    the engine in process. Returns {path: launches}."""
+    import shutil
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.interop import flatten
+    from repro_torch.models import build_model
+    from repro_torch.serve import (ServeEngine, cache_bytes, percentile_table,
+                                   synthetic_trace)
+    out = {}
+    params, cfg = qwen
+    ck = OUT + "_pruned_qwen2"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.time()
+    save_checkpoint(ck, 0, params, extra={"config": cfg.name})
+    n = sum(t.numel() for t in flatten(params).values())
+    print(f"[serve pruned] saved the pruned qwen2-1.5b ({n / 1e9:.3f} G "
+          f"params) under build/ in {time.time() - t0:.3f} s")
+    del params
+    launches, res = serve_phase(PRUNED_SERVE + ["--ckpt-in", ck],
+                                "serve pruned", ("flash_attention",
+                                                 "flash_decode"))
+    shutil.rmtree(ck, ignore_errors=True)
+    out["serve_pruned_qwen2"] = launches
+    arg = dict(zip(PRUNED_SERVE[::2], PRUNED_SERVE[1::2]))
+    trace = synthetic_trace(
+        int(arg["--trace"]), cfg.vocab_size, seed=0,
+        prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
+        gen_range=tuple(map(int, arg["--gen-range"].split(","))))
+    if res["model"].cfg != cfg or [len(c.tokens) for c in
+                                         res["completions"]] \
+            != [r.gen for r in trace]:
+        fail("serve pruned: a request did not complete, or the model is not "
+             "the pruned one")
+    dense_cfg = cfg.replace(qk_kept=None, d_ff_kept=None)
+    slot = {name: cache_bytes(build_model(c).init_cache(1, 1024, "meta"))
+            for name, c in (("dense", dense_cfg), ("pruned", cfg))}
+    print(f"[serve pruned] slot-cache bytes per slot at max_len 1024: dense "
+          f"{slot['dense']}, pruned {slot['pruned']} (K rows dq "
+          f"{cfg.qk_full} -> {cfg.eff_qk}, V rows dv {cfg.d_head})")
+    if not slot["pruned"] < slot["dense"]:
+        fail("serve pruned: the pruned slot cache is not smaller")
+    del res
+    params, cfg = rwkv
+    model = build_model(cfg)
+    trace = synthetic_trace(8, cfg.vocab_size, seed=0, prompt_range=(64, 256),
+                            gen_range=(16, 64))
+    eng = ServeEngine(model, params, n_slots=8, max_len=1024)
+    eng.warmup(prompt_lens=[len(r.tokens) for r in trace])
+    reset_launches()
+    t0 = time.time()
+    comps = eng.run(trace)
+    wall = time.time() - t0
+    launches = read_launches()
+    table = percentile_table(comps, wall)
+    print(f"[serve pruned rwkv] engine in process, 8 requests: "
+          f"{table['tokens']} tokens, {table['tok_per_s']:.1f} tok/s, TTFT "
+          f"p50/p99 {table['ttft_p50_ms']:.1f}/{table['ttft_p99_ms']:.1f} ms, "
+          f"latency p50/p99 {table['lat_p50_ms']:.1f}/"
+          f"{table['lat_p99_ms']:.1f} ms; launches {launches}")
+    if launches["wkv6"] <= 0 or [len(c.tokens) for c in comps] \
+            != [r.gen for r in trace] or not all(
+                ((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()
+                for c in comps):
+        fail("serve pruned rwkv: a request did not complete or wkv6 never "
+             "launched")
+    out["serve_pruned_rwkv"] = launches
+    return out
+
+
+def lm_reference_phase():
+    """Both reduced LMs (fp32) through ``launch.prune --calib-seq 16 --out``
+    on the GPU and on the CPU: pruned logits within 1e-3; then the GPU's
+    checkpoint through ``launch.serve --ckpt-in`` on both: equal token
+    streams."""
+    import torch
+    from repro_torch.launch import prune, serve
+    from repro_torch.models import build_model
+    for arch in ("qwen2-1.5b-reduced", "rwkv6-3b-reduced"):
+        logits = {}
+        for device in ("cuda", "cpu"):
+            out = f"{OUT}_{arch}_{device}"
+            res = prune.main(["--arch", arch, "--sparsity", "0.5",
+                              "--calib-seq", "16", "--device", device,
+                              "--out", out])
+            toks = torch.arange(2 * 24, dtype=torch.int32).reshape(2, 24) \
+                % res["pruned_cfg"].vocab_size
+            logits[device] = build_model(res["pruned_cfg"]).apply(
+                res["pruned_params"],
+                {"tokens": toks.to(res["pruned_params"]["embed"].device)}
+            )[0].cpu()
+        err = rel_err(logits["cuda"], logits["cpu"])
+        print(f"[reference lm prune] {arch}: pruned logits GPU vs CPU "
+              f"relative error {err:.3e} (tol 1e-3)")
+        if not err <= 1e-3:
+            fail(f"{arch}: the pruned model on the GPU disagrees with the "
+                 f"CPU's plain path")
+        streams = {}
+        for device in ("cuda", "cpu"):
+            res = serve.main(["--arch", arch, "--sparsity", "0.5",
+                              "--ckpt-in", f"{OUT}_{arch}_cuda"]
+                             + SERVE_REDUCED[2:] + ["--device", device])
+            streams[device] = [c.tokens.tolist() for c in res["completions"]]
+        same = streams["cuda"] == streams["cpu"]
+        print(f"[reference lm prune] {arch} pruned checkpoint served, GPU vs "
+              f"CPU streams: {sum(map(len, streams['cuda']))} tokens, "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{arch}: the pruned model's streams on the GPU differ from "
+                 f"the CPU's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1304,6 +1775,10 @@ def main() -> int:
             print("  ptxas:", line.split("_cu_")[-1][8:].split("'")[0])
 
     rows = kernel_phase(dev)
+    by_name = {row["name"]: row for row in rows}
+    t0 = time.time()
+    lm_kernel_phase(dev, rows)
+    print(f"[kernels lm prune] phase wall {time.time() - t0:.3f} s")
     launches = {}
     launches["prune"], held, ref = main_path_phase(dev)
     t0 = time.time()
@@ -1322,9 +1797,9 @@ def main() -> int:
     del held, ref, ref_bf16
     reference_phase(dev)
     profile_phase(dev)
+    t0 = time.time()
     launches["serve"], served = serve_phase(
         SERVE, "serve", ("flash_attention", "flash_decode"))
-    by_name = {row["name"]: row for row in rows}
     by_name["flash_decode"]["serve_step_ms"] = serve_profile_phase(
         served["model"], served["params"], dev, "serve profile",
         "flash_decode", "flash_decode_kernel")
@@ -1341,6 +1816,23 @@ def main() -> int:
                 [100, 100])
     del served
     serve_reference_phase(SERVE_RWKV_REDUCED, "reference rwkv")
+    print(f"[serve] serve phases wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    lm_launches, qwen_new, qwen_cfg = prune_qwen2_phase(dev)
+    launches.update(lm_launches)
+    print(f"[prune qwen2] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    lm_launches, rwkv_new, rwkv_cfg = prune_rwkv_phase(dev)
+    launches.update(lm_launches)
+    print(f"[prune rwkv] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches.update(serve_pruned_phase(dev, (qwen_new, qwen_cfg),
+                                       (rwkv_new, rwkv_cfg)))
+    del qwen_new, rwkv_new
+    print(f"[serve pruned] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    lm_reference_phase()
+    print(f"[reference lm prune] phase wall {time.time() - t0:.3f} s")
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

@@ -22,11 +22,21 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.interop import flatten, map_tree, to_numpy
+from repro_torch.interop import flatten, map_tree
 
 # extended dtype named in the manifest -> (16-bit integer view the npz is
 # read through, torch dtype it is reinterpreted as)
 _EXTENDED = {"bfloat16": (np.int16, torch.bfloat16)}
+
+
+def _stored(t: torch.Tensor):
+    """A leaf as the npz stores it: numpy in its own dtype, or a bf16 leaf
+    as its raw bits (uint16, as the JAX package writes them) and the
+    dtype's name for the manifest."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    return t.numpy(), None
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
@@ -39,10 +49,12 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = flatten(to_numpy(tree))
+    stored = {k: _stored(t) for k, t in flatten(tree).items()}
+    arrays = {k: a for k, (a, _) in stored.items()}
     npz_path = os.path.join(tmp, "arrays.npz")
     np.savez(npz_path, **arrays)
-    manifest = {"step": step, "sha256": _sha256(npz_path), "dtypes": {},
+    manifest = {"step": step, "sha256": _sha256(npz_path),
+                "dtypes": {k: d for k, (_, d) in stored.items() if d},
                 "n_arrays": len(arrays), "extra": extra or {}}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -107,17 +119,21 @@ def _tensor(path: str, a: np.ndarray, ext: dict) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
-                       prefix: str = ""):
+                       prefix: str = "", zero_if_absent=()):
     """Restore into the structure, dtypes and devices of ``like`` (a nested
     dict of tensors). Returns (tree, extra).
 
     ``prefix`` restores one subtree: only the leaves whose key path starts
     with it, the prefix taken off (``"0/"`` is the params of the
     ``(params, opt_state)`` tuple that ``repro.launch.train`` saves).
+    ``zero_if_absent``: key-path endings (``"mlp/bv_comp"``) of template
+    leaves that a checkpoint may lack; such a leaf restores as zeros (a
+    compensation bias that a ``--no-compensate`` prune does not write).
 
     Raises ``ValueError`` naming every checkpoint leaf (under ``prefix``)
-    that ``like`` lacks (a compensation bias that CORP pruning added, say),
-    rather than drop it and restore a different model."""
+    that ``like`` lacks (a compensation bias the template has no slot for,
+    say), rather than drop it and restore a different model, and naming
+    any other template leaf the checkpoint lacks."""
     arrays, ext, extra = _read(ckpt_dir, step)
     n = len(prefix)
     arrays = {k[n:]: a for k, a in arrays.items() if k.startswith(prefix)}
@@ -129,6 +145,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
 
     def load(path, leaf):
         if path not in arrays:
+            if any(path.endswith(e) for e in zero_if_absent):
+                return torch.zeros_like(leaf)
             raise ValueError(f"{ckpt_dir} step {step}: no leaf "
                              f"{prefix + path}")
         t = _tensor(path, arrays[path], ext)

@@ -3,13 +3,16 @@ compensate -> fold.
 
 ``corp_prune(model, params, calib_batches, pc)`` returns ``(pruned_params,
 pruned_config, report)``: a physically smaller standard model (reduced d_ff
-and per-head qk dims) that the same model code runs. The port covers the
-ViT path on one device: dense MLP units and class-1 attention units (no
-rope, no qk-norm), two calibration passes or one (``one_traversal``),
-taps streamed in fp32 or bf16, resumable statistics checkpoints
-(``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``. ``mesh=``,
-MoE and expert pruning, Mamba, RWKV and the rope classes 2/3 are not
-ported yet; they raise.
+and per-head qk dims) that the same model code runs. The port covers, on
+one device, DeiT and the dense LMs: dense (plain, GLU) MLP units, RWKV
+channel mixes (``rwkv_mlp``, compensated through ``wv`` and a ``bv_comp``
+bias), class-1 attention units (no rope, no qk-norm) and class-2 ones
+(rope: a diagonal complex compensator per kept rotary pair, qkv bias and
+rope frequency tables folded alike); two calibration passes or one
+(``one_traversal``), taps streamed in fp32 or bf16, resumable statistics
+checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``.
+``mesh=``, MoE and expert pruning, Mamba, MLA, cross attention, class 3
+(qk-norm) and unstacked units are not ported yet; they raise.
 
 ``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
 pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
@@ -93,8 +96,12 @@ def _gather_last(a, idx):
 
 def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
                     report):
-    """Dense MLP of a stacked unit. keep/prune: (L, n) index arrays."""
-    w2 = p["wd"]                                     # (L, F, D)
+    """Dense MLP or RWKV channel mix of a stacked unit. keep/prune: (L, n)
+    index arrays. The compensation goes into the second matrix (``wd``;
+    ``wv`` of a channel mix) and its bias: ``bd``, or for a channel mix
+    ``bv_comp``, which is added before the receptance gate."""
+    w2_key = "wv" if unit.kind == "rwkv_mlp" else "wd"
+    w2 = p[w2_key]                                   # (L, F, D)
     new = dict(p)
     keep_t, prune_t = _idx(keep, w2.device), _idx(prune, w2.device)
     mu, sigma = solve_mod.mlp_cov(stats)
@@ -106,12 +113,15 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     if pc.compensate:
         comp = torch.einsum("rps,rpd->rsd", sol["B"], w2_P)
         bias = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
-        new["wd"] = (w2_S.float() + comp).to(w2.dtype)
-        old_b = p.get("bd", torch.zeros_like(bias))
-        new["bd"] = old_b.float() + bias
+        new[w2_key] = (w2_S.float() + comp).to(w2.dtype)
+        if unit.kind == "rwkv_mlp":
+            new["bv_comp"] = bias
+        else:
+            old_b = p.get("bd", torch.zeros_like(bias))
+            new["bd"] = old_b.float() + bias
     else:
-        new["wd"] = w2_S
-    for k1 in ("wu", "wg"):
+        new[w2_key] = w2_S
+    for k1 in ("wu", "wg", "wk"):
         if k1 in p:
             new[k1] = _gather_last(p[k1], keep_t)
     for bk in ("bu", "bg"):
@@ -121,45 +131,85 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     return new
 
 
+def _attn_solve(p2stats, unit: Unit, pc: PruneConfig, L: int, ds: int):
+    """Solve every (layer, group) system of an attention unit and fold it.
+    Returns the Q and K factors, (L, G, ds, ds) for class 1 or per-pair
+    2x2 blocks (L, G, ds, 2, 2) for class 2 (ds kept pairs), and the
+    diagnostics (L, G)."""
+    G = unit.n_groups
+    t2 = p2stats["t2"].reshape(L * G)
+    if unit.attn_class == 1:
+        Gm = p2stats["G"].reshape(L * G, ds * ds, ds * ds)
+        hv = p2stats["h"].reshape(L * G, ds * ds)
+        lam = pc.lam * torch.diagonal(Gm, dim1=-2, dim2=-1).mean(dim=-1)
+        sol = solve_mod.solve_full_m(Gm, hv, t2, lam)
+        M = sol["M"] if pc.compensate else torch.zeros_like(sol["M"])
+        fq, fk = solve_mod.fold_full_m(M)
+    else:
+        Gm = p2stats["G"].reshape(L * G, ds, ds)
+        hv = p2stats["h"].reshape(L * G, ds)
+        lam = pc.lam * torch.diagonal(Gm, dim1=-2, dim2=-1).real \
+            .mean(dim=-1)
+        sol = solve_mod.solve_diag_complex(Gm, hv, t2, lam)
+        m = sol["m"] if pc.compensate else torch.zeros_like(sol["m"])
+        fq, fk = solve_mod.fold_diag_complex(m)
+    fq = fq.reshape((L, G) + fq.shape[1:])
+    fk = fk.reshape((L, G) + fk.shape[1:])
+    diag = {k: sol[k].reshape(L, G) for k in ("j_star", "j_uncomp", "rho2")}
+    return fq, fk, diag
+
+
 def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
                      report):
-    """Class-1 attention QK fold of a stacked unit, with the qkv bias.
-    keep/prune: (L, G, n) kept / pruned dims per kv group."""
+    """QK fold of a stacked attention unit, with the qkv bias. keep/prune:
+    (L, G, n) kept / pruned dims per kv group (class 1) or rotary pairs
+    (class 2). Class 1 right-multiplies the kept dims of each group by its
+    (ds, ds) factor; class 2 each kept pair's (even, odd) columns by its
+    2x2 block, and gathers the kept pairs of the rope frequency tables."""
     new = dict(p)
     wq, wk = p["wq"], p["wk"]                        # (L, D, H, dq)
     L = wq.shape[0]
     G, qpg = unit.n_groups, unit.q_per_group
     dq_full = wq.shape[-1]
     keep_t = _idx(keep, wq.device)                   # (L, G, ds)
-    ds = keep_t.shape[-1]
+    fq, fk, diag = _attn_solve(p2stats, unit, pc, L, keep_t.shape[-1])
+    if unit.attn_class == 1:
+        dim_keep = keep_t
 
-    Gm = p2stats["G"].reshape(L * G, ds * ds, ds * ds)
-    hv = p2stats["h"].reshape(L * G, ds * ds)
-    t2 = p2stats["t2"].reshape(L * G)
-    lam = pc.lam * torch.diagonal(Gm, dim1=-2, dim2=-1).mean(dim=-1)
-    sol = solve_mod.solve_full_m(Gm, hv, t2, lam)
-    M = sol["M"] if pc.compensate else torch.zeros_like(sol["M"])
-    fq, fk = solve_mod.fold_full_m(M)
-    fq = fq.reshape(L, G, ds, ds)
-    fk = fk.reshape(L, G, ds, ds)
+        def mix(wS, f):
+            return torch.einsum("ldgqs,lgst->ldgqt", wS, f)
+    else:
+        dim_keep = solve_mod.pairs_to_dims(keep_t)   # (L, G, 2 ds)
+
+        def mix(wS, f):
+            pairs = wS.reshape(wS.shape[:-1] + (wS.shape[-1] // 2, 2))
+            return torch.einsum("ldgqpi,lgpij->ldgqpj", pairs, f) \
+                .reshape(wS.shape)
+    n = dim_keep.shape[-1]
 
     def fold(w, n_per_group, f):
         # w: (L, D, G*n_per_group, dq) -> gather kept dims per (layer, group),
-        # then right-multiply by that group's factor
+        # then apply that group's factor
         D = w.shape[1]
         wg = w.reshape(L, D, G, n_per_group, dq_full)
-        idx = keep_t[:, None, :, None, :].expand(L, D, G, n_per_group, ds)
+        idx = dim_keep[:, None, :, None, :].expand(L, D, G, n_per_group, n)
         wS = torch.gather(wg, 4, idx).float()
-        out = torch.einsum("ldgqs,lgst->ldgqt", wS, f)
-        return out.reshape(L, D, G * n_per_group, ds).to(w.dtype)
+        return mix(wS, f).reshape(L, D, G * n_per_group, n).to(w.dtype)
 
     new["wq"] = fold(wq, qpg, fq)
     new["wk"] = fold(wk, 1, fk)
     if "bq" in p:
-        # biases are pre-attention additive terms: same gather and fold
+        # biases are pre-rope additive terms: same gather and fold
         new["bq"] = fold(p["bq"][:, None], qpg, fq)[:, 0].float()
         new["bk"] = fold(p["bk"][:, None], 1, fk)[:, 0].float()
-    diag = {k: sol[k].reshape(L, G) for k in ("j_star", "j_uncomp", "rho2")}
+    if "rope_inv_q" in p:
+        # kept pairs' frequencies, per head (q) and per kv head (k)
+        npair = keep_t.shape[-1]
+        riq = p["rope_inv_q"].reshape(L, G, qpg, dq_full // 2)
+        new["rope_inv_q"] = torch.gather(
+            riq, 3, keep_t[:, :, None, :].expand(L, G, qpg, npair)) \
+            .reshape(L, G * qpg, npair)
+        new["rope_inv_k"] = torch.gather(p["rope_inv_k"], 2, keep_t)
     report[unit.name] = _host(diag)
     return new
 
@@ -247,19 +297,30 @@ def _resolve_attn_pass2(model, units, params, calib_batches, attn_plan,
 
 
 def _rank(units, p1, params, pc: PruneConfig) -> Dict:
-    """unit.name -> (keep, prune) numpy index arrays, from pass 1."""
+    """unit.name -> (keep, prune) numpy index arrays, from pass 1.
+
+    An MLP unit's ranking reads the diagonal of s2, the counts and the
+    second matrix's column norms (``wv`` of a channel mix): only those
+    leave the device, in fp32 (the norms in float64), not the (L, F, F)
+    moments."""
     plan = {}
     for u in units:
-        st = _host(p1[u.name])
-        if u.kind == "mlp":
+        st = p1[u.name]
+        if u.kind in ("mlp", "rwkv_mlp"):
             if pc.mlp_sparsity <= 0:
                 continue
-            w2 = get_block(params, u)["wd"].cpu().numpy()
+            w2 = get_block(params, u)["wv" if u.kind == "rwkv_mlp"
+                                      else "wd"]
+            col = torch.linalg.vector_norm(w2.double(), dim=-1)
             keep_n = _keep_count(u.d_hidden, pc.mlp_sparsity, pc.round_to)
-            plan[u.name] = rank_mod.rank_mlp(st, w2, keep_n, pc.rank_policy)
+            host = [t.cpu().numpy() for t in (
+                torch.diagonal(st["s2"], dim1=-2, dim2=-1), st["n"],
+                st["na"], col)]
+            plan[u.name] = rank_mod.rank_mlp(*host, keep_n, pc.rank_policy)
         elif u.kind in _ATTN_KINDS:
             if pc.attn_sparsity <= 0:
                 continue
+            st = _host(st)
             full = st["rank"].shape[-1]
             plan[u.name] = rank_mod.rank_attn(st, _attn_keep_n(u, full, pc))
     return plan
@@ -331,7 +392,7 @@ def _prune_units(model, units, params, new_params, calib_batches,
             continue
         keep, prune = plan[u.name]
         block = get_block(new_params, u)
-        if u.kind == "mlp":
+        if u.kind in ("mlp", "rwkv_mlp"):
             blocks[u.name] = _fold_mlp_block(block, p1[u.name], u, pc, keep,
                                              prune, report["units"])
         else:

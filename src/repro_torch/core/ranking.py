@@ -27,26 +27,24 @@ def _select(scores: np.ndarray, keep_n: int):
     return keep.astype(np.int32), prune.astype(np.int32)
 
 
-def mlp_scores(stats, w2, policy: str = "combined") -> np.ndarray:
-    """stats: pass-1 moments (possibly stacked / per-expert); w2: matching
-    second-matrix array with orientation (..., F, D)."""
-    n = np.maximum(np.asarray(stats["n"], np.float64), 1.0)
-    e = np.einsum("...ff->...f", np.asarray(stats["s2"], np.float64))
-    e = e / n[..., None]
+def rank_mlp(s2_diag, n, na, col, keep_n: int, policy: str = "combined"):
+    """Kept/pruned MLP channels from the diagonal of the pass-1 second
+    moment s2 (..., F), the counts ``n`` and ``na`` and the second matrix's
+    column norms ``col`` (..., F): all that ranking reads of the (F, F)
+    moments. Float64 arithmetic."""
+    n = np.maximum(np.asarray(n, np.float64), 1.0)
     if policy == "act":
-        return e
-    col = np.linalg.norm(np.asarray(w2, np.float64), axis=-1)   # (..., F)
-    if policy == "mag":
-        return col
-    if policy == "combined":
-        return e * col
-    if policy == "active":
-        return np.asarray(stats["na"], np.float64) / n[..., None]
-    raise ValueError(policy)
-
-
-def rank_mlp(stats, w2, keep_n: int, policy: str = "combined"):
-    return _select(mlp_scores(stats, w2, policy), keep_n)
+        scores = np.asarray(s2_diag, np.float64) / n[..., None]
+    elif policy == "mag":
+        scores = np.asarray(col, np.float64)
+    elif policy == "combined":
+        scores = (np.asarray(s2_diag, np.float64) / n[..., None]
+                  * np.asarray(col, np.float64))
+    elif policy == "active":
+        scores = np.asarray(na, np.float64) / n[..., None]
+    else:
+        raise ValueError(policy)
+    return _select(scores, keep_n)
 
 
 def rank_attn(stats, keep_n: int):

@@ -1,15 +1,21 @@
-"""Closed-form CORP solvers and folds (``repro.core.solve``), class 1.
+"""Closed-form CORP solvers and folds (``repro.core.solve``), classes 1
+and 2.
 
 MLP affine compensation (paper Eq. 9):
     B = Sigma_PS (Sigma_SS + lam I)^-1,   c = mu_P - B mu_S
 Attention logit compensation, class 1 (Eq. 15, no rope / no qk-norm):
     (G + lam I) vec(M) = h, folded as I + M = U S V^T into
     W_Q U S^{1/2} and W_K V S^{1/2} (Eq. 16).
+Class 2 (rope, no qk-norm): a diagonal complex compensator m over the kept
+rotary pairs, (Gd + lam I) m = hd in complex64, folded per pair as the
+2x2 real blocks of a = sqrt(rho) e^{i phi/2} into W_Q and b = sqrt(rho)
+e^{-i phi/2} into W_K (a conj(b) = 1 + m = rho e^{i phi}).
 
 Every function takes a leading batch of independent systems (the stacked
 layers, or layers x groups) and solves them at once; the Cholesky factor
-and solve are ``torch.linalg.cholesky`` / ``torch.cholesky_solve``. The
-rope classes 2/3 (diagonal complex / real compensators) are not ported yet.
+and solve are ``torch.linalg.cholesky`` / ``torch.cholesky_solve``, the
+complex one ``torch.linalg.solve``. Class 3 (rope + qk-norm, a real
+diagonal folded into the norm scales) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,10 +23,14 @@ import torch
 
 
 def mlp_cov(stats):
-    """{'n' (R,), 's1' (R,F), 's2' (R,F,F)} -> mu (R,F), Sigma (R,F,F)."""
+    """{'n' (R,), 's1' (R,F), 's2' (R,F,F)} -> mu (R,F), Sigma (R,F,F).
+    Sigma is formed in place past one new (R,F,F) tensor (9 GB at
+    Qwen2-1.5B's 28 x 8960^2)."""
     n = stats["n"].clamp_min(1.0)
     mu = stats["s1"] / n[:, None]
-    sigma = stats["s2"] / n[:, None, None] - mu[:, :, None] * mu[:, None, :]
+    sigma = stats["s2"] / n[:, None, None]
+    for r in range(sigma.shape[0]):
+        sigma[r].sub_(torch.outer(mu[r], mu[r]))
     return mu, sigma
 
 
@@ -88,3 +98,38 @@ def fold_full_m(M):
     u, s, vh = torch.linalg.svd(eye + M)
     sq = s.sqrt()
     return u * sq[:, None, :], vh.transpose(1, 2) * sq[:, None, :]
+
+
+def solve_diag_complex(Gd, hd, t2, lam):
+    """Class 2: m = (Gd + lam I)^-1 hd over complex pairs.
+
+    Gd (R, dp, dp) and hd (R, dp) complex64, t2 (R,), lam (R,) real."""
+    eye = torch.eye(Gd.shape[-1], dtype=Gd.dtype, device=Gd.device)
+    m = torch.linalg.solve(Gd + lam[:, None, None].to(Gd.dtype) * eye,
+                           hd[:, :, None])[:, :, 0]
+    gain = (hd.conj() * m).sum(dim=1).real
+    return {"m": m, "j_star": t2 - gain, "j_uncomp": t2,
+            "rho2": torch.where(t2 > 0, gain / t2, torch.zeros_like(t2))}
+
+
+def fold_diag_complex(m):
+    """1 + m = rho e^{i phi} -> per-pair 2x2 real blocks (..., dp, 2, 2) of
+    a = sqrt(rho) e^{i phi/2} (Q) and b = sqrt(rho) e^{-i phi/2} (K): each
+    right-multiplies the (even, odd) row vector of its kept rotary pair."""
+    w = 1.0 + m
+    rho = w.abs().sqrt()
+    half = w.angle() / 2.0
+
+    def blocks(z):
+        re, im = z.real, z.imag
+        # complex right-multiplication as a 2x2 acting on (x, y) rows
+        return torch.stack([torch.stack([re, im], -1),
+                            torch.stack([-im, re], -1)], -2)
+    return blocks(torch.polar(rho, half)), blocks(torch.polar(rho, -half))
+
+
+def pairs_to_dims(pair_idx):
+    """Rotary pair indices (..., p) -> interleaved dim indices (..., 2p)."""
+    even = 2 * pair_idx
+    return torch.stack([even, even + 1], dim=-1).reshape(
+        pair_idx.shape[:-1] + (2 * pair_idx.shape[-1],))

@@ -18,13 +18,23 @@ Two streaming passes over the unlabeled calibration set:
       Gc = sum_b A_CC (x) C_CC,  Hfull = sum_b (Q_C^T Q)(K^T K_C),
       t2_tot = sum_b <Q^T Q, K^T K>   (A = Q^T Q, C = K^T K per sample).
 
+Class-2 (rope) attention units reduce over rotary pairs: a pair (2i, 2i+1)
+of q or k is the complex number x + iy, and the statistics are the
+Hadamard analogues on A = Q^H Q and C = K^H K (complex64):
+  pass 1: rank_j = sum_b (sum |q_j|^2)(sum |k_j|^2) per pair;
+  pass 2: G = sum_b A_SS (.) C_SS^T, h = sum_b diag(A_SP C_PS),
+          t2 = sum_b ||Q_P K_P^H||_F^2;
+  one traversal: Gc = sum_b E_CC, hfull = sum_b sum_p E_Cp, t2_tot =
+          Re sum_b sum E, with E = A (.) conj(C).
+These einsums are jnp in the reference, and plain torch ops here.
+
 Every statistic is a sum over samples, accumulated in fp32. Taps arrive in
 the engine's streaming dtype (fp32 or bf16): the dense second moments and
-the per-sample grams take it into the gram kernels, which accumulate in
-fp32; every other reduction casts to fp32 first. The layer-stacked taps
-(leading layer axis) are reduced for all layers at once: one gram launch
-covers every layer of a unit. Rope classes 2/3, MoE and Mamba are not
-ported yet; they raise.
+the class-1 per-sample grams take it into the gram kernels, which
+accumulate in fp32; every other reduction casts to fp32 first. The
+layer-stacked taps (leading layer axis) are reduced for all layers at
+once: one gram launch covers every layer of a unit. Class 3, MoE, Mamba,
+MLA, cross attention and unstacked units are not ported yet; they raise.
 """
 from __future__ import annotations
 
@@ -62,11 +72,19 @@ def _group_q(q, n_groups):
         .reshape(L, B, n_groups, T * qpg, d)
 
 
+def _to_complex_pairs(q):
+    """(..., D) fp32 -> complex64 (..., D/2): rotary pair (2i, 2i+1) ->
+    x + iy, the interleaved pairs the rope rotates."""
+    return torch.complex(q[..., 0::2], q[..., 1::2])
+
+
 def _check_attn(unit: Unit, fn: str = "_p2_attn"):
-    if unit.attn_class != 1 or unit.kind != "attn" or not unit.stacked:
+    if unit.attn_class not in (1, 2) or unit.kind != "attn" \
+            or not unit.stacked:
         raise NotImplementedError(
             f"attention unit {unit.name} (kind {unit.kind}, class "
-            f"{unit.attn_class}) is not ported; see repro.core.stats.{fn}")
+            f"{unit.attn_class}, stacked {unit.stacked}) is not ported; see "
+            f"repro.core.stats.{fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +102,12 @@ def _p1_attn(taps, unit: Unit):
     k = taps[f"{unit.tap_prefix}/k"].float()          # (L, B, T, Hkv, d)
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
-    eq = qg.square().sum(dim=3)                       # (L, B, G, d)
-    ek = kg.square().sum(dim=3)
+    if unit.attn_class == 1:
+        eq = qg.square().sum(dim=3)                   # (L, B, G, d)
+        ek = kg.square().sum(dim=3)
+    else:                                             # per rotary pair
+        eq = _to_complex_pairs(qg).abs().square().sum(dim=3)
+        ek = _to_complex_pairs(kg).abs().square().sum(dim=3)
     L, B = q.shape[0], q.shape[1]
     return {"rank": (eq * ek).sum(dim=1),
             "n": torch.full((L,), float(B), dtype=torch.float32,
@@ -124,15 +146,40 @@ def _p2_layer(qg, kg, keep, prune):
     return {"G": G_mat, "h": h_vec, "t2": t2}
 
 
+def _p2_layer_complex(qg, kg, keep, prune):
+    """One layer of a class-2 unit, over rotary pairs. qg (B, G, TQ, dp),
+    kg (B, G, T, dp) complex64; keep (G, ds), prune (G, dp - ds) pair
+    indices
+    -> {G (G, ds, ds), h (G, ds) complex64, t2 (G,)}: the Hadamard
+    reduction, Gd[s, u] = sum_b A_SS[b, s, u] C_SS[b, u, s]."""
+    qS, qP = _take(qg, keep), _take(qg, prune)
+    kS, kP = _take(kg, keep), _take(kg, prune)
+    A_ss = torch.einsum("bgts,bgtu->bgsu", qS.conj(), qS)
+    C_ss = torch.einsum("bgts,bgtu->bgsu", kS.conj(), kS)
+    A_sp = torch.einsum("bgts,bgtp->bgsp", qS.conj(), qP)
+    C_ps = torch.einsum("bgtp,bgts->bgps", kP.conj(), kS)
+    Gd = (A_ss * C_ss.transpose(2, 3)).sum(dim=0)
+    hd = torch.einsum("bgsp,bgps->gs", A_sp, C_ps)
+    t2 = torch.einsum("bgtp,bgup->bgtu", qP, kP.conj()).abs().square() \
+        .sum(dim=(0, 2, 3))
+    return {"G": Gd, "h": hd, "t2": t2}
+
+
 def _p2_attn(taps, unit: Unit, keep, prune):
     """keep/prune: int64 tensors (L, G, ds) / (L, G, dp) of kept / pruned
-    dims -> {G (L, G, ds^2, ds^2), h (L, G, ds^2), t2 (L, G)}."""
+    dims (class 1) or rotary pairs (class 2) -> class 1: {G (L, G, ds^2,
+    ds^2), h (L, G, ds^2), t2 (L, G)}; class 2: {G (L, G, ds, ds), h (L, G,
+    ds) complex64, t2 (L, G)}."""
     _check_attn(unit)
     q = taps[f"{unit.tap_prefix}/q"].float()
     k = taps[f"{unit.tap_prefix}/k"].float()
     qg = _group_q(q, unit.n_groups)
     kg = k.permute(0, 1, 3, 2, 4)
-    per_layer = [_p2_layer(qg[i], kg[i], keep[i], prune[i])
+    layer = _p2_layer
+    if unit.attn_class == 2:
+        qg, kg, layer = _to_complex_pairs(qg), _to_complex_pairs(kg), \
+            _p2_layer_complex
+    per_layer = [layer(qg[i], kg[i], keep[i], prune[i])
                  for i in range(q.shape[0])]
     return {key: torch.stack([s[key] for s in per_layer])
             for key in per_layer[0]}
@@ -165,11 +212,32 @@ def _cols(M, idx):
     return torch.gather(M, 4, idx[:, None, :, None, :].expand(L, B, G, e, c))
 
 
-def _p2spec_attn(taps, unit: Unit, cand):
-    """Speculative pass-2 sums of one class-1 attention unit.
+def _p2spec_complex(q, k, unit: Unit, cand):
+    """The class-2 speculative sums over rotary pairs (complex64, from fp32
+    taps). Per (layer, group), with E = A (.) conj(C), A = Q^H Q, C = K^H K
+    per sample:
+      Gc     (c, c)  cplx  sum_b E[C, C]
+      hfull  (c,)    cplx  sum_b sum_p E[C, p]
+      t2_tot ()            Re sum_b sum E
+    Per-sample A and C are (dp, dp), so nothing here is large."""
+    qc = _to_complex_pairs(_group_q(q.float(), unit.n_groups))
+    kc = _to_complex_pairs(k.float().permute(0, 1, 3, 2, 4))
+    A_ff = torch.einsum("xbgts,xbgtu->xbgsu", qc.conj(), qc)
+    C_ff = torch.einsum("xbgts,xbgtu->xbgsu", kc.conj(), kc)
+    E = A_ff * C_ff.conj()                            # (L, B, G, dp, dp)
+    Ec = _rows(E, cand)                               # candidate rows
+    return {"Gc": _cols(Ec, cand).sum(dim=1),
+            "hfull": Ec.sum(dim=(1, 4)),
+            "t2_tot": E.real.sum(dim=(1, 3, 4))}
 
-    cand: int64 candidate keep-indices (L, G, c), fixed for the whole
-    traversal. Per (layer, group):
+
+def _p2spec_attn(taps, unit: Unit, cand):
+    """Speculative pass-2 sums of one attention unit (class 2: see
+    ``_p2spec_complex``).
+
+    cand: int64 candidate keep-indices (L, G, c), dims (class 1) or rotary
+    pairs (class 2), fixed for the whole traversal. Per (layer, group) of a
+    class-1 unit:
       Gc     (c, c, c, c)  sum_b A_CC (x) C_CC, order [i, l, j, k]
       Hfull  (c, c)        sum_b (Q_C^T Q)(K^T K_C)
       t2_tot ()            sum_b <Q^T Q, K^T K>  (full Frobenius)
@@ -179,6 +247,8 @@ def _p2spec_attn(taps, unit: Unit, cand):
     _check_attn(unit, "_p2spec_attn")
     q = taps[f"{unit.tap_prefix}/q"]
     k = taps[f"{unit.tap_prefix}/k"]
+    if unit.attn_class == 2:
+        return _p2spec_complex(q, k, unit, cand)
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     A_ff = _bgram(qg, qg)                             # (L, B, G, d, d)
@@ -205,14 +275,15 @@ def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict) -> Dict:
 def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
     """Exact pass-2 statistics of ``keep`` from the speculative sums.
 
-    Host numpy with float64 intermediates (``repro.core.stats
-    .spec_reconstruct``, class 1): valid when every group's keep-set lies
-    inside its candidate set (``ranking.covers``); both are sorted. Returns
-    numpy ``{"G", "h", "t2"}`` of the shapes and dtype (fp32) that a pass-2
+    Host numpy with float64 (complex128 for class 2) intermediates
+    (``repro.core.stats.spec_reconstruct``, classes 1 and 2): valid when
+    every group's keep-set lies inside its candidate set
+    (``ranking.covers``); both are sorted. Returns numpy ``{"G", "h",
+    "t2"}`` of the shapes and dtypes (fp32, complex64) that a pass-2
     traversal gives. The complement terms are differences of candidate and
     full sums, not direct sums over the pruned set, so they differ from
     pass 2 in rounding only (``t2`` is clamped at 0)."""
-    if unit.attn_class != 1:
+    if unit.attn_class not in (1, 2):
         raise NotImplementedError(
             f"attention unit {unit.name} of class {unit.attn_class} is not "
             f"ported; see repro.core.stats.spec_reconstruct")
@@ -223,6 +294,8 @@ def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
     cf = cand.reshape(-1, c)
     kf = keep.reshape(-1, n)
     rows = cf.shape[0]
+    if unit.attn_class == 2:
+        return _spec_reconstruct_complex(spec, cf, kf, lead)
     Gc = np.asarray(spec["Gc"], np.float64).reshape(rows, c, c, c, c)
     Hf = np.asarray(spec["Hfull"], np.float64).reshape(rows, c, c)
     tt = np.asarray(spec["t2_tot"], np.float64).reshape(rows)
@@ -245,15 +318,38 @@ def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
             "t2": np.asarray(t2s, np.float32).reshape(lead)}
 
 
+def _spec_reconstruct_complex(spec, cf, kf, lead):
+    """Class 2 of ``spec_reconstruct``: G = Gc[S, S], h = hfull[S] - the
+    row sums of G (the pruned-set cross term), t2 = t2_tot - 2 Re
+    sum_S hfull + Re sum G. cf (rows, c), kf (rows, n) sorted indices."""
+    rows, c = cf.shape
+    Gc = np.asarray(spec["Gc"], np.complex128).reshape(rows, c, c)
+    hf = np.asarray(spec["hfull"], np.complex128).reshape(rows, c)
+    tt = np.asarray(spec["t2_tot"], np.float64).reshape(rows)
+    Gs, hs, t2s = [], [], []
+    for r in range(rows):
+        pos = np.searchsorted(cf[r], kf[r])
+        Gd = Gc[r][np.ix_(pos, pos)]
+        Gs.append(Gd)
+        hs.append(hf[r][pos] - Gd.sum(axis=1))
+        t2 = tt[r] - 2.0 * np.real(hf[r][pos].sum()) + np.real(Gd.sum())
+        t2s.append(max(t2, 0.0))
+    G_arr, h_arr = np.stack(Gs), np.stack(hs)
+    return {"G": G_arr.astype(np.complex64).reshape(lead + G_arr.shape[1:]),
+            "h": h_arr.astype(np.complex64).reshape(lead + h_arr.shape[1:]),
+            "t2": np.asarray(t2s, np.float32).reshape(lead)}
+
+
 # ---------------------------------------------------------------------------
 # per-batch reductions over every unit
 # ---------------------------------------------------------------------------
 
 def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
-    """Per-batch pass-1 sums: mlp -> {n, s1, s2, na}; attn -> {rank, n}."""
+    """Per-batch pass-1 sums: mlp, rwkv_mlp -> {n, s1, s2, na}; attn ->
+    {rank, n}."""
     out = {}
     for u in units:
-        if u.kind == "mlp" and u.stacked:
+        if u.kind in ("mlp", "rwkv_mlp") and u.stacked:
             out[u.name] = _p1_mlp(taps, u)
         elif u.kind == "attn":
             out[u.name] = _p1_attn(taps, u)

@@ -1,7 +1,8 @@
 """Prunable-unit discovery, copied from ``repro.core.units`` (numpy-only).
 
-The LM layout branch needs ``ModelConfig.layout``, which is not ported
-yet, so LM configs raise.
+Every family and layout is discovered as in the JAX package; the
+statistics and folds refuse by name the kinds the port cannot reduce yet
+(moe, mamba, mla, cross, class 3, unstacked units).
 
 CORP operates on two kinds of structured units (paper §3.2) plus two
 framework extensions:
@@ -115,8 +116,21 @@ def discover_units(cfg: ModelConfig) -> List[Unit]:
         block_units("dec", "p0", True, cfg.n_layers, "attn", False,
                     "dec/p0", cross=True)
         return units
-    raise NotImplementedError("LM unit discovery is not ported; see "
-                              "repro.core.units.discover_units")
+    # lm
+    for si, seg in enumerate(cfg.layout()):
+        name = f"seg{si}"
+        if seg[0] == "unroll":
+            for j, li in enumerate(seg[1]):
+                kind, moe = cfg.layer_spec(li)
+                block_units(name, f"l{j}", False, 1, kind, moe,
+                            f"{name}/l{j}")
+        else:
+            _, reps, idxs = seg
+            for j, li in enumerate(idxs):
+                kind, moe = cfg.layer_spec(li)
+                block_units(name, f"p{j}", True, reps, kind, moe,
+                            f"{name}/p{j}")
+    return units
 
 
 def get_block(params, unit: Unit):

@@ -1,12 +1,16 @@
-"""Deterministic synthetic vision data (``repro.data.synthetic``).
+"""Deterministic synthetic data (``repro.data.synthetic``): vision
+batches and the LM token stream.
 
-numpy makes every array, with the same generators and seeds as the JAX
-package, so both packages see bit-identical images; they are returned as
-torch tensors on the requested device. Vision only: the LM and enc-dec
-streams are not ported yet.
+numpy makes every array, with the same generators, seeds and call order as
+the JAX package, so both packages see bit-identical images and tokens; they
+are returned as torch tensors on the requested device. The enc-dec and VLM
+(``patch_stub``) calibration streams are not ported yet.
 
-Images are class prototypes plus structured (low-rank) noise, so models
-develop the anisotropic activations CORP exploits (paper App. A).
+Images are class prototypes plus structured (low-rank) noise; tokens follow
+an order-1 Markov chain whose rows prefer a small successor set; so models
+develop the anisotropic activations CORP exploits (paper App. A). The
+chain's table is V x V float32 (17 GB at RWKV6-3B's vocabulary, 92 GB at
+Qwen2-1.5B's), as in the reference: it is for reduced configs.
 """
 from __future__ import annotations
 
@@ -17,6 +21,47 @@ import torch
 
 from repro_torch import resolve_device
 
+
+# ---------------------------------------------------------------------------
+# LM: markov chain over tokens
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _markov_table(vocab: int, seed: int):
+    """Sparse-ish row-stochastic transition table (vocab, vocab)."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(vocab, vocab).astype(np.float32) * 2.0
+    # each token prefers a small successor set -> learnable structure
+    for i in range(vocab):
+        hot = rng.choice(vocab, size=max(2, vocab // 64), replace=False)
+        logits[i, hot] += 6.0
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
+def lm_batch(step: int, *, batch: int, seq: int, vocab: int, seed: int = 0,
+             shard: int = 0, nshards: int = 1, device=None):
+    """{'tokens': (b, seq), 'labels': (b, seq)} int32 on ``device``."""
+    dev = resolve_device(device)
+    table = _markov_table(vocab, seed)
+    b = batch // nshards
+    rng = np.random.RandomState(
+        ((seed * 1_000_003 + step) * 977 + shard) % (2**31 - 1))
+    toks = np.empty((b, seq + 1), np.int32)
+    toks[:, 0] = rng.randint(0, vocab, size=b)
+    # vectorized markov sampling
+    u = rng.rand(b, seq).astype(np.float32)
+    cdf = np.cumsum(table, axis=-1)
+    for t in range(seq):
+        rows = cdf[toks[:, t]]
+        toks[:, t + 1] = (u[:, t][:, None] < rows).argmax(-1)
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+
+
+# ---------------------------------------------------------------------------
+# vision: prototype classes + low-rank structured noise
+# ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=8)
 def _prototypes(n_classes: int, img: int, seed: int):
@@ -47,21 +92,28 @@ def vit_batch(step: int, *, batch: int, img: int, n_classes: int,
             "labels": torch.from_numpy(labels).to(dev)}
 
 
-def calib_stream(cfg, *, n_samples: int, batch: int, seed: int = 1234,
-                 device=None):
+def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
+                 seed: int = 1234, device=None):
     """Zero-arg-callable factory: a fresh finite iterator of unlabeled
-    calibration batches per call (CORP traverses the stream twice)."""
-    if cfg.family != "vit":
+    calibration batches per call (CORP traverses the stream twice):
+    ``{"images"}`` for a ViT, ``{"tokens"}`` of ``seq`` tokens for an LM."""
+    if cfg.family not in ("vit", "lm") or cfg.frontend == "patch_stub":
         raise NotImplementedError(
-            f"calibration stream of family {cfg.family!r} is not ported; "
-            f"see repro.data.synthetic.calib_stream")
+            f"calibration stream of family {cfg.family!r} (frontend "
+            f"{cfg.frontend!r}) is not ported; see "
+            f"repro.data.synthetic.calib_stream")
     dev = resolve_device(device)
     steps = max(1, n_samples // batch)
 
     def make():
         for i in range(steps):
-            b = vit_batch(10_000 + i, batch=batch, img=cfg.img_size,
-                          n_classes=max(cfg.n_classes, 2), seed=seed,
-                          device=dev)
-            yield {"images": b["images"]}
+            if cfg.family == "vit":
+                b = vit_batch(10_000 + i, batch=batch, img=cfg.img_size,
+                              n_classes=max(cfg.n_classes, 2), seed=seed,
+                              device=dev)
+                yield {"images": b["images"]}
+            else:
+                b = lm_batch(10_000 + i, batch=batch, seq=seq,
+                             vocab=cfg.vocab_size, seed=seed, device=dev)
+                yield {"tokens": b["tokens"]}
     return make

@@ -3,10 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.prune --arch deit-base \\
         --sparsity 0.5 --calib 128 --calib-batch 16 --out /tmp/pruned
 
-Initialises dense DeiT parameters from seed 0 (no pretrained weights are in
-the repository), or loads them from a train checkpoint (``--ckpt-in``),
-runs the one-shot CORP pipeline over the synthetic calibration stream on
-the GPU (``--device cpu`` for the plain PyTorch path) and, with ``--out``,
+    PYTHONPATH=src python -m repro_torch.launch.prune \
+        --arch qwen2-1.5b-reduced --calib-seq 16 --device cpu --out /tmp/lm
+
+Initialises dense parameters (DeiT, Qwen2-1.5B or RWKV6-3B) from seed 0
+(no pretrained weights are in the repository), or loads them from a train
+checkpoint (``--ckpt-in``), runs the one-shot CORP pipeline over the
+synthetic calibration stream (images, or ``--calib-seq`` tokens a sequence
+from the reference's Markov chain, whose V x V table suits reduced
+vocabularies only) on the GPU (``--device cpu`` for the plain PyTorch
+path) and, with ``--out``,
 writes the pruned checkpoint in the JAX package's layout plus
 ``report.json``. ``--one-traversal``, ``--stats-dtype bfloat16`` and
 resumable statistics checkpoints (``--calib-ckpt``) are ported; the flags
@@ -34,8 +40,6 @@ from repro_torch.models import build_model
 _UNPORTED = {
     "expert_sparsity": "expert pruning (repro.core.pruner._fold_moe_experts"
                        "; ROADMAP Queue 1 item 3, qwen3-moe)",
-    "calib_seq": "LM calibration streams (repro.data.synthetic.lm_batch; "
-                 "ROADMAP Queue 1 item 2)",
     "mesh": "mesh-sharded calibration (repro.launch.mesh, repro.core"
             ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
     "calib_sharded": "mesh-sharded calibration (repro.core.calibrate"
@@ -50,8 +54,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         description="One-shot CORP pruning over a calibration stream")
     ap.add_argument("--arch", required=True,
-                    help="DeiT config name, e.g. deit-base; a '-reduced' "
-                         "suffix shrinks it for smoke runs")
+                    help="config name, e.g. deit-base, qwen2-1.5b or "
+                         "rwkv6-3b; a '-reduced' suffix shrinks it for smoke "
+                         "runs")
     ap.add_argument("--sparsity", type=float, default=0.5,
                     help="fraction of MLP hidden dims and attention qk dims "
                          "to REMOVE (the per-kind flags below win)")
@@ -65,9 +70,11 @@ def parse_args(argv=None):
                     help="number of calibration samples (unlabeled)")
     ap.add_argument("--calib-batch", type=int, default=8,
                     help="calibration batch size")
+    ap.add_argument("--calib-seq", type=int, default=64,
+                    help="calibration sequence length (LM archs only)")
     ap.add_argument("--rank-policy", default="combined",
                     choices=["act", "mag", "combined", "active"],
-                    help="MLP ranking statistic (core.ranking.mlp_scores)")
+                    help="MLP ranking statistic (core.ranking.rank_mlp)")
     ap.add_argument("--no-compensate", action="store_true",
                     help="rank-only baseline: prune without the closed-form "
                          "ridge compensation (paper ablation)")
@@ -107,8 +114,6 @@ def parse_args(argv=None):
     # not ported: parsed so that main() refuses them by name
     ap.add_argument("--expert-sparsity", type=float, default=None,
                     help="not ported (MoE expert pruning)")
-    ap.add_argument("--calib-seq", type=int, default=None,
-                    help="not ported (LM calibration streams)")
     ap.add_argument("--mesh", default=None,
                     help="not ported (mesh-sharded calibration)")
     ap.add_argument("--calib-sharded", action="store_true", default=None,
@@ -150,7 +155,7 @@ def main(argv=None) -> dict:
         round_to=args.round_to,
     )
     stream = calib_stream(cfg, n_samples=args.calib, batch=args.calib_batch,
-                          device=device)
+                          seq=args.calib_seq, device=device)
     t0 = time.time()
     new_params, new_cfg, report = corp_prune(
         model, params, stream, pc, progress=print, ckpt_dir=args.calib_ckpt,

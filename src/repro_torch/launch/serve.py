@@ -19,7 +19,10 @@ then raises after the engine's run, as the JAX CLI does (the static
 baseline needs ragged prefill).
 
 Weights are seeded random (seed 0); ``--sparsity S --ckpt-in DIR`` serves
-a pruned checkpoint written by ``repro.launch.prune`` (or the port's). It
+a pruned checkpoint written by ``repro.launch.prune`` (or the port's),
+with its compensation biases (``mlp/bd``, ``mlp/bv_comp``), which the JAX
+CLI's template drops; a ``--no-compensate`` checkpoint has none and serves
+them as zeros. It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
 PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
 the front-end is not ported, so its flags (queue, deadlines, prefix cache,
@@ -57,6 +60,11 @@ _UNPORTED = {
     "mem_len": "enc-dec serving (repro/models/encdec.py)",
     "expert_sparsity": "MoE serving (repro/models/mlp.py apply_moe)",
 }
+
+
+# leaves CORP pruning adds: a pruned template holds them (zeros), and a
+# pruned checkpoint fills them when it was compensated
+COMPENSATION_LEAVES = ("mlp/bd", "mlp/bv_comp")
 
 
 def _sync(device):
@@ -222,7 +230,10 @@ def main(argv=None) -> dict:
         last = latest_step(args.ckpt_in)
         if last is None:
             raise FileNotFoundError(f"no valid checkpoint in {args.ckpt_in}")
-        params, _ = restore_checkpoint(args.ckpt_in, last, params)
+        # the compensation biases of a pruned template: a --no-compensate
+        # prune writes none, which serves as zeros
+        params, _ = restore_checkpoint(args.ckpt_in, last, params,
+                                       zero_if_absent=COMPENSATION_LEAVES)
         print(f"[serve] loaded {args.ckpt_in} step {last}")
     out = {"model": model, "params": params}
     if args.trace > 0:

@@ -61,10 +61,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, init=init, apply=apply)
 
     def lm_apply(params, batch, taps=None):
-        if taps is not None:
-            raise NotImplementedError("LM taps (LM pruning) are not ported; "
-                                      "see repro.models.lm.apply_lm")
-        return lm_mod.apply_lm(params, _tokens(batch), cfg)
+        return lm_mod.apply_lm(params, _tokens(batch), cfg, taps=taps)
 
     def init_cache(batch, max_len, device=None):
         dev = resolve_device(None) if device is None else torch.device(device)

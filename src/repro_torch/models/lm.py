@@ -14,7 +14,7 @@ either ``k``, ``v``, ``pos`` (attention) or the recurrent state
 state and shift rows overwritten).
 
 Not ported yet: the VLM stub frontend (``patch_embeds``), the
-sliding-window ring (``_window_cache``), ``lm_loss`` and taps.
+sliding-window ring (``_window_cache``) and ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -85,14 +85,33 @@ def _positions(B: int, T: int, device):
         .expand(B, T)
 
 
-def apply_lm(params, tokens, cfg):
-    """tokens: (B, T) int -> (logits (B, T, padded_vocab), aux loss 0)."""
+def apply_lm(params, tokens, cfg, taps=None):
+    """tokens: (B, T) int -> (logits (B, T, padded_vocab), aux loss 0).
+
+    ``taps`` (a dict) collects each block's activation taps under the JAX
+    package's keys (``_run_segments``): ``seg<i>/l<j>/<k>`` for an unrolled
+    layer, ``seg<i>/p<j>/<k>`` stacked ``(reps, ...)`` for a scanned one.
+    A stacked tap is written into one buffer as the layers run, so it is
+    never held twice."""
     x = params["embed"][tokens]
     B, T = tokens.shape
     positions = _positions(B, T, x.device)
+    reps_of = {_seg_name(si): seg[1] for si, seg in enumerate(cfg.layout())
+               if seg[0] == "scan"}
     for name, key, rep, kind, moe in _each_layer(cfg):
+        t = {} if taps is not None else None
         x = blk.apply_block(_at(params, name, key, rep), x, cfg, kind, moe,
-                            positions=positions)
+                            positions=positions, taps=t)
+        if taps is None:
+            continue
+        for k, v in t.items():
+            path = f"{name}/{key}/{k}"
+            if rep is None:
+                taps[path] = v
+                continue
+            if rep == 0:
+                taps[path] = v.new_empty((reps_of[name],) + tuple(v.shape))
+            taps[path][rep].copy_(v)
     x = apply_norm(params["final_norm"], x, cfg)
     return x @ _head(params), torch.zeros((), device=x.device)
 

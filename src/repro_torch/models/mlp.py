@@ -11,6 +11,11 @@ from repro_torch.models.common import activation, dense_init, dtype_of, tap
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
+    """A pruned config (``d_ff_kept`` set) without biases still gets
+    ``bd``, zeros (D,) fp32: the slot for the compensation bias CORP
+    pruning writes, so that a pruned checkpoint restores into this template
+    with it. (The JAX package's template has no such leaf, and its restore
+    drops it.)"""
     dt = dtype_of(cfg)
     D = cfg.d_model
     F = d_ff if d_ff is not None else cfg.eff_d_ff
@@ -27,6 +32,8 @@ def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
         p["bd"] = torch.zeros(D)
         if cfg.mlp_kind == "glu":
             p["bg"] = torch.zeros(F)
+    elif cfg.d_ff_kept is not None:
+        p["bd"] = torch.zeros(D)
     return p
 
 

@@ -91,15 +91,22 @@ def apply_rwkv_time(p, x, cfg, taps=None, state=None):
 
 
 def init_rwkv_channel(gen: torch.Generator, cfg):
+    """A pruned config (``d_ff_kept`` set) also gets ``bv_comp``, zeros
+    (D,) fp32: the slot for the compensation bias CORP pruning writes, so
+    that a pruned checkpoint restores into this template with it. (The
+    JAX package's template has no such leaf, and its restore drops it.)"""
     dt = dtype_of(cfg)
     D, Fd = cfg.d_model, cfg.eff_d_ff
-    return {
+    p = {
         "mu_k": torch.full((D,), 0.5),
         "mu_r": torch.full((D,), 0.5),
         "wk": dense_init(gen, (D, Fd), dt),
         "wv": dense_init(gen, (Fd, D), dt),
         "wr": dense_init(gen, (D, D), dt),
     }
+    if cfg.d_ff_kept is not None:
+        p["bv_comp"] = torch.zeros(D)
+    return p
 
 
 def apply_rwkv_channel(p, x, cfg, taps=None, state=None):

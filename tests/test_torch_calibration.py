@@ -42,7 +42,8 @@ from repro_torch.data import calib_stream  # noqa: E402
 from repro_torch.distrib import CalibrationCheckpointer  # noqa: E402
 from repro_torch.launch import prune as pt_prune  # noqa: E402
 from repro_torch.models import build_model as pt_build  # noqa: E402
-from torch_parity import images, jax_params, port_cfg  # noqa: E402
+from torch_parity import (images, jax_params, mlp_rank_args,  # noqa: E402
+                          port_cfg)
 
 N_BATCHES, B = 3, 4
 KEEP_ATTN = 8           # of 16 qk dims per head at sparsity 0.5
@@ -148,7 +149,7 @@ def test_bf16_keep_sets_identical(setup, bf16_pass1):
         g = {k: v.numpy() for k, v in got[u.name].items()}
         if u.kind == "mlp":
             a = jax_ranking.rank_mlp(want[u.name], w2, 128)
-            b = ranking.rank_mlp(g, w2, 128)
+            b = ranking.rank_mlp(*mlp_rank_args(g, w2), 128)
         else:
             a = jax_ranking.rank_attn(want[u.name], KEEP_ATTN)
             b = ranking.rank_attn(g, KEEP_ATTN)
@@ -498,7 +499,6 @@ def test_cli_parses_every_new_flag():
 
 
 @pytest.mark.parametrize("flag", [["--expert-sparsity", "0.5"],
-                                  ["--calib-seq", "64"],
                                   ["--mesh", "2x2"], ["--calib-sharded"],
                                   ["--gram-tiles", "128,512"]])
 def test_cli_refuses_unported_flags_by_name(flag):

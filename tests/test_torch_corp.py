@@ -31,7 +31,8 @@ from repro_torch.core import CalibrationEngine, PruneConfig  # noqa: E402
 from repro_torch.core import corp_prune, discover_units  # noqa: E402
 from repro_torch.core import ranking  # noqa: E402
 from repro_torch.models import build_model as pt_build  # noqa: E402
-from torch_parity import images, jax_params, port_cfg  # noqa: E402
+from torch_parity import (images, jax_params, mlp_rank_args,  # noqa: E402
+                          port_cfg)
 
 N_BATCHES, B = 3, 4
 
@@ -86,8 +87,8 @@ def test_keep_sets_identical(setup, pass1):
     for u in jax_units(setup["cfg"]):
         if u.kind == "mlp":
             a = jax_ranking.rank_mlp(want[u.name], w2, 128)
-            b = ranking.rank_mlp({k: v.numpy() for k, v in
-                                  got[u.name].items()}, w2, 128)
+            b = ranking.rank_mlp(*mlp_rank_args(
+                {k: v.numpy() for k, v in got[u.name].items()}, w2), 128)
         else:
             a = jax_ranking.rank_attn(want[u.name], 8)
             b = ranking.rank_attn({k: v.numpy() for k, v in

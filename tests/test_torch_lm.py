@@ -67,10 +67,17 @@ def _close_tree(got, want):
 
 @pytest.mark.parametrize("pruned", [False, True])
 def test_init_tree_has_the_jax_key_paths(pruned):
+    """The JAX package's key paths, shapes and dtypes; a pruned template
+    adds one leaf, ``mlp/bd`` of zeros, the slot for the compensation bias
+    CORP pruning writes (JAX's template has none and drops the bias)."""
     _, jp, pm, _ = _setup(pruned)
     want = interop.flatten(jax.tree.map(np.asarray, jp))
     got = interop.flatten(interop.to_numpy(
         pm.init(torch.Generator().manual_seed(0), "cpu")))
+    if pruned:
+        bd = got.pop("seg0/p0/mlp/bd")
+        assert bd.shape == (pm.cfg.n_layers, pm.cfg.d_model) \
+            and bd.dtype == np.float32 and not bd.any()
     assert list(got) == list(want)
     assert "seg0/p0/mixer/rope_inv_q" in got
     for k in want:

@@ -291,22 +291,50 @@ def test_serve_cli_fixed_batch_loop_and_trace():
     assert len(res["completions"]) == 4 and res["stats"]["walk_steps"] > 0
 
 
-def test_serve_cli_refuses_a_pruned_rwkv_checkpoint(tmp_path):
-    """CORP pruning of an RWKV channel mix adds ``bv_comp``, which the
-    served model's template lacks: restoring names it and raises, rather
-    than serve the pruned model without its compensation."""
+@pytest.mark.parametrize("compensate", [True, False])
+def test_serve_cli_serves_a_pruned_rwkv_checkpoint_with_its_bv_comp(
+        lm, tmp_path, compensate):
+    """CORP pruning of an RWKV channel mix adds ``bv_comp``. The JAX CLI's
+    template has no such leaf and drops it; the port's pruned template has
+    the slot, so a JAX-written checkpoint serves with its bias: the served
+    params' logits equal the in-memory pruned params'. A
+    ``--no-compensate`` checkpoint has no ``bv_comp`` and serves it as
+    zeros, which is the model it pruned."""
+    from repro.checkpoint import restore_checkpoint as jax_restore
     from repro.checkpoint import save_checkpoint as jax_save
     from repro.core import PruneConfig, corp_prune
     from repro.data import calib_stream as jax_calib_stream
-    jcfg, _ = _cfgs()
-    model = jax_build(jcfg)
-    params = model.init(jax.random.PRNGKey(0))
+    jcfg = lm["jcfg"]
     new_params, new_cfg, _ = corp_prune(
-        model, params, jax_calib_stream(jcfg, n_samples=8, batch=4, seq=16),
-        PruneConfig(0.5, 0.5))
-    assert "bv_comp" in new_params["seg0"]["p0"]["mlp"]
+        lm["jmodel"], lm["jparams"],
+        jax_calib_stream(jcfg, n_samples=16, batch=8, seq=32),
+        PruneConfig(0.5, 0.5, compensate=compensate))
+    assert ("bv_comp" in new_params["seg0"]["p0"]["mlp"]) == compensate
     jax_save(str(tmp_path), 0, new_params, extra={"config": new_cfg.name})
-    with pytest.raises(ValueError, match="seg0/p0/mlp/bv_comp"):
-        pt_serve.main(["--arch", "rwkv6-3b-reduced", "--sparsity", "0.5",
-                       "--ckpt-in", str(tmp_path), "--device", "cpu",
-                       "--trace", "2"])
+    res = pt_serve.main(["--arch", "rwkv6-3b-reduced", "--sparsity", "0.5",
+                         "--ckpt-in", str(tmp_path), "--device", "cpu",
+                         "--trace", "2", "--slots", "2", "--max-len", "40",
+                         "--prompt-range", "6,16", "--gen-range", "2,5"])
+    assert len(res["completions"]) == 2
+    bv = res["params"]["seg0"]["p0"]["mlp"]["bv_comp"]
+    if compensate:
+        np.testing.assert_array_equal(
+            bv.numpy(), np.asarray(new_params["seg0"]["p0"]["mlp"]
+                                   ["bv_comp"]))
+        assert bv.abs().max() > 0
+    else:
+        assert not bv.any()
+    toks = torch.from_numpy(_tokens(jcfg, 2, 12, seed=5))
+    mem = interop.from_numpy(jax.tree.map(np.asarray, new_params),
+                             device="cpu")
+    want = res["model"].apply(mem, {"tokens": toks})[0]
+    got = res["model"].apply(res["params"], {"tokens": toks})[0]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # the JAX CLI's template drops the bias: another model when compensated
+    jtmpl = jax_build(new_cfg).init(jax.random.PRNGKey(0))
+    dropped, _ = jax_restore(str(tmp_path), 0, jtmpl)
+    assert "bv_comp" not in dropped["seg0"]["p0"]["mlp"]
+    jgot = np.asarray(jax_build(new_cfg).apply(
+        dropped, {"tokens": jnp.asarray(toks.numpy())})[0])
+    err = float(np.abs(jgot - want.numpy()).max())
+    assert (err > 1e-3) if compensate else (err <= 1e-4)

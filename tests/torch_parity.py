@@ -58,3 +58,65 @@ def greedy_chain_ok(model, params, req, out_tokens):
     pred = logits[0, :, : model.cfg.vocab_size].argmax(-1).numpy()
     want = pred[P - 1: P - 1 + len(out_tokens)]
     return list(want) == [int(t) for t in out_tokens]
+
+
+def to_port_cfg(jcfg):
+    """The port's ``ModelConfig`` of any JAX config, field by field (the
+    nested MoE, MLA, Mamba and RWKV dataclasses too), for the configs the
+    port has no registry entry of."""
+    from repro_torch.configs import base as pt_base
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        v = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(pt_base, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return pt_base.ModelConfig(**kw)
+
+
+def lm_prune_setup(arch, seed, n_samples=24, batch=8, seq=32):
+    """A reduced LM (fp32) in both packages on the same numpy weights, its
+    calibration streams (the reference's Markov tokens; 3 batches of 8 x 32
+    tokens, more than d_ff = 256 of them, so the MLP ridge systems are well
+    posed) and a held-out token batch."""
+    import jax.numpy as jnp
+    import torch
+    from repro.data import calib_stream as jax_stream
+    from repro_torch import interop
+    from repro_torch.data import calib_stream as pt_stream
+    from repro_torch.models import build_model as pt_build
+    jcfg = reduced(get_config(arch))
+    pcfg = pt_configs.resolve_config(arch + "-reduced")
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
+    params = jax_params(jcfg, seed=seed)
+    held = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (3, 20)).astype(np.int32)
+    kw = dict(n_samples=n_samples, batch=batch, seq=seq)
+    return {"jcfg": jcfg, "cfg": pcfg, "np": params,
+            "jax_model": jax_build(jcfg),
+            "jax_params": jax.tree.map(jnp.asarray, params),
+            "pt_model": pt_build(pcfg),
+            "pt_params": interop.from_numpy(params, device="cpu"),
+            "jax_calib": jax_stream(jcfg, **kw),
+            "pt_calib": pt_stream(pcfg, device="cpu", **kw),
+            "held": held,
+            "jax_held": {"tokens": jnp.asarray(held)},
+            "pt_held": {"tokens": torch.from_numpy(held)}}
+
+
+def mlp_rank_args(stats, w2):
+    """The port's ``ranking.rank_mlp`` inputs from numpy pass-1 moments and
+    the second matrix (..., F, D): diag(s2), n, na, column norms."""
+    return (np.einsum("...ff->...f", np.asarray(stats["s2"], np.float64)),
+            stats["n"], stats["na"],
+            np.linalg.norm(np.asarray(w2, np.float64), axis=-1))
+
+
+def lm_logits(model, params, batch):
+    """Logits (numpy) of either package's LM on ``batch``."""
+    return np.asarray(model.apply(params, batch)[0])
+
+
+def rel(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
