@@ -58,7 +58,24 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      (``[serve pruned]``); both reduced LMs pruned by ``launch.prune
      --calib-seq 16`` on the GPU and the CPU (logits within 1e-3) and
      served from the GPU's checkpoint on both (equal streams);
-  7. prints the card, a JSON line of per-kernel numbers with launches per
+  7. gemma3-1b (qk-norm, 22 sliding-window layers of 512 and 4 global,
+     head dim 256): ``flash_attention`` and ``flash_decode`` at d 256
+     against their plain versions (``[kernels gemma]``: window and global
+     prefill in bf16, a window in fp32, decode of 256/256 and pruned
+     128/256 against the ring's and the global layers' masks), the serve
+     trace at full width with prompts of 256-1536 tokens (``[serve
+     gemma]``, with the ring layers' share of the slot bytes) and the fp32
+     logit check past the window (``[gemma logits]``, two 600-token
+     prefills and 8 decode steps); CORP at full width on 64 sequences of
+     1024 tokens (``[prune gemma]``: class-3 attention and GELU GLU MLP,
+     stacked and unrolled units; J* <= J_uncomp, d_ff 3456 and qk 128,
+     an MLP-only prune closer to the dense model compensated than not,
+     the class-3 numbers reported, a one-traversal hit within 1e-4 of
+     two-pass); the pruned model served from its checkpoint with its
+     per-head qk-norm scales (``[serve pruned gemma]``); the reduced
+     gemma at 8 layers, granite-8b and deepseek-7b on the GPU against the
+     CPU (``[reference gemma]``);
+  8. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -1301,6 +1318,15 @@ LM_SHAPES = dict(gram=(28, 4096, 8960), attn=(8, 512, 12, 2, 128),
 PRUNED_SERVE = ["--arch", "qwen2-1.5b", "--sparsity", "0.5", "--trace",
                 "16", "--slots", "8", "--max-len", "1024",
                 "--prompt-range", "64,512", "--gen-range", "32,256"]
+# gemma3-1b: sequences longer than its 512-token window, which masks
+# nothing at T <= 512 (64 x 1024 = 65,536 calibration tokens, Qwen2's
+# 128 x 512)
+GEMMA = dict(sparsity=0.5, seqs=64, seq=1024, batch=4, held=2)
+GEMMA_SERVE = ["--arch", "gemma3-1b", "--trace", "32", "--slots", "8",
+               "--max-len", "2048", "--prompt-range", "256,1536",
+               "--gen-range", "32,256"]
+GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
+                                        "16"] + GEMMA_SERVE[4:]
 
 
 def zipf_tokens(vocab, n_seqs, seq, seed, dev):
@@ -1318,13 +1344,14 @@ def zipf_tokens(vocab, n_seqs, seq, seed, dev):
         .to(torch.int32)
 
 
-def lm_calib(cfg, dev, seed=11):
-    """(zero-arg calibration stream of LM['seqs'] sequences in batches of
-    LM['batch'], the held-out batch of LM['held'] more sequences)."""
-    toks = zipf_tokens(cfg.vocab_size, LM["seqs"], LM["seq"], seed, dev)
-    batches = [{"tokens": toks[i:i + LM["batch"]]}
-               for i in range(0, LM["seqs"], LM["batch"])]
-    held = {"tokens": zipf_tokens(cfg.vocab_size, LM["held"], LM["seq"],
+def lm_calib(cfg, dev, seed=11, spec=LM):
+    """(zero-arg calibration stream of spec['seqs'] sequences of
+    spec['seq'] tokens in batches of spec['batch'], the held-out batch of
+    spec['held'] more sequences); ``spec`` is ``LM`` or ``GEMMA``."""
+    toks = zipf_tokens(cfg.vocab_size, spec["seqs"], spec["seq"], seed, dev)
+    batches = [{"tokens": toks[i:i + spec["batch"]]}
+               for i in range(0, spec["seqs"], spec["batch"])]
+    held = {"tokens": zipf_tokens(cfg.vocab_size, spec["held"], spec["seq"],
                                   seed + 1, dev)}
     return (lambda: iter(batches)), held
 
@@ -1738,6 +1765,367 @@ def lm_reference_phase():
                  f"the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# gemma3-1b: qk-norm, the 5:1 window stack and its ring, class-3 pruning
+# ---------------------------------------------------------------------------
+
+def visible_keys(T, window):
+    """Keys a causal (optionally windowed) query row of each of T positions
+    sees, summed over the rows."""
+    w = T if window is None else window
+    return sum(min(t + 1, w) for t in range(T))
+
+
+def gemma_kernel_phase(dev, rows):
+    """``flash_attention`` and ``flash_decode`` at head dim 256, at the
+    shapes gemma3-1b gives them (window 512 and global layers, dense and
+    pruned decode against the ring's and the global layers' masks), and
+    ``gram`` / ``gram_cross`` at its MLP tap and class-3 speculative
+    grams; each against its plain version, timed beside its bound and the
+    one-call PyTorch equivalent."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_decode import ref as decode_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels gemma] head dim 256 against the plain versions at the "
+          "gemma3-1b shapes")
+    # flash_attention: the calibration forward's B 4 x T 1024, GQA 4/1
+    for dt, tol, peak, (B, T), cases in (
+            (bf, 2e-2, PEAK_BF16_FLOPS, (4, 1024),
+             ((512, "gemma_window"), (None, "gemma_global"))),
+            (torch.float32, 1e-4, PEAK_FP32_FLOPS, (1, 600),
+             ((512, "gemma_fp32_window"),))):
+        H, Hkv, d = 4, 1, 256
+        q, k, v = rand(B, T, H, d, dtype=dt), rand(B, T, Hkv, d, dtype=dt), \
+            rand(B, T, Hkv, d, dtype=dt)
+        scale = d ** -0.5
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H, dim=1)
+                  for a in (k, v))
+        qi = torch.arange(T, device=dev)[:, None]
+        ki = torch.arange(T, device=dev)[None, :]
+        for window, tag in cases:
+            err = check_attention(q, k, v, True, window, scale,
+                                  f"{tag} B={B} T={T}", tol=tol)
+            mask = (ki <= qi) & (ki > qi - window) if window else None
+
+            def library(mask=mask):
+                if mask is None:
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, scale=scale)
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale)
+            calls = {"ms": lambda w=window: flash_ops.attention(
+                         q, k, v, causal=True, window=w, scale=scale),
+                     "plain_ms": lambda w=window: flash_ref.attention(
+                         q, k, v, causal=True, window=w, scale=scale),
+                     "library_ms": library}
+            r = {"shape": [B, T, H, Hkv, d], "window": window,
+                 "max_abs_err": err,
+                 **{key: device_ms(fn, reps=10) for key, fn in
+                    calls.items()}}
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                2.0 * B * H * visible_keys(T, window) * 2 * d,
+                q.element_size() * B * T * (2 * H + 2 * Hkv) * d, peak)
+            print(f"  flash_attention {tag} B={B} T={T} H={H}/{Hkv} d={d} "
+                  f"{str(dt)[6:]}, device time: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+            by_name["flash_attention"][tag] = r
+        del q, k, v, qt, kt, vt
+
+    # flash_decode: eight serve slots; the ring's mask (S 512: a slot
+    # shorter than the window holds a prefix, a longer one every slot) and
+    # the global layers' (S 2048, a prefix of the slot's length)
+    B, H, Hkv = 8, 4, 1
+    lens = torch.tensor([256 + 183 * i for i in range(B)], device=dev)
+    for S, tag_s in ((512, "ring"), (2048, "global")):
+        valid = torch.arange(S, device=dev)[None] < lens.clamp(max=S)[:, None]
+        keys = int(valid.sum())
+        for dq, dv in ((256, 256), (128, 256)):
+            q = rand(B, H, dq, dtype=bf)
+            k, v = rand(B, S, Hkv, dq, dtype=bf), rand(B, S, Hkv, dv, dtype=bf)
+            scale = 256 ** -0.5            # the dense logit scale, qk_full
+            tag = f"gemma_{tag_s}_{dq}_{dv}"
+            err = check_decode(q, k, v, valid, tag, 2e-2)
+            kt, vt = (a.transpose(1, 2).repeat_interleave(H, dim=1)
+                      for a in (k, v))
+            qt, m4 = q[:, :, None], valid[:, None, None, :]
+            calls = {"ms": lambda: decode_ops.decode_attention(
+                         q, k, v, valid, scale=scale),
+                     "plain_ms": lambda: decode_ref.decode_attention(
+                         q, k, v, valid, scale),
+                     "library_ms": lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=m4, scale=scale)}
+            r = {"shape": [B, S, H, Hkv, dq, dv], "valid_keys": keys,
+                 "max_abs_err": err,
+                 **{key: device_ms(fn) for key, fn in calls.items()}}
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                2.0 * H * keys * (dq + dv),
+                keys * Hkv * (dq + dv) * 2 + 2 * B * H * (dq + dv) + B * S,
+                PEAK_BF16_FLOPS)
+            print(f"  flash_decode {tag} (lengths {int(lens[0])}.."
+                  f"{int(lens[-1])}, {keys} valid keys of {B * S}), device "
+                  f"time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, SDPA {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            by_name["flash_decode"][tag] = r
+            del q, k, v, kt, vt
+
+    # gram: a stacked MLP tap of the prune (4 reps x 4 x 1024 tokens x
+    # d_ff 6912); gram_cross: the class-3 speculative per-sample grams of
+    # one stacked unit's queries (4 reps x 4 samples x 1 group, 4096
+    # grouped query rows of 256)
+    x = rand(4, 4096, 6912)
+    err = check_gram(x, label="gemma MLP tap")
+    r = {"shape": list(x.shape), "max_abs_err": err,
+         "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+         "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3, warmup=1),
+         "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                               warmup=1)}
+    L, N, Fd = x.shape
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        1.0 * L * N * Fd * (Fd + 1), 4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+    print(f"  gram at the gemma prune shape {tuple(x.shape)} fp32: kernel "
+          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.matmul "
+          f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
+    by_name["gram"]["gemma_prune"] = r
+    del x
+    xq = rand(16, 4096, 256)
+    err = check_gram(xq, xq, label="gemma class-3 spec q")
+    r = {"shape": list(xq.shape), "max_abs_err": err,
+         "ms": device_ms(lambda: gram_ops.gram_cross(xq, xq), reps=10),
+         "plain_ms": device_ms(lambda: gram_ref.gram_cross(xq, xq), reps=10),
+         "library_ms": device_ms(lambda: torch.bmm(xq.mT, xq), reps=10)}
+    I, N, Fd = xq.shape
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        2.0 * I * N * Fd * Fd + I * N * Fd,
+        4.0 * (2 * I * N * Fd + I * Fd * Fd + I * Fd))
+    print(f"  gram_cross at the gemma class-3 speculative shape "
+          f"{tuple(xq.shape)} fp32, device time: kernel {r['ms']:.4f} ms, "
+          f"plain {r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} "
+          f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    by_name["gram_cross"]["gemma_spec"] = r
+    del xq
+
+
+def prune_gemma_phase(dev):
+    """CORP of gemma3-1b at full width (seeded bf16 weights, the port-only
+    Zipf stream, sequences of 1024 > the 512 window): two-pass at
+    0.5/0.5, compensated and not, attention only (MLP 0; the class-3
+    numbers, reported), MLP only (attention 0), compensated and not
+    (gated: compensated closer to the dense model), and one traversal at
+    margin 1.0 (a sure hit, <= 1e-4
+    from two-pass). Returns ({path: launches}, the compensated pruned
+    params and config)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    model, params = lm_model("gemma3-1b", dev)
+    cfg = model.cfg
+    calib, held = lm_calib(cfg, dev, seed=13, spec=GEMMA)
+    dense = logits32(cfg, params, held)
+    sp = GEMMA["sparsity"]
+    print(f"[prune gemma] corp_prune of gemma3-1b ({cfg.layout()}), "
+          f"{GEMMA['seqs']} sequences of {GEMMA['seq']} tokens in batches "
+          f"of {GEMMA['batch']} (port-only Zipf stream), sparsity {sp}/{sp}")
+    torch.cuda.reset_peak_memory_stats()
+    new, ncfg, rep, launches, logits, comp = lm_prune_run(
+        "prune gemma", model, params, calib, held, dense,
+        PruneConfig(sp, sp))
+    if (ncfg.eff_d_ff, ncfg.eff_qk) != (cfg.d_ff // 2, cfg.qk_full // 2):
+        fail(f"prune gemma: d_ff {ncfg.eff_d_ff}, qk {ncfg.eff_qk}")
+    for name in ("gram", "flash_attention"):
+        if launches[name] <= 0:
+            fail(f"prune gemma never launched {name}")
+    qs = (tuple(new["seg0"]["p0"]["mixer"]["q_scale"].shape),
+          tuple(new["seg1"]["l0"]["mixer"]["k_scale"].shape))
+    want = ((cfg.layout()[0][1], cfg.n_heads, ncfg.eff_qk),
+            (cfg.n_kv_heads, ncfg.eff_qk))
+    if qs != want:
+        fail(f"prune gemma: qk-norm scales of shapes {qs}, not the per-head "
+             f"{want} of a stacked and an unrolled layer")
+    out = {"prune_gemma": launches}
+    *_, nocomp = lm_prune_run(
+        "prune gemma no-compensate", model, params, calib, held, dense,
+        PruneConfig(sp, sp, compensate=False))
+    attn = [u for u in rep["units"] if u.endswith("/attn")]
+    rho = [float(rep["units"][u]["rho2"].mean()) for u in attn]
+    print(f"[prune gemma] MLP and class-3 attention at {sp}/{sp}: held-out "
+          f"fp32 logits |pruned - dense| / |dense| compensated {comp:.4f}, "
+          f"no-compensate {nocomp:.4f}; mean rho2 (the logit distortion "
+          f"the class-3 ridge removes) of the {len(attn)} attention units "
+          f"{min(rho):.4f}..{max(rho):.4f}")
+    *_, att_comp = lm_prune_run("prune gemma attention only", model,
+                                params, calib, held, dense,
+                                PruneConfig(0.0, sp))
+    *_, att_plain = lm_prune_run(
+        "prune gemma attention only no-compensate", model, params, calib,
+        held, dense, PruneConfig(0.0, sp, compensate=False))
+    print(f"[prune gemma] class 3 alone (MLP 0, attention {sp}): held-out "
+          f"compensated {att_comp:.4f}, no-compensate {att_plain:.4f} "
+          f"(reported, not gated)")
+    *_, mlp_comp = lm_prune_run("prune gemma MLP only", model, params,
+                                calib, held, dense, PruneConfig(sp, 0.0))
+    *_, mlp_plain = lm_prune_run(
+        "prune gemma MLP only no-compensate", model, params, calib, held,
+        dense, PruneConfig(sp, 0.0, compensate=False))
+    print(f"[prune gemma] MLP only (attention 0): held-out compensated "
+          f"{mlp_comp:.4f}, no-compensate {mlp_plain:.4f}")
+    if not mlp_comp < mlp_plain:
+        fail("prune gemma: the compensated MLP prune is not closer to the "
+             "dense model than the uncompensated one")
+    tag = "prune gemma one traversal"
+    _, _, r1, l1, lg1, _ = lm_prune_run(
+        tag, model, params, calib, held, dense, PruneConfig(sp, sp),
+        one_traversal=True, spec_margin=1.0)
+    spec = r1["speculative"]
+    err = rel_err(lg1, logits)
+    print(f"[{tag}] margin 1.0: traversals {r1['traversals']}, "
+          f"{len(spec['hits'])} hits, misses {spec['misses']}; held-out "
+          f"|one - two-pass| / |two-pass| fp32 logits {err:.3e} (tol 1e-4)")
+    if r1["traversals"] != 1 or spec["misses"] or l1["gram_cross"] <= 0:
+        fail(f"{tag}: a full candidate set missed, or gram_cross never ran")
+    if not err <= 1e-4:
+        fail(f"{tag}: more than 1e-4 from the two-pass prune")
+    out["prune_gemma_1trav"] = l1
+    del params, dense, logits
+    return out, new, ncfg
+
+
+def slot_bytes_by_kind(cfg, max_len):
+    """Bytes of one slot's decode cache: (all layers, the ring layers'
+    share, an all-global stack of the same depth)."""
+    from repro_torch.interop import flatten
+    from repro_torch.models import build_model
+    from repro_torch.serve import cache_bytes
+    tree = build_model(cfg).init_cache(1, max_len, "meta")
+    kinds = {}
+    for si, seg in enumerate(cfg.layout()):
+        for j, li in enumerate(seg[-1]):
+            key = f"seg{si}/{'l' if seg[0] == 'unroll' else 'p'}{j}/"
+            kinds[key] = cfg.layer_kinds[li]
+    ring = sum(t.numel() * t.element_size()
+               for path, t in flatten(tree).items()
+               if kinds.get(path.rpartition("/")[0] + "/") == "swa")
+    every = cache_bytes(build_model(cfg.replace(pattern=("attn",)))
+                        .init_cache(1, max_len, "meta"))
+    return cache_bytes(tree), ring, every
+
+
+def serve_gemma_phase(dev):
+    """gemma3-1b at full width through ``launch.serve``: every request of
+    the trace completes, both attention kernels launched (window and global
+    prefills, ring and global decode); the slot bytes of the ring layers
+    against an all-global stack; then the fp32 logit check past the window.
+    Returns {path: launches}."""
+    launches, res = serve_phase(GEMMA_SERVE, "serve gemma",
+                                ("flash_attention", "flash_decode"))
+    arg = dict(zip(GEMMA_SERVE[::2], GEMMA_SERVE[1::2]))
+    want = [r.gen for r in gemma_trace(arg, res["model"].cfg)]
+    if [len(c.tokens) for c in res["completions"]] != want:
+        fail("serve gemma: a request did not complete")
+    cfg = res["model"].cfg
+    max_len = int(arg["--max-len"])
+    total, ring, every = slot_bytes_by_kind(cfg, max_len)
+    print(f"[serve gemma] slot-cache bytes per slot at max_len {max_len}: "
+          f"{total} ({ring} in the {cfg.layer_kinds.count('swa')} ring "
+          f"layers of {min(max_len, cfg.sliding_window)} slots, "
+          f"{100 * ring / total:.1f}%); an all-global stack of "
+          f"{cfg.n_layers} layers: {every} ({every / total:.2f}x)")
+    logit_phase(res["model"], res["params"], "gemma logits", [600, 600])
+    return {"serve_gemma": launches}
+
+
+def gemma_trace(arg, cfg):
+    from repro_torch.serve import synthetic_trace
+    return synthetic_trace(
+        int(arg["--trace"]), cfg.vocab_size, seed=0,
+        prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
+        gen_range=tuple(map(int, arg["--gen-range"].split(","))))
+
+
+def serve_pruned_gemma_phase(params, cfg):
+    """The pruned gemma3-1b saved and served by ``launch.serve --sparsity
+    0.5 --ckpt-in``: its per-head qk-norm scales restored, every request
+    complete. Returns {path: launches}."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    ck = OUT + "_pruned_gemma"
+    shutil.rmtree(ck, ignore_errors=True)
+    save_checkpoint(ck, 0, params, extra={"config": cfg.name})
+    launches, res = serve_phase(GEMMA_PRUNED_SERVE + ["--ckpt-in", ck],
+                                "serve pruned gemma",
+                                ("flash_attention", "flash_decode"))
+    shutil.rmtree(ck, ignore_errors=True)
+    arg = dict(zip(GEMMA_PRUNED_SERVE[::2], GEMMA_PRUNED_SERVE[1::2]))
+    got = res["params"]["seg0"]["p0"]["mixer"]["q_scale"]
+    if res["model"].cfg != cfg or not torch.equal(
+            got, params["seg0"]["p0"]["mixer"]["q_scale"]) \
+            or [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in gemma_trace(arg, cfg)]:
+        fail("serve pruned gemma: a request did not complete, or the model "
+             "is not the pruned one with its per-head qk-norm scales")
+    max_len = int(arg["--max-len"])
+    total, ring, _ = slot_bytes_by_kind(cfg, max_len)
+    print(f"[serve pruned gemma] per-head qk-norm scales "
+          f"{tuple(got.shape)} restored; slot-cache bytes per slot at "
+          f"max_len {max_len}: {total} ({ring} in the ring layers; K rows "
+          f"dq {cfg.qk_full} -> {cfg.eff_qk})")
+    return {"serve_pruned_gemma": launches}
+
+
+def gemma_reference_phase():
+    """Reduced gemma3-1b at 8 layers (a scanned segment of 6 and 2 unrolled
+    layers, window 8), granite-8b and deepseek-7b (fp32, seeded weights) on
+    the GPU against the CPU's plain path: logits of a sequence longer than
+    the window within 1e-3, and equal engine streams over a ragged
+    trace."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    for arch, n_layers in (("gemma3-1b", 8), ("granite-8b", None),
+                           ("deepseek-7b", None)):
+        cfg = resolve_config(arch + "-reduced")
+        if n_layers:
+            cfg = cfg.replace(n_layers=n_layers)
+        model = build_model(cfg)
+        toks = (torch.arange(2 * 40, dtype=torch.int32).reshape(2, 40) * 7) \
+            % cfg.vocab_size
+        logits, streams = {}, {}
+        for device in ("cuda", "cpu"):
+            params = model.init(torch.Generator().manual_seed(0), device)
+            logits[device] = model.apply(
+                params, {"tokens": toks.to(device)})[0].cpu()
+            eng = ServeEngine(model, params, n_slots=3, max_len=96)
+            streams[device] = [c.tokens.tolist() for c in eng.run(
+                synthetic_trace(12, cfg.vocab_size, seed=0,
+                                prompt_range=(8, 40), gen_range=(4, 30)))]
+        err = rel_err(logits["cuda"], logits["cpu"])
+        same = streams["cuda"] == streams["cpu"]
+        print(f"[reference gemma] {cfg.name} ({cfg.n_layers} layers, "
+              f"{cfg.layout()}): logits GPU vs CPU relative error "
+              f"{err:.3e} (tol 1e-3); engine streams "
+              f"{sum(map(len, streams['cuda']))} tokens, "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not (err <= 1e-3 and same):
+            fail(f"{cfg.name}: the GPU disagrees with the CPU's plain path")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1779,6 +2167,9 @@ def main() -> int:
     t0 = time.time()
     lm_kernel_phase(dev, rows)
     print(f"[kernels lm prune] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    gemma_kernel_phase(dev, rows)
+    print(f"[kernels gemma] phase wall {time.time() - t0:.3f} s")
     launches = {}
     launches["prune"], held, ref = main_path_phase(dev)
     t0 = time.time()
@@ -1833,6 +2224,20 @@ def main() -> int:
     t0 = time.time()
     lm_reference_phase()
     print(f"[reference lm prune] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches.update(serve_gemma_phase(dev))
+    print(f"[serve gemma] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    lm_launches, gemma_new, gemma_cfg = prune_gemma_phase(dev)
+    launches.update(lm_launches)
+    print(f"[prune gemma] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches.update(serve_pruned_gemma_phase(gemma_new, gemma_cfg))
+    del gemma_new
+    print(f"[serve pruned gemma] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    gemma_reference_phase()
+    print(f"[reference gemma] phase wall {time.time() - t0:.3f} s")
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

@@ -1,27 +1,34 @@
-"""Config registry of the port: the DeiT ids, ``qwen2-1.5b``, ``rwkv6-3b``
-and their reduced variants.
+"""Config registry of the port: the DeiT ids, the LMs it serves and prunes
+(``qwen2-1.5b``, ``granite-8b``, ``deepseek-7b``, ``gemma3-1b``,
+``rwkv6-3b``) and their reduced variants.
 
 Copied from ``repro.configs``. The other LM, MoE, Mamba and enc-dec
 configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import importlib
+
 from repro_torch.configs.base import ModelConfig, RWKVConfig
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
-LM_IDS = ("qwen2-1.5b", "rwkv6-3b")
+_MODULES = {
+    "qwen2-1.5b": "qwen2_1_5b",
+    "granite-8b": "granite_8b",
+    "deepseek-7b": "deepseek_7b",
+    "gemma3-1b": "gemma3_1b",
+    "rwkv6-3b": "rwkv6_3b",
+}
+LM_IDS = tuple(_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id in DEIT_IDS:
         from repro_torch.configs import deit
         return getattr(deit, arch_id.upper().replace("-", "_"))
-    if arch_id == "qwen2-1.5b":
-        from repro_torch.configs import qwen2_1_5b
-        return qwen2_1_5b.CONFIG
-    if arch_id == "rwkv6-3b":
-        from repro_torch.configs import rwkv6_3b
-        return rwkv6_3b.CONFIG
+    if arch_id in _MODULES:
+        return importlib.import_module(
+            f"repro_torch.configs.{_MODULES[arch_id]}").CONFIG
     raise NotImplementedError(
         f"arch {arch_id!r} is not ported to repro_torch yet (only "
         f"{DEIT_IDS + LM_IDS}); its config lives in repro.configs.get_config")

@@ -8,11 +8,13 @@ one device, DeiT and the dense LMs: dense (plain, GLU) MLP units, RWKV
 channel mixes (``rwkv_mlp``, compensated through ``wv`` and a ``bv_comp``
 bias), class-1 attention units (no rope, no qk-norm) and class-2 ones
 (rope: a diagonal complex compensator per kept rotary pair, qkv bias and
-rope frequency tables folded alike); two calibration passes or one
+rope frequency tables folded alike) and class-3 ones (rope + qk-norm: a
+real diagonal per kept pair, folded into the per-head qk-norm scales),
+stacked units and unrolled (unstacked) ones; two calibration passes or one
 (``one_traversal``), taps streamed in fp32 or bf16, resumable statistics
 checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``.
-``mesh=``, MoE and expert pruning, Mamba, MLA, cross attention, class 3
-(qk-norm) and unstacked units are not ported yet; they raise.
+``mesh=``, MoE and expert pruning, Mamba, MLA and cross attention are not
+ported yet; they raise.
 
 ``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
 pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
@@ -133,9 +135,9 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
 
 def _attn_solve(p2stats, unit: Unit, pc: PruneConfig, L: int, ds: int):
     """Solve every (layer, group) system of an attention unit and fold it.
-    Returns the Q and K factors, (L, G, ds, ds) for class 1 or per-pair
-    2x2 blocks (L, G, ds, 2, 2) for class 2 (ds kept pairs), and the
-    diagnostics (L, G)."""
+    Returns the Q and K factors, (L, G, ds, ds) for class 1, per-pair 2x2
+    blocks (L, G, ds, 2, 2) for class 2 or per-pair scales (L, G, ds) for
+    class 3 (ds kept pairs), and the diagnostics (L, G)."""
     G = unit.n_groups
     t2 = p2stats["t2"].reshape(L * G)
     if unit.attn_class == 1:
@@ -150,9 +152,12 @@ def _attn_solve(p2stats, unit: Unit, pc: PruneConfig, L: int, ds: int):
         hv = p2stats["h"].reshape(L * G, ds)
         lam = pc.lam * torch.diagonal(Gm, dim1=-2, dim2=-1).real \
             .mean(dim=-1)
-        sol = solve_mod.solve_diag_complex(Gm, hv, t2, lam)
+        cls2 = unit.attn_class == 2
+        sol = (solve_mod.solve_diag_complex if cls2
+               else solve_mod.solve_diag_real)(Gm, hv, t2, lam)
         m = sol["m"] if pc.compensate else torch.zeros_like(sol["m"])
-        fq, fk = solve_mod.fold_diag_complex(m)
+        fq, fk = (solve_mod.fold_diag_complex if cls2
+                  else solve_mod.fold_diag_real)(m)
     fq = fq.reshape((L, G) + fq.shape[1:])
     fk = fk.reshape((L, G) + fk.shape[1:])
     diag = {k: sol[k].reshape(L, G) for k in ("j_star", "j_uncomp", "rho2")}
@@ -163,9 +168,12 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
                      report):
     """QK fold of a stacked attention unit, with the qkv bias. keep/prune:
     (L, G, n) kept / pruned dims per kv group (class 1) or rotary pairs
-    (class 2). Class 1 right-multiplies the kept dims of each group by its
-    (ds, ds) factor; class 2 each kept pair's (even, odd) columns by its
-    2x2 block, and gathers the kept pairs of the rope frequency tables."""
+    (classes 2, 3). Class 1 right-multiplies the kept dims of each group by
+    its (ds, ds) factor; class 2 each kept pair's (even, odd) columns by its
+    2x2 block; class 3 gathers the kept dims and multiplies its per-pair
+    scales (Q: sign(1 + m) sqrt|1 + m|, K: sqrt|1 + m|, each on both dims of
+    the pair) into the qk-norm scales, expanded to one row a head. Classes
+    2 and 3 gather the kept pairs of the rope frequency tables."""
     new = dict(p)
     wq, wk = p["wq"], p["wk"]                        # (L, D, H, dq)
     L = wq.shape[0]
@@ -178,13 +186,18 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
 
         def mix(wS, f):
             return torch.einsum("ldgqs,lgst->ldgqt", wS, f)
-    else:
+    elif unit.attn_class == 2:
         dim_keep = solve_mod.pairs_to_dims(keep_t)   # (L, G, 2 ds)
 
         def mix(wS, f):
             pairs = wS.reshape(wS.shape[:-1] + (wS.shape[-1] // 2, 2))
             return torch.einsum("ldgqpi,lgpij->ldgqpj", pairs, f) \
                 .reshape(wS.shape)
+    else:                        # class 3: the fold goes into the scales
+        dim_keep = solve_mod.pairs_to_dims(keep_t)
+
+        def mix(wS, f):
+            return wS
     n = dim_keep.shape[-1]
 
     def fold(w, n_per_group, f):
@@ -202,6 +215,21 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
         # biases are pre-rope additive terms: same gather and fold
         new["bq"] = fold(p["bq"][:, None], qpg, fq)[:, 0].float()
         new["bk"] = fold(p["bk"][:, None], 1, fk)[:, 0].float()
+    if "q_scale" in p:
+
+        def scales(s, n_per_group, f):
+            # (L, dq) shared by every head -> the kept dims of each head
+            # (L, heads, n), class 3's scales folded in
+            heads = G * n_per_group
+            sg = s[:, None, :].expand(L, heads, dq_full) \
+                .reshape(L, G, n_per_group, dq_full)
+            idx = dim_keep[:, :, None, :].expand(L, G, n_per_group, n)
+            sS = torch.gather(sg, 3, idx).float()
+            if unit.attn_class == 3:
+                sS = sS * f.repeat_interleave(2, dim=-1)[:, :, None, :]
+            return sS.reshape(L, heads, n)
+        new["q_scale"] = scales(p["q_scale"], qpg, fq)
+        new["k_scale"] = scales(p["k_scale"], 1, fk)
     if "rope_inv_q" in p:
         # kept pairs' frequencies, per head (q) and per kv head (k)
         npair = keep_t.shape[-1]
@@ -392,12 +420,21 @@ def _prune_units(model, units, params, new_params, calib_batches,
             continue
         keep, prune = plan[u.name]
         block = get_block(new_params, u)
-        if u.kind in ("mlp", "rwkv_mlp"):
-            blocks[u.name] = _fold_mlp_block(block, p1[u.name], u, pc, keep,
-                                             prune, report["units"])
-        else:
-            blocks[u.name] = _fold_attn_block(block, p2[u.name], u, pc,
-                                              keep, prune, report["units"])
+        fold, st = (_fold_mlp_block, p1[u.name]) \
+            if u.kind in ("mlp", "rwkv_mlp") \
+            else (_fold_attn_block, p2[u.name])
+        if u.stacked:
+            blocks[u.name] = fold(block, st, u, pc, keep, prune,
+                                  report["units"])
+            continue
+        # an unrolled layer folds as a stack of one; its block, and the
+        # diagnostics, lose the layer axis again
+        one = {}
+        new = fold(map_tree(lambda t: t[None], block),
+                   map_tree(lambda t: t[None], st), u, pc, keep[None],
+                   prune[None], one)
+        blocks[u.name] = map_tree(lambda t: t[0], new)
+        report["units"][u.name] = {k: v[0] for k, v in one[u.name].items()}
     _sync(device)
     _tick(report, "fold", t0)
     return blocks, plan

@@ -1,5 +1,5 @@
-"""Closed-form CORP solvers and folds (``repro.core.solve``), classes 1
-and 2.
+"""Closed-form CORP solvers and folds (``repro.core.solve``), classes 1,
+2 and 3.
 
 MLP affine compensation (paper Eq. 9):
     B = Sigma_PS (Sigma_SS + lam I)^-1,   c = mu_P - B mu_S
@@ -10,12 +10,14 @@ Class 2 (rope, no qk-norm): a diagonal complex compensator m over the kept
 rotary pairs, (Gd + lam I) m = hd in complex64, folded per pair as the
 2x2 real blocks of a = sqrt(rho) e^{i phi/2} into W_Q and b = sqrt(rho)
 e^{-i phi/2} into W_K (a conj(b) = 1 + m = rho e^{i phi}).
+Class 3 (rope + qk-norm): its real restriction, (Gd + lam I) m = hd over
+real-reduced systems, folded into the qk-norm scales as sign(1 + m)
+sqrt|1 + m| (Q) and sqrt|1 + m| (K), whose product is 1 + m.
 
 Every function takes a leading batch of independent systems (the stacked
 layers, or layers x groups) and solves them at once; the Cholesky factor
 and solve are ``torch.linalg.cholesky`` / ``torch.cholesky_solve``, the
-complex one ``torch.linalg.solve``. Class 3 (rope + qk-norm, a real
-diagonal folded into the norm scales) is not ported yet.
+complex and real-diagonal ones ``torch.linalg.solve``.
 """
 from __future__ import annotations
 
@@ -110,6 +112,26 @@ def solve_diag_complex(Gd, hd, t2, lam):
     gain = (hd.conj() * m).sum(dim=1).real
     return {"m": m, "j_star": t2 - gain, "j_uncomp": t2,
             "rho2": torch.where(t2 > 0, gain / t2, torch.zeros_like(t2))}
+
+
+def solve_diag_real(Gd, hd, t2, lam):
+    """Class 3: m = (Gd + lam I)^-1 hd, the real restriction of class 2.
+
+    Gd (R, dp, dp), hd (R, dp) real (already real-reduced), t2, lam (R,)."""
+    eye = torch.eye(Gd.shape[-1], dtype=Gd.dtype, device=Gd.device)
+    m = torch.linalg.solve(Gd + lam[:, None, None] * eye,
+                           hd[:, :, None])[:, :, 0]
+    gain = (hd * m).sum(dim=1)
+    return {"m": m, "j_star": t2 - gain, "j_uncomp": t2,
+            "rho2": torch.where(t2 > 0, gain / t2, torch.zeros_like(t2))}
+
+
+def fold_diag_real(m):
+    """1 + m real -> per-pair scales (Q: sign(1 + m) sqrt|1 + m|, K:
+    sqrt|1 + m|), whose product is 1 + m; the sign goes to the Q side."""
+    w = 1.0 + m
+    s = w.abs().sqrt()
+    return torch.sign(w) * s, s
 
 
 def fold_diag_complex(m):

@@ -1,4 +1,4 @@
-"""Calibration statistics for CORP (``repro.core.stats``), class-1 path.
+"""Calibration statistics for CORP (``repro.core.stats``).
 
 Two streaming passes over the unlabeled calibration set:
 
@@ -26,15 +26,22 @@ Hadamard analogues on A = Q^H Q and C = K^H K (complex64):
           t2 = sum_b ||Q_P K_P^H||_F^2;
   one traversal: Gc = sum_b E_CC, hfull = sum_b sum_p E_Cp, t2_tot =
           Re sum_b sum E, with E = A (.) conj(C).
-These einsums are jnp in the reference, and plain torch ops here.
+These einsums are jnp in the reference, and plain torch ops here, but
+for the one-traversal sums' per-sample grams, which the gram_cross kernel
+takes (``_pair_gram`` turns a real gram of interleaved pairs into the
+complex one). Class-3 (rope + qk-norm) units reduce exactly as class 2
+and keep the real parts of pass 2's G and h (the speculative sums stay
+complex; ``spec_reconstruct`` takes the real parts).
 
 Every statistic is a sum over samples, accumulated in fp32. Taps arrive in
 the engine's streaming dtype (fp32 or bf16): the dense second moments and
-the class-1 per-sample grams take it into the gram kernels, which
+the speculative per-sample grams take it into the gram kernels, which
 accumulate in fp32; every other reduction casts to fp32 first. The
 layer-stacked taps (leading layer axis) are reduced for all layers at
-once: one gram launch covers every layer of a unit. Class 3, MoE, Mamba,
-MLA, cross attention and unstacked units are not ported yet; they raise.
+once: one gram launch covers every layer of a unit. An unstacked unit (an
+unrolled layer) has taps without that axis: it is reduced as a stack of
+one layer and its statistics lose the axis again, the shapes JAX gives.
+MoE, Mamba, MLA and cross attention are not ported yet; they raise.
 """
 from __future__ import annotations
 
@@ -79,12 +86,24 @@ def _to_complex_pairs(q):
 
 
 def _check_attn(unit: Unit, fn: str = "_p2_attn"):
-    if unit.attn_class not in (1, 2) or unit.kind != "attn" \
-            or not unit.stacked:
+    if unit.kind != "attn":
         raise NotImplementedError(
-            f"attention unit {unit.name} (kind {unit.kind}, class "
-            f"{unit.attn_class}, stacked {unit.stacked}) is not ported; see "
-            f"repro.core.stats.{fn}")
+            f"attention unit {unit.name} (kind {unit.kind}) is not ported; "
+            f"see repro.core.stats.{fn}")
+
+
+def _stacked(unit: Unit, x):
+    """A tap or index array with the layer axis: an unstacked unit's gets
+    one of length 1."""
+    return x if unit.stacked else x[None]
+
+
+def _unstack(unit: Unit, tree):
+    """Statistics of ``_stacked`` inputs -> the unit's own shapes: an
+    unstacked unit's leaves lose the length-1 layer axis."""
+    if unit.stacked:
+        return tree
+    return {k: v[0] for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -92,14 +111,14 @@ def _check_attn(unit: Unit, fn: str = "_p2_attn"):
 # ---------------------------------------------------------------------------
 
 def _p1_mlp(taps, unit: Unit):
-    h = taps[f"{unit.tap_prefix}/h"]                  # (L, B, T, F)
-    return _moments(h.reshape(h.shape[0], -1, h.shape[-1]))
+    h = _stacked(unit, taps[f"{unit.tap_prefix}/h"])  # (L, B, T, F)
+    return _unstack(unit, _moments(h.reshape(h.shape[0], -1, h.shape[-1])))
 
 
 def _p1_attn(taps, unit: Unit):
     _check_attn(unit)
-    q = taps[f"{unit.tap_prefix}/q"].float()          # (L, B, T, H, d)
-    k = taps[f"{unit.tap_prefix}/k"].float()          # (L, B, T, Hkv, d)
+    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"]).float()  # (L,B,T,H,d)
+    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"]).float()
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     if unit.attn_class == 1:
@@ -109,9 +128,10 @@ def _p1_attn(taps, unit: Unit):
         eq = _to_complex_pairs(qg).abs().square().sum(dim=3)
         ek = _to_complex_pairs(kg).abs().square().sum(dim=3)
     L, B = q.shape[0], q.shape[1]
-    return {"rank": (eq * ek).sum(dim=1),
-            "n": torch.full((L,), float(B), dtype=torch.float32,
-                            device=q.device)}
+    return _unstack(unit, {"rank": (eq * ek).sum(dim=1),
+                           "n": torch.full((L,), float(B),
+                                           dtype=torch.float32,
+                                           device=q.device)})
 
 
 # ---------------------------------------------------------------------------
@@ -167,22 +187,27 @@ def _p2_layer_complex(qg, kg, keep, prune):
 
 def _p2_attn(taps, unit: Unit, keep, prune):
     """keep/prune: int64 tensors (L, G, ds) / (L, G, dp) of kept / pruned
-    dims (class 1) or rotary pairs (class 2) -> class 1: {G (L, G, ds^2,
-    ds^2), h (L, G, ds^2), t2 (L, G)}; class 2: {G (L, G, ds, ds), h (L, G,
-    ds) complex64, t2 (L, G)}."""
+    dims (class 1) or rotary pairs (classes 2, 3); (G, ..) for an unstacked
+    unit -> class 1: {G (L, G, ds^2, ds^2), h (L, G, ds^2), t2 (L, G)};
+    class 2: {G (L, G, ds, ds), h (L, G, ds) complex64, t2 (L, G)}; class
+    3: class 2's real parts (fp32)."""
     _check_attn(unit)
-    q = taps[f"{unit.tap_prefix}/q"].float()
-    k = taps[f"{unit.tap_prefix}/k"].float()
+    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"]).float()
+    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"]).float()
+    keep, prune = _stacked(unit, keep), _stacked(unit, prune)
     qg = _group_q(q, unit.n_groups)
     kg = k.permute(0, 1, 3, 2, 4)
     layer = _p2_layer
-    if unit.attn_class == 2:
+    if unit.attn_class != 1:
         qg, kg, layer = _to_complex_pairs(qg), _to_complex_pairs(kg), \
             _p2_layer_complex
     per_layer = [layer(qg[i], kg[i], keep[i], prune[i])
                  for i in range(q.shape[0])]
-    return {key: torch.stack([s[key] for s in per_layer])
-            for key in per_layer[0]}
+    out = {key: torch.stack([s[key] for s in per_layer])
+           for key in per_layer[0]}
+    if unit.attn_class == 3:
+        out["G"], out["h"] = out["G"].real, out["h"].real
+    return _unstack(unit, out)
 
 
 # ---------------------------------------------------------------------------
@@ -212,19 +237,31 @@ def _cols(M, idx):
     return torch.gather(M, 4, idx[:, None, :, None, :].expand(L, B, G, e, c))
 
 
+def _pair_gram(R):
+    """A per-sample real gram R = X^T X (..., d, d) of interleaved rotary
+    pairs -> the complex gram (..., d/2, d/2) of the pairs, Z^H Z with
+    z = x + iy: Re = R[x, x] + R[y, y], Im = R[x, y] - R[y, x]."""
+    return torch.complex(R[..., 0::2, 0::2] + R[..., 1::2, 1::2],
+                         R[..., 0::2, 1::2] - R[..., 1::2, 0::2])
+
+
 def _p2spec_complex(q, k, unit: Unit, cand):
-    """The class-2 speculative sums over rotary pairs (complex64, from fp32
-    taps). Per (layer, group), with E = A (.) conj(C), A = Q^H Q, C = K^H K
-    per sample:
+    """The speculative sums of classes 2 and 3 over rotary pairs
+    (complex64). Per (layer, group), with E = A (.) conj(C), A = Q^H Q,
+    C = K^H K per sample:
       Gc     (c, c)  cplx  sum_b E[C, C]
       hfull  (c,)    cplx  sum_b sum_p E[C, p]
       t2_tot ()            Re sum_b sum E
-    Per-sample A and C are (dp, dp), so nothing here is large."""
-    qc = _to_complex_pairs(_group_q(q.float(), unit.n_groups))
-    kc = _to_complex_pairs(k.float().permute(0, 1, 3, 2, 4))
-    A_ff = torch.einsum("xbgts,xbgtu->xbgsu", qc.conj(), qc)
-    C_ff = torch.einsum("xbgts,xbgtu->xbgsu", kc.conj(), kc)
-    E = A_ff * C_ff.conj()                            # (L, B, G, dp, dp)
+    A and C come from the per-sample real grams of the taps, taken in their
+    streaming dtype by the gram_cross kernel (``_bgram``, fp32 sums) and
+    paired by ``_pair_gram``: the same sums as the reference's complex
+    einsums, in another order. Per-sample A and C are (dp, dp), so nothing
+    here is large."""
+    qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
+    kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
+    A_ff = _pair_gram(_bgram(qg, qg))                 # (L, B, G, dp, dp)
+    C_ff = _pair_gram(_bgram(kg, kg))
+    E = A_ff * C_ff.conj()
     Ec = _rows(E, cand)                               # candidate rows
     return {"Gc": _cols(Ec, cand).sum(dim=1),
             "hfull": Ec.sum(dim=(1, 4)),
@@ -232,12 +269,13 @@ def _p2spec_complex(q, k, unit: Unit, cand):
 
 
 def _p2spec_attn(taps, unit: Unit, cand):
-    """Speculative pass-2 sums of one attention unit (class 2: see
+    """Speculative pass-2 sums of one attention unit (classes 2 and 3: see
     ``_p2spec_complex``).
 
     cand: int64 candidate keep-indices (L, G, c), dims (class 1) or rotary
-    pairs (class 2), fixed for the whole traversal. Per (layer, group) of a
-    class-1 unit:
+    pairs (classes 2, 3), fixed for the whole traversal; (G, c) and
+    leaves without the layer axis for an unstacked unit. Per (layer,
+    group) of a class-1 unit:
       Gc     (c, c, c, c)  sum_b A_CC (x) C_CC, order [i, l, j, k]
       Hfull  (c, c)        sum_b (Q_C^T Q)(K^T K_C)
       t2_tot ()            sum_b <Q^T Q, K^T K>  (full Frobenius)
@@ -245,10 +283,11 @@ def _p2spec_attn(taps, unit: Unit, cand):
     gathers run on its fp32 results. Gc is contracted over the batch inside
     one product, so no per-sample (B, c, c, c, c) tensor is formed."""
     _check_attn(unit, "_p2spec_attn")
-    q = taps[f"{unit.tap_prefix}/q"]
-    k = taps[f"{unit.tap_prefix}/k"]
-    if unit.attn_class == 2:
-        return _p2spec_complex(q, k, unit, cand)
+    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"])
+    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"])
+    cand = _stacked(unit, cand)
+    if unit.attn_class != 1:
+        return _unstack(unit, _p2spec_complex(q, k, unit, cand))
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     A_ff = _bgram(qg, qg)                             # (L, B, G, d, d)
@@ -257,9 +296,10 @@ def _p2spec_attn(taps, unit: Unit, cand):
     C_fc = _cols(C_ff, cand)                          # K^T K_C (L,B,G,d,c)
     A_cc = _cols(A_cf, cand)
     C_cc = _rows(C_fc, cand)
-    return {"Gc": torch.einsum("xbgij,xbglk->xgiljk", A_cc, C_cc),
-            "Hfull": torch.einsum("xbgcp,xbgpu->xgcu", A_cf, C_fc),
-            "t2_tot": (A_ff * C_ff).sum(dim=(1, 3, 4))}
+    return _unstack(unit, {
+        "Gc": torch.einsum("xbgij,xbglk->xgiljk", A_cc, C_cc),
+        "Hfull": torch.einsum("xbgcp,xbgpu->xgcu", A_cf, C_fc),
+        "t2_tot": (A_ff * C_ff).sum(dim=(1, 3, 4))})
 
 
 def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict) -> Dict:
@@ -275,18 +315,15 @@ def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict) -> Dict:
 def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
     """Exact pass-2 statistics of ``keep`` from the speculative sums.
 
-    Host numpy with float64 (complex128 for class 2) intermediates
-    (``repro.core.stats.spec_reconstruct``, classes 1 and 2): valid when
+    Host numpy with float64 (complex128 for classes 2 and 3)
+    intermediates (``repro.core.stats.spec_reconstruct``): valid when
     every group's keep-set lies inside its candidate set
     (``ranking.covers``); both are sorted. Returns numpy ``{"G", "h",
-    "t2"}`` of the shapes and dtypes (fp32, complex64) that a pass-2
-    traversal gives. The complement terms are differences of candidate and
-    full sums, not direct sums over the pruned set, so they differ from
-    pass 2 in rounding only (``t2`` is clamped at 0)."""
-    if unit.attn_class not in (1, 2):
-        raise NotImplementedError(
-            f"attention unit {unit.name} of class {unit.attn_class} is not "
-            f"ported; see repro.core.stats.spec_reconstruct")
+    "t2"}`` of the shapes and dtypes (fp32, complex64 for class 2; class 3
+    takes the real parts, fp32) that a pass-2 traversal gives. The
+    complement terms are differences of candidate and full sums, not
+    direct sums over the pruned set, so they differ from pass 2 in rounding
+    only (``t2`` is clamped at 0)."""
     cand = np.asarray(cand)
     keep = np.asarray(keep)
     lead = cand.shape[:-1]                  # (L, G)
@@ -294,8 +331,12 @@ def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
     cf = cand.reshape(-1, c)
     kf = keep.reshape(-1, n)
     rows = cf.shape[0]
-    if unit.attn_class == 2:
-        return _spec_reconstruct_complex(spec, cf, kf, lead)
+    if unit.attn_class != 1:
+        out = _spec_reconstruct_complex(spec, cf, kf, lead)
+        if unit.attn_class == 3:            # real restriction of class 2
+            out["G"], out["h"] = (out[k].real.astype(np.float32)
+                                  for k in ("G", "h"))
+        return out
     Gc = np.asarray(spec["Gc"], np.float64).reshape(rows, c, c, c, c)
     Hf = np.asarray(spec["Hfull"], np.float64).reshape(rows, c, c)
     tt = np.asarray(spec["t2_tot"], np.float64).reshape(rows)
@@ -319,7 +360,7 @@ def spec_reconstruct(spec, cand, keep, unit: Unit) -> Dict:
 
 
 def _spec_reconstruct_complex(spec, cf, kf, lead):
-    """Class 2 of ``spec_reconstruct``: G = Gc[S, S], h = hfull[S] - the
+    """Classes 2, 3 of ``spec_reconstruct``: G = Gc[S, S], h = hfull[S] - the
     row sums of G (the pruned-set cross term), t2 = t2_tot - 2 Re
     sum_S hfull + Re sum G. cf (rows, c), kf (rows, n) sorted indices."""
     rows, c = cf.shape
@@ -349,7 +390,7 @@ def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
     {rank, n}."""
     out = {}
     for u in units:
-        if u.kind in ("mlp", "rwkv_mlp") and u.stacked:
+        if u.kind in ("mlp", "rwkv_mlp"):
             out[u.name] = _p1_mlp(taps, u)
         elif u.kind == "attn":
             out[u.name] = _p1_attn(taps, u)

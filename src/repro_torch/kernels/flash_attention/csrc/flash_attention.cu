@@ -38,10 +38,18 @@
 // difference, inside the bf16 gate). K/V tiles of 64 rows move through a
 // ring of 4 stages (the pair being computed, the next pair in flight) of
 // 16-byte cp.async copies, one __syncthreads a pair; rows past S are
-// zero-filled. Head dims are compile-time (dq padded to 32, 64 or 128, dv
-// to 64 or 128, zeros in shared memory), so no loop over them branches
-// and ptxas can overlap the ldmatrix loads with the products; rows are
-// padded by 16 bytes so that ldmatrix is free of bank conflicts.
+// zero-filled. Head dims are compile-time (dq padded to 32, 64, 128 or
+// 256, dv to 64, 128 or 256, zeros in shared memory), so no loop over them
+// branches and ptxas can overlap the ldmatrix loads with the products; rows
+// are padded by 16 bytes so that ldmatrix is free of bank conflicts.
+// Head dims above 128 (gemma3's 256): the ring of four 64-key stages would
+// not fit a block's 227 KB (at dq = dv = 256 it is 270 KB), so a shape
+// whose four stages do not fit keeps one pair of stages and loads the next
+// pair after the current one is computed (no overlap of load and compute);
+// dq = 128 with dv = 256 still fits four. Above 128 the Q fragments are
+// read from shared memory for every kv tile instead of being held in
+// registers, which leaves the 128 registers of a 256-wide O accumulator
+// within the 255 a thread may have.
 //
 // fp32, flash_fwd_f32: no tensor cores (TF32 would break the 1e-4 gate). A
 // block of 8 warps owns a 64-row query tile, each warp 8 rows, so that at
@@ -53,6 +61,8 @@
 // shuffles; P goes through a per-warp 64 x 8 buffer (no block barrier),
 // and each lane owns a 4-row by (4 columns every 64) micro-tile of O,
 // reading V as float4. Head dims are compile-time as in the bf16 kernel.
+// A shape whose two stages do not fit (any head dim above 128) runs one
+// stage: the next tile loads after the current one is computed.
 //
 // Both: query tiles are scheduled heaviest first under the causal mask
 // (reverse blockIdx.x); kv tiles that the causal or window mask hides from
@@ -74,7 +84,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int BQ = 64;            // query rows of a block
 constexpr int BKV = 64;           // keys of a kv tile
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -217,16 +228,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // DQ, DV: the head dims rounded up to 32/64/128 (64/128 for dv); shared
 // memory holds zeros past the real dims, so every loop has a fixed count.
 // Rows are padded by 16 bytes: ldmatrix's 8 rows fall on distinct banks.
-// The ring holds two pairs of kv tiles: one pair computed, one loading.
+// The ring holds two pairs of kv tiles (one pair computed, one loading)
+// where they fit, else one pair. QREG: Q's fragments stay in registers.
 template <int DQ, int DV>
 struct TcShape {
   static constexpr int LDQ = DQ + 8, LDV = DV + 8;
   static constexpr int STAGE = BKV * (LDQ + LDV);
-  static constexpr size_t SMEM = sizeof(bf16) * (BQ * LDQ + 4 * STAGE);
+  static constexpr int PAIRS =
+      sizeof(bf16) * (BQ * LDQ + 4 * STAGE) <= SMEM_MAX ? 2 : 1;
+  static constexpr size_t SMEM = sizeof(bf16) * (BQ * LDQ + 2 * PAIRS * STAGE);
+  static constexpr bool QREG = DQ <= 128 && DV <= 128;
+  static_assert(SMEM <= SMEM_MAX, "one pair of stages fits");
   // the merge of the two kv halves reuses the ring: per thread DV / 2
   // accumulators, two maxima and two partial sums
   static_assert(4 * 32 * (DV / 2 + 4) * sizeof(float) <=
-                    4 * STAGE * sizeof(bf16), "merge fits the ring");
+                    2 * PAIRS * STAGE * sizeof(bf16), "merge fits the ring");
 };
 
 template <int DQ, int DV>
@@ -235,7 +251,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
   constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);        // (BQ, LDQ)
-  bf16* ring = qs + BQ * LDQ;       // 4 stages of K (BKV, LDQ), V (BKV, LDV)
+  bf16* ring = qs + BQ * LDQ;  // 2 PAIRS stages of K (BKV, LDQ), V (BKV, LDV)
   const Strides& st = p.st;
   const int t_len = p.t_len, s_len = p.s_len;
 
@@ -264,13 +280,16 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
                                   : blk;
 
   // pair i of the block's kv tiles (blk.begin + 2 i, + 1) into stages
-  // 2 (i % 2) and 2 (i % 2) + 1
+  // 2 (i % 2) and 2 (i % 2) + 1 (one pair of stages: 0 and 1)
+  auto stage_of = [](int i, int e) {
+    return (Sh::PAIRS == 2 ? 2 * (i & 1) : 0) + e;
+  };
   auto issue = [&](int i) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int j = blk.begin + 2 * i + e;
       if (j >= blk.end) break;
-      bf16* dst = ring + (2 * (i & 1) + e) * Sh::STAGE;
+      bf16* dst = ring + stage_of(i, e) * Sh::STAGE;
       load_tile<bf16, BKV, TC_THREADS, DQ>(dst, LDQ, kp, st.kt, st.kd,
                                            j * BKV, s_len, p.dq, p.vec & 2,
                                            tid);
@@ -284,7 +303,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
   issue(0);
   cp_async_commit();
 
-  uint32_t qf[DQ / 16][4];
+  uint32_t qf[Sh::QREG ? DQ / 16 : 1][4];
   float acc[DV / 8][4];
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j)
@@ -296,20 +315,29 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
 
   const int pairs = (blk.end - blk.begin + 1) / 2;
   for (int i = 0; i < pairs; ++i) {
+    if (Sh::PAIRS == 1 && i > 0) {
+      __syncthreads();   // every warp is done with pair i - 1: load pair i
+      issue(i);
+      cp_async_commit();
+    }
     cp_async_wait_all();
     __syncthreads();   // pair i is in; every warp is done with pair i - 1
-    if (i == 0 && active) {
+    if constexpr (Sh::QREG) {
+      if (i == 0 && active) {
 #pragma unroll
-      for (int kk = 0; kk < DQ / 16; ++kk)
-        ldmatrix_x4(qf[kk], qs + (16 * rg + (lane & 15)) * LDQ + kk * 16 +
-                                ((lane >> 4) << 3));
+        for (int kk = 0; kk < DQ / 16; ++kk)
+          ldmatrix_x4(qf[kk], qs + (16 * rg + (lane & 15)) * LDQ + kk * 16 +
+                                  ((lane >> 4) << 3));
+      }
     }
-    if (i + 1 < pairs) issue(i + 1);
-    cp_async_commit();
+    if (Sh::PAIRS == 2) {
+      if (i + 1 < pairs) issue(i + 1);
+      cp_async_commit();
+    }
     const int j = blk.begin + 2 * i + half;
     if (!active || j >= blk.end || j < wr.begin || j >= wr.end) continue;
 
-    const bf16* ks = ring + (2 * (i & 1) + half) * Sh::STAGE;
+    const bf16* ks = ring + stage_of(i, half) * Sh::STAGE;
     const bf16* vs = ks + BKV * LDQ;
     const int k0 = j * BKV;
 
@@ -320,13 +348,21 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DQ / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Sh::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, qs + (16 * rg + (lane & 15)) * LDQ + kk * 16 +
+                            ((lane >> 4) << 3));
+      }
 #pragma unroll
       for (int n2 = 0; n2 < 4; ++n2) {
         uint32_t bk[4];
         ldmatrix_x4(bk, ks + (n2 * 16 + ((mi >> 1) << 3) + (lane & 7)) * LDQ +
                             kk * 16 + ((mi & 1) << 3));
-        mma_bf16(s[2 * n2], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * n2], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -452,13 +488,19 @@ constexpr int F_ROWS = BQ / F_WARPS;
 
 // Row pitch of Q and K: DQ plus 4, so that the pitch is 4 times an odd
 // number of words and 8 lanes reading float4 at 8 rows hit distinct banks.
-// V's rows hold DV (lanes read 4 columns every 64).
+// V's rows hold DV (lanes read 4 columns every 64). Two stages where they
+// fit, else one.
 template <int DQ, int DV>
 struct FShape {
   static constexpr int LDQ = DQ + 4, LDV = DV;
   static constexpr int STAGE = BKV * (LDQ + LDV);
-  static constexpr size_t SMEM =
-      sizeof(float) * (BQ * LDQ + 2 * STAGE + F_WARPS * BKV * F_ROWS);
+  static constexpr size_t bytes(int stages) {
+    return sizeof(float) *
+           (BQ * LDQ + stages * STAGE + F_WARPS * BKV * F_ROWS);
+  }
+  static constexpr int STAGES = bytes(2) <= SMEM_MAX ? 2 : 1;
+  static constexpr size_t SMEM = bytes(STAGES);
+  static_assert(SMEM <= SMEM_MAX, "one stage fits");
 };
 
 template <int DQ, int DV>
@@ -467,7 +509,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
   constexpr int LDQ = Sh::LDQ, LDV = Sh::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);      // (BQ, LDQ)
-  float* ring = qs + BQ * LDQ;      // 2 stages of K (BKV, LDQ), V (BKV, LDV)
+  float* ring = qs + BQ * LDQ;  // STAGES stages of K (BKV, LDQ), V (BKV, LDV)
   const Strides& st = p.st;
   const int t_len = p.t_len, s_len = p.s_len;
 
@@ -481,7 +523,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
   const float* qp = static_cast<const float*>(p.q) + b * st.qb + h * st.qh;
   const float* kp = static_cast<const float*>(p.k) + b * st.kb + hk * st.kh;
   const float* vp = static_cast<const float*>(p.v) + b * st.vb + hk * st.vh;
-  float* pw = ring + 2 * Sh::STAGE + warp * BKV * F_ROWS;   // (BKV, 8)
+  float* pw = ring + Sh::STAGES * Sh::STAGE + warp * BKV * F_ROWS;  // (BKV, 8)
 
   const KvRange blk = kv_range(q0 + off, min(q0 + BQ, t_len) - 1 + off,
                                s_len, p.causal, p.use_window, p.window);
@@ -522,13 +564,20 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
 
   for (int j = blk.begin; j < blk.end; ++j) {
     const int it = j - blk.begin;
+    if (Sh::STAGES == 1 && it > 0) {
+      __syncthreads();   // every warp is done with tile j - 1: load tile j
+      issue(j, ring);
+      cp_async_commit();
+    }
     cp_async_wait_all();
     __syncthreads();   // tile j is in; every warp is done with tile j - 1
-    if (j + 1 < blk.end) issue(j + 1, ring + ((it + 1) & 1) * Sh::STAGE);
-    cp_async_commit();
+    if (Sh::STAGES == 2) {
+      if (j + 1 < blk.end) issue(j + 1, ring + ((it + 1) & 1) * Sh::STAGE);
+      cp_async_commit();
+    }
     if (!active || j < wr.begin || j >= wr.end) continue;
 
-    const float* ks = ring + (it & 1) * Sh::STAGE;
+    const float* ks = ring + (Sh::STAGES == 2 ? (it & 1) : 0) * Sh::STAGE;
     const float* vs = ks + BKV * LDQ;
     const int k0 = j * BKV;
 
@@ -658,20 +707,21 @@ int launch(K kernel, size_t smem, int threads, int b, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dv rounded up to 64 or 128; bf16 (dtype 1) takes the tensor-core kernel
+// bf16 (dtype 1) takes the tensor-core kernel, fp32 the CUDA-core one
+template <int DQ, int DV>
+int launch_t(int dtype, int b, const Params& p, cudaStream_t s) {
+  if (dtype == 1)
+    return launch(flash_fwd_bf16<DQ, DV>, TcShape<DQ, DV>::SMEM, TC_THREADS, b,
+                  p, s);
+  return launch(flash_fwd_f32<DQ, DV>, FShape<DQ, DV>::SMEM, F_THREADS, b, p,
+                s);
+}
+
+// dv rounded up to 64 or 128
 template <int DQ>
 int launch_dq(int dtype, int b, const Params& p, cudaStream_t s) {
-  if (dtype == 1)
-    return p.dv <= 64
-        ? launch(flash_fwd_bf16<DQ, 64>, TcShape<DQ, 64>::SMEM, TC_THREADS,
-                 b, p, s)
-        : launch(flash_fwd_bf16<DQ, 128>, TcShape<DQ, 128>::SMEM, TC_THREADS,
-                 b, p, s);
-  return p.dv <= 64
-      ? launch(flash_fwd_f32<DQ, 64>, FShape<DQ, 64>::SMEM, F_THREADS, b, p,
-               s)
-      : launch(flash_fwd_f32<DQ, 128>, FShape<DQ, 128>::SMEM, F_THREADS, b,
-               p, s);
+  return p.dv <= 64 ? launch_t<DQ, 64>(dtype, b, p, s)
+                    : launch_t<DQ, 128>(dtype, b, p, s);
 }
 
 }  // namespace
@@ -681,7 +731,8 @@ int launch_dq(int dtype, int b, const Params& p, cudaStream_t s) {
 // k, v, o in that order. vec: bit 0, 1, 2 set when q, k, v may be copied 16
 // bytes at a time (last stride 1, other strides and the base 16-byte
 // aligned); others are loaded element by element. Requires 1 <= dq, dv <=
-// 128 and n_heads % n_kv == 0 (the wrapper checks). Returns
+// 256 and n_heads % n_kv == 0 (the wrapper checks). A head dim above 128
+// pads both to 128 or 256 (three more instances a dtype, not six). Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                          const void* k, const void* v,
@@ -700,6 +751,11 @@ extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                          s[8], s[9], s[10], s[11], s[12], s[13], s[14],
                          s[15]}};
   auto str = static_cast<cudaStream_t>(stream);
+  if (dq > 128 || dv > 128) {
+    if (dq <= 128) return launch_t<128, 256>(dtype, b, p, str);
+    return dv <= 128 ? launch_t<256, 128>(dtype, b, p, str)
+                     : launch_t<256, 256>(dtype, b, p, str);
+  }
   if (dq <= 32) return launch_dq<32>(dtype, b, p, str);
   if (dq <= 64) return launch_dq<64>(dtype, b, p, str);
   return launch_dq<128>(dtype, b, p, str);

@@ -6,7 +6,7 @@ hand-written kernel in ``csrc/flash_attention.cu`` or raises; only a CPU
 tensor takes the plain version in ``ref.py``. bf16 inputs run the
 tensor-core kernel (``mma.sync``), fp32 inputs the CUDA-core kernel; both
 read the (B, T, H, d) layout through strides, mask ragged T and S
-themselves, and take dq != dv and head dims up to 128. A tensor whose rows
+themselves, and take dq != dv and head dims up to 256. A tensor whose rows
 cannot be copied 16 bytes at a time is read element by element by the same
 kernel: the wrapper makes no copies.
 """
@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 launches = 0            # kernel launches in this process (chip_smoke reads it)
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)

@@ -48,7 +48,16 @@
 //   weights of a head; the warps' sums are added in a fixed order at the
 //   end. Softmax in base 2.
 //
-// Head dims are compile-time 64 or 128 (zero-padded); groups up to 32.
+// Head dims are compile-time 64, 128 or 256 (zero-padded); groups up to 32.
+// Head dims above 128 (gemma3's 256, its pruned dq 128 with dv 256): three
+// stages of 64 keys no longer fit where the per-row footprint doubles (at
+// 256/256 in bf16 they take 203 KB beside q and the logits; fp32 twice
+// that), so each shape keeps as many stages (3, 2 or 1) as fit the 227 KB
+// of a block, with the keys a tile unchanged: bf16 keeps three (229,792 of
+// the 232,448 bytes at 256/256), fp32 128/256 two, fp32 256/128 and
+// 256/256 one (the next tile loads after this one is computed). Such
+// shapes keep one block an SM, which gives a thread up to 255 registers
+// for its 8 heads x 8 columns of P V sums.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,11 +73,11 @@ using bf16 = __nv_bfloat16;
 constexpr int TK = 64;            // keys per tile
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int STAGES = 3;         // cp.async ring depth
 constexpr int GMAX = 32;          // largest group of query heads per kv head
 constexpr int GT = 128;           // tiles a block sorts into valid/empty at once
 constexpr int MAX_SPLITS = 8;     // blocks of one (portable) cluster
 constexpr float NEG = -1e30f;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have
 
 // element strides: q (b, h, d), k (b, s, h, d), v (b, s, h, d), valid (b, s),
 // o (b, h, d)
@@ -158,9 +167,6 @@ struct Shape {
   static constexpr int PAD = 16 / sizeof(T);
   static constexpr int LDK = DQ + PAD, LDV = DV + PAD;
   static constexpr int STAGE = TK * (LDK + LDV);   // elements a stage
-  static constexpr int RING = STAGES * STAGE * (int)sizeof(T);
-  static_assert(RING >= (WARPS * 8 + GMAX) * DV * 4,
-                "the warp sums and the partial acc reuse the ring");
   __host__ __device__ static constexpr int gp(int g) {
     return g <= 8 ? 8 : g <= 16 ? 16 : 32;
   }
@@ -171,9 +177,24 @@ struct Shape {
     return sizeof(T) == 2 ? (size_t)q_rows(g) * LDK * 2
                           : (size_t)gp(g) * DQ * 4;
   }
-  __host__ __device__ static constexpr size_t bytes(int g) {
-    return RING + q_bytes(g) + sizeof(float) * ((size_t)gp(g) * TK + 3 * GMAX)
+  __host__ __device__ static constexpr size_t rest(int g) {
+    return q_bytes(g) + sizeof(float) * ((size_t)gp(g) * TK + 3 * GMAX)
            + sizeof(uint32_t) * 2 * GT + sizeof(int) * (GT + WARPS);
+  }
+  // cp.async ring depth: as many stages as fit beside the largest group's
+  // q and logits
+  static constexpr int STAGES =
+      3 * STAGE * sizeof(T) + rest(GMAX) <= SMEM_MAX   ? 3
+      : 2 * STAGE * sizeof(T) + rest(GMAX) <= SMEM_MAX ? 2
+                                                        : 1;
+  static constexpr int RING = STAGES * STAGE * (int)sizeof(T);
+  static_assert(RING + rest(GMAX) <= SMEM_MAX, "one stage fits");
+  static_assert(RING >= (WARPS * 8 + GMAX) * DV * 4,
+                "the warp sums and the partial acc reuse the ring");
+  // registers: 8 heads x DV / 32 columns of P V sums a thread
+  static constexpr int MIN_BLOCKS = DQ > 128 || DV > 128 ? 1 : 2;
+  __host__ __device__ static constexpr size_t bytes(int g) {
+    return RING + rest(g);
   }
 };
 
@@ -208,9 +229,10 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* p,
 }
 
 template <typename T, int DQ, int DV>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, (Shape<T, DQ, DV>::MIN_BLOCKS))
 flash_decode_kernel(const Params p) {
   using Sh = Shape<T, DQ, DV>;
+  constexpr int STAGES = Sh::STAGES;
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = p.g, gp = Sh::gp(p.g);
   T* ring = reinterpret_cast<T*>(smem);
@@ -339,9 +361,16 @@ flash_decode_kernel(const Params p) {
     for (int i = 0; i < STAGES - 1; ++i) issue(i);
 
     for (int i = 0; i < nv; ++i) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();        // tile i landed; tile i - 1 fully consumed
-      issue(i + STAGES - 1);
+      if constexpr (STAGES == 1) {
+        __syncthreads();      // tile i - 1 fully consumed: load tile i
+        issue(i);
+        cp_async_wait<0>();
+        __syncthreads();      // tile i landed
+      } else {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();      // tile i landed; tile i - 1 fully consumed
+        issue(i + STAGES - 1);
+      }
       const T* ks = ring + (i % STAGES) * Sh::STAGE;
       const T* vs = ks + TK * Sh::LDK;
       const uint32_t* tb = bits + 2 * list[i];
@@ -465,22 +494,30 @@ flash_decode_kernel(const Params p) {
         for (int j = 0; j < 4; ++j) {
           const T* vr = vs + (r + j) * Sh::LDV + lane * CPT;
           if constexpr (sizeof(T) == 2) {
-            if constexpr (CPT == 4) {
-              const uint2 raw = *reinterpret_cast<const uint2*>(vr);
-              const float2 a = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-              const float2 b2 = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-              vf[j][0] = a.x; vf[j][1] = a.y; vf[j][2] = b2.x; vf[j][3] = b2.y;
+            if constexpr (CPT % 4 == 0) {       // 4 columns an 8-byte read
+#pragma unroll
+              for (int c = 0; c < CPT; c += 4) {
+                const uint2 raw = *reinterpret_cast<const uint2*>(vr + c);
+                const float2 a = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+                const float2 b2 = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+                vf[j][c] = a.x; vf[j][c + 1] = a.y;
+                vf[j][c + 2] = b2.x; vf[j][c + 3] = b2.y;
+              }
             } else {
               const float2 a = __bfloat1622float2(
                   *reinterpret_cast<const __nv_bfloat162*>(vr));
               vf[j][0] = a.x; vf[j][1] = a.y;
             }
           } else {
-            if constexpr (CPT == 4) {
-              const float4 a = *reinterpret_cast<const float4*>(vr);
-              vf[j][0] = a.x; vf[j][1] = a.y; vf[j][2] = a.z; vf[j][3] = a.w;
+            if constexpr (CPT % 4 == 0) {       // 4 columns a 16-byte read
+#pragma unroll
+              for (int c = 0; c < CPT; c += 4) {
+                const float4 a = *reinterpret_cast<const float4*>(vr + c);
+                vf[j][c] = a.x; vf[j][c + 1] = a.y;
+                vf[j][c + 2] = a.z; vf[j][c + 3] = a.w;
+              }
             } else {
               const float2 a = *reinterpret_cast<const float2*>(vr);
               vf[j][0] = a.x; vf[j][1] = a.y;
@@ -587,6 +624,11 @@ int launch(const Params& p, int b, cudaStream_t stream) {
 
 template <typename T>
 int launch_d(const Params& p, int b, cudaStream_t s) {
+  if (p.dq > 128 || p.dv > 128) {   // both padded to 128 or 256
+    if (p.dq <= 128) return launch<T, 128, 256>(p, b, s);
+    return p.dv <= 128 ? launch<T, 256, 128>(p, b, s)
+                       : launch<T, 256, 256>(p, b, s);
+  }
   if (p.dq <= 64)
     return p.dv <= 64 ? launch<T, 64, 64>(p, b, s) : launch<T, 64, 128>(p, b, s);
   return p.dv <= 64 ? launch<T, 128, 64>(p, b, s) : launch<T, 128, 128>(p, b, s);
@@ -600,7 +642,7 @@ int launch_d(const Params& p, int b, cudaStream_t s) {
 // (k), bit 1 (v) set when that tensor's rows may be copied 16 bytes at a
 // time (last stride 1, other strides and base 16-byte aligned). strides: 16
 // int64 element strides, (b, h, d) of q, (b, s, h, d) of k and v, (b, s) of
-// valid, (b, h, d) of o. Requires 1 <= dq, dv <= 128, n_heads % n_kv == 0,
+// valid, (b, h, d) of o. Requires 1 <= dq, dv <= 256, n_heads % n_kv == 0,
 // n_heads / n_kv <= 32, s_len >= 1 (the wrapper checks). Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
@@ -608,7 +650,7 @@ extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
                                   int b, int s_len, int n_heads, int n_kv,
                                   int dq, int dv, int ns, float scale, int vec,
                                   const void* strides, void* stream) {
-  if (dq < 1 || dv < 1 || dq > 128 || dv > 128 || n_kv < 1 ||
+  if (dq < 1 || dv < 1 || dq > 256 || dv > 256 || n_kv < 1 ||
       n_heads % n_kv != 0 || n_heads / n_kv > GMAX || s_len < 1 || ns < 1 ||
       ns > MAX_SPLITS || ns > (s_len + TK - 1) / TK || b < 1 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

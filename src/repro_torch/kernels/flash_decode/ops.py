@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_decode import ref as _ref
 
 launches = 0            # kernel launches in this process (chip_smoke reads it)
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GROUP = 32          # query heads per kv head
 TILE = 64               # keys per shared-memory tile of the kernel
 MAX_SPLITS = 8          # splits of one row: the blocks of one cluster

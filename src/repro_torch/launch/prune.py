@@ -6,7 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.prune \
         --arch qwen2-1.5b-reduced --calib-seq 16 --device cpu --out /tmp/lm
 
-Initialises dense parameters (DeiT, Qwen2-1.5B or RWKV6-3B) from seed 0
+Initialises dense parameters (DeiT, Qwen2-1.5B, granite-8b, deepseek-7b,
+gemma3-1b or RWKV6-3B) from seed 0
 (no pretrained weights are in the repository), or loads them from a train
 checkpoint (``--ckpt-in``), runs the one-shot CORP pipeline over the
 synthetic calibration stream (images, or ``--calib-seq`` tokens a sequence

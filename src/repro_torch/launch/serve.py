@@ -22,7 +22,9 @@ Weights are seeded random (seed 0); ``--sparsity S --ckpt-in DIR`` serves
 a pruned checkpoint written by ``repro.launch.prune`` (or the port's),
 with its compensation biases (``mlp/bd``, ``mlp/bv_comp``), which the JAX
 CLI's template drops; a ``--no-compensate`` checkpoint has none and serves
-them as zeros. It
+them as zeros. A pruned qk-norm model (gemma3-1b) restores its per-head
+qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
+CLI's template cannot take (its restore fails). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
 PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
 the front-end is not ported, so its flags (queue, deadlines, prefix cache,

@@ -1,15 +1,25 @@
 """Attention mixer (``repro.models.attention``): q/k/v projections with the
-qkv bias and rope, the attention kernel, the output projection; and the
-one-token decode against a KV cache. Taps ``q`` (B,T,H,dq) and ``k``
-(B,T,Hkv,dq) feed the CORP logit statistics.
+qkv bias, qk-norm and rope, the attention kernel, the output projection;
+and the one-token decode against a KV cache. Taps ``q`` (B,T,H,dq) and
+``k`` (B,T,Hkv,dq), taken after norm and rope, feed the CORP logit
+statistics.
 
 Rope (LMs) uses per-head frequency tables ``rope_inv_q``/``rope_inv_k`` in
-the params, as the JAX package stores them. Decode updates the cache in
-place: the new K/V row and ``pos`` are written into the cache's own
-tensors, so a step never copies the cache.
+the params, as the JAX package stores them; ``swa`` layers take
+``rope_theta_local``. Decode updates the cache in place: the new K/V row
+and ``pos`` are written into the cache's own tensors, so a step never
+copies the cache. A ``swa`` layer's cache is a ring of
+``min(max_len, sliding_window)`` slots: token ``pos`` goes to slot ``pos
+mod S`` and ``abs_pos`` (-1 where empty) records which position each slot
+holds, from which the decode mask follows.
 
-Not ported yet: qk-norm, MLA, cross attention and the sliding-window (swa)
-decode ring; they raise.
+The qk-norm scales are shared by all heads, ``(dq,)``, in a dense config.
+A pruned config's template holds them per head, ``(H, qk_kept)`` and
+``(Hkv, qk_kept)``: the shape the class-3 fold writes, so that a pruned
+checkpoint restores into it (the JAX template keeps ``(qk_kept,)``, and
+its restore of a pruned qk-norm checkpoint fails).
+
+Not ported yet: MLA and cross attention; they raise.
 """
 from __future__ import annotations
 
@@ -19,16 +29,14 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_decode import ops as decode_ops
-from repro_torch.models.common import dense_init, dtype_of, rope_freqs, tap
+from repro_torch.models.common import (dense_init, dtype_of, rms_head_norm,
+                                       rope_freqs, tap)
 
 
 def _unported(cfg):
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported; see "
                                   "repro.models.attention._apply_mla")
-    if cfg.qk_norm:
-        raise NotImplementedError("qk-norm is not ported; see "
-                                  "repro.models.common.rms_head_norm")
 
 
 def _uses_rope(cfg) -> bool:
@@ -50,6 +58,10 @@ def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
         p["bq"] = torch.zeros(H, dq)
         p["bk"] = torch.zeros(Hkv, dq)
         p["bv"] = torch.zeros(Hkv, dv)
+    if cfg.qk_norm:
+        pruned = cfg.qk_kept is not None
+        p["q_scale"] = torch.ones((H, dq) if pruned else (dq,))
+        p["k_scale"] = torch.ones((Hkv, dq) if pruned else (dq,))
     if _uses_rope(cfg):
         theta = cfg.rope_theta_local if kind == "swa" else cfg.rope_theta
         inv = torch.from_numpy(rope_freqs(dq, theta)).float()
@@ -71,8 +83,8 @@ def _rope_gathered(x, positions, inv):
 
 
 def _project_qkv(p, x, cfg, positions, taps):
-    """Q/K/V projection + bias (fp32-stored, cast to x's dtype) + rope +
-    tap."""
+    """Q/K/V projection + bias (fp32-stored, cast to x's dtype) + qk-norm
+    + rope + tap."""
     dt = x.dtype
     q = torch.einsum("btd,dhq->bthq", x, p["wq"])
     k = torch.einsum("btd,dhq->bthq", x, p["wk"])
@@ -81,6 +93,9 @@ def _project_qkv(p, x, cfg, positions, taps):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    if "q_scale" in p:
+        q = rms_head_norm(q, p["q_scale"], cfg.norm_eps)
+        k = rms_head_norm(k, p["k_scale"], cfg.norm_eps)
     if "rope_inv_q" in p:
         q = _rope_gathered(q, positions, p["rope_inv_q"])
         k = _rope_gathered(k, positions, p["rope_inv_k"])
@@ -91,8 +106,9 @@ def _project_qkv(p, x, cfg, positions, taps):
 
 def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
                return_cache=False, mask_kind="causal"):
-    """Full-sequence attention. x: (B, T, D); mask_kind 'causal' | 'full';
-    ``positions`` (B, T) for rope. Returns (y, cache | None).
+    """Full-sequence attention. x: (B, T, D); mask_kind 'causal' | 'full'
+    (a ``swa`` layer adds its sliding window to 'causal'); ``positions``
+    (B, T) for rope. Returns (y, cache | None).
 
     The scale is 1/sqrt(qk_full) even after pruning: the folded weights
     carry the compensation, the logit scale stays the dense model's."""
@@ -116,38 +132,44 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
 # decode (one new token against a KV cache)
 # ---------------------------------------------------------------------------
 
-def _kv_only(cfg, kind):
-    _unported(cfg)
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{kind!r} decode (the sliding-window ring) is not ported; see "
-            f"repro.models.attention.decode_attn")
-
-
 def init_cache(cfg, kind: str, batch: int, max_len: int, device):
-    """An empty KV cache for one attention layer; ``pos`` stays int32, as
-    in the JAX package."""
-    _kv_only(cfg, kind)
+    """An empty KV cache for one attention layer: ``max_len`` slots, or
+    for ``swa`` a ring of ``min(max_len, sliding_window)`` with
+    ``abs_pos`` -1 (empty); ``pos`` and ``abs_pos`` stay int32, as in the
+    JAX package."""
+    _unported(cfg)
     dt = dtype_of(cfg)
     dq, dv, Hkv = cfg.eff_qk, cfg.d_head, cfg.n_kv_heads
-    return {
-        "k": torch.zeros((batch, max_len, Hkv, dq), dtype=dt, device=device),
-        "v": torch.zeros((batch, max_len, Hkv, dv), dtype=dt, device=device),
+    S = min(max_len, cfg.sliding_window) if kind == "swa" else max_len
+    c = {
+        "k": torch.zeros((batch, S, Hkv, dq), dtype=dt, device=device),
+        "v": torch.zeros((batch, S, Hkv, dv), dtype=dt, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if kind == "swa":
+        c["abs_pos"] = torch.full((batch, S), -1, dtype=torch.int32,
+                                  device=device)
+    return c
 
 
 def decode_attn(p, x, cache, cfg, kind="attn"):
-    """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` and
-    advances ``pos`` in place; returns (y, cache)."""
-    _kv_only(cfg, kind)
+    """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` (a
+    ``swa`` ring: at ``pos mod S``, with ``abs_pos``) and advances ``pos``
+    in place; returns (y, cache)."""
+    _unported(cfg)
     pos = cache["pos"]                          # (B,) current length
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], None)
     k, v = cache["k"], cache["v"]
     S = k.shape[1]
-    _scatter_time(k, k_new[:, 0], pos)
-    _scatter_time(v, v_new[:, 0], pos)
-    valid = torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
+    slot = pos % S if kind == "swa" else pos
+    _scatter_time(k, k_new[:, 0], slot)
+    _scatter_time(v, v_new[:, 0], slot)
+    if kind == "swa":
+        abs_pos = cache["abs_pos"]
+        _scatter_time(abs_pos, pos, slot)
+        valid = (abs_pos >= 0) & (abs_pos >= pos[:, None] - S + 1)
+    else:
+        valid = torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
     scale = 1.0 / math.sqrt(cfg.qk_full)
     y = _decode_sdpa(q, k, v, valid, scale)
     o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]

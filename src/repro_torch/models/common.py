@@ -1,5 +1,6 @@
 """Shared model components (``repro.models.common``): initialisers, layer
-stacking, norms, activations, rope frequencies and activation taps."""
+stacking, norms (qk-norm too), activations, rope frequencies and
+activation taps."""
 from __future__ import annotations
 
 import math
@@ -68,6 +69,14 @@ def apply_norm(p, x, cfg):
         ms = xf.square().mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
     return y.to(x.dtype)
+
+
+def rms_head_norm(x, scale, eps):
+    """QK-norm over the last (head) dim; ``scale`` broadcasts against x's
+    trailing dims: shared by every head (d,) or per head (H, d)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

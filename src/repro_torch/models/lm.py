@@ -13,8 +13,12 @@ either ``k``, ``v``, ``pos`` (attention) or the recurrent state
 ``lm_decode_step`` updates the cache in place (new K/V rows, or the wkv
 state and shift rows overwritten).
 
-Not ported yet: the VLM stub frontend (``patch_embeds``), the
-sliding-window ring (``_window_cache``) and ``lm_loss``.
+A ``swa`` layer's decode cache is a ring of ``min(max_len,
+sliding_window)`` slots with ``abs_pos`` (``_window_cache``); an empty
+cache holds ``abs_pos`` -1 in every layer, stacked or not.
+
+Not ported yet: the VLM stub frontend (``patch_embeds``) and
+``lm_loss``.
 """
 from __future__ import annotations
 
@@ -121,7 +125,9 @@ def apply_lm(params, tokens, cfg, taps=None):
 # ---------------------------------------------------------------------------
 
 def init_lm_cache(cfg, batch: int, max_len: int, device):
-    """An empty decode cache (``device="meta"`` gives its shapes only)."""
+    """An empty decode cache (``device="meta"`` gives its shapes only). A
+    scanned segment's leaves repeat one layer's empty cache ``reps`` times,
+    as JAX broadcasts it, so a ring's ``abs_pos`` stays -1."""
     caches = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     for si, seg in enumerate(cfg.layout()):
         if seg[0] == "unroll":
@@ -133,10 +139,9 @@ def init_lm_cache(cfg, batch: int, max_len: int, device):
             _, reps, idxs = seg
             caches[_seg_name(si)] = {
                 f"p{j}": map_tree(
-                    lambda a: torch.zeros((reps,) + a.shape, dtype=a.dtype,
-                                          device=device),
+                    lambda a: torch.stack([a] * reps),
                     blk.init_block_cache(cfg, cfg.layer_spec(li)[0], batch,
-                                         max_len, "meta"))
+                                         max_len, device))
                 for j, li in enumerate(idxs)}
     return caches
 
@@ -161,7 +166,8 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
     logits are gathered at position ``lengths-1`` per sample and every cache
     ``pos`` is set to ``lengths``, so padded tail positions are never read
     back (causality keeps rows < lengths exact). Only valid for pure
-    global-attention stacks: a recurrent state would absorb the pad tokens.
+    global-attention stacks: a recurrent state or a window ring would
+    absorb the pad tokens.
     """
     if lengths is not None and set(cfg.layer_kinds) != {"attn"}:
         raise ValueError("ragged prefill (lengths=) requires a pure "
@@ -174,16 +180,14 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
         blk._check(kind, moe)
         if kind == "rwkv":
             return blk.rwkv_block(p, x, cfg)
-        if kind != "attn":
-            raise NotImplementedError(
-                "the sliding-window prefill cache is not ported; see "
-                "repro.models.lm._window_cache")
         h = apply_norm(p["ln1"], x, cfg)
         y, c = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
                                    positions=positions, return_cache=True)
+        c = _window_cache(c, cfg, max_len) if kind == "swa" \
+            else _pad_cache(c, max_len)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
-        return x + mlp_mod.apply_mlp(p["mlp"], h, cfg), _pad_cache(c, max_len)
+        return x + mlp_mod.apply_mlp(p["mlp"], h, cfg), c
 
     cache = {"pos": torch.full((B,), T, dtype=torch.int32, device=x.device)}
     per_key = {}
@@ -224,3 +228,22 @@ def _pad_cache(c, max_len):
             pad = [0, 0] * (c[key].ndim - 2) + [0, max_len - T]
             out[key] = F.pad(c[key], pad)
     return out
+
+
+def _window_cache(c, cfg, max_len):
+    """A full prefill cache -> the ring-buffer window cache: the last
+    ``min(W, T)`` positions at slots ``pos mod W`` (W = min(window,
+    max_len)), ``abs_pos`` -1 in the slots they leave empty."""
+    W = min(cfg.sliding_window, max_len)
+    k, v = c["k"], c["v"]
+    B, T = k.shape[:2]
+    n = min(W, T)
+    pos_vals = torch.arange(T - n, T, dtype=torch.int32, device=k.device)
+    slots = (pos_vals % W).long()
+    k_ring = k.new_zeros((B, W) + k.shape[2:])
+    v_ring = v.new_zeros((B, W) + v.shape[2:])
+    k_ring[:, slots] = k[:, T - n:]
+    v_ring[:, slots] = v[:, T - n:]
+    abs_ring = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+    abs_ring[:, slots] = pos_vals
+    return {"k": k_ring, "v": v_ring, "pos": c["pos"], "abs_pos": abs_ring}

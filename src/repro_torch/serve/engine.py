@@ -154,7 +154,8 @@ class ServeEngine:
                 f"{cfg.name}: the {self.contract!r} slot-cache contract is "
                 f"not ported; see repro/serve/cache.py")
         # ragged (bucketed) prefill: sound iff every cache row < length is
-        # independent of the padded tail — pure causal global attention
+        # independent of the padded tail — pure causal global attention (a
+        # window ring or a recurrent state would take in the pad tokens)
         self.ragged_ok = set(cfg.layer_kinds) == {"attn"}
         self.model, self.cfg, self.params = model, cfg, params
         self.device = next(iter(flatten(params).values())).device
@@ -217,14 +218,19 @@ class ServeEngine:
 
     def _first_chunk_len(self, n: int, P: int) -> int:
         """Prompt tokens the first prefill of an admit consumes, given a
-        budget of ``n`` (<= ``P``). Ragged stacks prefill any prefix
-        (padded to a bucket); recurrent stacks prefill a multiple of the
-        smallest bucket, at most ``P - 1`` (at least 1), and leave the rest
-        to the batch-1 walk, as the JAX engine does."""
+        budget of ``n`` (<= ``P``), as the JAX engine does. Ragged stacks
+        prefill any prefix (padded to a bucket); other KV stacks (a window
+        ring) prefill the whole prompt at its exact length, or a partial
+        chunk quantised to a multiple of the smallest bucket; recurrent
+        stacks prefill such a multiple, at most ``P - 1`` (at least 1), and
+        leave the rest to the batch-1 walk."""
         if self.ragged_ok:
             return n
+        if self.contract != "recurrent" and n >= P:
+            return P                   # whole-prompt exact prefill
+        cap = min(n, P - 1) if self.contract == "recurrent" else n
         lo = self.buckets[0]
-        return max(1, lo * (min(n, P - 1) // lo))
+        return max(1, lo * (cap // lo))
 
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s.free]

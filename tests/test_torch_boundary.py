@@ -110,7 +110,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_paths_raise():
-    for arch in ("granite-8b", "gemma3-1b", "jamba-1.5-large-398b"):
+    for arch in ("jamba-1.5-large-398b", "deepseek-v3-671b",
+                 "qwen3-moe-235b-a22b"):
         with pytest.raises(NotImplementedError, match="repro.configs"):
             pt_configs.get_config(arch)
     with pytest.raises(NotImplementedError, match="--mesh"):

@@ -166,6 +166,9 @@ def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
     (1, 200, 200, 4, 4, 32, 48, True, 37),
     (1, 50, 260, 2, 1, 128, 128, True, None),
     (1, 90, 90, 3, 3, 40, 24, False, None),
+    (1, 150, 150, 4, 1, 256, 256, True, 37),       # d 256, one stage
+    (1, 70, 200, 2, 1, 128, 256, True, None),      # dq 128 != dv 256
+    (1, 90, 90, 2, 2, 256, 128, False, None),
 ])
 def test_flash_kernel_matches_plain(dev, B, T, S, H, Hkv, dq, dv, causal,
                                     window):
@@ -180,6 +183,11 @@ def test_flash_kernel_matches_plain(dev, B, T, S, H, Hkv, dq, dv, causal,
     (1, 200, 200, 4, 4, 32, 48, True, 37),         # sliding window
     (2, 130, 130, 4, 4, 40, 64, False, None),      # dq 40 != dv 64
     (1, 100, 100, 2, 2, 8, 8, True, None),         # head dim 8
+    (2, 1024, 1024, 4, 1, 256, 256, True, 512),    # gemma3 window layer
+    (1, 600, 600, 4, 1, 256, 256, True, 100),      # window not a tile multiple
+    (1, 300, 700, 4, 1, 128, 256, True, None),     # pruned gemma3, T < S
+    (1, 130, 130, 2, 2, 200, 256, False, None),    # ragged dims above 128
+    (1, 77, 77, 4, 2, 256, 96, True, 30),          # dq 256 != dv 96
 ])
 def test_flash_kernel_bf16_matches_plain(dev, B, T, S, H, Hkv, dq, dv,
                                          causal, window):
@@ -198,7 +206,7 @@ def test_flash_kernel_reads_unaligned_views(dev, dtype, tol):
 
 
 def test_flash_kernel_refuses_wide_heads(dev):
-    q = torch.randn(1, 4, 1, 160, device=dev)
+    q = torch.randn(1, 4, 1, 264, device=dev)
     with pytest.raises(ValueError):
         flash_ops.attention(q, q, q)
 
@@ -232,6 +240,10 @@ def _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype=torch.float32, seed=0):
     (3, 77, 8, 2, 8, 24),           # dq != dv, S under two tiles
     (2, 300, 24, 2, 64, 64),        # group of 12: two sets of warps
     (1, 200, 32, 1, 128, 128),      # group of 32: four sets, two mma tiles
+    (8, 512, 4, 1, 256, 256),       # gemma3 window ring, d 256
+    (8, 2048, 4, 1, 128, 256),      # pruned gemma3 global layer
+    (2, 300, 8, 2, 256, 128),       # dq 256 != dv 128
+    (3, 77, 8, 1, 200, 256),        # ragged dims above 128
 ])
 def test_decode_kernel_matches_plain(dev, B, S, H, Hkv, dq, dv, dtype, tol):
     q, k, v, valid = _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype)
@@ -387,8 +399,8 @@ def test_decode_kernel_is_deterministic(dev, dtype):
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(dev):
-    q = torch.randn(1, 4, 160, device=dev)
-    k = torch.randn(1, 8, 4, 160, device=dev)
+    q = torch.randn(1, 4, 264, device=dev)
+    k = torch.randn(1, 8, 4, 264, device=dev)
     valid = torch.ones(1, 8, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError):
         decode_ops.decode_attention(q, k, k, valid)

@@ -1,7 +1,10 @@
 """The port's LM forward, ragged prefill and decode against the JAX package.
 
 qwen2-1.5b-reduced in fp32 on the CPU, on the same numpy-made weights
-(``torch_parity.jax_params`` carried across by ``interop.from_numpy``).
+(``torch_parity.jax_params`` carried across by ``interop.from_numpy``); the
+init, logit and prefill/decode checks also run on granite-8b-reduced and
+deepseek-7b-reduced (dense global-attention GLU LMs without the qkv bias,
+MHA in deepseek's case, untied embeddings in deepseek's).
 Matmuls sum in different orders, so logits and cache leaves are held to
 rtol 1e-4, atol 1e-5; integer leaves (``pos``) must be equal. The pruned
 config (qk 16 -> 8, dv 16) runs the JAX decode twice: on its jnp path and
@@ -29,6 +32,7 @@ from torch_parity import jax_params, lm_cfgs  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 MAX_LEN = 32
+ARCHS = ("qwen2-1.5b", "granite-8b", "deepseek-7b")
 LENGTHS = np.array([9, 13], np.int32)
 
 
@@ -40,16 +44,17 @@ def _tokens(cfg, seed=0):
 _SETUPS = {}
 
 
-def _setup(pruned):
+def _setup(pruned, arch="qwen2-1.5b"):
     """(JAX model, JAX params, port model, port params), made once per
     module for each config."""
-    if pruned not in _SETUPS:
-        jcfg, pcfg = lm_cfgs(pruned)
+    if (pruned, arch) not in _SETUPS:
+        jcfg, pcfg = lm_cfgs(pruned, arch=arch)
         params = jax_params(jcfg, seed=3 if pruned else 0)
-        _SETUPS[pruned] = (jax_build(jcfg), jax.tree.map(jnp.asarray, params),
-                           pt_build(pcfg),
-                           interop.from_numpy(params, device="cpu"))
-    return _SETUPS[pruned]
+        _SETUPS[pruned, arch] = (jax_build(jcfg),
+                                 jax.tree.map(jnp.asarray, params),
+                                 pt_build(pcfg),
+                                 interop.from_numpy(params, device="cpu"))
+    return _SETUPS[pruned, arch]
 
 
 def _close_tree(got, want):
@@ -65,12 +70,13 @@ def _close_tree(got, want):
                                        err_msg=k)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("pruned", [False, True])
-def test_init_tree_has_the_jax_key_paths(pruned):
+def test_init_tree_has_the_jax_key_paths(pruned, arch):
     """The JAX package's key paths, shapes and dtypes; a pruned template
     adds one leaf, ``mlp/bd`` of zeros, the slot for the compensation bias
     CORP pruning writes (JAX's template has none and drops the bias)."""
-    _, jp, pm, _ = _setup(pruned)
+    _, jp, pm, _ = _setup(pruned, arch)
     want = interop.flatten(jax.tree.map(np.asarray, jp))
     got = interop.flatten(interop.to_numpy(
         pm.init(torch.Generator().manual_seed(0), "cpu")))
@@ -91,9 +97,10 @@ def test_init_tree_has_the_jax_key_paths(pruned):
                                                 cfg.n_kv_heads, 1)))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("pruned", [False, True])
-def test_apply_lm_logits_match_jax(pruned):
-    jm, jp, pm, pp = _setup(pruned)
+def test_apply_lm_logits_match_jax(pruned, arch):
+    jm, jp, pm, pp = _setup(pruned, arch)
     toks = _tokens(pm.cfg)
     want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
     got, aux = pm.apply(pp, {"tokens": torch.from_numpy(toks)})
@@ -103,12 +110,14 @@ def test_apply_lm_logits_match_jax(pruned):
     assert float(aux) == 0.0
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("pruned,impl", [(False, None), (True, None),
                                          (True, "interpret")])
-def test_ragged_prefill_and_decode_match_jax(pruned, impl, monkeypatch):
+def test_ragged_prefill_and_decode_match_jax(pruned, impl, arch,
+                                             monkeypatch):
     if impl:
         monkeypatch.setenv("REPRO_DECODE_IMPL", impl)
-    jm, jp, pm, pp = _setup(pruned)
+    jm, jp, pm, pp = _setup(pruned, arch)
     V = pm.cfg.vocab_size
     toks = _tokens(pm.cfg, seed=1)
     # jitted after the env is set: the decode traces with that impl

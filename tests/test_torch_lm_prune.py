@@ -281,16 +281,23 @@ def test_complex_solve_fold_and_pair_dims_match_jax(seed):
 
 
 def test_class3_and_unported_units_raise_by_name(s):
+    """Class 3 (qk-norm) units reduce (tests/test_torch_gemma_prune.py
+    holds them to JAX); the unit kinds still unported, cross attention and
+    MLA, raise by name."""
     cfg = s["cfg"].replace(qk_norm=True)
     units = discover_units(cfg)
     assert units[0].attn_class == 3
     taps = {}
     s["pt_model"].apply(s["pt_params"], s["pt_held"], taps=taps)
-    with pytest.raises(NotImplementedError, match="class 3"):
-        stats_mod.pass1_reduce(taps, units)
-    with pytest.raises(NotImplementedError, match="spec_reconstruct"):
-        stats_mod.spec_reconstruct({}, np.zeros((1, 2), np.int32),
-                                   np.zeros((1, 1), np.int32), units[0])
+    p1 = stats_mod.pass1_reduce(taps, units)
+    assert p1[ATTN]["rank"].shape == (2, 1, 8)      # (L, G, pairs)
+    cross = dataclasses.replace(units[0], kind="cross", name="x/cross")
+    with pytest.raises(NotImplementedError, match="cross"):
+        stats_mod.pass1_reduce(taps, [cross])
+    mla = dataclasses.replace(units[0], kind="mla", name="x/mla")
+    with pytest.raises(NotImplementedError, match="_p2spec_attn"):
+        stats_mod.spec_pass2_reduce(taps, [mla], {
+            "x/mla": torch.zeros((2, 1, 4), dtype=torch.int64)})
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """The port's continuous-batching engine against the JAX package's engine.
 
-qwen2-1.5b-reduced in fp32 on the CPU, on the same numpy-made weights. The
+qwen2-1.5b-reduced in fp32 on the CPU, on the same numpy-made weights
+(the stream, greedy-chain and static-trace parity checks also on
+granite-8b-reduced and deepseek-7b-reduced). The
 trace has 10 requests over 3 slots at max_len 64, prompts on both sides of
 the bucket edges 8/16/32 and three ``gen=1`` requests, so slots retire and
 refill mid-flight. Greedy token streams must be byte-identical to the JAX
@@ -37,9 +39,30 @@ SPECS = [(7, 5), (8, 1), (9, 6), (15, 3), (16, 1), (17, 8), (31, 4),
          (33, 2), (5, 9), (12, 1)]
 
 
+ARCHS = ("qwen2-1.5b", "granite-8b", "deepseek-7b")
+_LMS = {}
+
+
+def _lm(arch):
+    """The JAX engine's run of the trace and both packages' models, once
+    per module for each config."""
+    if arch not in _LMS:
+        _LMS[arch] = _make_lm(arch)
+    return _LMS[arch]
+
+
 @pytest.fixture(scope="module")
 def lm():
-    jcfg, pcfg = lm_cfgs()
+    return _lm("qwen2-1.5b")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def zoo_lm(request):
+    return _lm(request.param)
+
+
+def _make_lm(arch):
+    jcfg, pcfg = lm_cfgs(arch=arch)
     params = jax_params(jcfg, seed=11)
     rng = np.random.RandomState(5)
     toks = [rng.randint(0, jcfg.vocab_size, size=p).astype(np.int32)
@@ -65,7 +88,8 @@ def _engine(lm, n_slots=SLOTS):
 
 
 @pytest.mark.parametrize("chunk", [None, 8])
-def test_engine_streams_equal_the_jax_engine(lm, chunk):
+def test_engine_streams_equal_the_jax_engine(zoo_lm, chunk):
+    lm = zoo_lm
     eng = _engine(lm)
     comps = eng.run(lm["trace"], prefill_chunk=chunk)
     assert [c.rid for c in comps] == list(range(len(SPECS)))
@@ -82,9 +106,10 @@ def test_engine_streams_equal_the_jax_engine(lm, chunk):
     assert st["decode_s"] > 0 and st["prefill_s"] > 0
 
 
-def test_streams_pass_the_greedy_chain_check(lm):
+def test_streams_pass_the_greedy_chain_check(zoo_lm):
     """Every stream equals a greedy rollout of ONE full forward of the
     port's model (``tests/helpers.py::greedy_chain_ok`` on the port)."""
+    lm = zoo_lm
     for req, out in zip(lm["trace"], lm["streams"]):
         assert greedy_chain_ok(lm["model"], lm["params"], req, out), req.rid
 
@@ -137,7 +162,8 @@ def test_a_free_slot_decodes_past_max_len(lm):
         assert jax_greedy_chain_ok(lm["jmodel"], lm["jparams"], jreq, out)
 
 
-def test_run_static_trace_equals_jax(lm):
+def test_run_static_trace_equals_jax(zoo_lm):
+    lm = zoo_lm
     want = jax_static(lm["jmodel"], lm["jparams"], lm["jtrace"],
                       n_slots=SLOTS, max_len=MAX_LEN)
     got = run_static_trace(lm["model"], lm["params"], lm["trace"],

@@ -34,11 +34,15 @@ def port_cfg(cfg):
     return base.replace(d_ff_kept=cfg.d_ff_kept, qk_kept=cfg.qk_kept)
 
 
-def lm_cfgs(pruned=False):
-    """qwen2-1.5b-reduced (fp32) in both packages, optionally pruned at
-    0.5/0.5 (qk 16 -> 8 while dv stays 16)."""
-    jcfg = reduced(get_config("qwen2-1.5b"))
-    pcfg = pt_configs.resolve_config("qwen2-1.5b-reduced")
+def lm_cfgs(pruned=False, arch="qwen2-1.5b", n_layers=None):
+    """``arch``-reduced (fp32; qwen2-1.5b by default) in both packages,
+    optionally with ``n_layers`` layers and pruned at 0.5/0.5 (qk 16 -> 8
+    while dv stays 16)."""
+    jcfg = reduced(get_config(arch))
+    pcfg = pt_configs.resolve_config(arch + "-reduced")
+    if n_layers is not None:
+        jcfg = jcfg.replace(n_layers=n_layers)
+        pcfg = pcfg.replace(n_layers=n_layers)
     if pruned:
         jcfg, pcfg = jcfg.pruned(0.5, 0.5), pcfg.pruned(0.5, 0.5)
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
@@ -74,20 +78,20 @@ def to_port_cfg(jcfg):
     return pt_base.ModelConfig(**kw)
 
 
-def lm_prune_setup(arch, seed, n_samples=24, batch=8, seq=32):
-    """A reduced LM (fp32) in both packages on the same numpy weights, its
-    calibration streams (the reference's Markov tokens; 3 batches of 8 x 32
-    tokens, more than d_ff = 256 of them, so the MLP ridge systems are well
-    posed) and a held-out token batch."""
+def lm_prune_setup(arch, seed, n_samples=24, batch=8, seq=32,
+                   n_layers=None):
+    """A reduced LM (fp32; ``n_layers`` layers if given) in both packages
+    on the same numpy weights, its calibration streams (the reference's
+    Markov tokens; 3 batches of 8 x 32 tokens, more than d_ff = 256 of
+    them, so the MLP ridge systems are well posed) and a held-out token
+    batch."""
     import jax.numpy as jnp
     import torch
     from repro.data import calib_stream as jax_stream
     from repro_torch import interop
     from repro_torch.data import calib_stream as pt_stream
     from repro_torch.models import build_model as pt_build
-    jcfg = reduced(get_config(arch))
-    pcfg = pt_configs.resolve_config(arch + "-reduced")
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
+    jcfg, pcfg = lm_cfgs(arch=arch, n_layers=n_layers)
     params = jax_params(jcfg, seed=seed)
     held = np.random.default_rng(seed).integers(
         0, jcfg.vocab_size, (3, 20)).astype(np.int32)
