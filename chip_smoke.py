@@ -75,7 +75,25 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      per-head qk-norm scales (``[serve pruned gemma]``); the reduced
      gemma at 8 layers, granite-8b and deepseek-7b on the GPU against the
      CPU (``[reference gemma]``);
-  8. prints the card, a JSON line of per-kernel numbers with launches per
+  8. internvl2-26b (the VLM stub frontend: patch embeddings before the
+     tokens) and qwen3-moe-235b-a22b (128 routed experts, top 8, capacity
+     1.25; class-3 attention): ``gram`` at the internvl MLP tap (8, 2080,
+     16384) and at the MoE per-expert moments (1024 items of 160 slots,
+     1536), causal GQA ``flash_attention`` at groups 6 and 16 and
+     ``flash_decode`` at both, dense and pruned (``[kernels internvl
+     moe]``); internvl served at full width and depth (48 layers, weights
+     drawn on the card) with a 256-patch prefill checked GPU against CPU
+     on a reduced copy (``[serve internvl]``); CORP of internvl at 8
+     layers over Zipf tokens after 8 patches (``[prune internvl]``:
+     compensated closer to the dense model than not, a one-traversal hit
+     within 1e-4) and its pruned checkpoint served (``[serve pruned
+     internvl]``); qwen3-moe at full width and 8 layers served (``[serve
+     moe]``), pruned at 0.5/0.5 with one ``gram`` launch of its per-expert
+     moments a batch and an MLP-only gate (``[prune moe]``), and its pruned
+     checkpoint served with ``bd_moe`` (``[serve pruned moe]``); the
+     reduced qwen3-moe (also with ``--expert-sparsity 0.5``) and internvl
+     on the GPU against the CPU (``[reference moe]``);
+  9. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -1515,10 +1533,12 @@ def lm_kernel_phase(dev, rows):
     del q, k, v, kt, vt
 
 
-def lm_prune_run(tag, model, params, calib, held, dense, pc, **kw):
+def lm_prune_run(tag, model, params, calib, held, dense, pc,
+                 evaluate=None, **kw):
     """``corp_prune`` of a full-width LM, timed and counted; returns
-    (pruned params, pruned config, report, launches, held-out fp32 logits,
-    their relative error to the dense logits)."""
+    (pruned params, pruned config, report, launches, held-out logits
+    (``evaluate(cfg, params, batch)``, default fp32: ``logits32``), their
+    relative error to the dense logits)."""
     import torch
     from repro_torch.core import corp_prune
     marks = []
@@ -1538,7 +1558,7 @@ def lm_prune_run(tag, model, params, calib, held, dense, pc, **kw):
                for (a, before), (_, after) in zip(marks, marks[1:])
                if a.startswith("pass")}
     check_report(tag, rep)
-    logits = logits32(ncfg, new, held)
+    logits = (evaluate or logits32)(ncfg, new, held)
     if not bool(torch.isfinite(logits).all()):
         fail(f"{tag}: held-out logits are not finite")
     err = rel_err(logits, dense)
@@ -1546,7 +1566,8 @@ def lm_prune_run(tag, model, params, calib, held, dense, pc, **kw):
           f"{rep['traversals']}; launches {launches}, by pass {by_pass}; "
           f"d_ff {model.cfg.d_ff} -> {ncfg.eff_d_ff}, qk "
           f"{model.cfg.qk_full} -> {ncfg.eff_qk}; held-out |pruned - dense| "
-          f"/ |dense| fp32 logits {err:.4f}; peak device memory "
+          f"/ |dense| {'fp32' if evaluate is None else 'bf16'} logits "
+          f"{err:.4f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     return new, ncfg, rep, launches, logits, err
 
@@ -1651,42 +1672,58 @@ def prune_rwkv_phase(dev):
     return {"prune_rwkv": launches}, new, ncfg
 
 
+def save_pruned(tag, params, cfg, name):
+    """``save_checkpoint`` of a pruned model under build/; returns its
+    directory."""
+    import shutil
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.interop import flatten
+    ck = f"{OUT}_pruned_{name}"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.time()
+    save_checkpoint(ck, 0, params, extra={"config": cfg.name})
+    n = sum(t.numel() for t in flatten(params).values())
+    print(f"[{tag}] saved the pruned {cfg.name} ({n / 1e9:.3f} G params) "
+          f"under build/ in {time.time() - t0:.3f} s")
+    return ck
+
+
+def serve_pruned_ckpt(args, tag, ck, cfg, leaf, want):
+    """``launch.serve --ckpt-in ck``: every request served, the model the
+    pruned config, and its compensation leaf ``leaf`` (a key path) restored
+    equal to ``want``. Returns {kernel: launches}."""
+    import shutil
+    import torch
+    from repro_torch.interop import flatten
+    launches, res = serve_phase(args + ["--ckpt-in", ck], tag,
+                                ("flash_attention", "flash_decode"))
+    shutil.rmtree(ck, ignore_errors=True)
+    arg = dict(zip(args[::2], args[1::2]))
+    got = flatten(res["params"])[leaf]
+    if res["model"].cfg != cfg or not torch.equal(got.cpu(), want) \
+            or [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail(f"{tag}: a request did not complete, or the model is not the "
+             f"pruned one with its {leaf}")
+    print(f"[{tag}] {leaf} {tuple(got.shape)} restored from the checkpoint")
+    return launches
+
+
 def serve_pruned_phase(dev, qwen, rwkv):
     """The pruned Qwen2-1.5B saved with ``save_checkpoint`` and served by
     the serve CLI through ``--ckpt-in`` (every request completes; its K
     rows are half the dense model's); the pruned RWKV6-3B served through
     the engine in process. Returns {path: launches}."""
-    import shutil
-    from repro_torch.checkpoint import save_checkpoint
-    from repro_torch.interop import flatten
     from repro_torch.models import build_model
     from repro_torch.serve import (ServeEngine, cache_bytes, percentile_table,
                                    synthetic_trace)
     out = {}
     params, cfg = qwen
-    ck = OUT + "_pruned_qwen2"
-    shutil.rmtree(ck, ignore_errors=True)
-    t0 = time.time()
-    save_checkpoint(ck, 0, params, extra={"config": cfg.name})
-    n = sum(t.numel() for t in flatten(params).values())
-    print(f"[serve pruned] saved the pruned qwen2-1.5b ({n / 1e9:.3f} G "
-          f"params) under build/ in {time.time() - t0:.3f} s")
+    want = params["seg0"]["p0"]["mlp"]["bd"].cpu()
+    ck = save_pruned("serve pruned", params, cfg, "qwen2")
     del params
-    launches, res = serve_phase(PRUNED_SERVE + ["--ckpt-in", ck],
-                                "serve pruned", ("flash_attention",
-                                                 "flash_decode"))
-    shutil.rmtree(ck, ignore_errors=True)
-    out["serve_pruned_qwen2"] = launches
-    arg = dict(zip(PRUNED_SERVE[::2], PRUNED_SERVE[1::2]))
-    trace = synthetic_trace(
-        int(arg["--trace"]), cfg.vocab_size, seed=0,
-        prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
-        gen_range=tuple(map(int, arg["--gen-range"].split(","))))
-    if res["model"].cfg != cfg or [len(c.tokens) for c in
-                                         res["completions"]] \
-            != [r.gen for r in trace]:
-        fail("serve pruned: a request did not complete, or the model is not "
-             "the pruned one")
+    out["serve_pruned_qwen2"] = serve_pruned_ckpt(
+        PRUNED_SERVE, "serve pruned", ck, cfg, "seg0/p0/mlp/bd", want)
     dense_cfg = cfg.replace(qk_kept=None, d_ff_kept=None)
     slot = {name: cache_bytes(build_model(c).init_cache(1, 1024, "meta"))
             for name, c in (("dense", dense_cfg), ("pruned", cfg))}
@@ -1695,7 +1732,6 @@ def serve_pruned_phase(dev, qwen, rwkv):
           f"{cfg.qk_full} -> {cfg.eff_qk}, V rows dv {cfg.d_head})")
     if not slot["pruned"] < slot["dense"]:
         fail("serve pruned: the pruned slot cache is not smaller")
-    del res
     params, cfg = rwkv
     model = build_model(cfg)
     trace = synthetic_trace(8, cfg.vocab_size, seed=0, prompt_range=(64, 256),
@@ -1922,6 +1958,25 @@ def gemma_kernel_phase(dev, rows):
     del xq
 
 
+def one_traversal_hit(tag, model, params, calib, held, dense, pc, logits):
+    """``corp_prune(one_traversal=True, spec_margin=1.0)``: a sure hit (1
+    traversal, no miss, ``gram_cross`` launched) within 1e-4 of the
+    two-pass prune's held-out ``logits``. Returns its launches."""
+    _, _, r1, l1, lg1, _ = lm_prune_run(
+        tag, model, params, calib, held, dense, pc, one_traversal=True,
+        spec_margin=1.0)
+    spec = r1["speculative"]
+    err = rel_err(lg1, logits)
+    print(f"[{tag}] margin 1.0: traversals {r1['traversals']}, "
+          f"{len(spec['hits'])} hits, misses {spec['misses']}; held-out "
+          f"|one - two-pass| / |two-pass| fp32 logits {err:.3e} (tol 1e-4)")
+    if r1["traversals"] != 1 or spec["misses"] or l1["gram_cross"] <= 0:
+        fail(f"{tag}: a full candidate set missed, or gram_cross never ran")
+    if not err <= 1e-4:
+        fail(f"{tag}: more than 1e-4 from the two-pass prune")
+    return l1
+
+
 def prune_gemma_phase(dev):
     """CORP of gemma3-1b at full width (seeded bf16 weights, the port-only
     Zipf stream, sequences of 1024 > the 512 window): two-pass at
@@ -1987,20 +2042,9 @@ def prune_gemma_phase(dev):
     if not mlp_comp < mlp_plain:
         fail("prune gemma: the compensated MLP prune is not closer to the "
              "dense model than the uncompensated one")
-    tag = "prune gemma one traversal"
-    _, _, r1, l1, lg1, _ = lm_prune_run(
-        tag, model, params, calib, held, dense, PruneConfig(sp, sp),
-        one_traversal=True, spec_margin=1.0)
-    spec = r1["speculative"]
-    err = rel_err(lg1, logits)
-    print(f"[{tag}] margin 1.0: traversals {r1['traversals']}, "
-          f"{len(spec['hits'])} hits, misses {spec['misses']}; held-out "
-          f"|one - two-pass| / |two-pass| fp32 logits {err:.3e} (tol 1e-4)")
-    if r1["traversals"] != 1 or spec["misses"] or l1["gram_cross"] <= 0:
-        fail(f"{tag}: a full candidate set missed, or gram_cross never ran")
-    if not err <= 1e-4:
-        fail(f"{tag}: more than 1e-4 from the two-pass prune")
-    out["prune_gemma_1trav"] = l1
+    out["prune_gemma_1trav"] = one_traversal_hit(
+        "prune gemma one traversal", model, params, calib, held, dense,
+        PruneConfig(sp, sp), logits)
     del params, dense, logits
     return out, new, ncfg
 
@@ -2034,7 +2078,7 @@ def serve_gemma_phase(dev):
     launches, res = serve_phase(GEMMA_SERVE, "serve gemma",
                                 ("flash_attention", "flash_decode"))
     arg = dict(zip(GEMMA_SERVE[::2], GEMMA_SERVE[1::2]))
-    want = [r.gen for r in gemma_trace(arg, res["model"].cfg)]
+    want = [r.gen for r in cli_trace(arg, res["model"].cfg)]
     if [len(c.tokens) for c in res["completions"]] != want:
         fail("serve gemma: a request did not complete")
     cfg = res["model"].cfg
@@ -2049,7 +2093,9 @@ def serve_gemma_phase(dev):
     return {"serve_gemma": launches}
 
 
-def gemma_trace(arg, cfg):
+def cli_trace(arg, cfg):
+    """The synthetic trace that a serve CLI's flags (``arg``: flag ->
+    value) give."""
     from repro_torch.serve import synthetic_trace
     return synthetic_trace(
         int(arg["--trace"]), cfg.vocab_size, seed=0,
@@ -2061,30 +2107,17 @@ def serve_pruned_gemma_phase(params, cfg):
     """The pruned gemma3-1b saved and served by ``launch.serve --sparsity
     0.5 --ckpt-in``: its per-head qk-norm scales restored, every request
     complete. Returns {path: launches}."""
-    import shutil
-    import torch
-    from repro_torch.checkpoint import save_checkpoint
-    ck = OUT + "_pruned_gemma"
-    shutil.rmtree(ck, ignore_errors=True)
-    save_checkpoint(ck, 0, params, extra={"config": cfg.name})
-    launches, res = serve_phase(GEMMA_PRUNED_SERVE + ["--ckpt-in", ck],
-                                "serve pruned gemma",
-                                ("flash_attention", "flash_decode"))
-    shutil.rmtree(ck, ignore_errors=True)
-    arg = dict(zip(GEMMA_PRUNED_SERVE[::2], GEMMA_PRUNED_SERVE[1::2]))
-    got = res["params"]["seg0"]["p0"]["mixer"]["q_scale"]
-    if res["model"].cfg != cfg or not torch.equal(
-            got, params["seg0"]["p0"]["mixer"]["q_scale"]) \
-            or [len(c.tokens) for c in res["completions"]] \
-            != [r.gen for r in gemma_trace(arg, cfg)]:
-        fail("serve pruned gemma: a request did not complete, or the model "
-             "is not the pruned one with its per-head qk-norm scales")
-    max_len = int(arg["--max-len"])
+    leaf = "seg0/p0/mixer/q_scale"
+    want = params["seg0"]["p0"]["mixer"]["q_scale"].cpu()
+    ck = save_pruned("serve pruned gemma", params, cfg, "gemma")
+    launches = serve_pruned_ckpt(GEMMA_PRUNED_SERVE, "serve pruned gemma",
+                                 ck, cfg, leaf, want)
+    max_len = int(dict(zip(GEMMA_PRUNED_SERVE[::2],
+                           GEMMA_PRUNED_SERVE[1::2]))["--max-len"])
     total, ring, _ = slot_bytes_by_kind(cfg, max_len)
-    print(f"[serve pruned gemma] per-head qk-norm scales "
-          f"{tuple(got.shape)} restored; slot-cache bytes per slot at "
-          f"max_len {max_len}: {total} ({ring} in the ring layers; K rows "
-          f"dq {cfg.qk_full} -> {cfg.eff_qk})")
+    print(f"[serve pruned gemma] slot-cache bytes per slot at max_len "
+          f"{max_len}: {total} ({ring} in the ring layers; K rows dq "
+          f"{cfg.qk_full} -> {cfg.eff_qk})")
     return {"serve_pruned_gemma": launches}
 
 
@@ -2124,6 +2157,533 @@ def gemma_reference_phase():
               f"{'identical' if same else 'DIFFERENT'}")
         if not (err <= 1e-3 and same):
             fail(f"{cfg.name}: the GPU disagrees with the CPU's plain path")
+
+
+# ---------------------------------------------------------------------------
+# internvl2-26b (the VLM stub frontend on a dense GQA backbone) and
+# qwen3-moe-235b-a22b (routed experts with capacity, class-3 attention)
+# ---------------------------------------------------------------------------
+
+# internvl2-26b serves at full width and depth (48 layers, 39.7 GB of bf16
+# weights, drawn on the card: 20 G normals on the host take minutes)
+INTERNVL_SERVE = ["--arch", "internvl2-26b", "--trace", "16", "--slots",
+                  "8", "--max-len", "2048", "--prompt-range", "64,512",
+                  "--gen-range", "32,128", "--init-on-device"]
+# its prune at full width and 8 layers: at 48 the MLP second moments alone
+# are 48 x 16384^2 x 4 B = 51.5 GB; 8 patches before each sequence, 256
+# sequences (16 calibration tokens a kept channel)
+INTERNVL = dict(sparsity=0.5, seqs=256, seq=512, batch=4, held=2,
+                patches=8, layers=8)
+INTERNVL_PRUNED_SERVE = ["--arch", "internvl2-26b", "--n-layers", "8",
+                         "--sparsity", "0.5", "--trace", "8"] \
+    + INTERNVL_SERVE[4:]
+# qwen3-moe-235b-a22b at full width and 8 of its 94 layers (42.3 GB); a
+# batch of 4 x 512 tokens is one routing group of 2048 tokens, 160 slots an
+# expert
+MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--n-layers", "8"] \
+    + INTERNVL_SERVE[2:]
+MOE = dict(sparsity=0.5, seqs=512, seq=512, batch=4, held=2, layers=8)
+MOE_PRUNED_SERVE = MOE_SERVE[:4] + ["--sparsity", "0.5"] + MOE_SERVE[4:]
+
+
+def moe_kernel_phase(dev, rows):
+    """``gram``, ``flash_attention`` and ``flash_decode`` at the shapes the
+    internvl2-26b and qwen3-moe paths give them: the internvl MLP tap (8
+    layers, 4 x 520 tokens, d_ff 16384), the MoE per-expert moments (8
+    layers x 128 experts = 1024 items of 160 capacity slots, d_expert
+    1536, masked slots zero), causal GQA prefill at groups 6 (48/8) and 16
+    (64/4), and decode at both groups, dense (dq 128) and pruned (dq 64);
+    each against its plain version, timed beside its bound and the one-call
+    PyTorch equivalent."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_decode import ref as decode_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(19)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels internvl moe] the kernels against their plain versions "
+          "at the internvl2-26b and qwen3-moe shapes")
+    moe_x = rand(1024, 160, 1536)
+    moe_x[:, 128:] = 0.0           # the queues' empty capacity slots
+    for x, tag, label in ((rand(8, 4 * 520, 16384), "internvl_prune",
+                           "internvl MLP tap"),
+                          (moe_x, "moe_experts", "MoE expert moments")):
+        err = check_gram(x, label=label)
+        s2 = gram_ops.gram(x)["s2"]
+        if not torch.equal(s2, s2.mT):
+            fail(f"gram {label}: s2 is not exactly symmetric")
+        del s2
+        r = {"shape": list(x.shape), "max_abs_err": err,
+             "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+             "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3,
+                                 warmup=1),
+             "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                                   warmup=1)}
+        L, N, Fd = x.shape
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            1.0 * L * N * Fd * (Fd + 1),
+            4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+        print(f"  gram at the {label} shape {tuple(x.shape)} fp32: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"torch.matmul {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        by_name["gram"][tag] = r
+        del x
+    del moe_x
+    torch.cuda.empty_cache()
+
+    for (B, T, H, Hkv), tag in (((4, 520, 48, 8), "internvl_prefill"),
+                                ((4, 512, 64, 4), "moe_prefill")):
+        d = 128
+        q, k, v = rand(B, T, H, d, dtype=bf), rand(B, T, Hkv, d, dtype=bf), \
+            rand(B, T, Hkv, d, dtype=bf)
+        scale = d ** -0.5
+        err = check_attention(q, k, v, True, None, scale,
+                              f"{tag} group {H // Hkv}", tol=2e-2)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for a in (k, v))
+        calls = {"ms": lambda: flash_ops.attention(q, k, v, causal=True,
+                                                   scale=scale),
+                 "plain_ms": lambda: flash_ref.attention(
+                     q, k, v, causal=True, scale=scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, scale=scale)}
+        r = {"shape": [B, T, H, Hkv, d], "max_abs_err": err,
+             **{key: device_ms(fn, reps=10) for key, fn in calls.items()}}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * B * H * visible_keys(T, None) * 2 * d,
+            2 * B * T * (2 * H + 2 * Hkv) * d, PEAK_BF16_FLOPS)
+        print(f"  flash_attention {tag} B={B} T={T} H={H}/{Hkv} d={d} bf16 "
+              f"causal, device time: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        by_name["flash_attention"][tag] = r
+        del q, k, v, qt, kt, vt
+
+    B, S = 8, 2048
+    lens = torch.tensor([64 + 70 * i for i in range(B)], device=dev)
+    valid = torch.arange(S, device=dev)[None] < lens[:, None]
+    keys = int(valid.sum())
+    for H, Hkv, name in ((48, 8, "internvl"), (64, 4, "moe")):
+        for dq in (128, 64):
+            dv = 128
+            q = rand(B, H, dq, dtype=bf)
+            k, v = rand(B, S, Hkv, dq, dtype=bf), rand(B, S, Hkv, dv, dtype=bf)
+            scale = 128 ** -0.5
+            tag = f"{name}_decode_{dq}_{dv}"
+            err = check_decode(q, k, v, valid, tag, 2e-2)
+            kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                      for a in (k, v))
+            qt, m4 = q[:, :, None], valid[:, None, None, :]
+            calls = {"ms": lambda: decode_ops.decode_attention(
+                         q, k, v, valid, scale=scale),
+                     "plain_ms": lambda: decode_ref.decode_attention(
+                         q, k, v, valid, scale),
+                     "library_ms": lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=m4, scale=scale)}
+            r = {"shape": [B, S, H, Hkv, dq, dv], "valid_keys": keys,
+                 "max_abs_err": err,
+                 **{key: device_ms(fn) for key, fn in calls.items()}}
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                2.0 * H * keys * (dq + dv),
+                keys * Hkv * (dq + dv) * 2 + 2 * B * H * (dq + dv) + B * S,
+                PEAK_BF16_FLOPS)
+            print(f"  flash_decode {tag} group {H // Hkv} ({keys} valid "
+                  f"keys of {B * S}), device time: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+            by_name["flash_decode"][tag] = r
+            del q, k, v, kt, vt
+
+
+def big_lm(arch, dev, n_layers=None):
+    """A full-width LM (cut to ``n_layers``) with seeded weights drawn on
+    the card through the port's init functions."""
+    from repro_torch.interop import flatten
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    cfg = resolve_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = build_model(cfg)
+    t0 = time.time()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in flatten(params).values())
+    print(f"[{arch}] {cfg.n_layers} layers, {n / 1e9:.3f} G parameters "
+          f"drawn on the card in {time.time() - t0:.3f} s")
+    return model, params
+
+
+def patch_calib(cfg, dev, spec, seed):
+    """``lm_calib``'s Zipf tokens with ``spec['patches']`` patch embeddings
+    (standard normals, drawn on the card) before each sequence: the
+    port-only stand-in for the reference's patch-stub stream, whose Markov
+    table is 92,672^2 x 4 B = 34 GB at internvl2-26b's vocabulary."""
+    import torch
+    calib, held = lm_calib(cfg, dev, seed=seed, spec=spec)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def patches(b):
+        return torch.randn((b, spec["patches"], cfg.d_model), generator=g,
+                           device=dev)
+    batches = [dict(b, patch_embeds=patches(len(b["tokens"])))
+               for b in calib()]
+    return (lambda: iter(batches)), dict(
+        held, patch_embeds=patches(len(held["tokens"])))
+
+
+def logits_bf16(cfg, params, batch):
+    """Held-out logits of a model too large to copy to fp32 (qwen3-moe at
+    42 GB): its own bf16 forward, the logits read in fp32."""
+    from repro_torch.models import build_model
+    return build_model(cfg).apply(params, batch)[0].float()
+
+
+def moe_block_error(cfg, params, ncfg, new, batch):
+    """Held-out error of the pruned MoE blocks alone: the dense model's
+    forward over ``batch`` gives each layer's MoE input, which the dense
+    and the pruned block both take; returns sum ||pruned - dense||^2 /
+    sum ||dense||^2 over the layers. Unlike the logits, it does not carry
+    one layer's error into the next layer's routing."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models.common import apply_norm
+    x = params["embed"][batch["tokens"]]
+    B, T = x.shape[:2]
+    positions = lm_mod._positions(B, T, x.device)
+    num = den = 0.0
+    for name, key, rep, kind, _ in lm_mod._each_layer(cfg):
+        p = lm_mod._at(params, name, key, rep)
+        y, _ = attn_mod.apply_attn(p["mixer"], apply_norm(p["ln1"], x, cfg),
+                                   cfg, kind, positions=positions)
+        x = x + y
+        h = apply_norm(p["ln2"], x, cfg)
+        yd = mlp_mod.apply_moe(p["mlp"], h, cfg)
+        yp = mlp_mod.apply_moe(lm_mod._at(new, name, key, rep)["mlp"], h,
+                               ncfg)
+        num += float((yp.float() - yd.float()).square().sum())
+        den += float(yd.float().square().sum())
+        x = x + yd
+    return math.sqrt(num / den)
+
+
+def serve_internvl_phase(dev):
+    """internvl2-26b at full width and depth through ``launch.serve``: every
+    request served, both attention kernels launched, its slot bytes; then a
+    prefill of 256 patch embeddings and 16 tokens, and 4 decode steps, on
+    the GPU against the CPU's plain path on a reduced copy (<= 1e-3).
+    Returns {path: launches}."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import cache_bytes
+    launches, res = serve_phase(INTERNVL_SERVE, "serve internvl",
+                                ("flash_attention", "flash_decode"))
+    cfg = res["model"].cfg
+    arg = dict(zip(INTERNVL_SERVE[::2], INTERNVL_SERVE[1::2]))
+    if [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail("serve internvl: a request did not complete")
+    max_len = int(arg["--max-len"])
+    slot = cache_bytes(build_model(cfg).init_cache(1, max_len, "meta"))
+    print(f"[serve internvl] {cfg.n_layers} layers; slot-cache bytes per "
+          f"slot at max_len {max_len}: {slot} ({slot / max_len:.0f} a "
+          f"token)")
+    del res
+    torch.cuda.empty_cache()
+    cfg = resolve_config("internvl2-26b-reduced")
+    model = build_model(cfg)
+    toks = (torch.arange(2 * 20, dtype=torch.int32).reshape(2, 20) * 11) \
+        % cfg.vocab_size
+    pe = torch.randn((2, 256, cfg.d_model),
+                     generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = model.init(torch.Generator().manual_seed(0), device)
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :16].to(device),
+                     "patch_embeds": pe.to(device)}, 300)
+        rows = [logits[:, 0]]
+        for i in range(16, 20):
+            logits, cache = model.decode_step(
+                params, toks[:, i:i + 1].to(device), cache)
+            rows.append(logits[:, 0])
+        out[device] = torch.stack(rows).cpu()
+        if int(cache["pos"][0]) != 256 + 20:
+            fail("serve internvl: the patch prefill's cache pos is not P + T")
+    err = rel_err(out["cuda"], out["cpu"])
+    print(f"[serve internvl] {cfg.name}: prefill of 256 patch embeddings + "
+          f"16 tokens and 4 decode steps, logits GPU vs CPU relative error "
+          f"{err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("serve internvl: the patch prefill on the GPU disagrees with "
+             "the CPU's plain path")
+    return {"serve_internvl": launches}
+
+
+def prune_internvl_phase(dev):
+    """CORP of internvl2-26b at full width and 8 layers (seeded bf16
+    weights, Zipf tokens after 8 patch embeddings): 0.5/0.5 two-pass,
+    compensated and not (gated: compensated closer to the dense model on
+    held-out logits), and one traversal at margin 1.0 (a hit, <= 1e-4 from
+    two-pass). Returns ({path: launches}, the compensated pruned params
+    and config)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    model, params = big_lm("internvl2-26b", dev, INTERNVL["layers"])
+    cfg = model.cfg
+    calib, held = patch_calib(cfg, dev, INTERNVL, seed=17)
+    dense = logits32(cfg, params, held)
+    sp = INTERNVL["sparsity"]
+    print(f"[prune internvl] corp_prune of internvl2-26b at "
+          f"{cfg.n_layers} layers ({cfg.layout()}), {INTERNVL['seqs']} "
+          f"sequences of {INTERNVL['patches']} patches + {INTERNVL['seq']} "
+          f"tokens in batches of {INTERNVL['batch']} (port-only Zipf "
+          f"stream), sparsity {sp}/{sp}")
+    torch.cuda.reset_peak_memory_stats()
+    new, ncfg, rep, launches, logits, comp = lm_prune_run(
+        "prune internvl", model, params, calib, held, dense,
+        PruneConfig(sp, sp))
+    if (ncfg.eff_d_ff, ncfg.eff_qk) != (cfg.d_ff // 2, cfg.qk_full // 2):
+        fail(f"prune internvl: d_ff {ncfg.eff_d_ff}, qk {ncfg.eff_qk}")
+    for name in ("gram", "flash_attention"):
+        if launches[name] <= 0:
+            fail(f"prune internvl never launched {name}")
+    out = {"prune_internvl": launches}
+    *_, plain = lm_prune_run(
+        "prune internvl no-compensate", model, params, calib, held, dense,
+        PruneConfig(sp, sp, compensate=False))
+    print(f"[prune internvl] held-out fp32 logits |pruned - dense| / |dense| "
+          f"compensated {comp:.4f}, no-compensate {plain:.4f}")
+    if not comp < plain:
+        fail("prune internvl: the compensated prune is not closer to the "
+             "dense model than the uncompensated one")
+    out["prune_internvl_1trav"] = one_traversal_hit(
+        "prune internvl one traversal", model, params, calib, held, dense,
+        PruneConfig(sp, sp), logits)
+    del params, dense, logits
+    return out, new, ncfg
+
+
+def serve_moe_phase(dev):
+    """qwen3-moe-235b-a22b at full width and 8 layers through
+    ``launch.serve``: every request served. Returns {path: launches}."""
+    from repro_torch.interop import flatten
+    launches, res = serve_phase(MOE_SERVE, "serve moe",
+                                ("flash_attention", "flash_decode"))
+    cfg = res["model"].cfg
+    arg = dict(zip(MOE_SERVE[::2], MOE_SERVE[1::2]))
+    if [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail("serve moe: a request did not complete")
+    experts = sum(t.numel() * t.element_size() for k, t in
+                  flatten(res["params"]).items()
+                  if k.rsplit("/", 1)[-1] in ("wg", "wu", "wd"))
+    print(f"[serve moe] {cfg.n_layers} layers of {cfg.moe.num_experts} "
+          f"experts, top {cfg.moe.top_k}: every decode step reads "
+          f"{experts / 1e9:.2f} GB of expert weights (>= "
+          f"{1e3 * experts / PEAK_BYTES:.2f} ms at {PEAK_BYTES / 1e12:.2f} "
+          f"TB/s)")
+    return {"serve_moe": launches}
+
+
+def prune_moe_phase(dev):
+    """CORP of qwen3-moe-235b-a22b at full width and 8 layers (seeded bf16
+    weights, the port-only Zipf stream, batches of 4 x 512 tokens: one
+    routing group, 160 slots an expert): 0.5/0.5 compensated (each
+    expert's hidden channels; class-3 attention), whose per-expert moments
+    take one ``gram`` launch of 1024 items a batch (gated); MLP only,
+    compensated and not: the MoE blocks' output error
+    (``moe_block_error``) on calibration tokens, gated compensated <
+    plain (the fold applies what the ridge solved), and on held-out
+    tokens, reported with the logits. Seeded experts are random features
+    of x with d_expert 1536 < d 4096: their channels are near
+    uncorrelated, so the held-out gain of the ridge is below its
+    estimation noise at 16k rows an expert (PERF.md). Held-out logits are
+    the bf16 model's (42 GB do not fit twice in fp32).
+    Returns ({path: launches}, the checkpoint of the 0.5/0.5 prune, its
+    config, its ``bd_moe`` on the host)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    model, params = big_lm("qwen3-moe-235b-a22b", dev, MOE["layers"])
+    cfg = model.cfg
+    calib, held = lm_calib(cfg, dev, seed=23, spec=MOE)
+    dense = logits_bf16(cfg, params, held)
+    sp = MOE["sparsity"]
+    batches = MOE["seqs"] // MOE["batch"]
+    print(f"[prune moe] corp_prune of qwen3-moe-235b-a22b at {cfg.n_layers} "
+          f"layers ({cfg.layout()}), {MOE['seqs']} sequences of "
+          f"{MOE['seq']} tokens in {batches} batches of {MOE['batch']} "
+          f"(port-only Zipf stream), sparsity {sp}/{sp}")
+    torch.cuda.reset_peak_memory_stats()
+    new, ncfg, rep, launches, _, comp = lm_prune_run(
+        "prune moe", model, params, calib, held, dense, PruneConfig(sp, sp),
+        evaluate=logits_bf16)
+    mlp = new["seg0"]["p0"]["mlp"]
+    L, E, D = cfg.n_layers, cfg.moe.num_experts, cfg.d_model
+    if (ncfg.eff_d_expert, ncfg.eff_qk) != (cfg.moe.d_expert // 2,
+                                            cfg.qk_full // 2) \
+            or tuple(mlp["bd_moe"].shape) != (L, E, D) \
+            or tuple(mlp["wd"].shape) != (L, E, cfg.moe.d_expert // 2, D):
+        fail(f"prune moe: d_expert {ncfg.eff_d_expert}, qk {ncfg.eff_qk}, "
+             f"bd_moe {tuple(mlp['bd_moe'].shape)}")
+    if launches["gram"] != batches or launches["flash_attention"] <= 0:
+        fail(f"prune moe: {launches['gram']} gram launches for {batches} "
+             f"batches (one a batch: every (layer, expert) queue in one), "
+             f"or flash_attention never ran")
+    bd = mlp["bd_moe"].cpu()
+    ck = save_pruned("prune moe", new, ncfg, "moe")
+    del new, mlp
+    torch.cuda.empty_cache()
+    # the first 4 calibration batches, whose 4 x 512 tokens each route as
+    # one group, as they did in pass 1
+    seen = {"tokens": torch.cat([b["tokens"] for b in
+                                 itertools.islice(calib(), 4)])}
+    errs, block, fit = {}, {}, {}
+    for comp_mlp in (True, False):
+        tag = f"prune moe MLP only{'' if comp_mlp else ' no-compensate'}"
+        run = lm_prune_run(tag, model, params, calib, held, dense,
+                           PruneConfig(sp, 0.0, compensate=comp_mlp),
+                           evaluate=logits_bf16)
+        errs[comp_mlp] = run[-1]
+        block[comp_mlp] = moe_block_error(cfg, params, run[1], run[0], held)
+        fit[comp_mlp] = moe_block_error(cfg, params, run[1], run[0], seen)
+        del run             # a pruned model (20 GB) must not outlive it
+        torch.cuda.empty_cache()
+    print(f"[prune moe] 0.5/0.5 held-out logits |pruned - dense| / |dense| "
+          f"{comp:.4f}; MLP only (attention 0): logits compensated "
+          f"{errs[True]:.4f}, no-compensate {errs[False]:.4f}; the MoE "
+          f"blocks' outputs |pruned - dense| / |dense| on the dense model's "
+          f"held-out inputs: compensated {block[True]:.4f}, no-compensate "
+          f"{block[False]:.4f} (reported); on 4 calibration batches: "
+          f"compensated {fit[True]:.4f}, no-compensate {fit[False]:.4f}")
+    if not fit[True] < fit[False]:
+        fail("prune moe: on its calibration tokens the compensated MoE "
+             "blocks are not closer to the dense ones than the "
+             "uncompensated blocks: the per-expert fold is not what the "
+             "ridge solved")
+    del params, dense
+    torch.cuda.empty_cache()
+    return {"prune_moe": launches}, ck, ncfg, bd
+
+
+def moe_reference_phase():
+    """The reduced qwen3-moe and internvl2-26b (fp32) on the GPU against
+    the CPU's plain path: the dense engines' streams; ``launch.prune
+    --calib-seq 16`` (qwen3-moe also with ``--expert-sparsity 0.5``, the
+    whole-expert removal whose ((E+1) D)^2 moments are 1.1 TB a layer at
+    full width), pruned logits within 1e-3 (internvl's with 8 patches);
+    the GPU's checkpoint through ``launch.serve --ckpt-in`` on both: equal
+    streams."""
+    import torch
+    from repro_torch.launch import prune, serve
+    from repro_torch.models import build_model
+    for arch in ("qwen3-moe-235b-a22b-reduced", "internvl2-26b-reduced"):
+        serve_reference_phase(["--arch", arch] + SERVE_REDUCED[2:],
+                              "reference moe")
+    for arch, extra in (("qwen3-moe-235b-a22b-reduced", []),
+                        ("qwen3-moe-235b-a22b-reduced",
+                         ["--expert-sparsity", "0.5"]),
+                        ("internvl2-26b-reduced", [])):
+        logits = {}
+        for device in ("cuda", "cpu"):
+            out = f"{OUT}_{arch}_{device}"
+            res = prune.main(["--arch", arch, "--sparsity", "0.5",
+                              "--calib-seq", "16", "--device", device,
+                              "--out", out] + extra)
+            pcfg = res["pruned_cfg"]
+            toks = torch.arange(2 * 24, dtype=torch.int32).reshape(2, 24) \
+                % pcfg.vocab_size
+            batch = {"tokens": toks}
+            if pcfg.frontend == "patch_stub":
+                batch["patch_embeds"] = torch.randn(
+                    (2, 8, pcfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+            batch = {k: v.to(device) for k, v in batch.items()}
+            logits[device] = build_model(pcfg).apply(
+                res["pruned_params"], batch)[0].cpu()
+        err = rel_err(logits["cuda"], logits["cpu"])
+        print(f"[reference moe] {arch} {' '.join(extra)}: pruned "
+              f"({pcfg.eff_d_ff if pcfg.moe is None else pcfg.eff_d_expert}"
+              f" channels" + (f", {pcfg.eff_num_experts} experts"
+                              if pcfg.moe is not None else "")
+              + f") logits GPU vs CPU relative error {err:.3e} (tol 1e-3)")
+        if not err <= 1e-3:
+            fail(f"{arch}: the pruned model on the GPU disagrees with the "
+                 f"CPU's plain path")
+        streams = {}
+        for device in ("cuda", "cpu"):
+            res = serve.main(["--arch", arch, "--sparsity", "0.5",
+                              "--ckpt-in", f"{OUT}_{arch}_cuda"] + extra
+                             + SERVE_REDUCED[2:] + ["--device", device])
+            streams[device] = [c.tokens.tolist() for c in res["completions"]]
+        same = streams["cuda"] == streams["cpu"]
+        print(f"[reference moe] {arch} {' '.join(extra)} pruned checkpoint "
+              f"served, GPU vs CPU streams: "
+              f"{sum(map(len, streams['cuda']))} tokens, "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{arch}: the pruned model's streams on the GPU differ from "
+                 f"the CPU's")
+
+
+def internvl_moe_phases(dev, rows, launches):
+    """The internvl2-26b and qwen3-moe phases in order, each timed; their
+    launches are added to ``launches``."""
+    import torch
+    for tag, fn in (("kernels internvl moe",
+                     lambda: moe_kernel_phase(dev, rows)),
+                    ("serve internvl",
+                     lambda: launches.update(serve_internvl_phase(dev)))):
+        t0 = time.time()
+        fn()
+        print(f"[{tag}] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    lm_launches, new, ncfg = prune_internvl_phase(dev)
+    launches.update(lm_launches)
+    print(f"[prune internvl] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    bd = new["seg0"]["p0"]["mlp"]["bd"].cpu()
+    ck = save_pruned("serve pruned internvl", new, ncfg, "internvl")
+    del new
+    torch.cuda.empty_cache()
+    launches["serve_pruned_internvl"] = serve_pruned_ckpt(
+        INTERNVL_PRUNED_SERVE, "serve pruned internvl", ck, ncfg,
+        "seg0/p0/mlp/bd", bd)
+    print(f"[serve pruned internvl] phase wall {time.time() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    launches.update(serve_moe_phase(dev))
+    print(f"[serve moe] phase wall {time.time() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lm_launches, ck, ncfg, bd = prune_moe_phase(dev)
+    launches.update(lm_launches)
+    print(f"[prune moe] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches["serve_pruned_moe"] = serve_pruned_ckpt(
+        MOE_PRUNED_SERVE, "serve pruned moe", ck, ncfg, "seg0/p0/mlp/bd_moe",
+        bd)
+    print(f"[serve pruned moe] phase wall {time.time() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    moe_reference_phase()
+    print(f"[reference moe] phase wall {time.time() - t0:.3f} s")
 
 
 def main() -> int:
@@ -2238,6 +2798,7 @@ def main() -> int:
     t0 = time.time()
     gemma_reference_phase()
     print(f"[reference gemma] phase wall {time.time() - t0:.3f} s")
+    internvl_moe_phases(dev, rows, launches)
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

@@ -65,8 +65,13 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
 
 
 def _sha256(path: str) -> str:
+    """The file's sha256, read in 64 MB pieces (a full-width checkpoint
+    is tens of GB)."""
+    h = hashlib.sha256()
     with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
+        for piece in iter(lambda: f.read(1 << 26), b""):
+            h.update(piece)
+    return h.hexdigest()
 
 
 def _valid(step_dir: str) -> bool:

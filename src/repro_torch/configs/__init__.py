@@ -1,15 +1,20 @@
 """Config registry of the port: the DeiT ids, the LMs it serves and prunes
 (``qwen2-1.5b``, ``granite-8b``, ``deepseek-7b``, ``gemma3-1b``,
-``rwkv6-3b``) and their reduced variants.
+``rwkv6-3b``, the VLM ``internvl2-26b`` and the routed MoE
+``qwen3-moe-235b-a22b``) and their reduced variants.
 
-Copied from ``repro.configs``. The other LM, MoE, Mamba and enc-dec
-configs raise ``NotImplementedError``.
+Copied from ``repro.configs``. The MLA (``deepseek-v3-671b``), Mamba
+(``jamba-1.5-large-398b``) and enc-dec (``seamless-m4t-large-v2``) configs
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, RWKVConfig
+import dataclasses
+import math
+
+from repro_torch.configs.base import ModelConfig, MoEConfig, RWKVConfig
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
 _MODULES = {
@@ -18,6 +23,8 @@ _MODULES = {
     "deepseek-7b": "deepseek_7b",
     "gemma3-1b": "gemma3_1b",
     "rwkv6-3b": "rwkv6_3b",
+    "internvl2-26b": "internvl2_26b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 LM_IDS = tuple(_MODULES)
 
@@ -37,13 +44,18 @@ def get_config(arch_id: str) -> ModelConfig:
 def reduced(cfg: ModelConfig, *, d_model: int = 64,
             layers_scale: int = 1) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests, as
-    ``repro.configs.reduced`` gives it for a ViT, a dense LM or RWKV."""
-    if cfg.family not in ("vit", "lm") or cfg.moe or cfg.mla or cfg.mamba \
+    ``repro.configs.reduced`` gives it for a ViT, a dense LM, RWKV or a
+    routed MoE (4 experts, top 2, d_expert 2 d_model, at most one shared
+    expert)."""
+    if cfg.family not in ("vit", "lm") or cfg.mla or cfg.mamba \
             or cfg.first_k_dense or cfg.n_enc_layers:
         raise NotImplementedError(
             f"reduced() of {cfg.name} is not ported; see "
             "repro.configs.reduced")
-    n_layers = max(len(cfg.pattern), 2) * layers_scale
+    period = len(cfg.pattern)
+    if cfg.moe is not None:
+        period = math.lcm(period, cfg.moe_every)
+    n_layers = max(period, 2) * layers_scale
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, n_heads * cfg.n_kv_heads // cfg.n_heads)
     n_heads = n_kv * max(1, n_heads // n_kv)
@@ -53,12 +65,16 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
         n_heads=n_heads,
         n_kv_heads=n_kv,
         d_head=16,
-        d_ff=4 * d_model,
+        d_ff=4 * d_model if cfg.moe is None else 2 * d_model,
         vocab_size=min(cfg.vocab_size, 503) if cfg.vocab_size else 0,
         sliding_window=8,
         dtype="float32",
         vocab_round=8,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2, d_expert=2 * d_model,
+            num_shared=min(cfg.moe.num_shared, 1))
     if cfg.rwkv is not None:
         kw.update(rwkv=RWKVConfig(head_dim=16, decay_lora=8),
                   n_heads=d_model // 16, n_kv_heads=d_model // 16)
@@ -74,5 +90,5 @@ def resolve_config(name: str) -> ModelConfig:
     return get_config(name)
 
 
-__all__ = ["ModelConfig", "DEIT_IDS", "LM_IDS", "get_config", "reduced",
-           "resolve_config"]
+__all__ = ["ModelConfig", "MoEConfig", "DEIT_IDS", "LM_IDS", "get_config",
+           "reduced", "resolve_config"]

@@ -102,6 +102,17 @@ class ModelConfig:
         return self.d_ff if self.d_ff_kept is None else self.d_ff_kept
 
     @property
+    def eff_d_expert(self) -> int:
+        assert self.moe is not None
+        return self.moe.d_expert if self.d_ff_kept is None else self.d_ff_kept
+
+    @property
+    def eff_num_experts(self) -> int:
+        assert self.moe is not None
+        return self.moe.num_experts if self.experts_kept is None \
+            else self.experts_kept
+
+    @property
     def qk_full(self) -> int:
         """Full (unpruned) per-head qk dim; prunable part only for MLA (nope)."""
         if self.mla is not None:

@@ -50,6 +50,9 @@ class CalibrationEngine:
       stats_dtype: dtype the taps are streamed in, "float32" or "bfloat16"
         (half the bytes into the gram kernels; every statistic still
         accumulates in fp32, so only each tap's rounding differs).
+      expert_moments: also reduce the MoE expert-removal moments (``yn``,
+        ``ys1``, ``ys2``; ((E+1) D)^2 a layer), which only whole-expert
+        pruning reads. Off, the forward does not even record their taps.
 
     Attributes:
       fingerprint: hash of what this engine accumulates (phase, streaming
@@ -62,7 +65,7 @@ class CalibrationEngine:
     def __init__(self, model, units: List[Unit], *, phase=1,
                  plan: Optional[Dict] = None,
                  spec_plan: Optional[Dict] = None, mesh=None,
-                 stats_dtype="float32"):
+                 stats_dtype="float32", expert_moments: bool = False):
         if phase not in (1, 2, "1+2"):
             raise ValueError(f"phase {phase!r}; need 1, 2 or '1+2'")
         if mesh is not None:
@@ -80,6 +83,7 @@ class CalibrationEngine:
         self.units = list(units)
         self.phase = phase
         self.stats_dtype = stats_dtype
+        self.expert_moments = expert_moments
         # index arrays as the JAX engine holds them (int32), so the
         # fingerprint hashes the same bytes
         self.plan = None if plan is None else {
@@ -94,6 +98,8 @@ class CalibrationEngine:
         h = hashlib.sha256()
         h.update(f"phase={self.phase};stats_dtype={self.stats_dtype}"
                  .encode())
+        if self.expert_moments:
+            h.update(b";expert_moments")
         for u in self.units:
             h.update(f";{u.name}:{u.kind}:{u.attn_class}".encode())
         if self.plan is not None:
@@ -136,7 +142,8 @@ class CalibrationEngine:
     def reduce(self, params, batch) -> Dict:
         """One batch's statistics of this pass, from one forward."""
         taps = {}
-        with model_common.tap_dtype(self.stats_dtype):
+        with model_common.tap_dtype(self.stats_dtype), \
+                model_common.expert_taps(self.expert_moments):
             self.model.apply(params, batch, taps=taps)
         if self.phase == 1:
             return stats_mod.pass1_reduce(taps, self.units)

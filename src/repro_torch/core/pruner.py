@@ -10,11 +10,15 @@ bias), class-1 attention units (no rope, no qk-norm) and class-2 ones
 (rope: a diagonal complex compensator per kept rotary pair, qkv bias and
 rope frequency tables folded alike) and class-3 ones (rope + qk-norm: a
 real diagonal per kept pair, folded into the per-head qk-norm scales),
-stacked units and unrolled (unstacked) ones; two calibration passes or one
-(``one_traversal``), taps streamed in fp32 or bf16, resumable statistics
-checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``.
-``mesh=``, MoE and expert pruning, Mamba, MLA and cross attention are not
-ported yet; they raise.
+routed-MoE units (each expert's hidden channels with its own ridge
+solve, compensated through its ``wd`` and a per-expert ``bd_moe``) and
+whole-expert removal (``expert_sparsity``: removed experts' contributions
+regressed onto the block input, folded into ``moe_resid`` and
+``moe_out_b``), stacked units and unrolled (unstacked) ones; two
+calibration passes or one (``one_traversal``), taps streamed in fp32 or
+bf16, resumable statistics checkpoints (``ckpt_dir``) and the
+memory-bounded ``corp_prune_streamed``. ``mesh=``, shared experts, Mamba,
+MLA and cross attention are not ported yet; they raise.
 
 ``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
 pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
@@ -48,7 +52,7 @@ from repro_torch.interop import flatten, map_tree
 class PruneConfig:
     mlp_sparsity: float = 0.5
     attn_sparsity: float = 0.5
-    expert_sparsity: float = 0.0  # whole routed experts (not ported)
+    expert_sparsity: float = 0.0  # whole routed experts removed
     lam: float = 1e-4            # ridge, relative to mean diagonal
     rank_policy: str = "combined"
     compensate: bool = True      # False = rank-only baseline (paper ablation)
@@ -88,12 +92,18 @@ def _sync(device):
 # per-unit folding
 # ---------------------------------------------------------------------------
 
-def _gather_last(a, idx):
-    """a (L, ..., F), idx (L, n) -> a[l, ..., idx[l]] (L, ..., n)."""
-    view = idx.reshape((idx.shape[0],) + (1,) * (a.ndim - 2)
-                       + (idx.shape[1],))
-    return torch.gather(a, a.ndim - 1,
-                        view.expand(a.shape[:-1] + (idx.shape[1],)))
+def _gather_idx(a, idx, axis: int):
+    """Entries of ``a`` at ``idx`` along ``axis``; idx (..., n)'s leading
+    dims align with a's outermost ones (one index set per layer, or per
+    layer and expert): a (L, ..., F), idx (L, n), axis -1 -> a[l, ...,
+    idx[l]]."""
+    axis %= a.ndim
+    lead = tuple(idx.shape[:-1])
+    view = idx.reshape(lead + (1,) * (axis - len(lead)) + idx.shape[-1:]
+                       + (1,) * (a.ndim - axis - 1))
+    shape = list(a.shape)
+    shape[axis] = idx.shape[-1]
+    return torch.gather(a, axis, view.expand(shape))
 
 
 def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
@@ -125,12 +135,122 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
         new[w2_key] = w2_S
     for k1 in ("wu", "wg", "wk"):
         if k1 in p:
-            new[k1] = _gather_last(p[k1], keep_t)
+            new[k1] = _gather_idx(p[k1], keep_t, -1)
     for bk in ("bu", "bg"):
         if bk in p:
-            new[bk] = _gather_last(p[bk], keep_t)
+            new[bk] = _gather_idx(p[bk], keep_t, -1)
     report[unit.name] = _host(diag)
     return new
+
+
+def _fold_moe_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
+                    report):
+    """Each expert's hidden channels of a stacked MoE unit: experts ``wg``,
+    ``wu`` (L, E, D, F), ``wd`` (L, E, F, D), per-expert moments; keep /
+    prune (L, E, n). One batched ridge solve per layer over its experts
+    (the covariances formed in float64 and solved in fp32, as the
+    reference does); the compensation goes into ``wd`` and ``bd_moe`` (L,
+    E, D), which the expert adds to its output before the combine."""
+    new = dict(p)
+    wd = p["wd"]
+    L, E, _, D = wd.shape
+    keep_t, prune_t = _idx(keep, wd.device), _idx(prune, wd.device)
+    ds = keep_t.shape[-1]
+    wd_new = wd.new_empty((L, E, ds, D))
+    bias = torch.zeros((L, E, D), dtype=torch.float32, device=wd.device)
+    diags = []
+    for l in range(L):          # one layer's systems at a time: memory
+        n = stats["n"][l].double().clamp_min(1.0)[:, None]
+        mu = stats["s1"][l].double() / n
+        sigma = torch.empty_like(stats["s2"][l])
+        for e in range(0, E, 16):   # float64 a few experts at a time
+            m = mu[e:e + 16]
+            sigma[e:e + 16] = stats["s2"][l, e:e + 16].double() \
+                / n[e:e + 16, :, None] - m[:, :, None] * m[:, None, :]
+        mu = mu.float()
+        lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
+        sol = solve_mod.ridge_affine(mu, sigma, keep_t[l], prune_t[l], lam)
+        del sigma
+        w2_S = solve_mod.gather_rows(wd[l], keep_t[l])
+        w2_P = solve_mod.gather_rows(wd[l], prune_t[l]).float()
+        diags.append(solve_mod.mlp_distortion(sol, w2_P))
+        if pc.compensate:
+            comp = torch.einsum("rps,rpd->rsd", sol["B"], w2_P)
+            wd_new[l] = (w2_S.float() + comp).to(wd.dtype)
+            bias[l] = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
+        else:
+            wd_new[l] = w2_S
+    new["wd"] = wd_new
+    if pc.compensate:
+        new["bd_moe"] = bias
+    for k1 in ("wu", "wg"):
+        new[k1] = _gather_idx(p[k1], keep_t, -1)
+    report[unit.name] = _host({k: torch.stack([d[k] for d in diags])
+                               for k in diags[0]})
+    return new
+
+
+def _fold_moe_experts(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
+                      report):
+    """Whole-expert removal of a stacked MoE unit
+    (``repro.core.pruner._fold_moe_experts``), after the hidden-channel
+    fold. The regression vector is z_t = [x_t, c_t1..c_tE] (moments yn,
+    ys1, ys2): the removed experts' contribution blocks are ridge-regressed
+    onto the input block, whose distribution the router's renormalisation
+    does not shift. The summed solution folds into ``moe_resid`` (L, D, D)
+    and ``moe_out_b`` (L, D), applied after the combine; the kept experts'
+    router columns and weights are gathered. keep / prune: (L, n) expert
+    indices."""
+    new = dict(p)
+    wd = p["wd"]
+    L, E, _, D = wd.shape
+    keep_t, prune_t = _idx(keep, wd.device), _idx(prune, wd.device)
+    nP = prune_t.shape[-1]
+    ar = torch.arange(D, device=wd.device)
+    idx_s = ar.expand(L, D)                               # the input block
+    idx_p = ((prune_t + 1)[..., None] * D + ar).reshape(L, nP * D)
+    n = stats["yn"].float().clamp_min(1.0)
+    mu = stats["ys1"] / n[:, None]
+    sigma = stats["ys2"] / n[:, None, None] \
+        - mu[:, :, None] * mu[:, None, :]
+    lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
+    sol = solve_mod.ridge_affine(mu, sigma, idx_s, idx_p, lam)
+    # removed contributions enter the output through the identity (y =
+    # sum_e c_te): their "second matrix" is stacked identity blocks
+    w_p = torch.eye(D, device=wd.device).repeat(nP, 1).expand(L, -1, -1)
+    diag = solve_mod.mlp_distortion(sol, w_p)
+    if pc.compensate:
+        new["moe_resid"] = sol["B"].reshape(L, nP, D, D).sum(dim=1) \
+            .transpose(1, 2).contiguous()                 # y += x @ W
+        new["moe_out_b"] = sol["c"].reshape(L, nP, D).sum(dim=1)
+    new["router"] = _gather_idx(p["router"], keep_t, 2)
+    for k1 in ("wu", "wg", "wd"):
+        new[k1] = _gather_idx(new[k1], keep_t, 1)
+    if "bd_moe" in new:
+        new["bd_moe"] = _gather_idx(new["bd_moe"], keep_t, 1)
+    report[unit.name + "/experts"] = _host(diag)
+    return new
+
+
+def _experts_kept(cfg, pc: PruneConfig):
+    """Routed experts kept by ``pc.expert_sparsity``, or None when no
+    expert is removed."""
+    if pc.expert_sparsity <= 0 or cfg.moe is None:
+        return None
+    keep_n = max(cfg.moe.top_k,
+                 _keep_count(cfg.moe.num_experts, pc.expert_sparsity, 1))
+    return keep_n if keep_n < cfg.moe.num_experts else None
+
+
+def _moe_expert_plan(units, p1, cfg, pc: PruneConfig):
+    """keep/prune expert index arrays per routed-MoE unit, or {}. Ranking
+    reads the contribution blocks' traces of ys2 (host numpy)."""
+    keep_n = _experts_kept(cfg, pc)
+    if keep_n is None:
+        return {}
+    return {u.name: rank_mod.rank_experts(
+        _host({k: p1[u.name][k] for k in ("yn", "ys2", "n")}), keep_n)
+        for u in units if u.kind == "moe"}
 
 
 def _attn_solve(p2stats, unit: Unit, pc: PruneConfig, L: int, ds: int):
@@ -253,7 +373,8 @@ def _checkpointer(ckpt_dir: Optional[str], tag: str, every: int):
 
 
 def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
-                      spec_margin: float, stats_dtype, ckpt_dir=None,
+                      spec_margin: float, stats_dtype,
+                      expert_moments: bool = False, ckpt_dir=None,
                       ckpt_every: int = 8):
     """One traversal gathering pass-1 and speculative pass-2 statistics.
 
@@ -278,7 +399,7 @@ def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
             st, _attn_keep_n(u, st["rank"].shape[-1], pc), spec_margin)
     combined = calib_mod.CalibrationEngine(
         model, units, phase="1+2", spec_plan=spec_plan,
-        stats_dtype=stats_dtype).run(
+        stats_dtype=stats_dtype, expert_moments=expert_moments).run(
             params, itertools.chain([first], it),
             checkpointer=_checkpointer(ckpt_dir, "pass12", ckpt_every))
     return combined["p1"], spec_plan, combined["p2spec"]
@@ -330,16 +451,22 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
     An MLP unit's ranking reads the diagonal of s2, the counts and the
     second matrix's column norms (``wv`` of a channel mix): only those
     leave the device, in fp32 (the norms in float64), not the (L, F, F)
-    moments."""
+    moments. A MoE unit ranks each expert's channels alike, on its ``wd``
+    (L, E, F, D) and its per-expert moments: keep / prune (L, E, n)."""
     plan = {}
     for u in units:
         st = p1[u.name]
-        if u.kind in ("mlp", "rwkv_mlp"):
+        if u.kind in ("mlp", "rwkv_mlp", "moe"):
             if pc.mlp_sparsity <= 0:
                 continue
             w2 = get_block(params, u)["wv" if u.kind == "rwkv_mlp"
                                       else "wd"]
-            col = torch.linalg.vector_norm(w2.double(), dim=-1)
+            # float64 norms a few matrices at a time: qwen3-moe's wd is
+            # 8 x 128 x 1536 x 4096, 48 GB in float64
+            col = torch.cat([
+                torch.linalg.vector_norm(w.double(), dim=-1) for w in
+                w2.reshape((-1,) + w2.shape[-2:]).split(16)]) \
+                .reshape(w2.shape[:-1])
             keep_n = _keep_count(u.d_hidden, pc.mlp_sparsity, pc.round_to)
             host = [t.cpu().numpy() for t in (
                 torch.diagonal(st["s2"], dim1=-2, dim2=-1), st["n"],
@@ -370,6 +497,9 @@ def _prune_units(model, units, params, new_params, calib_batches,
     and misses to ``report``."""
     speculate = (one_traversal and pc.attn_sparsity > 0
                  and any(u.kind in _ATTN_KINDS for u in units))
+    # the expert-removal moments are reduced only when experts go
+    experts = _experts_kept(model.cfg, pc) is not None \
+        and any(u.kind == "moe" for u in units)
     spec_plan = spec_stats = None
     t0 = time.time()
     if speculate:
@@ -377,11 +507,13 @@ def _prune_units(model, units, params, new_params, calib_batches,
         p1, spec_plan, spec_stats = _speculative_pass(
             model, units, params, calib_batches(), pc,
             spec_margin=spec_margin, stats_dtype=stats_dtype,
-            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+            expert_moments=experts, ckpt_dir=ckpt_dir,
+            ckpt_every=ckpt_every)
     else:
         say("pass 1: ranking/MLP statistics")
         p1 = calib_mod.CalibrationEngine(
-            model, units, phase=1, stats_dtype=stats_dtype).run(
+            model, units, phase=1, stats_dtype=stats_dtype,
+            expert_moments=experts).run(
                 params, calib_batches(),
                 checkpointer=_checkpointer(ckpt_dir, "pass1", ckpt_every))
     _sync(device)
@@ -389,6 +521,7 @@ def _prune_units(model, units, params, new_params, calib_batches,
 
     t0 = time.time()
     plan = _rank(units, p1, params, pc)
+    e_plan = _moe_expert_plan(units, p1, model.cfg, pc)
     _tick(report, "rank", t0)
 
     attn_plan = {u.name: plan[u.name] for u in units
@@ -414,30 +547,39 @@ def _prune_units(model, units, params, new_params, calib_batches,
 
     t0 = time.time()
     say("closed-form compensation + fold")
+    folds = {"mlp": _fold_mlp_block, "rwkv_mlp": _fold_mlp_block,
+             "moe": _fold_moe_block, "attn": _fold_attn_block}
     blocks = {}
     for u in units:
-        if u.name not in plan:
-            continue
-        keep, prune = plan[u.name]
         block = get_block(new_params, u)
-        fold, st = (_fold_mlp_block, p1[u.name]) \
-            if u.kind in ("mlp", "rwkv_mlp") \
-            else (_fold_attn_block, p2[u.name])
-        if u.stacked:
-            blocks[u.name] = fold(block, st, u, pc, keep, prune,
-                                  report["units"])
-            continue
-        # an unrolled layer folds as a stack of one; its block, and the
-        # diagnostics, lose the layer axis again
-        one = {}
-        new = fold(map_tree(lambda t: t[None], block),
-                   map_tree(lambda t: t[None], st), u, pc, keep[None],
-                   prune[None], one)
-        blocks[u.name] = map_tree(lambda t: t[0], new)
-        report["units"][u.name] = {k: v[0] for k, v in one[u.name].items()}
+        if u.name in plan:
+            st = p2[u.name] if u.kind in _ATTN_KINDS else p1[u.name]
+            block = _fold_as_stack(folds[u.kind], block, st, u, pc,
+                                   *plan[u.name], report["units"])
+        if u.name in e_plan:
+            block = _fold_as_stack(_fold_moe_experts, block, p1[u.name], u,
+                                   pc, *e_plan[u.name], report["units"])
+        if u.name in plan or u.name in e_plan:
+            blocks[u.name] = block
     _sync(device)
     _tick(report, "fold", t0)
+    plan.update({k + "/experts": v for k, v in e_plan.items()})
     return blocks, plan
+
+
+def _fold_as_stack(fold, block, st, u: Unit, pc: PruneConfig, keep, prune,
+                   report):
+    """``fold`` of a stacked unit; an unrolled layer folds as a stack of
+    one, and its block and diagnostics lose the layer axis again."""
+    if u.stacked:
+        return fold(block, st, u, pc, keep, prune, report)
+    one = {}
+    new = fold(map_tree(lambda t: t[None], block),
+               map_tree(lambda t: t[None], st), u, pc, np.asarray(keep)[None],
+               np.asarray(prune)[None], one)
+    for name, diag in one.items():
+        report[name] = {k: v[0] for k, v in diag.items()}
+    return map_tree(lambda t: t[0], new)
 
 
 def _counted(calib_batches):
@@ -454,13 +596,11 @@ def _counted(calib_batches):
 def _pruned_cfg(cfg, pc: PruneConfig):
     return cfg.pruned(pc.mlp_sparsity if pc.mlp_sparsity > 0 else 0.0,
                       pc.attn_sparsity if pc.attn_sparsity > 0 else 0.0,
-                      round_to=pc.round_to)
+                      round_to=pc.round_to,
+                      expert_sparsity=pc.expert_sparsity)
 
 
-def _refuse_unported(pc: PruneConfig, mesh):
-    if pc.expert_sparsity > 0:
-        raise NotImplementedError("expert pruning is not ported; see "
-                                  "repro.core.pruner._fold_moe_experts")
+def _refuse_unported(mesh):
     if mesh is not None:
         raise NotImplementedError("mesh-sharded calibration is not ported; "
                                   "see repro.core.calibrate"
@@ -482,12 +622,17 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
     Args:
       model: ``repro_torch.models.Model`` (``apply`` and ``cfg``).
       params: dense parameters (nested dict of tensors on one device); they
-        are not modified.
+        are not modified. The pruned tree shares the leaves that pruning
+        leaves as they were (embeddings, norms, routers of kept experts
+        ...) with ``params``, so a model near the card's memory (qwen3-moe
+        at 42 GB) is not held twice.
       calib_batches: zero-arg callable returning a fresh iterator of
         batches on the params' device (traversed twice: the ranking pass
         and the attention compensation pass; once with ``one_traversal`` on
         the speculative hit path).
-      pc: sparsities, ridge and ranking policy (``PruneConfig``).
+      pc: sparsities, ridge and ranking policy (``PruneConfig``);
+        ``expert_sparsity`` removes whole routed experts (MoE), after the
+        hidden-channel fold.
       progress: optional ``fn(str)`` called at each stage.
       ckpt_dir: when set, each calibration pass checkpoints its statistics
         every ``ckpt_every`` batches under ``<ckpt_dir>/pass1``, ``pass2``
@@ -508,13 +653,13 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
       traversals, counted) and, with ``one_traversal``, ``speculative``
       (margin, candidate sizes, hit and missed units).
     """
-    _refuse_unported(pc, mesh)
+    _refuse_unported(mesh)
     cfg = model.cfg
     units = discover_units(cfg)
     device = next(iter(flatten(params).values())).device
     calib, calls = _counted(calib_batches)
     report = {"timing": {}, "units": {}}
-    new_params = map_tree(torch.clone, params)
+    new_params = map_tree(lambda t: t, params)
     blocks, plan = _prune_units(
         model, units, params, new_params, calib, pc, report, device=device,
         say=progress or (lambda s: None), stats_dtype=stats_dtype,
@@ -548,7 +693,7 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
     (stage times summed over the groups), with ``report["groups"]``
     counting the unit groups and ``report["traversals"]`` all traversals.
     """
-    _refuse_unported(pc, mesh)
+    _refuse_unported(mesh)
     if unit_group_size < 1:
         raise ValueError(f"unit_group_size {unit_group_size} must be >= 1")
     cfg = model.cfg
@@ -557,7 +702,7 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
     device = next(iter(flatten(params).values())).device
     calib, calls = _counted(calib_batches)
     report = {"timing": {}, "units": {}, "groups": 0}
-    new_params = map_tree(torch.clone, params)
+    new_params = map_tree(lambda t: t, params)
     merged_plan = {}
     groups = [all_units[i:i + unit_group_size]
               for i in range(0, len(all_units), unit_group_size)]

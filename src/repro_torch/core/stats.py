@@ -41,7 +41,15 @@ layer-stacked taps (leading layer axis) are reduced for all layers at
 once: one gram launch covers every layer of a unit. An unstacked unit (an
 unrolled layer) has taps without that axis: it is reduced as a stack of
 one layer and its statistics lose the axis again, the shapes JAX gives.
-MoE, Mamba, MLA and cross attention are not ported yet; they raise.
+
+A routed-MoE unit reduces per expert (``_p1_moe``): the hidden taps of
+every (layer, expert) queue, masked to the filled capacity slots, go
+through the gram kernel as one stack of L x E items, one launch a batch.
+Its expert-removal moments (``yn``, ``ys1``, ``ys2`` of the block input
+and the experts' contributions, ((E+1) D)^2 a layer) are reduced only
+when the forward recorded their taps (``models.common.expert_taps``),
+i.e. when experts are pruned. Mamba, MLA and cross attention are not
+ported yet; they raise.
 """
 from __future__ import annotations
 
@@ -68,6 +76,19 @@ def _moments(x):
             "s1": g["s1"],
             "s2": g["s2"],
             "na": (x.abs() > ACTIVE_EPS).sum(dim=-2, dtype=torch.float32)}
+
+
+def _masked_moments(h, mask):
+    """h: (R, N, F) per-queue hidden taps; mask: (R, N) fp32 slot validity
+    -> dict(n (R,), s1 (R,F), s2 (R,F,F), na (R,F)), fp32. The R queues
+    take one gram launch in h's own dtype (the 0/1 mask is exact in it)."""
+    hf = h * mask.to(h.dtype)[..., None]
+    g = gram_ops.gram(hf)
+    return {"n": mask.sum(dim=1),
+            "s1": g["s1"],
+            "s2": g["s2"],
+            "na": ((hf.abs() > ACTIVE_EPS) * mask[..., None])
+            .sum(dim=1, dtype=torch.float32)}
 
 
 def _group_q(q, n_groups):
@@ -113,6 +134,32 @@ def _unstack(unit: Unit, tree):
 def _p1_mlp(taps, unit: Unit):
     h = _stacked(unit, taps[f"{unit.tap_prefix}/h"])  # (L, B, T, F)
     return _unstack(unit, _moments(h.reshape(h.shape[0], -1, h.shape[-1])))
+
+
+def _p1_moe(taps, unit: Unit):
+    """Per-expert moments of a routed-MoE unit: ``moe_h`` (L, G, E, C, F)
+    with its ``moe_mask`` (L, G, E, C), the groups merged into the
+    capacity axis -> n (L, E), s1 (L, E, F), s2 (L, E, F, F), na (L, E,
+    F). With the expert-removal taps, also the moments of z_t = [x_t,
+    c_t1..c_tE] ((E+1) D wide): yn (L,), ys1 (L, V), ys2 (L, V, V)."""
+    pre = unit.tap_prefix
+    h = _stacked(unit, taps[f"{pre}/moe_h"])
+    mask = _stacked(unit, taps[f"{pre}/moe_mask"])
+    L, G, E, C, F = h.shape
+    out = _masked_moments(h.transpose(1, 2).reshape(L * E, G * C, F),
+                          mask.transpose(1, 2).reshape(L * E, G * C))
+    out = {k: v.reshape((L, E) + v.shape[1:]) for k, v in out.items()}
+    if f"{pre}/moe_yc" in taps:
+        yc = _stacked(unit, taps[f"{pre}/moe_yc"])     # (L, G, tg, E, D)
+        x = _stacked(unit, taps[f"{pre}/moe_x"])       # (L, G, tg, D)
+        D = yc.shape[-1]
+        z = torch.cat([x.reshape(L, -1, D), yc.reshape(L, -1, E * D)],
+                      dim=-1)
+        g = gram_ops.gram(z)
+        out.update(yn=torch.full((L,), float(z.shape[1]),
+                                 dtype=torch.float32, device=z.device),
+                   ys1=g["s1"], ys2=g["s2"])
+    return _unstack(unit, out)
 
 
 def _p1_attn(taps, unit: Unit):
@@ -386,12 +433,14 @@ def _spec_reconstruct_complex(spec, cf, kf, lead):
 # ---------------------------------------------------------------------------
 
 def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
-    """Per-batch pass-1 sums: mlp, rwkv_mlp -> {n, s1, s2, na}; attn ->
-    {rank, n}."""
+    """Per-batch pass-1 sums: mlp, rwkv_mlp -> {n, s1, s2, na}; moe ->
+    per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn -> {rank, n}."""
     out = {}
     for u in units:
         if u.kind in ("mlp", "rwkv_mlp"):
             out[u.name] = _p1_mlp(taps, u)
+        elif u.kind == "moe":
+            out[u.name] = _p1_moe(taps, u)
         elif u.kind == "attn":
             out[u.name] = _p1_attn(taps, u)
         else:

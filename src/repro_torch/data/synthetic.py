@@ -3,8 +3,8 @@ batches and the LM token stream.
 
 numpy makes every array, with the same generators, seeds and call order as
 the JAX package, so both packages see bit-identical images and tokens; they
-are returned as torch tensors on the requested device. The enc-dec and VLM
-(``patch_stub``) calibration streams are not ported yet.
+are returned as torch tensors on the requested device. The enc-dec
+calibration stream is not ported yet.
 
 Images are class prototypes plus structured (low-rank) noise; tokens follow
 an order-1 Markov chain whose rows prefer a small successor set; so models
@@ -96,8 +96,10 @@ def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
                  seed: int = 1234, device=None):
     """Zero-arg-callable factory: a fresh finite iterator of unlabeled
     calibration batches per call (CORP traverses the stream twice):
-    ``{"images"}`` for a ViT, ``{"tokens"}`` of ``seq`` tokens for an LM."""
-    if cfg.family not in ("vit", "lm") or cfg.frontend == "patch_stub":
+    ``{"images"}`` for a ViT, ``{"tokens"}`` of ``seq`` tokens for an LM,
+    plus ``{"patch_embeds"}`` (batch, 8, d_model) float32 for the VLM
+    stub frontend, drawn after the tokens from ``RandomState(seed + i)``."""
+    if cfg.family not in ("vit", "lm"):
         raise NotImplementedError(
             f"calibration stream of family {cfg.family!r} (frontend "
             f"{cfg.frontend!r}) is not ported; see "
@@ -115,5 +117,11 @@ def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
             else:
                 b = lm_batch(10_000 + i, batch=batch, seq=seq,
                              vocab=cfg.vocab_size, seed=seed, device=dev)
-                yield {"tokens": b["tokens"]}
+                out = {"tokens": b["tokens"]}
+                if cfg.frontend == "patch_stub":
+                    rng = np.random.RandomState(seed + i)
+                    out["patch_embeds"] = torch.from_numpy(
+                        rng.randn(batch, 8, cfg.d_model)
+                        .astype(np.float32)).to(dev)
+                yield out
     return make

@@ -6,13 +6,18 @@
     PYTHONPATH=src python -m repro_torch.launch.prune \
         --arch qwen2-1.5b-reduced --calib-seq 16 --device cpu --out /tmp/lm
 
+    PYTHONPATH=src python -m repro_torch.launch.prune \
+        --arch qwen3-moe-235b-a22b-reduced --sparsity 0.5 \
+        --expert-sparsity 0.5 --device cpu
+
 Initialises dense parameters (DeiT, Qwen2-1.5B, granite-8b, deepseek-7b,
-gemma3-1b or RWKV6-3B) from seed 0
+gemma3-1b, RWKV6-3B, internvl2-26b or qwen3-moe-235b-a22b) from seed 0
 (no pretrained weights are in the repository), or loads them from a train
 checkpoint (``--ckpt-in``), runs the one-shot CORP pipeline over the
 synthetic calibration stream (images, or ``--calib-seq`` tokens a sequence
 from the reference's Markov chain, whose V x V table suits reduced
-vocabularies only) on the GPU (``--device cpu`` for the plain PyTorch
+vocabularies only, with 8 patch embeddings a sequence for internvl2-26b)
+on the GPU (``--device cpu`` for the plain PyTorch
 path) and, with ``--out``,
 writes the pruned checkpoint in the JAX package's layout plus
 ``report.json``. ``--one-traversal``, ``--stats-dtype bfloat16`` and
@@ -39,8 +44,6 @@ from repro_torch.models import build_model
 # flags of the JAX CLI whose layers are not ported: they parse, so that
 # they are refused by name
 _UNPORTED = {
-    "expert_sparsity": "expert pruning (repro.core.pruner._fold_moe_experts"
-                       "; ROADMAP Queue 1 item 3, qwen3-moe)",
     "mesh": "mesh-sharded calibration (repro.launch.mesh, repro.core"
             ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
     "calib_sharded": "mesh-sharded calibration (repro.core.calibrate"
@@ -112,9 +115,11 @@ def parse_args(argv=None):
                     choices=["float32", "bfloat16"],
                     help="dtype the activation taps are STREAMED in during "
                          "calibration (every statistic accumulates fp32)")
+    ap.add_argument("--expert-sparsity", type=float, default=0.0,
+                    help="fraction of WHOLE routed experts to remove (MoE "
+                         "archs): their contributions are ridge-folded "
+                         "into a residual map of the block input")
     # not ported: parsed so that main() refuses them by name
-    ap.add_argument("--expert-sparsity", type=float, default=None,
-                    help="not ported (MoE expert pruning)")
     ap.add_argument("--mesh", default=None,
                     help="not ported (mesh-sharded calibration)")
     ap.add_argument("--calib-sharded", action="store_true", default=None,
@@ -154,6 +159,7 @@ def main(argv=None) -> dict:
         rank_policy=args.rank_policy,
         compensate=not args.no_compensate,
         round_to=args.round_to,
+        expert_sparsity=args.expert_sparsity,
     )
     stream = calib_stream(cfg, n_samples=args.calib, batch=args.calib_batch,
                           seq=args.calib_seq, device=device)
@@ -166,7 +172,9 @@ def main(argv=None) -> dict:
     timing = ", ".join(f"{k} {v:.3f}s" for k, v in report["timing"].items())
     print(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
           f"d_ff {cfg.d_ff} -> {new_cfg.eff_d_ff}, "
-          f"qk {cfg.qk_full} -> {new_cfg.eff_qk}")
+          f"qk {cfg.qk_full} -> {new_cfg.eff_qk}"
+          + (f", experts {cfg.moe.num_experts} -> "
+             f"{new_cfg.eff_num_experts}" if cfg.moe is not None else ""))
     if "speculative" in report:
         sp = report["speculative"]
         print(f"[prune] one-traversal: {report['traversals']} traversal(s), "

@@ -18,18 +18,23 @@ Fixed-batch baseline loop (the default without ``--trace``):
 then raises after the engine's run, as the JAX CLI does (the static
 baseline needs ragged prefill).
 
-Weights are seeded random (seed 0); ``--sparsity S --ckpt-in DIR`` serves
+Weights are seeded random (seed 0), drawn on the CPU, or on the serving
+device with ``--init-on-device`` (other values; a 20-billion-parameter
+model in seconds, not minutes); ``--n-layers N`` cuts the depth (widths
+unchanged); ``--sparsity S --ckpt-in DIR`` serves
 a pruned checkpoint written by ``repro.launch.prune`` (or the port's),
-with its compensation biases (``mlp/bd``, ``mlp/bv_comp``), which the JAX
-CLI's template drops; a ``--no-compensate`` checkpoint has none and serves
-them as zeros. A pruned qk-norm model (gemma3-1b) restores its per-head
+with its compensation leaves (``mlp/bd``, ``mlp/bv_comp``; a MoE's
+``mlp/bd_moe`` and, with ``--expert-sparsity``, ``mlp/moe_resid`` and
+``mlp/moe_out_b``), which the JAX CLI's template drops; a
+``--no-compensate`` checkpoint has none and serves them as zeros. A pruned qk-norm model (gemma3-1b) restores its per-head
 qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
 CLI's template cannot take (its restore fails). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
 PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
 the front-end is not ported, so its flags (queue, deadlines, prefix cache,
-shortest-prompt-first, replicas, mesh) raise here, as do enc-dec and
-expert pruning.
+shortest-prompt-first, replicas, mesh) raise here, as does enc-dec.
+``--arch internvl2-26b`` serves the VLM's language backbone on token
+prompts (the engine sends no patch embeddings).
 """
 from __future__ import annotations
 
@@ -60,13 +65,13 @@ _UNPORTED = {
     "mesh_shape": "mesh-sharded serving (repro/serve/sharding.py)",
     "serve_sharded": "mesh-sharded serving (repro/serve/sharding.py)",
     "mem_len": "enc-dec serving (repro/models/encdec.py)",
-    "expert_sparsity": "MoE serving (repro/models/mlp.py apply_moe)",
 }
 
 
 # leaves CORP pruning adds: a pruned template holds them (zeros), and a
 # pruned checkpoint fills them when it was compensated
-COMPENSATION_LEAVES = ("mlp/bd", "mlp/bv_comp")
+COMPENSATION_LEAVES = ("mlp/bd", "mlp/bv_comp", "mlp/bd_moe",
+                       "mlp/moe_resid", "mlp/moe_out_b")
 
 
 def _sync(device):
@@ -172,6 +177,9 @@ def parse_args(argv=None):
     ap.add_argument("--sparsity", type=float, default=0.0,
                     help="serve the config pruned at this sparsity (MLP "
                          "and attention qk dims), e.g. with --ckpt-in")
+    ap.add_argument("--expert-sparsity", type=float, default=0.0,
+                    help="serve with this fraction of routed experts "
+                         "removed (MoE archs; as repro_torch.launch.prune)")
     ap.add_argument("--ckpt-in", default=None,
                     help="checkpoint directory to load (latest valid step)")
     ap.add_argument("--trace", type=int, default=0,
@@ -197,6 +205,13 @@ def parse_args(argv=None):
                          "engine iteration (chunked prefill)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (default cuda; raises without it)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="serve the config cut to this depth (widths "
+                         "unchanged), e.g. a model too deep for one card")
+    ap.add_argument("--init-on-device", action="store_true",
+                    help="draw the seeded weights with a generator on the "
+                         "serving device (fast at full width; other values "
+                         "than the default CPU draw)")
     # flags of layers that are not ported yet: each raises when given
     ap.add_argument("--queue-depth", type=int, default=None)
     ap.add_argument("--deadline-ms", default=None)
@@ -209,7 +224,6 @@ def parse_args(argv=None):
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--serve-sharded", action="store_true", default=None)
     ap.add_argument("--mem-len", type=int, default=None)
-    ap.add_argument("--expert-sparsity", type=float, default=None)
     return ap.parse_args(argv)
 
 
@@ -224,10 +238,14 @@ def main(argv=None) -> dict:
                 f"ported to repro_torch yet")
     device = resolve_device(args.device)
     cfg = resolve_config(args.arch)
-    if args.sparsity > 0:
-        cfg = cfg.pruned(args.sparsity, args.sparsity)
+    if args.n_layers is not None:
+        cfg = cfg.replace(n_layers=args.n_layers)
+    if args.sparsity > 0 or args.expert_sparsity > 0:
+        cfg = cfg.pruned(args.sparsity, args.sparsity,
+                         expert_sparsity=args.expert_sparsity)
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device=device)
+    gen = torch.Generator(device=device if args.init_on_device else "cpu")
+    params = model.init(gen.manual_seed(0), device=device)
     if args.ckpt_in:
         last = latest_step(args.ckpt_in)
         if last is None:

@@ -8,8 +8,10 @@
   decode_step(params, token, cache)           -> (logits, cache)     (lm)
   init_cache(batch, max_len, device=None)     -> empty cache         (lm)
 
-``decode_step`` updates the cache in place. The enc-dec family and the VLM
-stub frontend are not ported yet; they raise.
+``decode_step`` updates the cache in place. A VLM stub batch
+(``frontend="patch_stub"``) carries ``patch_embeds`` (B, P, D) beside its
+``tokens``; ``apply`` and ``prefill`` put them before the tokens. The
+enc-dec family is not ported yet; it raises.
 """
 from __future__ import annotations
 
@@ -35,13 +37,6 @@ class Model:
     init_cache: Optional[Callable] = None
 
 
-def _tokens(batch):
-    if "patch_embeds" in batch:
-        raise NotImplementedError("the VLM stub frontend is not ported; see "
-                                  "repro.models.lm.apply_lm patch_embeds")
-    return batch["tokens"]
-
-
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family not in ("vit", "lm"):
         raise NotImplementedError(
@@ -61,7 +56,8 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, init=init, apply=apply)
 
     def lm_apply(params, batch, taps=None):
-        return lm_mod.apply_lm(params, _tokens(batch), cfg, taps=taps)
+        return lm_mod.apply_lm(params, batch["tokens"], cfg, taps=taps,
+                               patch_embeds=batch.get("patch_embeds"))
 
     def init_cache(batch, max_len, device=None):
         dev = resolve_device(None) if device is None else torch.device(device)
@@ -70,8 +66,9 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg, init=init, apply=lm_apply,
         prefill=lambda params, batch, max_len, lengths=None:
-            lm_mod.lm_prefill(params, _tokens(batch), cfg, max_len,
-                              lengths=lengths),
+            lm_mod.lm_prefill(params, batch["tokens"], cfg, max_len,
+                              lengths=lengths,
+                              patch_embeds=batch.get("patch_embeds")),
         decode_step=lambda params, token, cache:
             lm_mod.lm_decode_step(params, token, cache, cfg),
         init_cache=init_cache,

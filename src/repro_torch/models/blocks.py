@@ -1,8 +1,8 @@
 """Block assembly (``repro.models.blocks``): norm -> mixer -> norm -> MLP,
 pre-norm residual; full-sequence and one-token decode. The mixer is
-attention (``attn``/``swa``) with a dense MLP, or the RWKV-6 time mix with
-its channel mix (``rwkv``). Mamba, MoE and cross-attention blocks are not
-ported yet; they raise."""
+attention (``attn``/``swa``) with a dense or routed-MoE MLP, or the RWKV-6
+time mix with its channel mix (``rwkv``). Mamba and cross-attention
+blocks are not ported yet; they raise."""
 from __future__ import annotations
 
 import torch
@@ -13,19 +13,26 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, init_norm, merge_taps
 
 
-def _check(kind: str, is_moe: bool):
+def _check(kind: str):
     if kind == "mamba":
         raise NotImplementedError("the Mamba mixer is not ported; see "
                                   "repro.models.ssm.apply_mamba")
-    if kind not in ("attn", "swa", "rwkv") or is_moe:
+    if kind not in ("attn", "swa", "rwkv"):
         raise NotImplementedError(
-            f"block kind={kind!r} is_moe={is_moe} is not ported; see "
+            f"block kind={kind!r} is not ported; see "
             f"repro.models.blocks.apply_block")
+
+
+def ffn(p, h, cfg, is_moe: bool, taps=None):
+    """The block's MLP: routed experts or a dense MLP."""
+    if is_moe:
+        return mlp_mod.apply_moe(p, h, cfg, taps=taps)
+    return mlp_mod.apply_mlp(p, h, cfg, taps=taps)
 
 
 def init_block(gen: torch.Generator, cfg, kind: str = "attn",
                is_moe: bool = False):
-    _check(kind, is_moe)
+    _check(kind)
     if kind == "rwkv":
         return {"ln1": init_norm(cfg),
                 "mixer": ssm_mod.init_rwkv_time(gen, cfg),
@@ -34,7 +41,8 @@ def init_block(gen: torch.Generator, cfg, kind: str = "attn",
     return {"ln1": init_norm(cfg),
             "mixer": attn_mod.init_attn(gen, cfg, kind),
             "ln2": init_norm(cfg),
-            "mlp": mlp_mod.init_mlp(gen, cfg)}
+            "mlp": (mlp_mod.init_moe if is_moe else mlp_mod.init_mlp)(
+                gen, cfg)}
 
 
 def rwkv_block(p, x, cfg, state=None, taps=None):
@@ -56,7 +64,7 @@ def rwkv_block(p, x, cfg, state=None, taps=None):
 def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
                 positions=None, taps=None, mask_kind="causal"):
     """Full-sequence block. Returns x after both residual sub-layers."""
-    _check(kind, is_moe)
+    _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
         x, _ = rwkv_block(p, x, cfg, taps=t)
@@ -67,14 +75,14 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
                                    mask_kind=mask_kind)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
-        x = x + mlp_mod.apply_mlp(p["mlp"], h, cfg, taps=t)
+        x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t)
     if taps is not None:
         merge_taps(taps, t, "")
     return x
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
-    _check(kind, False)
+    _check(kind)
     if kind == "rwkv":
         return ssm_mod.init_rwkv_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, kind, batch, max_len, device)
@@ -83,11 +91,11 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
 def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False):
     """One-token decode. x: (B,1,D); ``cache`` is updated in place.
     Returns (x, cache)."""
-    _check(kind, is_moe)
+    _check(kind)
     if kind == "rwkv":
         return rwkv_block(p, x, cfg, state=cache)
     h = apply_norm(p["ln1"], x, cfg)
     y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
-    return x + mlp_mod.apply_mlp(p["mlp"], h, cfg), cache
+    return x + ffn(p["mlp"], h, cfg, is_moe), cache

@@ -3,11 +3,14 @@ stacking, norms (qk-norm too), activations, rope frequencies and
 activation taps."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.interop import flatten, map_tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -17,19 +20,24 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# initialisers: drawn on the CPU from an explicit generator, so one seed
-# gives the same weights whatever device they are moved to
+# initialisers: drawn from an explicit generator on its own device. A CPU
+# generator gives the same weights whatever device they are moved to; a
+# CUDA one draws a large model on the card (other values, same shapes)
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
+    """Normal weights over ``sqrt(shape[0])``, as the JAX package scales
+    them (an expert stack (E, D, F) is scaled by its expert count)."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale) \
+        .to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    return (torch.randn(shape, generator=gen) * 0.02).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02) \
+        .to(dtype)
 
 
 def stack_layers(trees):
@@ -38,6 +46,19 @@ def stack_layers(trees):
     return {k: stack_layers([t[k] for t in trees])
             if isinstance(trees[0][k], dict)
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def init_stacked(make, reps: int):
+    """``stack_layers([make() for _ in range(reps)])`` without holding the
+    layers twice: each layer is drawn in turn (the same draws, in the same
+    order) and copied into the stacked buffers."""
+    first = make()
+    out = map_tree(lambda t: t.new_empty((reps,) + tuple(t.shape)), first)
+    dst = flatten(out)
+    for r in range(reps):
+        for k, v in flatten(first if r == 0 else make()).items():
+            dst[k][r].copy_(v)
+    return out
 
 
 def layer_slice(tree, i: int):
@@ -127,6 +148,28 @@ class tap_dtype:
         global _TAP_DTYPE
         _TAP_DTYPE = self._prev
         return False
+
+
+_EXPERT_TAPS = False
+
+
+@contextlib.contextmanager
+def expert_taps(on: bool = True):
+    """Record the MoE taps ``moe_x`` / ``moe_yc`` (the regressors of
+    whole-expert removal) while the context is open. Off by default: their
+    second moment is ((E+1) D)^2 a layer, 1.1 TB at qwen3-moe's full
+    width, and only expert pruning reads it (the reference records them
+    on every taped forward)."""
+    global _EXPERT_TAPS
+    prev, _EXPERT_TAPS = _EXPERT_TAPS, on
+    try:
+        yield
+    finally:
+        _EXPERT_TAPS = prev
+
+
+def expert_taps_on() -> bool:
+    return _EXPERT_TAPS
 
 
 def tap(taps: dict | None, name: str, value):

@@ -17,8 +17,12 @@ A ``swa`` layer's decode cache is a ring of ``min(max_len,
 sliding_window)`` slots with ``abs_pos`` (``_window_cache``); an empty
 cache holds ``abs_pos`` -1 in every layer, stacked or not.
 
-Not ported yet: the VLM stub frontend (``patch_embeds``) and
-``lm_loss``.
+The VLM stub frontend (``frontend="patch_stub"``, internvl2-26b) passes
+precomputed ``patch_embeds`` (B, P, D), which ``apply_lm`` and
+``lm_prefill`` put before the token embeddings; positions then run over
+P + T. Blocks take a dense or a routed-MoE MLP (``blocks.ffn``).
+
+Not ported yet: ``lm_loss``.
 """
 from __future__ import annotations
 
@@ -28,9 +32,9 @@ import torch.nn.functional as F
 from repro_torch.interop import map_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
-from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
-                                       init_norm, layer_slice, stack_layers)
+                                       init_norm, init_stacked, layer_slice,
+                                       stack_layers)
 
 
 def _seg_name(si: int) -> str:
@@ -77,9 +81,9 @@ def init_lm(gen: torch.Generator, cfg):
         else:
             _, reps, idxs = seg
             params[_seg_name(si)] = {
-                f"p{j}": stack_layers([blk.init_block(gen, cfg,
-                                                      *cfg.layer_spec(li))
-                                       for _ in range(reps)])
+                f"p{j}": init_stacked(
+                    lambda li=li: blk.init_block(gen, cfg,
+                                                 *cfg.layer_spec(li)), reps)
                 for j, li in enumerate(idxs)}
     return params
 
@@ -89,16 +93,25 @@ def _positions(B: int, T: int, device):
         .expand(B, T)
 
 
-def apply_lm(params, tokens, cfg, taps=None):
-    """tokens: (B, T) int -> (logits (B, T, padded_vocab), aux loss 0).
+def _embed(params, tokens, patch_embeds):
+    """Token embeddings, after the patch embeddings when given."""
+    x = params["embed"][tokens]
+    if patch_embeds is None:
+        return x
+    return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+
+
+def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None):
+    """tokens: (B, T) int; patch_embeds: (B, P, D) or None -> (logits (B,
+    P + T, padded_vocab), aux loss 0).
 
     ``taps`` (a dict) collects each block's activation taps under the JAX
     package's keys (``_run_segments``): ``seg<i>/l<j>/<k>`` for an unrolled
     layer, ``seg<i>/p<j>/<k>`` stacked ``(reps, ...)`` for a scanned one.
     A stacked tap is written into one buffer as the layers run, so it is
     never held twice."""
-    x = params["embed"][tokens]
-    B, T = tokens.shape
+    x = _embed(params, tokens, patch_embeds)
+    B, T = x.shape[:2]
     positions = _positions(B, T, x.device)
     reps_of = {_seg_name(si): seg[1] for si, seg in enumerate(cfg.layout())
                if seg[0] == "scan"}
@@ -159,8 +172,11 @@ def lm_decode_step(params, token, cache, cfg):
     return x @ _head(params), cache
 
 
-def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
+def lm_prefill(params, tokens, cfg, max_len: int, lengths=None,
+               patch_embeds=None):
     """Prefill: full forward returning (last-token logits, populated cache).
+    ``patch_embeds`` (B, P, D) go before the tokens; the cache ``pos`` is
+    then P + T.
 
     ``lengths`` (B,) enables *ragged* prefill on right-padded token batches:
     logits are gathered at position ``lengths-1`` per sample and every cache
@@ -172,12 +188,19 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
     if lengths is not None and set(cfg.layer_kinds) != {"attn"}:
         raise ValueError("ragged prefill (lengths=) requires a pure "
                          f"global-attention stack, got {set(cfg.layer_kinds)}")
-    B, T = tokens.shape
-    x = params["embed"][tokens]
+    if lengths is not None and patch_embeds is not None:
+        # the reference gathers the logits at lengths - 1 of the combined
+        # sequence, a patch position, and sets pos = lengths
+        # (repro.models.lm.lm_prefill); no serving path sends both
+        raise ValueError("ragged prefill (lengths=) with patch_embeds: "
+                         "lengths would index the patch positions; not "
+                         "supported")
+    x = _embed(params, tokens, patch_embeds)
+    B, T = x.shape[:2]
     positions = _positions(B, T, x.device)
 
     def run_layer(p, x, kind, moe):
-        blk._check(kind, moe)
+        blk._check(kind)
         if kind == "rwkv":
             return blk.rwkv_block(p, x, cfg)
         h = apply_norm(p["ln1"], x, cfg)
@@ -187,7 +210,7 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None):
             else _pad_cache(c, max_len)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
-        return x + mlp_mod.apply_mlp(p["mlp"], h, cfg), c
+        return x + blk.ffn(p["mlp"], h, cfg, moe), c
 
     cache = {"pos": torch.full((B,), T, dtype=torch.int32, device=x.device)}
     per_key = {}

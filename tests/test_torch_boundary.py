@@ -73,10 +73,15 @@ def test_copied_configs_equal_jax_configs(arch):
     for s in (0.25, 0.5):
         for a, b in ((got.pruned(s, s), want.pruned(s, s)),
                      (got.pruned(s, s, round_to=8),
-                      want.pruned(s, s, round_to=8))):
+                      want.pruned(s, s, round_to=8)),
+                     (got.pruned(s, s, expert_sparsity=s),
+                      want.pruned(s, s, expert_sparsity=s))):
             assert dataclasses.asdict(a) == dataclasses.asdict(b)
             assert (a.eff_qk, a.eff_d_ff, a.qk_full) \
                 == (b.eff_qk, b.eff_d_ff, b.qk_full)
+            if b.moe is not None:
+                assert (a.eff_num_experts, a.eff_d_expert) \
+                    == (b.eff_num_experts, b.eff_d_expert)
     for a, b in ((got, want), (pt_configs.reduced(got),
                                jax_configs.reduced(want))):
         assert (a.padded_vocab, a.layout()) == (b.padded_vocab, b.layout())
@@ -111,7 +116,7 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_unported_paths_raise():
     for arch in ("jamba-1.5-large-398b", "deepseek-v3-671b",
-                 "qwen3-moe-235b-a22b"):
+                 "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="repro.configs"):
             pt_configs.get_config(arch)
     with pytest.raises(NotImplementedError, match="--mesh"):

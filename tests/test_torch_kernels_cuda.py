@@ -137,6 +137,51 @@ def test_gram_kernel_bf16_at_the_main_path_shape(dev):
     assert torch.equal(got["s2"], got["s2"].mT)
 
 
+def test_gram_kernel_at_the_internvl_mlp_tap(dev):
+    """internvl2-26b's stacked MLP tap at 8 layers: (8, 4 x 520 tokens,
+    d_ff 16384), 2^31 outputs (int64 offsets), 66,048 tile pairs."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(8, 2080, 16384, generator=g, device=dev)
+    got = gram_ops.gram(x)
+    assert torch.equal(got["s2"], got["s2"].mT)
+    want = gram_ref.gram(x)
+    rel = (got["s2"] - want["s2"]).abs().max() / want["s2"].abs().max()
+    assert rel <= 1e-5
+    _close_to_fp64_sums(got["s1"], x)
+
+
+def _close_to_fp64_sums(s1, x):
+    """Column sums of N fp32 terms against their fp64 sum: the rounding of
+    N fp32 additions grows as N eps sigma (2e-4 at N 2080, sigma 1), so the
+    bound is 4 N eps sigma."""
+    n = x.shape[-2]
+    atol = 4 * n * torch.finfo(torch.float32).eps * float(x.std())
+    torch.testing.assert_close(s1, x.double().sum(dim=-2).float(),
+                               rtol=1e-5, atol=atol)
+
+
+def test_gram_kernel_at_the_moe_expert_items(dev):
+    """qwen3-moe's per-expert moments: 8 layers x 128 experts = 1024 items
+    of 160 capacity slots (10 token stages against the 4-stage ring), d
+    1536, the empty slots zero; one launch, whose last partial wave is
+    split over the tokens, not into nothing."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1024, 160, 1536, generator=g, device=dev)
+    x[:, 130:] = 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pairs = 1024 * 12 * 13 // 2
+    full, splits = gram_ops.split_plan(pairs, 160, sms)
+    assert full <= pairs and (full == pairs or splits >= 2)
+    before = gram_ops.launches
+    got = gram_ops.gram(x)
+    assert gram_ops.launches == before + 1
+    want = gram_ref.gram(x)
+    rel = (got["s2"] - want["s2"]).abs().max() / want["s2"].abs().max()
+    assert rel <= 1e-5
+    assert torch.equal(got["s2"], got["s2"].mT)
+    _close_to_fp64_sums(got["s1"], x)
+
+
 def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
                 scale=0.125, offset=0):
     """Kernel vs plain on seeded inputs; ``offset`` > 0 makes q, k, v views
@@ -188,6 +233,8 @@ def test_flash_kernel_matches_plain(dev, B, T, S, H, Hkv, dq, dv, causal,
     (1, 300, 700, 4, 1, 128, 256, True, None),     # pruned gemma3, T < S
     (1, 130, 130, 2, 2, 200, 256, False, None),    # ragged dims above 128
     (1, 77, 77, 4, 2, 256, 96, True, 30),          # dq 256 != dv 96
+    (4, 520, 520, 48, 8, 128, 128, True, None),    # internvl, 8 + 512
+    (2, 512, 512, 64, 4, 128, 128, True, None),    # qwen3-moe, group 16
 ])
 def test_flash_kernel_bf16_matches_plain(dev, B, T, S, H, Hkv, dq, dv,
                                          causal, window):
@@ -244,6 +291,10 @@ def _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype=torch.float32, seed=0):
     (8, 2048, 4, 1, 128, 256),      # pruned gemma3 global layer
     (2, 300, 8, 2, 256, 128),       # dq 256 != dv 128
     (3, 77, 8, 1, 200, 256),        # ragged dims above 128
+    (8, 2048, 48, 8, 128, 128),     # internvl2-26b, group 6
+    (8, 2048, 48, 8, 64, 128),      # pruned internvl2-26b
+    (8, 2048, 64, 4, 128, 128),     # qwen3-moe, group 16
+    (8, 2048, 64, 4, 64, 128),      # pruned qwen3-moe
 ])
 def test_decode_kernel_matches_plain(dev, B, S, H, Hkv, dq, dv, dtype, tol):
     q, k, v, valid = _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype)

@@ -165,9 +165,17 @@ def test_lm_batch_and_calib_stream_are_token_identical(s, seq, nshards):
 @pytest.mark.parametrize("frontend,family", [("patch_stub", "lm"),
                                              (None, "encdec")])
 def test_calib_stream_refuses_unported_streams_by_name(s, frontend, family):
+    """The enc-dec stream is refused by name; the VLM stub's is ported (its
+    patch embeddings beside the tokens; tests/test_torch_internvl.py holds
+    them to JAX's)."""
     cfg = s["cfg"].replace(frontend=frontend, family=family)
-    with pytest.raises(NotImplementedError, match="calib_stream"):
-        calib_stream(cfg, n_samples=4, batch=2, device="cpu")
+    if family == "encdec":
+        with pytest.raises(NotImplementedError, match="calib_stream"):
+            calib_stream(cfg, n_samples=4, batch=2, device="cpu")
+        return
+    b = next(iter(calib_stream(cfg, n_samples=4, batch=2, device="cpu")()))
+    assert b["patch_embeds"].shape == (2, 8, cfg.d_model)
+    assert b["tokens"].shape == (2, 64)
 
 
 def test_taps_match_jax_keys_stacking_and_values(s):
