@@ -89,11 +89,27 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      within 1e-4) and its pruned checkpoint served (``[serve pruned
      internvl]``); qwen3-moe at full width and 8 layers served (``[serve
      moe]``), pruned at 0.5/0.5 with one ``gram`` launch of its per-expert
-     moments a batch and an MLP-only gate (``[prune moe]``), and its pruned
-     checkpoint served with ``bd_moe`` (``[serve pruned moe]``); the
-     reduced qwen3-moe (also with ``--expert-sparsity 0.5``) and internvl
-     on the GPU against the CPU (``[reference moe]``);
-  9. prints the card, a JSON line of per-kernel numbers with launches per
+     moments a batch and an MLP-only gate (``[prune moe]``), and the
+     pruned model served in process with its ``bd_moe`` (``[serve pruned
+     moe]``); the reduced qwen3-moe (also with ``--expert-sparsity 0.5``)
+     and internvl on the GPU against the CPU, their pruned checkpoints
+     served with every compensation leaf restored (``[reference moe]``);
+  9. deepseek-v3-671b (MLA, 3 dense layers of 18432, 256 routed experts
+     of 2048 top 8 and a shared expert) at full width and 4 of its 61
+     layers: ``flash_attention`` at the MLA prefill shape (128 heads, q/k
+     192 against v 128, and pruned 128/128, both at scale 1/sqrt(192)) in
+     bf16 and fp32 and ``gram`` at the dense tap (3, 2048, 18432) and the
+     256 expert queues (``[kernels deepseek]``); served with its latent
+     cache (``[serve deepseek]``); pruned at 0.5/0.5 compensated and
+     plain on 256 sequences of 512 Zipf tokens, peak device memory gated
+     at 76 GB, the dense MLPs' held-out gate and the MoE blocks'
+     calibration-token gate, the MLA-only error reported (``[prune
+     deepseek]``), the compensated model served in process with its
+     compensation leaves (``[serve pruned deepseek]``); the reduced config
+     GPU against CPU: MLA prefill and decode, engine streams, and prunes
+     two-pass, with ``--expert-sparsity 0.5`` and ``--one-traversal``,
+     served from their checkpoints (``[reference deepseek]``);
+ 10. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -2352,36 +2368,6 @@ def logits_bf16(cfg, params, batch):
     return build_model(cfg).apply(params, batch)[0].float()
 
 
-def moe_block_error(cfg, params, ncfg, new, batch):
-    """Held-out error of the pruned MoE blocks alone: the dense model's
-    forward over ``batch`` gives each layer's MoE input, which the dense
-    and the pruned block both take; returns sum ||pruned - dense||^2 /
-    sum ||dense||^2 over the layers. Unlike the logits, it does not carry
-    one layer's error into the next layer's routing."""
-    import torch
-    from repro_torch.models import attention as attn_mod
-    from repro_torch.models import lm as lm_mod
-    from repro_torch.models import mlp as mlp_mod
-    from repro_torch.models.common import apply_norm
-    x = params["embed"][batch["tokens"]]
-    B, T = x.shape[:2]
-    positions = lm_mod._positions(B, T, x.device)
-    num = den = 0.0
-    for name, key, rep, kind, _ in lm_mod._each_layer(cfg):
-        p = lm_mod._at(params, name, key, rep)
-        y, _ = attn_mod.apply_attn(p["mixer"], apply_norm(p["ln1"], x, cfg),
-                                   cfg, kind, positions=positions)
-        x = x + y
-        h = apply_norm(p["ln2"], x, cfg)
-        yd = mlp_mod.apply_moe(p["mlp"], h, cfg)
-        yp = mlp_mod.apply_moe(lm_mod._at(new, name, key, rep)["mlp"], h,
-                               ncfg)
-        num += float((yp.float() - yd.float()).square().sum())
-        den += float(yd.float().square().sum())
-        x = x + yd
-    return math.sqrt(num / den)
-
-
 def serve_internvl_phase(dev):
     """internvl2-26b at full width and depth through ``launch.serve``: every
     request served, both attention kernels launched, its slot bytes; then a
@@ -2502,22 +2488,23 @@ def serve_moe_phase(dev):
     return {"serve_moe": launches}
 
 
-def prune_moe_phase(dev):
+def prune_moe_phase(dev, launches):
     """CORP of qwen3-moe-235b-a22b at full width and 8 layers (seeded bf16
     weights, the port-only Zipf stream, batches of 4 x 512 tokens: one
     routing group, 160 slots an expert): 0.5/0.5 compensated (each
     expert's hidden channels; class-3 attention), whose per-expert moments
     take one ``gram`` launch of 1024 items a batch (gated); MLP only,
     compensated and not: the MoE blocks' output error
-    (``moe_block_error``) on calibration tokens, gated compensated <
+    (``block_errors``) on calibration tokens, gated compensated <
     plain (the fold applies what the ridge solved), and on held-out
     tokens, reported with the logits. Seeded experts are random features
     of x with d_expert 1536 < d 4096: their channels are near
     uncorrelated, so the held-out gain of the ridge is below its
     estimation noise at 16k rows an expert (PERF.md). Held-out logits are
-    the bf16 model's (42 GB do not fit twice in fp32).
-    Returns ({path: launches}, the checkpoint of the 0.5/0.5 prune, its
-    config, its ``bd_moe`` on the host)."""
+    the bf16 model's (42 GB do not fit twice in fp32). The 0.5/0.5 model
+    is served in process (``[serve pruned moe]``); its checkpoint round
+    trip runs on the reduced config (``[reference moe]``). Its launches are
+    added to ``launches``."""
     import torch
     from repro_torch.core import PruneConfig
     model, params = big_lm("qwen3-moe-235b-a22b", dev, MOE["layers"])
@@ -2531,7 +2518,7 @@ def prune_moe_phase(dev):
           f"{MOE['seq']} tokens in {batches} batches of {MOE['batch']} "
           f"(port-only Zipf stream), sparsity {sp}/{sp}")
     torch.cuda.reset_peak_memory_stats()
-    new, ncfg, rep, launches, _, comp = lm_prune_run(
+    new, ncfg, rep, ran, _, comp = lm_prune_run(
         "prune moe", model, params, calib, held, dense, PruneConfig(sp, sp),
         evaluate=logits_bf16)
     mlp = new["seg0"]["p0"]["mlp"]
@@ -2542,12 +2529,16 @@ def prune_moe_phase(dev):
             or tuple(mlp["wd"].shape) != (L, E, cfg.moe.d_expert // 2, D):
         fail(f"prune moe: d_expert {ncfg.eff_d_expert}, qk {ncfg.eff_qk}, "
              f"bd_moe {tuple(mlp['bd_moe'].shape)}")
-    if launches["gram"] != batches or launches["flash_attention"] <= 0:
-        fail(f"prune moe: {launches['gram']} gram launches for {batches} "
+    if ran["gram"] != batches or ran["flash_attention"] <= 0:
+        fail(f"prune moe: {ran['gram']} gram launches for {batches} "
              f"batches (one a batch: every (layer, expert) queue in one), "
              f"or flash_attention never ran")
-    bd = mlp["bd_moe"].cpu()
-    ck = save_pruned("prune moe", new, ncfg, "moe")
+    launches["prune_moe"] = ran
+    t0 = time.time()
+    launches["serve_pruned_moe"] = serve_in_process(
+        MOE_PRUNED_SERVE, "serve pruned moe", ncfg, new,
+        ("seg0/p0/mlp/bd_moe",), ("flash_attention", "flash_decode"))
+    print(f"[serve pruned moe] phase wall {time.time() - t0:.3f} s")
     del new, mlp
     torch.cuda.empty_cache()
     # the first 4 calibration batches, whose 4 x 512 tokens each route as
@@ -2561,8 +2552,10 @@ def prune_moe_phase(dev):
                            PruneConfig(sp, 0.0, compensate=comp_mlp),
                            evaluate=logits_bf16)
         errs[comp_mlp] = run[-1]
-        block[comp_mlp] = moe_block_error(cfg, params, run[1], run[0], held)
-        fit[comp_mlp] = moe_block_error(cfg, params, run[1], run[0], seen)
+        block[comp_mlp] = block_errors(cfg, params, run[1], run[0],
+                                       held)["moe"]
+        fit[comp_mlp] = block_errors(cfg, params, run[1], run[0],
+                                     seen)["moe"]
         del run             # a pruned model (20 GB) must not outlive it
         torch.cuda.empty_cache()
     print(f"[prune moe] 0.5/0.5 held-out logits |pruned - dense| / |dense| "
@@ -2579,7 +2572,6 @@ def prune_moe_phase(dev):
              "ridge solved")
     del params, dense
     torch.cuda.empty_cache()
-    return {"prune_moe": launches}, ck, ncfg, bd
 
 
 def moe_reference_phase():
@@ -2587,59 +2579,17 @@ def moe_reference_phase():
     the CPU's plain path: the dense engines' streams; ``launch.prune
     --calib-seq 16`` (qwen3-moe also with ``--expert-sparsity 0.5``, the
     whole-expert removal whose ((E+1) D)^2 moments are 1.1 TB a layer at
-    full width), pruned logits within 1e-3 (internvl's with 8 patches);
-    the GPU's checkpoint through ``launch.serve --ckpt-in`` on both: equal
-    streams."""
-    import torch
-    from repro_torch.launch import prune, serve
-    from repro_torch.models import build_model
+    full width) and its checkpoint served through ``--ckpt-in``
+    (``reference_prune_cases``: the MoE checkpoint round trip, with
+    ``bd_moe``, ``moe_resid`` and ``moe_out_b`` restored)."""
     for arch in ("qwen3-moe-235b-a22b-reduced", "internvl2-26b-reduced"):
         serve_reference_phase(["--arch", arch] + SERVE_REDUCED[2:],
                               "reference moe")
-    for arch, extra in (("qwen3-moe-235b-a22b-reduced", []),
-                        ("qwen3-moe-235b-a22b-reduced",
-                         ["--expert-sparsity", "0.5"]),
-                        ("internvl2-26b-reduced", [])):
-        logits = {}
-        for device in ("cuda", "cpu"):
-            out = f"{OUT}_{arch}_{device}"
-            res = prune.main(["--arch", arch, "--sparsity", "0.5",
-                              "--calib-seq", "16", "--device", device,
-                              "--out", out] + extra)
-            pcfg = res["pruned_cfg"]
-            toks = torch.arange(2 * 24, dtype=torch.int32).reshape(2, 24) \
-                % pcfg.vocab_size
-            batch = {"tokens": toks}
-            if pcfg.frontend == "patch_stub":
-                batch["patch_embeds"] = torch.randn(
-                    (2, 8, pcfg.d_model),
-                    generator=torch.Generator().manual_seed(1))
-            batch = {k: v.to(device) for k, v in batch.items()}
-            logits[device] = build_model(pcfg).apply(
-                res["pruned_params"], batch)[0].cpu()
-        err = rel_err(logits["cuda"], logits["cpu"])
-        print(f"[reference moe] {arch} {' '.join(extra)}: pruned "
-              f"({pcfg.eff_d_ff if pcfg.moe is None else pcfg.eff_d_expert}"
-              f" channels" + (f", {pcfg.eff_num_experts} experts"
-                              if pcfg.moe is not None else "")
-              + f") logits GPU vs CPU relative error {err:.3e} (tol 1e-3)")
-        if not err <= 1e-3:
-            fail(f"{arch}: the pruned model on the GPU disagrees with the "
-                 f"CPU's plain path")
-        streams = {}
-        for device in ("cuda", "cpu"):
-            res = serve.main(["--arch", arch, "--sparsity", "0.5",
-                              "--ckpt-in", f"{OUT}_{arch}_cuda"] + extra
-                             + SERVE_REDUCED[2:] + ["--device", device])
-            streams[device] = [c.tokens.tolist() for c in res["completions"]]
-        same = streams["cuda"] == streams["cpu"]
-        print(f"[reference moe] {arch} {' '.join(extra)} pruned checkpoint "
-              f"served, GPU vs CPU streams: "
-              f"{sum(map(len, streams['cuda']))} tokens, "
-              f"{'identical' if same else 'DIFFERENT'}")
-        if not same:
-            fail(f"{arch}: the pruned model's streams on the GPU differ from "
-                 f"the CPU's")
+    experts = ["--expert-sparsity", "0.5"]
+    reference_prune_cases("reference moe", [
+        ("qwen3-moe-235b-a22b-reduced", [], []),
+        ("qwen3-moe-235b-a22b-reduced", experts, experts),
+        ("internvl2-26b-reduced", [], [])])
 
 
 def internvl_moe_phases(dev, rows, launches):
@@ -2672,18 +2622,485 @@ def internvl_moe_phases(dev, rows, launches):
     print(f"[serve moe] phase wall {time.time() - t0:.3f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
-    lm_launches, ck, ncfg, bd = prune_moe_phase(dev)
-    launches.update(lm_launches)
-    print(f"[prune moe] phase wall {time.time() - t0:.3f} s")
-    t0 = time.time()
-    launches["serve_pruned_moe"] = serve_pruned_ckpt(
-        MOE_PRUNED_SERVE, "serve pruned moe", ck, ncfg, "seg0/p0/mlp/bd_moe",
-        bd)
-    print(f"[serve pruned moe] phase wall {time.time() - t0:.3f} s")
+    prune_moe_phase(dev, launches)
+    print(f"[prune moe] phase wall {time.time() - t0:.3f} s (with [serve "
+          f"pruned moe])")
     torch.cuda.empty_cache()
     t0 = time.time()
     moe_reference_phase()
     print(f"[reference moe] phase wall {time.time() - t0:.3f} s")
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3-671b (MLA, 3 dense layers of 18432, 256 routed experts of
+# 2048 with top 8 and one shared expert)
+# ---------------------------------------------------------------------------
+
+# full width at 4 of its 61 layers: the 3 first_k_dense layers and one MoE
+# layer (30.2 GB of bf16 weights, drawn on the card); at 5 layers (53 GB)
+# no pruned copy fits beside it
+DEEPSEEK_SERVE = ["--arch", "deepseek-v3-671b", "--n-layers", "4"] \
+    + INTERNVL_SERVE[2:]
+# 256 calibration sequences of 512 tokens in batches of 4 (one routing
+# group of 2048 tokens, 80 slots an expert): 14.2 tokens a kept dense
+# channel; the Qwen2 ridge overfits at 3.66 and not at 14.6
+# (tests/lm_overfit_witness.py)
+DEEPSEEK = dict(sparsity=0.5, seqs=256, seq=512, batch=4, held=2, layers=4)
+DEEPSEEK_PRUNED_SERVE = DEEPSEEK_SERVE[:4] + ["--sparsity", "0.5"] \
+    + DEEPSEEK_SERVE[4:]
+
+
+def deepseek_kernel_phase(dev, rows):
+    """``flash_attention`` and ``gram`` at the shapes deepseek-v3's paths
+    give them: the MLA prefill and calibration forward (B 4, T 512, 128
+    heads, q/k 192 = nope 128 + rope 64 against v 128, causal, scale
+    1/sqrt(192)) dense and pruned (q/k 128 at the same scale), in bf16 and
+    fp32; ``gram`` at the three dense layers' MLP tap (3, 2048, 18432) and
+    over the MoE layer's 256 expert queues of 80 capacity slots at 2048;
+    each against its plain version, timed beside its bound and the
+    one-call PyTorch equivalent (SDPA, ``torch.matmul``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(20)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels deepseek] the kernels against their plain versions at "
+          "the deepseek-v3-671b shapes")
+    B, T, H, dv = 4, 512, 128, 128
+    scale = 192 ** -0.5
+    for dq, tag in ((192, "deepseek_prefill"),
+                    (128, "deepseek_prefill_pruned")):
+        for dtype, tol in ((torch.float32, 1e-4), (bf, 2e-2)):
+            q, k = rand(B, T, H, dq, dtype=dtype), rand(B, T, H, dq,
+                                                        dtype=dtype)
+            v = rand(B, T, H, dv, dtype=dtype)
+            err = check_attention(q, k, v, True, None, scale,
+                                  f"{tag} {str(dtype)[6:]}", tol=tol)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        library = "SDPA"
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=scale)
+        except RuntimeError:        # a backend that needs dq == dv
+            vt = F.pad(vt, (0, dq - dv))
+            library = f"SDPA, v padded to {dq}"
+        calls = {"ms": lambda: flash_ops.attention(q, k, v, causal=True,
+                                                   scale=scale),
+                 "plain_ms": lambda: flash_ref.attention(
+                     q, k, v, causal=True, scale=scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, scale=scale)}
+        r = {"shape": [B, T, H, H, dq, dv], "max_abs_err": err,
+             "library": library,
+             **{key: device_ms(fn, reps=10) for key, fn in calls.items()}}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * B * H * visible_keys(T, None) * (dq + dv),
+            2 * B * T * H * (2 * dq + 2 * dv), PEAK_BF16_FLOPS)
+        print(f"  flash_attention {tag} B={B} T={T} H={H} dq={dq} dv={dv} "
+              f"bf16 causal, device time: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        by_name["flash_attention"][tag] = r
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    experts = rand(256, 80, 2048)
+    experts[:, 64:] = 0.0          # the queues' empty capacity slots
+    for x, tag, label in ((rand(3, 4 * 512, 18432), "deepseek_dense",
+                           "dense MLP tap"),
+                          (experts, "deepseek_experts",
+                           "expert queues")):
+        err = check_gram(x, label=label)
+        s2 = gram_ops.gram(x)["s2"]
+        if not torch.equal(s2, s2.mT):
+            fail(f"gram {label}: s2 is not exactly symmetric")
+        del s2
+        r = {"shape": list(x.shape), "max_abs_err": err,
+             "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+             "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3,
+                                 warmup=1),
+             "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                                   warmup=1)}
+        L, N, Fd = x.shape
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            1.0 * L * N * Fd * (Fd + 1),
+            4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+        print(f"  gram at the {label} shape {tuple(x.shape)} fp32: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"torch.matmul {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        by_name["gram"][tag] = r
+        del x
+        torch.cuda.empty_cache()
+    del experts
+
+
+def serve_in_process(args, tag, cfg, params, leaves, kernels):
+    """A pruned model held in process, served by the serve CLI's trace path
+    (``launch.serve.serve_trace``: the engine, warmed, then the trace of
+    the CLI flags ``args``): every request completes, each kernel in
+    ``kernels`` launched, and each compensation leaf in ``leaves`` (key
+    paths) is in the served params and not zero. Returns {kernel:
+    launches}."""
+    import torch
+    from repro_torch.interop import flatten
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    arg = dict(zip(args[::2], args[1::2]))
+    flat = flatten(params)
+    for leaf in leaves:
+        if leaf not in flat or not bool(flat[leaf].any()):
+            fail(f"{tag}: compensation leaf {leaf} missing or zero")
+    print(f"[{tag}] the pruned model in process, through launch.serve's "
+          f"trace path with the flags {' '.join(args)}")
+    reset_launches()
+    t0 = time.time()
+    comps, table, st, _ = serve.serve_trace(
+        build_model(cfg), params, n=int(arg["--trace"]),
+        slots=int(arg["--slots"]), max_len=int(arg["--max-len"]),
+        prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
+        gen_range=tuple(map(int, arg["--gen-range"].split(","))))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
+    print(f"[{tag}] wall {time.time() - t0:.3f} s (warmup and the trace); "
+          f"trace {table['wall_s']:.3f} s, {table['tokens']} tokens, "
+          f"{table['tok_per_s']:.1f} tok/s, TTFT p50/p99 "
+          f"{table['ttft_p50_ms']:.1f}/{table['ttft_p99_ms']:.1f} ms, "
+          f"latency p50/p99 {table['lat_p50_ms']:.1f}/"
+          f"{table['lat_p99_ms']:.1f} ms; "
+          f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms per "
+          f"shared decode step, "
+          f"{1e3 * st['prefill_s'] / max(1, prefills):.2f} ms per prefill; "
+          f"launches {launches}; leaves {', '.join(leaves)} served")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"the {tag} path never launched the {name} kernel")
+    if [len(c.tokens) for c in comps] != [r.gen for r in
+                                          cli_trace(arg, cfg)] \
+            or not all(((0 <= c.tokens) & (c.tokens < cfg.vocab_size)).all()
+                       for c in comps):
+        fail(f"{tag}: a request did not complete")
+    return launches
+
+
+def serve_deepseek_phase(dev):
+    """deepseek-v3-671b at full width and 4 layers through ``launch.serve``:
+    every request served; the prefill runs the attention kernel (MLA decode
+    is plain torch, as the reference's jnp); the latent slot cache's bytes
+    against a per-head cache of the same heads. Returns {path:
+    launches}."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import cache_bytes
+    launches, res = serve_phase(DEEPSEEK_SERVE, "serve deepseek",
+                                ("flash_attention",))
+    cfg = res["model"].cfg
+    arg = dict(zip(DEEPSEEK_SERVE[::2], DEEPSEEK_SERVE[1::2]))
+    if [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail("serve deepseek: a request did not complete")
+    if launches["flash_decode"]:
+        fail("serve deepseek: MLA decode launched flash_decode")
+    max_len = int(arg["--max-len"])
+    slot = cache_bytes(build_model(cfg).init_cache(1, max_len, "meta"))
+    m = cfg.mla
+    per = (m.kv_lora_rank + m.qk_rope_dim) * 2
+    heads = cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim + m.v_dim) * 2
+    print(f"[serve deepseek] {cfg.n_layers} layers; latent slot cache "
+          f"{slot} bytes per slot at max_len {max_len} ({per} a token and "
+          f"layer); a cache of the {cfg.n_heads} heads' k and v would take "
+          f"{heads} "
+          f"a token and layer, {heads / per:.1f}x")
+    return {"serve_deepseek": launches}
+
+
+def block_errors(cfg, params, ncfg, new, batch):
+    """Output errors of the pruned blocks alone, sum ||pruned - dense||^2 /
+    sum ||dense||^2 over the layers of a kind, each block given the input
+    that the dense model's forward over ``batch`` gives it: ``mla`` (the
+    attention blocks), ``dense`` (the first_k_dense MLPs), ``moe`` (the
+    routed and shared experts). Unlike the logits, one layer's error does
+    not reach the next layer's routing."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.common import apply_norm
+    x = params["embed"][batch["tokens"]]
+    B, T = x.shape[:2]
+    positions = lm_mod._positions(B, T, x.device)
+    num, den = {}, {}
+
+    def add(kind, yp, yd):
+        num[kind] = num.get(kind, 0.0) + float(
+            (yp.float() - yd.float()).square().sum())
+        den[kind] = den.get(kind, 0.0) + float(yd.float().square().sum())
+    for name, key, rep, kind, moe in lm_mod._each_layer(cfg):
+        p = lm_mod._at(params, name, key, rep)
+        q = lm_mod._at(new, name, key, rep)
+        h = apply_norm(p["ln1"], x, cfg)
+        yd, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
+                                    positions=positions)
+        yp, _ = attn_mod.apply_attn(q["mixer"], h, ncfg, kind,
+                                    positions=positions)
+        add("mla", yp, yd)
+        x = x + yd
+        h = apply_norm(p["ln2"], x, cfg)
+        yd = blk.ffn(p["mlp"], h, cfg, moe)
+        add("moe" if moe else "dense", blk.ffn(q["mlp"], h, ncfg, moe), yd)
+        x = x + yd
+    return {k: math.sqrt(num[k] / den[k]) for k in num}
+
+
+def mla_only(cfg, params, ncfg, new):
+    """The dense model with only its attention blocks pruned (CORP takes
+    every statistic from the dense model, so they are the MLA-only prune's):
+    its config and params, the pruned mixers and every other leaf the dense
+    one's."""
+    out = dict(params)
+    for seg in (k for k in new if k.startswith("seg")):
+        out[seg] = {lk: dict(params[seg][lk], mixer=new[seg][lk]["mixer"])
+                    for lk in new[seg]}
+    return cfg.replace(qk_kept=ncfg.qk_kept), out
+
+
+def prune_deepseek_phase(dev, launches):
+    """CORP of deepseek-v3-671b at full width and 4 layers (seeded bf16
+    weights, the port-only Zipf stream, 256 sequences of 512 in batches
+    of 4): 0.5/0.5 two-pass, compensated and plain. Gated: J* <= J_uncomp,
+    the kept sizes, the launches (``gram`` 5 a pass-1 batch: 3 dense
+    taps, the expert queues, the shared expert; attention 4 a forward),
+    peak device memory <= 76 GB; on the dense model's inputs, the dense
+    MLPs' compensated held-out error <= plain, and the MoE blocks'
+    (routed + shared) on calibration tokens (an expert sees ~4 rows a
+    kept channel: tests/moe_ridge_witness.py). Reported: stage times,
+    traversals, rows a kept channel, the MLA-only prune's held-out
+    logits, compensated and plain. The compensated model is served in
+    process between the two prunes (``[serve pruned deepseek]``).
+    Held-out logits are the bf16 model's (30 GB do not fit twice in
+    fp32)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    from repro_torch.models import mlp as mlp_mod
+    model, params = big_lm("deepseek-v3-671b", dev, DEEPSEEK["layers"])
+    cfg = model.cfg
+    calib, held = lm_calib(cfg, dev, seed=29, spec=DEEPSEEK)
+    dense = logits_bf16(cfg, params, held)
+    sp = DEEPSEEK["sparsity"]
+    batches = DEEPSEEK["seqs"] // DEEPSEEK["batch"]
+    tokens = DEEPSEEK["seqs"] * DEEPSEEK["seq"]
+    m = cfg.moe
+    C = mlp_mod.capacity(DEEPSEEK["batch"] * DEEPSEEK["seq"], cfg)
+    expert_rows = min(tokens * m.top_k / m.num_experts, C * batches)
+    print(f"[prune deepseek] corp_prune of deepseek-v3-671b at "
+          f"{cfg.n_layers} layers ({cfg.layout()}), {DEEPSEEK['seqs']} "
+          f"sequences of {DEEPSEEK['seq']} tokens in {batches} batches of "
+          f"{DEEPSEEK['batch']} (port-only Zipf stream), sparsity {sp}/{sp}; "
+          f"rows a kept channel: dense {tokens / (cfg.dense_d_ff * sp):.1f}, "
+          f"an expert ~{expert_rows / (m.d_expert * sp):.1f} ({C} slots a "
+          f"batch), shared {tokens / (m.num_shared * m.d_expert * sp):.1f}")
+    seen = {"tokens": torch.cat([b["tokens"] for b in
+                                 itertools.islice(calib(), 4)])}
+    errs = {}
+    for comp in (True, False):
+        tag = "prune deepseek" + ("" if comp else " no-compensate")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        new, ncfg, rep, ran, _, err = lm_prune_run(
+            tag, model, params, calib, held, dense,
+            PruneConfig(sp, sp, compensate=comp), evaluate=logits_bf16)
+        peak = torch.cuda.max_memory_allocated()
+        mixer = new["seg1"]["p0"]["mixer"]
+        shared = new["seg1"]["p0"]["mlp"]["shared"]
+        half = (cfg.qk_full // 2, cfg.dense_d_ff // 2, m.d_expert // 2)
+        if (ncfg.eff_qk, ncfg.eff_dense_d_ff, ncfg.eff_d_expert) != half \
+                or mixer["w_uq_nope"].shape[-1] != half[0] \
+                or mixer["w_uk_nope"].shape[-1] != half[0] \
+                or shared["wd"].shape[-2] != half[2] \
+                or new["seg0"]["l0"]["mlp"]["wd"].shape[0] != half[1]:
+            fail(f"{tag}: kept sizes qk {ncfg.eff_qk}, dense d_ff "
+                 f"{ncfg.eff_dense_d_ff}, d_expert {ncfg.eff_d_expert}")
+        # pass 1: one gram a dense layer, the expert queues, the shared
+        # expert; attention once a layer in each pass's forward
+        if ran["gram"] != (cfg.first_k_dense + 2) * batches \
+                or ran["flash_attention"] != 2 * cfg.n_layers * batches:
+            fail(f"{tag}: {ran['gram']} gram launches (want "
+                 f"{cfg.first_k_dense + 2} a pass-1 batch), "
+                 f"{ran['flash_attention']} attention launches")
+        if peak > 76e9:
+            fail(f"{tag}: peak device memory {peak / 1e9:.1f} GB > 76 GB")
+        if comp:
+            launches["prune_deepseek"] = ran
+            t0 = time.time()
+            launches["serve_pruned_deepseek"] = serve_in_process(
+                DEEPSEEK_PRUNED_SERVE, "serve pruned deepseek", ncfg, new,
+                ("seg0/l0/mlp/bd", "seg1/p0/mlp/bd_moe",
+                 "seg1/p0/mlp/shared/bd"), ("flash_attention",))
+            print(f"[serve pruned deepseek] phase wall "
+                  f"{time.time() - t0:.3f} s")
+        acfg, aparams = mla_only(cfg, params, ncfg, new)
+        errs[comp] = dict(
+            logits=err, held=block_errors(cfg, params, ncfg, new, held),
+            seen=block_errors(cfg, params, ncfg, new, seen),
+            mla_only=rel_err(logits_bf16(acfg, aparams, held), dense))
+        e = errs[comp]
+        print(f"[{tag}] peak device memory {peak / 1e9:.1f} GB (gate 76); "
+              f"the blocks' output errors on held-out inputs "
+              + ", ".join(f"{k} {v:.4f}" for k, v in e["held"].items())
+              + "; on 4 calibration batches "
+              + ", ".join(f"{k} {v:.4f}" for k, v in e["seen"].items())
+              + f"; MLA-only held-out logits {e['mla_only']:.4f}")
+        del new, mixer, shared, aparams
+    c, p = errs[True], errs[False]
+    print(f"[prune deepseek] held-out logits |pruned - dense| / |dense| "
+          f"compensated {c['logits']:.4f}, no-compensate {p['logits']:.4f}; "
+          f"MLA only compensated {c['mla_only']:.4f}, no-compensate "
+          f"{p['mla_only']:.4f}; dense MLPs held out {c['held']['dense']:.4f}"
+          f" / {p['held']['dense']:.4f}; MoE blocks on calibration tokens "
+          f"{c['seen']['moe']:.4f} / {p['seen']['moe']:.4f}, held out "
+          f"{c['held']['moe']:.4f} / {p['held']['moe']:.4f}")
+    if not c["held"]["dense"] <= p["held"]["dense"]:
+        fail("prune deepseek: on held-out tokens the compensated dense MLPs "
+             "are not closer to the dense ones than the plain prune's")
+    if not c["seen"]["moe"] <= p["seen"]["moe"]:
+        fail("prune deepseek: on calibration tokens the compensated MoE "
+             "blocks are not closer to the dense ones than the plain "
+             "prune's: the fold is not what the ridge solved")
+    del params, dense
+    torch.cuda.empty_cache()
+
+
+def reference_prune_cases(tag, cases):
+    """Reduced configs (fp32) through ``launch.prune --calib-seq 16 --out``
+    on the GPU and the CPU, for each (arch, prune flags, serve flags) of
+    ``cases``:
+    pruned logits within 1e-3 (8 patch embeddings before a VLM's tokens);
+    then the GPU's checkpoint through ``launch.serve --ckpt-in`` on both:
+    equal streams, and every compensation leaf restored equal to the
+    prune's."""
+    import torch
+    from repro_torch.interop import flatten
+    from repro_torch.launch import prune, serve
+    from repro_torch.models import build_model
+    for arch, extra, serve_extra in cases:
+        logits, comp = {}, {}
+        for device in ("cuda", "cpu"):
+            out = f"{OUT}_{arch}_{device}"
+            res = prune.main(["--arch", arch, "--sparsity", "0.5",
+                              "--calib-seq", "16", "--device", device,
+                              "--out", out] + extra)
+            pcfg = res["pruned_cfg"]
+            toks = torch.arange(2 * 24, dtype=torch.int32).reshape(2, 24) \
+                % pcfg.vocab_size
+            batch = {"tokens": toks}
+            if pcfg.frontend == "patch_stub":
+                batch["patch_embeds"] = torch.randn(
+                    (2, 8, pcfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+            batch = {k: v.to(device) for k, v in batch.items()}
+            logits[device] = build_model(pcfg).apply(
+                res["pruned_params"], batch)[0].cpu()
+            comp[device] = {k: v.cpu() for k, v in
+                            flatten(res["pruned_params"]).items()
+                            if k.endswith(serve.COMPENSATION_LEAVES)}
+        err = rel_err(logits["cuda"], logits["cpu"])
+        print(f"[{tag}] {arch} {' '.join(extra)}: pruned "
+              f"({pcfg.eff_d_ff if pcfg.moe is None else pcfg.eff_d_expert}"
+              f" channels" + (f", {pcfg.eff_num_experts} experts"
+                              if pcfg.moe is not None else "")
+              + f", qk {pcfg.eff_qk}) logits GPU vs CPU relative error "
+              f"{err:.3e} (tol 1e-3)")
+        if not err <= 1e-3:
+            fail(f"{arch}: the pruned model on the GPU disagrees with the "
+                 f"CPU's plain path")
+        streams = {}
+        for device in ("cuda", "cpu"):
+            res = serve.main(["--arch", arch, "--sparsity", "0.5",
+                              "--ckpt-in", f"{OUT}_{arch}_cuda"]
+                             + serve_extra + SERVE_REDUCED[2:]
+                             + ["--device", device])
+            streams[device] = [c.tokens.tolist() for c in res["completions"]]
+            got = flatten(res["params"])
+            if not comp["cuda"] or not all(
+                    torch.equal(got[k].cpu(), v)
+                    for k, v in comp["cuda"].items()):
+                fail(f"{arch}: the compensation leaves were not restored "
+                     f"from the checkpoint")
+        same = streams["cuda"] == streams["cpu"]
+        print(f"[{tag}] {arch} {' '.join(extra)} pruned checkpoint served "
+              f"with its {len(comp['cuda'])} compensation leaves restored, "
+              f"GPU vs CPU streams: {sum(map(len, streams['cuda']))} tokens, "
+              f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{arch}: the pruned model's streams on the GPU differ from "
+                 f"the CPU's")
+
+
+def deepseek_reference_phase():
+    """The reduced deepseek-v3-671b (fp32; 1 dense and 2 MoE layers, MLA)
+    on the GPU against the CPU's plain path: a prefill and 4 decode steps
+    from the latent cache (logits within 1e-3), the dense engine's streams,
+    and ``launch.prune`` two-pass, with ``--expert-sparsity 0.5`` and with
+    ``--one-traversal`` (margin 1.0, a hit), each checkpoint served through
+    ``--ckpt-in`` (``reference_prune_cases``). One traversal is not run
+    at full width: its class-1 host reconstruction holds (ds^2)^2 float64
+    a head, 68.7 GB at MLA's 128 heads of ds 64."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    arch = "deepseek-v3-671b-reduced"
+    cfg = resolve_config(arch)
+    model = build_model(cfg)
+    toks = (torch.arange(2 * 20, dtype=torch.int32).reshape(2, 20) * 13) \
+        % cfg.vocab_size
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = model.init(torch.Generator().manual_seed(0), device)
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :16].to(device)}, 64,
+            lengths=torch.tensor([16, 11], device=device))
+        rows = [logits[:, 0]]
+        for i in range(16, 20):
+            logits, cache = model.decode_step(
+                params, toks[:, i:i + 1].to(device), cache)
+            rows.append(logits[:, 0])
+        out[device] = torch.stack(rows).cpu()
+    err = rel_err(out["cuda"], out["cpu"])
+    print(f"[reference deepseek] {arch}: ragged prefill (16, 11) and 4 "
+          f"decode steps from the latent cache, logits GPU vs CPU relative "
+          f"error {err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("reference deepseek: MLA prefill and decode on the GPU "
+             "disagree with the CPU's plain path")
+    serve_reference_phase(["--arch", arch] + SERVE_REDUCED[2:],
+                          "reference deepseek")
+    experts = ["--expert-sparsity", "0.5"]
+    reference_prune_cases("reference deepseek", [
+        (arch, [], []), (arch, experts, experts),
+        (arch, ["--one-traversal", "--spec-margin", "1.0"], [])])
+
+
+def deepseek_phases(dev, rows, launches):
+    """The deepseek-v3-671b phases in order, each timed; their launches
+    are added to ``launches``."""
+    import torch
+    for tag, fn in (
+            ("kernels deepseek", lambda: deepseek_kernel_phase(dev, rows)),
+            ("serve deepseek",
+             lambda: launches.update(serve_deepseek_phase(dev))),
+            ("prune deepseek", lambda: prune_deepseek_phase(dev, launches)),
+            ("reference deepseek", deepseek_reference_phase)):
+        t0 = time.time()
+        fn()
+        torch.cuda.empty_cache()
+        print(f"[{tag}] phase wall {time.time() - t0:.3f} s")
 
 
 def main() -> int:
@@ -2799,6 +3216,7 @@ def main() -> int:
     gemma_reference_phase()
     print(f"[reference gemma] phase wall {time.time() - t0:.3f} s")
     internvl_moe_phases(dev, rows, launches)
+    deepseek_phases(dev, rows, launches)
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

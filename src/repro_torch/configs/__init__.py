@@ -1,11 +1,11 @@
 """Config registry of the port: the DeiT ids, the LMs it serves and prunes
 (``qwen2-1.5b``, ``granite-8b``, ``deepseek-7b``, ``gemma3-1b``,
-``rwkv6-3b``, the VLM ``internvl2-26b`` and the routed MoE
-``qwen3-moe-235b-a22b``) and their reduced variants.
+``rwkv6-3b``, the VLM ``internvl2-26b``, the routed MoE
+``qwen3-moe-235b-a22b`` and the MLA MoE ``deepseek-v3-671b``) and their
+reduced variants.
 
-Copied from ``repro.configs``. The MLA (``deepseek-v3-671b``), Mamba
-(``jamba-1.5-large-398b``) and enc-dec (``seamless-m4t-large-v2``) configs
-raise ``NotImplementedError``.
+Copied from ``repro.configs``. The Mamba (``jamba-1.5-large-398b``) and
+enc-dec (``seamless-m4t-large-v2``) configs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import importlib
 import dataclasses
 import math
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, RWKVConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      RWKVConfig)
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
 _MODULES = {
@@ -25,6 +26,7 @@ _MODULES = {
     "rwkv6-3b": "rwkv6_3b",
     "internvl2-26b": "internvl2_26b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 LM_IDS = tuple(_MODULES)
 
@@ -44,18 +46,19 @@ def get_config(arch_id: str) -> ModelConfig:
 def reduced(cfg: ModelConfig, *, d_model: int = 64,
             layers_scale: int = 1) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests, as
-    ``repro.configs.reduced`` gives it for a ViT, a dense LM, RWKV or a
+    ``repro.configs.reduced`` gives it for a ViT, a dense LM, RWKV, a
     routed MoE (4 experts, top 2, d_expert 2 d_model, at most one shared
-    expert)."""
-    if cfg.family not in ("vit", "lm") or cfg.mla or cfg.mamba \
-            or cfg.first_k_dense or cfg.n_enc_layers:
+    expert) or MLA with its ``first_k_dense`` layers (one dense layer of
+    4 d_model more). Mamba and enc-dec configs raise."""
+    if cfg.family not in ("vit", "lm") or cfg.mamba or cfg.n_enc_layers:
         raise NotImplementedError(
-            f"reduced() of {cfg.name} is not ported; see "
-            "repro.configs.reduced")
+            f"reduced() of {cfg.name} (Mamba or enc-dec) is not ported; "
+            "see repro.configs.reduced")
     period = len(cfg.pattern)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe_every)
-    n_layers = max(period, 2) * layers_scale
+    n_layers = max(period, 2) * layers_scale + (1 if cfg.first_k_dense
+                                                else 0)
     n_heads = max(2, min(cfg.n_heads, 4))
     n_kv = max(1, n_heads * cfg.n_kv_heads // cfg.n_heads)
     n_heads = n_kv * max(1, n_heads // n_kv)
@@ -75,9 +78,14 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=4, top_k=2, d_expert=2 * d_model,
             num_shared=min(cfg.moe.num_shared, 1))
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                              qk_nope_dim=16, qk_rope_dim=8, v_dim=16)
     if cfg.rwkv is not None:
         kw.update(rwkv=RWKVConfig(head_dim=16, decay_lora=8),
                   n_heads=d_model // 16, n_kv_heads=d_model // 16)
+    if cfg.first_k_dense:
+        kw.update(first_k_dense=1, dense_d_ff=4 * d_model)
     if cfg.family == "vit":
         kw.update(img_size=32, patch=8, n_classes=min(cfg.n_classes, 10) or 10)
     return cfg.replace(name=cfg.name + "-reduced", **kw)
@@ -90,5 +98,5 @@ def resolve_config(name: str) -> ModelConfig:
     return get_config(name)
 
 
-__all__ = ["ModelConfig", "MoEConfig", "DEIT_IDS", "LM_IDS", "get_config",
-           "reduced", "resolve_config"]
+__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "DEIT_IDS", "LM_IDS",
+           "get_config", "reduced", "resolve_config"]

@@ -102,6 +102,14 @@ class ModelConfig:
         return self.d_ff if self.d_ff_kept is None else self.d_ff_kept
 
     @property
+    def eff_dense_d_ff(self) -> Optional[int]:
+        """Hidden dim of the ``first_k_dense`` layers' MLPs (pruned or
+        not), None without them."""
+        if self.dense_d_ff is None:
+            return None
+        return self.dense_d_ff_kept or self.dense_d_ff
+
+    @property
     def eff_d_expert(self) -> int:
         assert self.moe is not None
         return self.moe.d_expert if self.d_ff_kept is None else self.d_ff_kept

@@ -92,6 +92,7 @@ class CalibrationEngine:
         self.spec_plan = None if spec_plan is None else {
             k: np.asarray(v, np.int32) for k, v in spec_plan.items()}
         self._device_plans = None
+        self._acc = None            # the running sums of ``run``
         self.fingerprint = self._fingerprint()
 
     def _fingerprint(self) -> str:
@@ -140,7 +141,9 @@ class CalibrationEngine:
         return tree
 
     def reduce(self, params, batch) -> Dict:
-        """One batch's statistics of this pass, from one forward."""
+        """One batch's statistics of this pass, from one forward. Inside
+        ``run``, pass 2 adds its class-1 G into the running accumulator in
+        place and leaves it out of the result (``stats._p2_attn``)."""
         taps = {}
         with model_common.tap_dtype(self.stats_dtype), \
                 model_common.expert_taps(self.expert_moments):
@@ -149,7 +152,7 @@ class CalibrationEngine:
             return stats_mod.pass1_reduce(taps, self.units)
         plan, spec_plan = self._plans_on(next(iter(taps.values())).device)
         if self.phase == 2:
-            return stats_mod.pass2_reduce(taps, self.units, plan)
+            return stats_mod.pass2_reduce(taps, self.units, plan, self._acc)
         return {"p1": stats_mod.pass1_reduce(taps, self.units),
                 "p2spec": stats_mod.spec_pass2_reduce(taps, self.units,
                                                       spec_plan)}
@@ -183,17 +186,21 @@ class CalibrationEngine:
             flat, start = checkpointer.restore(self.fingerprint, device)
             if flat is not None:
                 acc = self._unflatten(flat)
-        for i, batch in enumerate(itertools.chain([first], it)):
-            if i < start:
-                continue
-            if fail_hook is not None:
-                try:
-                    fail_hook(i)
-                except Exception:       # noqa: BLE001 -- a lost batch
+        try:
+            for i, batch in enumerate(itertools.chain([first], it)):
+                if i < start:
                     continue
-            acc = stats_mod.tree_add(acc, self.reduce(params, batch))
-            if checkpointer is not None:
-                checkpointer.maybe_save(acc, i + 1, self.fingerprint)
+                if fail_hook is not None:
+                    try:
+                        fail_hook(i)
+                    except Exception:   # noqa: BLE001 -- a lost batch
+                        continue
+                self._acc = acc
+                acc = stats_mod.tree_add(acc, self.reduce(params, batch))
+                if checkpointer is not None:
+                    checkpointer.maybe_save(acc, i + 1, self.fingerprint)
+        finally:
+            self._acc = None
         if acc is None:
             raise ValueError("every calibration batch failed")
         if checkpointer is not None:

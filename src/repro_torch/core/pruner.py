@@ -14,11 +14,21 @@ routed-MoE units (each expert's hidden channels with its own ridge
 solve, compensated through its ``wd`` and a per-expert ``bd_moe``) and
 whole-expert removal (``expert_sparsity``: removed experts' contributions
 regressed onto the block input, folded into ``moe_resid`` and
-``moe_out_b``), stacked units and unrolled (unstacked) ones; two
-calibration passes or one (``one_traversal``), taps streamed in fp32 or
-bf16, resumable statistics checkpoints (``ckpt_dir``) and the
-memory-bounded ``corp_prune_streamed``. ``mesh=``, shared experts, Mamba,
-MLA and cross attention are not ported yet; they raise.
+``moe_out_b``), shared experts (an MLP unit on ``mlp/shared``, with its
+``bd``), MLA units (class 1 on the nope blocks ``w_uq_nope``/
+``w_uk_nope``, one group a head; the rope block is never touched), the
+``first_k_dense`` layers' MLPs, stacked units and unrolled (unstacked)
+ones; two calibration passes or one (``one_traversal``), taps streamed
+in fp32 or bf16, resumable statistics checkpoints (``ckpt_dir``) and the
+memory-bounded ``corp_prune_streamed``. ``mesh=``, Mamba and cross
+attention are not ported yet; they raise.
+
+Memory at full width (deepseek-v3 at 4 layers: 30 GB of bf16 weights,
+8.6 GB of class-1 G a layer): pass 2 adds its G in place
+(``stats._add_kron``); while it runs, the MLP units' pass-1 moments wait
+in host memory; the fold takes the attention units first, each freeing
+its statistics as it is folded, and solves class-1 systems a chunk of
+groups at a time.
 
 ``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
 pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
@@ -147,10 +157,12 @@ def _fold_moe_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
                     report):
     """Each expert's hidden channels of a stacked MoE unit: experts ``wg``,
     ``wu`` (L, E, D, F), ``wd`` (L, E, F, D), per-expert moments; keep /
-    prune (L, E, n). One batched ridge solve per layer over its experts
-    (the covariances formed in float64 and solved in fp32, as the
-    reference does); the compensation goes into ``wd`` and ``bd_moe`` (L,
-    E, D), which the expert adds to its output before the combine."""
+    prune (L, E, n). Batched ridge solves over a layer's experts, 16
+    experts at a time (the covariances formed in float64 and solved in
+    fp32, as the reference does; at deepseek-v3's 256 experts of 2048 a
+    layer's pruned rows of ``wd`` in fp32 alone are 7.5 GB); the
+    compensation goes into ``wd`` and ``bd_moe`` (L, E, D), which the
+    expert adds to its output before the combine."""
     new = dict(p)
     wd = p["wd"]
     L, E, _, D = wd.shape
@@ -159,34 +171,32 @@ def _fold_moe_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     wd_new = wd.new_empty((L, E, ds, D))
     bias = torch.zeros((L, E, D), dtype=torch.float32, device=wd.device)
     diags = []
-    for l in range(L):          # one layer's systems at a time: memory
-        n = stats["n"][l].double().clamp_min(1.0)[:, None]
-        mu = stats["s1"][l].double() / n
-        sigma = torch.empty_like(stats["s2"][l])
-        for e in range(0, E, 16):   # float64 a few experts at a time
-            m = mu[e:e + 16]
-            sigma[e:e + 16] = stats["s2"][l, e:e + 16].double() \
-                / n[e:e + 16, :, None] - m[:, :, None] * m[:, None, :]
-        mu = mu.float()
+    for l, e in itertools.product(range(L), range(0, E, 16)):
+        x = slice(e, e + 16)
+        n = stats["n"][l, x].double().clamp_min(1.0)[:, None]
+        mu = stats["s1"][l, x].double() / n
+        sigma = (stats["s2"][l, x].double() / n[:, :, None]
+                 - mu[:, :, None] * mu[:, None, :]).float()
         lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
-        sol = solve_mod.ridge_affine(mu, sigma, keep_t[l], prune_t[l], lam)
+        sol = solve_mod.ridge_affine(mu.float(), sigma, keep_t[l, x],
+                                     prune_t[l, x], lam)
         del sigma
-        w2_S = solve_mod.gather_rows(wd[l], keep_t[l])
-        w2_P = solve_mod.gather_rows(wd[l], prune_t[l]).float()
+        w2_S = solve_mod.gather_rows(wd[l, x], keep_t[l, x])
+        w2_P = solve_mod.gather_rows(wd[l, x], prune_t[l, x]).float()
         diags.append(solve_mod.mlp_distortion(sol, w2_P))
         if pc.compensate:
             comp = torch.einsum("rps,rpd->rsd", sol["B"], w2_P)
-            wd_new[l] = (w2_S.float() + comp).to(wd.dtype)
-            bias[l] = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
+            wd_new[l, x] = (w2_S.float() + comp).to(wd.dtype)
+            bias[l, x] = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
         else:
-            wd_new[l] = w2_S
+            wd_new[l, x] = w2_S
     new["wd"] = wd_new
     if pc.compensate:
         new["bd_moe"] = bias
     for k1 in ("wu", "wg"):
         new[k1] = _gather_idx(p[k1], keep_t, -1)
-    report[unit.name] = _host({k: torch.stack([d[k] for d in diags])
-                               for k in diags[0]})
+    report[unit.name] = _host({k: torch.cat([d[k] for d in diags])
+                               .reshape(L, E) for k in diags[0]})
     return new
 
 
@@ -257,14 +267,20 @@ def _attn_solve(p2stats, unit: Unit, pc: PruneConfig, L: int, ds: int):
     """Solve every (layer, group) system of an attention unit and fold it.
     Returns the Q and K factors, (L, G, ds, ds) for class 1, per-pair 2x2
     blocks (L, G, ds, 2, 2) for class 2 or per-pair scales (L, G, ds) for
-    class 3 (ds kept pairs), and the diagnostics (L, G)."""
+    class 3 (ds kept pairs), and the diagnostics (L, G). Class-1 systems
+    (ds^2 wide) are solved ``stats._KRON_CHUNK // ds^4`` at a time, so the
+    Cholesky's workspace stays a chunk (16 heads, 2 GB, at MLA's ds 64)."""
     G = unit.n_groups
     t2 = p2stats["t2"].reshape(L * G)
     if unit.attn_class == 1:
         Gm = p2stats["G"].reshape(L * G, ds * ds, ds * ds)
         hv = p2stats["h"].reshape(L * G, ds * ds)
         lam = pc.lam * torch.diagonal(Gm, dim1=-2, dim2=-1).mean(dim=-1)
-        sol = solve_mod.solve_full_m(Gm, hv, t2, lam)
+        step = max(1, stats_mod._KRON_CHUNK // ds ** 4)
+        parts = [solve_mod.solve_full_m(Gm[r:r + step], hv[r:r + step],
+                                        t2[r:r + step], lam[r:r + step])
+                 for r in range(0, L * G, step)]
+        sol = {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
         M = sol["M"] if pc.compensate else torch.zeros_like(sol["M"])
         fq, fk = solve_mod.fold_full_m(M)
     else:
@@ -293,9 +309,13 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
     2x2 block; class 3 gathers the kept dims and multiplies its per-pair
     scales (Q: sign(1 + m) sqrt|1 + m|, K: sqrt|1 + m|, each on both dims of
     the pair) into the qk-norm scales, expanded to one row a head. Classes
-    2 and 3 gather the kept pairs of the rope frequency tables."""
+    2 and 3 gather the kept pairs of the rope frequency tables. An MLA unit
+    folds its nope blocks ``w_uq_nope``/``w_uk_nope`` (L, rank, H, nope)
+    as class 1, one group a head; it has no bias and no scales to fold."""
     new = dict(p)
-    wq, wk = p["wq"], p["wk"]                        # (L, D, H, dq)
+    qk, kk = ("w_uq_nope", "w_uk_nope") if unit.kind == "mla" \
+        else ("wq", "wk")
+    wq, wk = p[qk], p[kk]                            # (L, D, H, dq)
     L = wq.shape[0]
     G, qpg = unit.n_groups, unit.q_per_group
     dq_full = wq.shape[-1]
@@ -329,8 +349,8 @@ def _fold_attn_block(p, p2stats, unit: Unit, pc: PruneConfig, keep, prune,
         wS = torch.gather(wg, 4, idx).float()
         return mix(wS, f).reshape(L, D, G * n_per_group, n).to(w.dtype)
 
-    new["wq"] = fold(wq, qpg, fq)
-    new["wk"] = fold(wk, 1, fk)
+    new[qk] = fold(wq, qpg, fq)
+    new[kk] = fold(wk, 1, fk)
     if "bq" in p:
         # biases are pre-rope additive terms: same gather and fold
         new["bq"] = fold(p["bq"][:, None], qpg, fq)[:, 0].float()
@@ -459,8 +479,8 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
         if u.kind in ("mlp", "rwkv_mlp", "moe"):
             if pc.mlp_sparsity <= 0:
                 continue
-            w2 = get_block(params, u)["wv" if u.kind == "rwkv_mlp"
-                                      else "wd"]
+            w2 = _unit_block(get_block(params, u), u)[
+                "wv" if u.kind == "rwkv_mlp" else "wd"]
             # float64 norms a few matrices at a time: qwen3-moe's wd is
             # 8 x 128 x 1536 x 4096, 48 GB in float64
             col = torch.cat([
@@ -481,6 +501,31 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
     return plan
 
 
+def _unit_block(block, u: Unit):
+    """The params a unit prunes: a shared expert's MLP inside its MoE
+    block, else the block."""
+    return block["shared"] if u.shared_expert else block
+
+
+def _to(stats, device):
+    return map_tree(lambda t: t.to(device), stats)
+
+
+def _park_moments(p1, units, attn_plan, device):
+    """Pass 1's MLP moments, moved to host memory when pass 2's class-1 G
+    would take more than half the card's free memory (deepseek-v3's MLA:
+    8.6 GB a layer), else as they are; the fold takes each back."""
+    g_bytes = sum(4 * np.prod(np.shape(attn_plan[u.name][0])[:-1])
+                  * np.shape(attn_plan[u.name][0])[-1] ** 4
+                  for u in units if u.name in attn_plan
+                  and u.attn_class == 1)
+    if device.type != "cuda" \
+            or g_bytes < torch.cuda.mem_get_info(device)[0] // 2:
+        return p1
+    return {k: v if k in attn_plan else _to(v, "cpu")
+            for k, v in p1.items()}
+
+
 def _tick(report, stage: str, t0: float):
     timing = report["timing"]
     timing[stage] = timing.get(stage, 0.0) + time.time() - t0
@@ -491,10 +536,10 @@ def _prune_units(model, units, params, new_params, calib_batches,
                  one_traversal, spec_margin, ckpt_dir=None,
                  ckpt_every: int = 8):
     """Calibrate, rank, compensate and fold ``units``: statistics from
-    ``params``, blocks folded from ``new_params``. Returns ``({unit.name:
-    folded block}, plan)``; adds the stage times (each ending with a device
-    synchronise), the units' diagnostics and, when it speculated, its hits
-    and misses to ``report``."""
+    ``params``, blocks folded from ``new_params``. Returns ``({(seg, layer
+    key, param key): folded block}, plan)``; adds the stage times (each
+    ending with a device synchronise), the units' diagnostics and, when it
+    speculated, its hits and misses to ``report``."""
     speculate = (one_traversal and pc.attn_sparsity > 0
                  and any(u.kind in _ATTN_KINDS for u in units))
     # the expert-removal moments are reduced only when experts go
@@ -528,6 +573,7 @@ def _prune_units(model, units, params, new_params, calib_batches,
                  if u.kind in _ATTN_KINDS and u.name in plan}
     p2 = {}
     if attn_plan:
+        p1 = _park_moments(p1, units, attn_plan, device)
         t0 = time.time()
         p2, misses = _resolve_attn_pass2(
             model, units, params, calib_batches, attn_plan, spec_plan,
@@ -548,23 +594,42 @@ def _prune_units(model, units, params, new_params, calib_batches,
     t0 = time.time()
     say("closed-form compensation + fold")
     folds = {"mlp": _fold_mlp_block, "rwkv_mlp": _fold_mlp_block,
-             "moe": _fold_moe_block, "attn": _fold_attn_block}
+             "moe": _fold_moe_block, "attn": _fold_attn_block,
+             "mla": _fold_attn_block}
+    # attention units first, each statistic dropped once folded; a MoE
+    # block's experts, expert removal and shared expert fold in turn
     blocks = {}
-    for u in units:
-        block = get_block(new_params, u)
+    for u in sorted(units, key=lambda u: u.kind not in _ATTN_KINDS):
+        if u.name not in plan and u.name not in e_plan:
+            continue
+        key = (u.seg, u.layer_key, u.param_key)
+        block = blocks.get(key, get_block(new_params, u))
+        attn = u.kind in _ATTN_KINDS
+        st = p2.pop(u.name) if attn else _to(p1.pop(u.name), device)
         if u.name in plan:
-            st = p2[u.name] if u.kind in _ATTN_KINDS else p1[u.name]
-            block = _fold_as_stack(folds[u.kind], block, st, u, pc,
-                                   *plan[u.name], report["units"])
+            folded = _fold_as_stack(folds[u.kind], _unit_block(block, u),
+                                    st, u, pc, *plan[u.name],
+                                    report["units"])
+            block = dict(block, shared=folded) if u.shared_expert \
+                else folded
         if u.name in e_plan:
-            block = _fold_as_stack(_fold_moe_experts, block, p1[u.name], u,
-                                   pc, *e_plan[u.name], report["units"])
-        if u.name in plan or u.name in e_plan:
-            blocks[u.name] = block
+            block = _fold_as_stack(_fold_moe_experts, block, st, u, pc,
+                                   *e_plan[u.name], report["units"])
+        del st
+        blocks[key] = block
     _sync(device)
     _tick(report, "fold", t0)
     plan.update({k + "/experts": v for k, v in e_plan.items()})
     return blocks, plan
+
+
+def _set_blocks(new_params, units, blocks):
+    """Put the folded blocks (keyed (seg, layer key, param key), as
+    ``_prune_units`` returns them) into ``new_params``."""
+    for u in units:
+        key = (u.seg, u.layer_key, u.param_key)
+        if key in blocks:
+            set_block(new_params, u, blocks[key])
 
 
 def _fold_as_stack(fold, block, st, u: Unit, pc: PruneConfig, keep, prune,
@@ -665,9 +730,7 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
         say=progress or (lambda s: None), stats_dtype=stats_dtype,
         one_traversal=one_traversal, spec_margin=spec_margin,
         ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
-    for u in units:
-        if u.name in blocks:
-            set_block(new_params, u, blocks[u.name])
+    _set_blocks(new_params, units, blocks)
     report["plan_sizes"] = {k: v[0].shape for k, v in plan.items()}
     report["traversals"] = calls[0]
     return new_params, _pruned_cfg(cfg, pc), report
@@ -713,9 +776,7 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
             model, units, params, new_params, calib, pc, report,
             device=device, say=say, stats_dtype=stats_dtype,
             one_traversal=one_traversal, spec_margin=spec_margin)
-        for u in units:
-            if u.name in blocks:
-                set_block(new_params, u, blocks[u.name])
+        _set_blocks(new_params, units, blocks)
         merged_plan.update(plan)
         report["groups"] += 1
     report["plan_sizes"] = {k: v[0].shape for k, v in merged_plan.items()}

@@ -48,8 +48,13 @@ through the gram kernel as one stack of L x E items, one launch a batch.
 Its expert-removal moments (``yn``, ``ys1``, ``ys2`` of the block input
 and the experts' contributions, ((E+1) D)^2 a layer) are reduced only
 when the forward recorded their taps (``models.common.expert_taps``),
-i.e. when experts are pruned. Mamba, MLA and cross attention are not
-ported yet; they raise.
+i.e. when experts are pruned. A shared expert is an ``mlp`` unit on the
+block's ``h`` tap. An MLA unit (deepseek-v3) is a class-1 unit with one
+group a head, on the taps of its nope block. Pass 2's class-1 ``G`` is
+accumulated in place (``_add_kron``): at MLA's full width it is (H,
+ds^2, ds^2) = 8.6 GB a layer, and a batch adds into it one chunk of heads
+at a time, so no batch allocates a second one. Mamba and cross attention
+are not ported yet; they raise.
 """
 from __future__ import annotations
 
@@ -107,7 +112,7 @@ def _to_complex_pairs(q):
 
 
 def _check_attn(unit: Unit, fn: str = "_p2_attn"):
-    if unit.kind != "attn":
+    if unit.kind not in ("attn", "mla"):
         raise NotImplementedError(
             f"attention unit {unit.name} (kind {unit.kind}) is not ported; "
             f"see repro.core.stats.{fn}")
@@ -192,25 +197,42 @@ def _take(x, idx):
                                                           idx.shape[-1]))
 
 
-def _p2_layer(qg, kg, keep, prune):
-    """One layer. qg (B, G, TQ, d), kg (B, G, T, d); keep (G, ds),
-    prune (G, dp) -> {G (G, ds^2, ds^2), h (G, ds^2), t2 (G,)}.
+# values of one chunk of pass 2's per-batch G product (1 GiB in fp32)
+_KRON_CHUNK = 1 << 28
 
-    G[i, l, j, k] = sum_b A_ss[b, i, j] C_ss[b, l, k] is contracted over b
-    inside the einsum (a matmul over the batch axis), so no per-sample
-    (B, ds, ds, ds, ds) product is ever formed."""
+
+def _add_kron(out, A, C):
+    """out (G, ds^2, ds^2) += sum_b A[g, b, i, j] C[g, b, l, k] at [g, (i
+    l), (j k)], in place; A, C (G, B, ds, ds). The batch contraction is
+    one bmm a chunk of groups, in the (i j),(l k) layout, added into
+    ``out``'s layout through a transposed view: a batch allocates one
+    chunk's product (``_KRON_CHUNK`` values), never a second G."""
+    n_g, B, ds, _ = A.shape
+    Af = A.reshape(n_g, B, ds * ds).transpose(1, 2)       # (G, ds^2, B)
+    Cf = C.reshape(n_g, B, ds * ds)                       # (G, B, ds^2)
+    o = out.view(n_g, ds, ds, ds, ds)                     # [g, i, l, j, k]
+    step = max(1, _KRON_CHUNK // ds ** 4)
+    for g0 in range(0, n_g, step):
+        prod = torch.bmm(Af[g0:g0 + step], Cf[g0:g0 + step])
+        o[g0:g0 + step].add_(prod.view(-1, ds, ds, ds, ds).transpose(2, 3))
+
+
+def _p2_layer(qg, kg, keep, prune, G_out):
+    """One layer. qg (B, G, TQ, d), kg (B, G, T, d); keep (G, ds),
+    prune (G, dp); G_out (G, ds^2, ds^2) -> {h (G, ds^2), t2 (G,)}, and
+    G[i, l, j, k] = sum_b A_ss[b, i, j] C_ss[b, l, k] added into G_out
+    (``_add_kron``): no per-sample (B, ds, ds, ds, ds) product is formed."""
     qS, qP = _take(qg, keep), _take(qg, prune)
     kS, kP = _take(kg, keep), _take(kg, prune)
     A_ss = torch.einsum("bgts,bgtu->gbsu", qS, qS)
     C_ss = torch.einsum("bgts,bgtu->gbsu", kS, kS)
     A_sp = torch.einsum("bgts,bgtp->gbsp", qS, qP)
     C_ps = torch.einsum("bgtp,bgts->gbps", kP, kS)
-    n_g, ds = keep.shape
-    G_mat = torch.einsum("gbij,gblk->giljk", A_ss, C_ss) \
-        .reshape(n_g, ds * ds, ds * ds)
-    h_vec = torch.einsum("gbsp,gbpu->gsu", A_sp, C_ps).reshape(n_g, -1)
+    _add_kron(G_out, A_ss, C_ss)
+    h_vec = torch.einsum("gbsp,gbpu->gsu", A_sp, C_ps).reshape(
+        keep.shape[0], -1)
     t2 = torch.einsum("bgtp,bgup->bgtu", qP, kP).square().sum(dim=(0, 2, 3))
-    return {"G": G_mat, "h": h_vec, "t2": t2}
+    return {"h": h_vec, "t2": t2}
 
 
 def _p2_layer_complex(qg, kg, keep, prune):
@@ -232,26 +254,37 @@ def _p2_layer_complex(qg, kg, keep, prune):
     return {"G": Gd, "h": hd, "t2": t2}
 
 
-def _p2_attn(taps, unit: Unit, keep, prune):
+def _p2_attn(taps, unit: Unit, keep, prune, acc=None):
     """keep/prune: int64 tensors (L, G, ds) / (L, G, dp) of kept / pruned
     dims (class 1) or rotary pairs (classes 2, 3); (G, ..) for an unstacked
     unit -> class 1: {G (L, G, ds^2, ds^2), h (L, G, ds^2), t2 (L, G)};
     class 2: {G (L, G, ds, ds), h (L, G, ds) complex64, t2 (L, G)}; class
-    3: class 2's real parts (fp32)."""
+    3: class 2's real parts (fp32).
+
+    ``acc``: the unit's running pass-2 sums. A class-1 unit then adds this
+    batch's G into ``acc["G"]`` in place and returns only h and t2 (for
+    ``tree_add``); without it a zero G is made and returned."""
     _check_attn(unit)
     q = _stacked(unit, taps[f"{unit.tap_prefix}/q"]).float()
     k = _stacked(unit, taps[f"{unit.tap_prefix}/k"]).float()
     keep, prune = _stacked(unit, keep), _stacked(unit, prune)
     qg = _group_q(q, unit.n_groups)
     kg = k.permute(0, 1, 3, 2, 4)
-    layer = _p2_layer
-    if unit.attn_class != 1:
-        qg, kg, layer = _to_complex_pairs(qg), _to_complex_pairs(kg), \
-            _p2_layer_complex
-    per_layer = [layer(qg[i], kg[i], keep[i], prune[i])
-                 for i in range(q.shape[0])]
+    L = q.shape[0]
+    if unit.attn_class == 1:
+        n_g, ds = keep.shape[1:]
+        G = q.new_zeros(L, n_g, ds * ds, ds * ds) if acc is None \
+            else _stacked(unit, acc["G"])
+        per_layer = [_p2_layer(qg[i], kg[i], keep[i], prune[i], G[i])
+                     for i in range(L)]
+    else:
+        qg, kg = _to_complex_pairs(qg), _to_complex_pairs(kg)
+        per_layer = [_p2_layer_complex(qg[i], kg[i], keep[i], prune[i])
+                     for i in range(L)]
     out = {key: torch.stack([s[key] for s in per_layer])
            for key in per_layer[0]}
+    if unit.attn_class == 1 and acc is None:
+        out["G"] = G
     if unit.attn_class == 3:
         out["G"], out["h"] = out["G"].real, out["h"].real
     return _unstack(unit, out)
@@ -441,7 +474,7 @@ def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
             out[u.name] = _p1_mlp(taps, u)
         elif u.kind == "moe":
             out[u.name] = _p1_moe(taps, u)
-        elif u.kind == "attn":
+        elif u.kind in ("attn", "mla"):
             out[u.name] = _p1_attn(taps, u)
         else:
             raise NotImplementedError(
@@ -450,12 +483,17 @@ def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
     return out
 
 
-def pass2_reduce(taps: Dict, units: List[Unit], plan: Dict) -> Dict:
+def pass2_reduce(taps: Dict, units: List[Unit], plan: Dict,
+                 acc: Dict | None = None) -> Dict:
+    """Per-batch pass-2 sums of every attention unit in ``plan``; with the
+    running accumulator ``acc``, class-1 units add their G into it in
+    place and leave it out of the result (``_p2_attn``)."""
     out = {}
     for u in units:
         if u.kind in ("attn", "mla", "cross") and u.name in plan:
             keep, prune = plan[u.name]
-            out[u.name] = _p2_attn(taps, u, keep, prune)
+            out[u.name] = _p2_attn(taps, u, keep, prune,
+                                   None if acc is None else acc[u.name])
     return out
 
 

@@ -1,9 +1,10 @@
 """Prunable-unit discovery, copied from ``repro.core.units`` (numpy-only).
 
 Every family and layout is discovered as in the JAX package; the
-statistics and folds cover mlp, rwkv_mlp, moe (routed experts) and attn
-units of every class, stacked or unrolled, and refuse by name the kinds
-the port cannot reduce yet (shared experts, mamba, mla, cross).
+statistics and folds cover mlp (shared experts and the ``first_k_dense``
+layers' ``dense_d_ff`` included), rwkv_mlp, moe (routed experts), attn
+units of every class and mla, stacked or unrolled, and refuse by name the
+kinds the port cannot reduce yet (mamba, cross).
 
 CORP operates on two kinds of structured units (paper §3.2) plus two
 framework extensions:

@@ -172,7 +172,9 @@ def main(argv=None) -> dict:
     timing = ", ".join(f"{k} {v:.3f}s" for k, v in report["timing"].items())
     print(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
           f"d_ff {cfg.d_ff} -> {new_cfg.eff_d_ff}, "
-          f"qk {cfg.qk_full} -> {new_cfg.eff_qk}"
+          + (f"dense d_ff {cfg.dense_d_ff} -> {new_cfg.eff_dense_d_ff}, "
+             if cfg.dense_d_ff else "")
+          + f"qk {cfg.qk_full} -> {new_cfg.eff_qk}"
           + (f", experts {cfg.moe.num_experts} -> "
              f"{new_cfg.eff_num_experts}" if cfg.moe is not None else ""))
     if "speculative" in report:

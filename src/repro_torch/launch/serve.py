@@ -25,7 +25,8 @@ unchanged); ``--sparsity S --ckpt-in DIR`` serves
 a pruned checkpoint written by ``repro.launch.prune`` (or the port's),
 with its compensation leaves (``mlp/bd``, ``mlp/bv_comp``; a MoE's
 ``mlp/bd_moe`` and, with ``--expert-sparsity``, ``mlp/moe_resid`` and
-``mlp/moe_out_b``), which the JAX CLI's template drops; a
+``mlp/moe_out_b``; a shared expert's ``mlp/shared/bd``), which the JAX
+CLI's template drops; a
 ``--no-compensate`` checkpoint has none and serves them as zeros. A pruned qk-norm model (gemma3-1b) restores its per-head
 qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
 CLI's template cannot take (its restore fails). It
@@ -34,7 +35,9 @@ PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
 the front-end is not ported, so its flags (queue, deadlines, prefix cache,
 shortest-prompt-first, replicas, mesh) raise here, as does enc-dec.
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
-prompts (the engine sends no patch embeddings).
+prompts (the engine sends no patch embeddings). ``--arch
+deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
+``k_rope``, (512 + 64) values a token and layer).
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ _UNPORTED = {
 # leaves CORP pruning adds: a pruned template holds them (zeros), and a
 # pruned checkpoint fills them when it was compensated
 COMPENSATION_LEAVES = ("mlp/bd", "mlp/bv_comp", "mlp/bd_moe",
-                       "mlp/moe_resid", "mlp/moe_out_b")
+                       "mlp/moe_resid", "mlp/moe_out_b", "mlp/shared/bd")
 
 
 def _sync(device):

@@ -19,7 +19,20 @@ A pruned config's template holds them per head, ``(H, qk_kept)`` and
 checkpoint restores into it (the JAX template keeps ``(qk_kept,)``, and
 its restore of a pruned qk-norm checkpoint fails).
 
-Not ported yet: MLA and cross attention; they raise.
+MLA (deepseek-v3, ``cfg.mla``): queries and keys/values go through
+low-rank latents (``w_dq`` to ``q_lora_rank``, ``w_dkv`` to
+``kv_lora_rank``, each rms-normed), per head a prunable *nope* block
+(``w_uq_nope``/``w_uk_nope``, ``cfg.eff_qk`` dims) and a rope block
+(``w_uq_rope`` per head, one ``w_k_rope`` key shared by the heads), and
+``w_uv`` for the values. The taps are the nope blocks only. Prefill runs
+the attention kernel on the concatenated (nope | rope) heads at scale
+``1/sqrt(qk_nope_dim + qk_rope_dim)``, which pruning leaves as it is.
+The cache holds the latent ``ckv`` (B, S, kv_lora_rank) and the roped
+``k_rope`` (B, S, qk_rope_dim); decode absorbs ``w_uk_nope`` into the
+query and ``w_uv`` after the softmax, in fp32 logits over the latent
+cache (plain torch ops, as the reference's jnp).
+
+Not ported yet: cross attention.
 """
 from __future__ import annotations
 
@@ -29,14 +42,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_decode import ops as decode_ops
-from repro_torch.models.common import (dense_init, dtype_of, rms_head_norm,
-                                       rope_freqs, tap)
-
-
-def _unported(cfg):
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported; see "
-                                  "repro.models.attention._apply_mla")
+from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
+                                       rms_head_norm, rope_freqs, tap)
 
 
 def _uses_rope(cfg) -> bool:
@@ -44,7 +51,8 @@ def _uses_rope(cfg) -> bool:
 
 
 def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
-    _unported(cfg)
+    if cfg.mla is not None:
+        return _init_mla(gen, cfg)
     dt = dtype_of(cfg)
     D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dq, dv = cfg.eff_qk, cfg.d_head
@@ -69,6 +77,105 @@ def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
         p["rope_inv_q"] = inv[None, :].repeat(H, 1)
         p["rope_inv_k"] = inv[None, :].repeat(Hkv, 1)
     return p
+
+
+def _init_mla(gen: torch.Generator, cfg):
+    """MLA params (``repro.models.attention._init_mla``), drawn in the
+    reference's leaf order; ``rope_inv`` is the rope block's frequency
+    table, kept as a leaf so that key paths match (the forward recomputes
+    it, as the reference does)."""
+    dt = dtype_of(cfg)
+    m = cfg.mla
+    D, H, nope = cfg.d_model, cfg.n_heads, cfg.eff_qk
+    return {
+        "w_dq": dense_init(gen, (D, m.q_lora_rank), dt),
+        "q_norm_scale": torch.ones(m.q_lora_rank),
+        "w_uq_nope": dense_init(gen, (m.q_lora_rank, H, nope), dt),
+        "w_uq_rope": dense_init(gen, (m.q_lora_rank, H, m.qk_rope_dim), dt),
+        "w_dkv": dense_init(gen, (D, m.kv_lora_rank), dt),
+        "w_k_rope": dense_init(gen, (D, m.qk_rope_dim), dt),
+        "kv_norm_scale": torch.ones(m.kv_lora_rank),
+        "w_uk_nope": dense_init(gen, (m.kv_lora_rank, H, nope), dt),
+        "w_uv": dense_init(gen, (m.kv_lora_rank, H, m.v_dim), dt),
+        "wo": dense_init(gen, (H, m.v_dim, D), dt,
+                         scale=1.0 / math.sqrt(H * m.v_dim)),
+        "rope_inv": torch.from_numpy(
+            rope_freqs(m.qk_rope_dim, cfg.rope_theta)).float(),
+    }
+
+
+def _mla_scale(cfg) -> float:
+    """The MLA logit scale: the dense model's, after pruning too."""
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+
+
+def _mla_latents(p, x, cfg, positions):
+    """The per-token MLA projections (``_apply_mla``, ``_decode_mla``): the
+    normed query latent's nope and roped blocks (B, T, H, nope|rope), the
+    normed kv latent (B, T, kv_lora_rank) and the roped shared key (B, T,
+    rope)."""
+    cq = rms_head_norm(torch.einsum("btd,dr->btr", x, p["w_dq"]),
+                       p["q_norm_scale"], cfg.norm_eps)
+    q_nope = torch.einsum("btr,rhq->bthq", cq, p["w_uq_nope"])
+    q_rope = apply_rope(torch.einsum("btr,rhq->bthq", cq, p["w_uq_rope"]),
+                        positions, cfg.rope_theta)
+    ckv = rms_head_norm(torch.einsum("btd,dr->btr", x, p["w_dkv"]),
+                        p["kv_norm_scale"], cfg.norm_eps)
+    k_rope = apply_rope(torch.einsum("btd,dq->btq", x, p["w_k_rope"])
+                        [:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False):
+    """Full-sequence MLA (``repro.models.attention._apply_mla``): the
+    attention kernel on q = (q_nope | q_rope) and k = (k_nope | k_rope
+    shared by the heads), v from the latent, causal."""
+    B, T, _ = x.shape
+    H, rope = cfg.n_heads, cfg.mla.qk_rope_dim
+    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, positions)
+    k_nope = torch.einsum("btr,rhq->bthq", ckv, p["w_uk_nope"])
+    v = torch.einsum("btr,rhv->bthv", ckv, p["w_uv"])
+    tap(taps, "q", q_nope)
+    tap(taps, "k", k_nope)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, rope)],
+                  dim=-1)
+    o = flash_ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg))
+    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
+    cache = None
+    if return_cache:
+        cache = {"ckv": ckv, "k_rope": k_rope,
+                 "pos": torch.full((B,), T, dtype=torch.int32,
+                                   device=x.device)}
+    return y, cache
+
+
+def _decode_mla(p, x, cache, cfg):
+    """One-token MLA decode with the absorbed products
+    (``repro.models.attention._decode_mla``): the new ``ckv`` and
+    ``k_rope`` rows are written at ``pos`` in place, q_eff = q_nope .
+    w_uk_nope scores the latent cache directly, in fp32 logits, and the
+    softmax-weighted latent goes through ``w_uv``; ``pos`` advances in
+    place. Returns (y (B, 1, D), cache)."""
+    pos = cache["pos"]
+    q_nope, q_rope, ckv_new, kr_new = _mla_latents(p, x, cfg, pos[:, None])
+    ckv, krope = cache["ckv"], cache["k_rope"]
+    _scatter_time(ckv, ckv_new[:, 0], pos)
+    _scatter_time(krope, kr_new[:, 0], pos)
+    q_eff = torch.einsum("bhq,rhq->bhr", q_nope[:, 0], p["w_uk_nope"])
+    ckv32 = ckv.float()
+    logits = (torch.einsum("bhr,bsr->bhs", q_eff.float(), ckv32)
+              + torch.einsum("bhq,bsq->bhs", q_rope[:, 0].float(),
+                             krope.float())) * _mla_scale(cfg)
+    valid = torch.arange(ckv.shape[1], device=pos.device)[None, :] \
+        <= pos[:, None]
+    logits = logits.masked_fill(~valid[:, None, :], -1e30)
+    o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(logits, dim=-1),
+                         ckv32)
+    o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), p["w_uv"])
+    y = torch.einsum("bhv,hvd->bd", o, p["wo"])[:, None, :]
+    pos.add_(1)
+    return y, cache
 
 
 def _rope_gathered(x, positions, inv):
@@ -111,8 +218,11 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
     (B, T) for rope. Returns (y, cache | None).
 
     The scale is 1/sqrt(qk_full) even after pruning: the folded weights
-    carry the compensation, the logit scale stays the dense model's."""
-    _unported(cfg)
+    carry the compensation, the logit scale stays the dense model's. An
+    MLA layer runs ``_apply_mla``."""
+    if cfg.mla is not None:
+        return _apply_mla(p, x, cfg, positions=positions, taps=taps,
+                          return_cache=return_cache)
     q, k, v = _project_qkv(p, x, cfg, positions, taps)
     window = cfg.sliding_window if (kind == "swa" and mask_kind != "full") \
         else None
@@ -136,9 +246,16 @@ def init_cache(cfg, kind: str, batch: int, max_len: int, device):
     """An empty KV cache for one attention layer: ``max_len`` slots, or
     for ``swa`` a ring of ``min(max_len, sliding_window)`` with
     ``abs_pos`` -1 (empty); ``pos`` and ``abs_pos`` stay int32, as in the
-    JAX package."""
-    _unported(cfg)
+    JAX package. An MLA layer caches the latent ``ckv`` and ``k_rope``."""
     dt = dtype_of(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                   dtype=dt, device=device),
+                "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                      dtype=dt, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
     dq, dv, Hkv = cfg.eff_qk, cfg.d_head, cfg.n_kv_heads
     S = min(max_len, cfg.sliding_window) if kind == "swa" else max_len
     c = {
@@ -155,8 +272,9 @@ def init_cache(cfg, kind: str, batch: int, max_len: int, device):
 def decode_attn(p, x, cache, cfg, kind="attn"):
     """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` (a
     ``swa`` ring: at ``pos mod S``, with ``abs_pos``) and advances ``pos``
-    in place; returns (y, cache)."""
-    _unported(cfg)
+    in place; returns (y, cache). An MLA layer runs ``_decode_mla``."""
+    if cfg.mla is not None:
+        return _decode_mla(p, x, cache, cfg)
     pos = cache["pos"]                          # (B,) current length
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], None)
     k, v = cache["k"], cache["v"]

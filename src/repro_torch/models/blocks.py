@@ -1,8 +1,10 @@
 """Block assembly (``repro.models.blocks``): norm -> mixer -> norm -> MLP,
 pre-norm residual; full-sequence and one-token decode. The mixer is
-attention (``attn``/``swa``) with a dense or routed-MoE MLP, or the RWKV-6
-time mix with its channel mix (``rwkv``). Mamba and cross-attention
-blocks are not ported yet; they raise."""
+attention (``attn``/``swa``, MLA when ``cfg.mla``) with a dense or
+routed-MoE MLP, or the RWKV-6 time mix with its channel mix (``rwkv``).
+The ``first_k_dense`` layers of a MoE config take a dense MLP of
+``dense_ff`` hidden channels. Mamba and cross-attention blocks are not
+ported yet; they raise."""
 from __future__ import annotations
 
 import torch
@@ -31,7 +33,9 @@ def ffn(p, h, cfg, is_moe: bool, taps=None):
 
 
 def init_block(gen: torch.Generator, cfg, kind: str = "attn",
-               is_moe: bool = False):
+               is_moe: bool = False, dense_ff: int | None = None):
+    """``dense_ff``: the hidden dim of a dense MLP other than
+    ``cfg.eff_d_ff`` (a ``first_k_dense`` layer's)."""
     _check(kind)
     if kind == "rwkv":
         return {"ln1": init_norm(cfg),
@@ -41,8 +45,8 @@ def init_block(gen: torch.Generator, cfg, kind: str = "attn",
     return {"ln1": init_norm(cfg),
             "mixer": attn_mod.init_attn(gen, cfg, kind),
             "ln2": init_norm(cfg),
-            "mlp": (mlp_mod.init_moe if is_moe else mlp_mod.init_mlp)(
-                gen, cfg)}
+            "mlp": mlp_mod.init_moe(gen, cfg) if is_moe
+            else mlp_mod.init_mlp(gen, cfg, d_ff=dense_ff)}
 
 
 def rwkv_block(p, x, cfg, state=None, taps=None):

@@ -25,14 +25,28 @@ def dtype_of(cfg) -> torch.dtype:
 # CUDA one draws a large model on the card (other values, same shapes)
 # ---------------------------------------------------------------------------
 
+# a leaf larger than this many values is drawn one slice of its first axis
+# at a time (deepseek-v3's expert stack is 3.76 G values: 15 GB in fp32)
+_CHUNKED_DRAW = 1 << 30
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
     """Normal weights over ``sqrt(shape[0])``, as the JAX package scales
-    them (an expert stack (E, D, F) is scaled by its expert count)."""
+    them (an expert stack (E, D, F) is scaled by its expert count). A leaf
+    of more than ``_CHUNKED_DRAW`` values is drawn in fp32 one slice of its
+    first axis at a time and cast into its dtype, so the fp32 transient is
+    one slice."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     if scale is None:
         scale = 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale) \
-        .to(dtype)
+    if math.prod(shape) <= _CHUNKED_DRAW:
+        return (torch.randn(shape, generator=gen, device=gen.device)
+                * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for row in out:
+        row.copy_(torch.randn(row.shape, generator=gen, device=gen.device)
+                  .mul_(scale))
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
@@ -53,6 +67,8 @@ def init_stacked(make, reps: int):
     layers twice: each layer is drawn in turn (the same draws, in the same
     order) and copied into the stacked buffers."""
     first = make()
+    if reps == 1:               # a view: the one layer is not copied
+        return map_tree(lambda t: t[None], first)
     out = map_tree(lambda t: t.new_empty((reps,) + tuple(t.shape)), first)
     dst = flatten(out)
     for r in range(reps):
@@ -123,6 +139,21 @@ def rope_freqs(dim: int, theta: float) -> np.ndarray:
     """Per-pair inverse frequencies in float64 (dim must be even); callers
     cast to fp32, as the JAX package does."""
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """Rope with one frequency table for every head
+    (``repro.models.common.apply_rope``): x (..., T, H, D), D even,
+    positions (..., T). Interleaved pairs (0::2, 1::2), fp32 angles, the
+    result cast back to x's dtype."""
+    inv = torch.from_numpy(rope_freqs(x.shape[-1], theta)).float() \
+        .to(x.device)
+    ang = positions.float()[..., None] * inv              # (..., T, D/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

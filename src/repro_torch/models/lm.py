@@ -9,7 +9,8 @@ scans, the port loops over the stacked axis (views, no copies). The decode
 cache has the same tree as JAX's: a top-level ``pos`` (B,) and per layer
 either ``k``, ``v``, ``pos`` (attention) or the recurrent state
 ``{"time": {"shift", "wkv"}, "channel": {"shift"}}`` (rwkv, no per-layer
-``pos``), scanned leaves stacked (reps, B, ...); every ``pos`` is int32.
+``pos``) or MLA's latent ``ckv``, ``k_rope``, ``pos``, scanned leaves
+stacked (reps, B, ...); every ``pos`` is int32.
 ``lm_decode_step`` updates the cache in place (new K/V rows, or the wkv
 state and shift rows overwritten).
 
@@ -75,8 +76,13 @@ def init_lm(gen: torch.Generator, cfg):
         params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab), dt)
     for si, seg in enumerate(cfg.layout()):
         if seg[0] == "unroll":
+            # a MoE config's dense layers (first_k_dense) take dense_d_ff
             params[_seg_name(si)] = {
-                f"l{j}": blk.init_block(gen, cfg, *cfg.layer_spec(li))
+                f"l{j}": blk.init_block(
+                    gen, cfg, *cfg.layer_spec(li),
+                    dense_ff=cfg.eff_dense_d_ff
+                    if cfg.moe is not None and not cfg.layer_is_moe(li)
+                    else None)
                 for j, li in enumerate(seg[1])}
         else:
             _, reps, idxs = seg
@@ -243,9 +249,10 @@ def override_cache_pos(tree, lengths):
 
 
 def _pad_cache(c, max_len):
-    """Right-pad a freshly built cache to max_len time slots."""
+    """Right-pad a freshly built cache to max_len time slots: ``k``, ``v``
+    or MLA's ``ckv``, ``k_rope``."""
     out = dict(c)
-    for key in ("k", "v"):
+    for key in c.keys() & {"k", "v", "ckv", "k_rope"}:
         T = c[key].shape[1]
         if T < max_len:
             pad = [0, 0] * (c[key].ndim - 2) + [0, max_len - T]

@@ -1,6 +1,7 @@
 """MLP mixers (``repro.models.mlp``): dense (plain / gated) and the
-routed Mixture-of-Experts with capacity. Shared experts (deepseek-v3) are
-not ported yet; they raise.
+routed Mixture-of-Experts with capacity, with its always-on shared experts
+(deepseek-v3: one dense GLU of ``num_shared * d_expert`` beside the routed
+ones, whose ``h`` tap is the shared unit's).
 
 CORP integration: the tap ``h`` is the activation entering the second
 linear map, so one hidden channel is one structured unit. For MoE the tap
@@ -70,21 +71,15 @@ def apply_mlp(p, x, cfg, taps=None):
 # Mixture of Experts (GShard-style grouped dispatch with capacity)
 # ---------------------------------------------------------------------------
 
-def _no_shared(cfg):
-    if cfg.moe.num_shared > 0:
-        raise NotImplementedError(
-            "shared experts are not ported; see repro.models.mlp.init_moe "
-            "(shared)")
-
-
 def init_moe(gen: torch.Generator, cfg):
     """Router fp32 (D, E), experts ``wg``/``wu`` (E, D, F), ``wd`` (E, F,
     D). A pruned config's template adds the compensation slots CORP
     writes, zeros fp32 (the JAX template has none, and its restore drops
     them): ``bd_moe`` (E, D) when hidden channels were pruned,
     ``moe_resid`` (D, D) and ``moe_out_b`` (D,) when experts were
-    removed."""
-    _no_shared(cfg)
+    removed. Shared experts are one dense MLP ``shared`` of ``num_shared
+    * d_expert`` hidden channels (``num_shared * d_ff_kept`` pruned, with
+    its ``bd`` slot, see ``init_mlp``)."""
     dt = dtype_of(cfg)
     D, E = cfg.d_model, cfg.eff_num_experts
     F = cfg.eff_d_expert
@@ -97,6 +92,12 @@ def init_moe(gen: torch.Generator, cfg):
     if cfg.experts_kept is not None:
         p["moe_resid"] = torch.zeros(D, D)
         p["moe_out_b"] = torch.zeros(D)
+    m = cfg.moe
+    if m.num_shared > 0:
+        p["shared"] = init_mlp(gen, cfg.replace(
+            d_ff=m.num_shared * m.d_expert,
+            d_ff_kept=(None if cfg.d_ff_kept is None
+                       else m.num_shared * cfg.d_ff_kept)))
     return p
 
 
@@ -127,8 +128,8 @@ def apply_moe(p, x, cfg, taps=None):
     nothing. Dispatch and combine are index scatters and gathers (the
     reference's one-hot products select the same rows exactly); the gate
     weights are rounded to the model dtype before they combine, as the
-    reference rounds its combine tensor."""
-    _no_shared(cfg)
+    reference rounds its combine tensor. Shared experts add their dense
+    MLP of x; its ``h`` tap lands beside ``moe_h``."""
     m = cfg.moe
     E, K = cfg.eff_num_experts, m.top_k
     B, T, D = x.shape
@@ -184,4 +185,7 @@ def apply_moe(p, x, cfg, taps=None):
         y = y + (xg.float() @ p["moe_resid"]).to(dt)
     if "moe_out_b" in p:   # CORP expert-removal compensation bias
         y = y + p["moe_out_b"].to(dt)
-    return y.reshape(B, T, D)
+    y = y.reshape(B, T, D)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, cfg, taps=taps)
+    return y

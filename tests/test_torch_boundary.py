@@ -25,7 +25,7 @@ from repro_torch.data import calib_stream, vit_batch  # noqa: E402
 from repro_torch.launch import prune as pt_prune  # noqa: E402
 from repro_torch.launch import serve as pt_serve  # noqa: E402
 from repro_torch.models import build_model as pt_build  # noqa: E402
-from torch_parity import images  # noqa: E402
+from torch_parity import images, to_port_cfg  # noqa: E402
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
@@ -115,10 +115,15 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_paths_raise():
-    for arch in ("jamba-1.5-large-398b", "deepseek-v3-671b",
-                 "seamless-m4t-large-v2"):
+    """The Mamba and enc-dec configs are not ported: ``get_config`` and
+    ``reduced`` refuse them by name (deepseek-v3-671b is ported since its
+    MLA, shared experts and dense layers are)."""
+    for arch in ("jamba-1.5-large-398b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="repro.configs"):
             pt_configs.get_config(arch)
+        with pytest.raises(NotImplementedError, match="Mamba or enc-dec"):
+            pt_configs.reduced(to_port_cfg(jax_configs.get_config(arch)))
+    assert "deepseek-v3-671b" in pt_configs.LM_IDS
     with pytest.raises(NotImplementedError, match="--mesh"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
                        "--mesh", "2x2"])

@@ -246,6 +246,18 @@ def test_flash_kernel_bf16_matches_plain(dev, B, T, S, H, Hkv, dq, dv,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,dq", [(2, 512, 192), (1, 300, 192),
+                                    (2, 512, 128)])
+def test_flash_kernel_at_the_mla_prefill(dev, B, T, dq, dtype, tol):
+    """deepseek-v3's MLA prefill: MHA over 128 heads, q and k of (nope |
+    rope) = 192 dims (128 when the nope block is pruned to 64) against v of
+    128, causal, at the dense model's scale 1/sqrt(192) in both cases."""
+    _flash_case(dev, dtype, tol, B, T, T, 128, 128, dq, 128, True, None,
+                scale=192 ** -0.5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
 def test_flash_kernel_reads_unaligned_views(dev, dtype, tol):
     """q, k, v one element into their storage: element loads, no copy."""
     _flash_case(dev, dtype, tol, 2, 150, 150, 4, 2, 64, 64, True, None,

@@ -290,8 +290,9 @@ def test_complex_solve_fold_and_pair_dims_match_jax(seed):
 
 def test_class3_and_unported_units_raise_by_name(s):
     """Class 3 (qk-norm) units reduce (tests/test_torch_gemma_prune.py
-    holds them to JAX); the unit kinds still unported, cross attention and
-    MLA, raise by name."""
+    holds them to JAX), and so do class-1 MLA units
+    (tests/test_torch_deepseek_prune.py); the unit kinds still
+    unported, cross attention and Mamba, raise by name."""
     cfg = s["cfg"].replace(qk_norm=True)
     units = discover_units(cfg)
     assert units[0].attn_class == 3
@@ -302,10 +303,14 @@ def test_class3_and_unported_units_raise_by_name(s):
     cross = dataclasses.replace(units[0], kind="cross", name="x/cross")
     with pytest.raises(NotImplementedError, match="cross"):
         stats_mod.pass1_reduce(taps, [cross])
-    mla = dataclasses.replace(units[0], kind="mla", name="x/mla")
-    with pytest.raises(NotImplementedError, match="_p2spec_attn"):
-        stats_mod.spec_pass2_reduce(taps, [mla], {
-            "x/mla": torch.zeros((2, 1, 4), dtype=torch.int64)})
+    mamba = dataclasses.replace(units[0], kind="mamba", name="x/mamba")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        stats_mod.pass1_reduce(taps, [mamba])
+    mla = dataclasses.replace(units[0], kind="mla", name="x/mla",
+                              attn_class=1)
+    spec = stats_mod.spec_pass2_reduce(taps, [mla], {
+        "x/mla": torch.zeros((2, 1, 4), dtype=torch.int64)})
+    assert spec["x/mla"]["Gc"].shape == (2, 1, 4, 4, 4, 4)
 
 
 # ---------------------------------------------------------------------------

@@ -243,10 +243,21 @@ def test_expert_taps_are_recorded_only_when_asked(s):
 
 
 def test_shared_experts_raise_by_name(s):
-    cfg = s["cfg"].replace(moe=s["cfg"].moe.__class__(
+    """Shared experts were refused by name until they were ported with
+    deepseek-v3 (``tests/test_torch_deepseek.py`` holds them to JAX): the
+    same config now builds a ``shared`` GLU of ``num_shared * d_expert``
+    under JAX's key paths, and its output is added to the routed one."""
+    moe = s["cfg"].moe.__class__(num_experts=4, top_k=2, d_expert=128,
+                                 num_shared=1)
+    cfg = s["cfg"].replace(moe=moe)
+    jcfg = s["jcfg"].replace(moe=s["jcfg"].moe.__class__(
         num_experts=4, top_k=2, d_expert=128, num_shared=1))
-    with pytest.raises(NotImplementedError, match="shared"):
-        pt_build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    got = interop.flatten(pt_build(cfg).init(torch.Generator().manual_seed(0),
+                                             "cpu"))
+    want = jax_flatten(jax_build(jcfg).init(jax.random.PRNGKey(0)))[0]
+    assert {k: tuple(v.shape) for k, v in got.items()} \
+        == {k: v.shape for k, v in want.items()}
+    assert tuple(got["seg0/p0/mlp/shared/wd"].shape) == (2, 128, 64)
 
 
 # ---------------------------------------------------------------------------
