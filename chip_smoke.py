@@ -32,7 +32,7 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      a group (2 groups, 3 traversals, <= 1e-4); on a reduced DeiT the same
      pruned output on the GPU as on the CPU's plain path; then profiles one
      prune;
-  4. serve path: serves a ragged trace of 32 requests with Qwen2-1.5B at
+  4. serve path: serves a ragged trace of 16 requests with Qwen2-1.5B at
      full width (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
      counting the kernels' launches in that run; profiles 20 shared decode
@@ -81,13 +81,15 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      16384) and at the MoE per-expert moments (1024 items of 160 slots,
      1536), causal GQA ``flash_attention`` at groups 6 and 16 and
      ``flash_decode`` at both, dense and pruned (``[kernels internvl
-     moe]``); internvl served at full width and depth (48 layers, weights
-     drawn on the card) with a 256-patch prefill checked GPU against CPU
-     on a reduced copy (``[serve internvl]``); CORP of internvl at 8
-     layers over Zipf tokens after 8 patches (``[prune internvl]``:
-     compensated closer to the dense model than not, a one-traversal hit
-     within 1e-4) and its pruned checkpoint served (``[serve pruned
-     internvl]``); qwen3-moe at full width and 8 layers served (``[serve
+     moe]``); internvl served at full width and 16 of its 48 layers
+     (weights drawn on the card) with a 256-patch prefill checked GPU
+     against CPU on a reduced copy (``[serve internvl]``); CORP of
+     internvl at 8 layers over Zipf tokens after 8 patches (``[prune
+     internvl]``: compensated closer to the dense model than not, a
+     one-traversal hit within 1e-4) and the pruned model served in process
+     with its ``bd`` (``[serve pruned internvl]``; its checkpoint round
+     trip runs on the reduced config in ``[reference moe]``); qwen3-moe
+     at full width and 8 layers served (``[serve
      moe]``), pruned at 0.5/0.5 with one ``gram`` launch of its per-expert
      moments a batch and an MLP-only gate (``[prune moe]``), and the
      pruned model served in process with its ``bd_moe`` (``[serve pruned
@@ -109,7 +111,23 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      GPU against CPU: MLA prefill and decode, engine streams, and prunes
      two-pass, with ``--expert-sparsity 0.5`` and ``--one-traversal``,
      served from their checkpoints (``[reference deepseek]``);
- 10. prints the card, a JSON line of per-kernel numbers with launches per
+ 10. jamba-1.5-large-398b (the Mamba hybrid: 7 Mamba layers to 1
+     attention layer, GQA 64/8, 16 experts of 24576 top 2 on every odd
+     layer) at full width: ``flash_attention`` at 64/8 and ``flash_decode``
+     at group 8, dense and pruned, and ``gram`` at the dense tap, a Mamba
+     tap and the expert queues (also 4 at once, past 2^31 outputs)
+     (``[kernels jamba]``); served at 5 of its 72 layers under the
+     recurrent contract, the attention kernels' launches gated against the
+     prefills and steps, a slot's bytes split into Mamba states and K/V
+     (``[serve jamba]``); pruned at 2 layers (the served model's first
+     two), compensated and plain, peak device memory gated at 76 GB, the
+     Mamba and dense blocks' held-out gates and the MoE blocks'
+     calibration-token gate, the Mamba-only error reported (``[prune
+     jamba]``), the compensated model served in process with its
+     ``out_b`` (``[serve pruned jamba]``); the reduced config GPU against
+     CPU: prefill and decode, engine streams, and prunes two-pass and
+     one-traversal served from their checkpoints (``[reference jamba]``);
+ 11. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -137,9 +155,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 MAIN = dict(arch="deit-base", sparsity=0.5, calib=128, calib_batch=16)
-SERVE = ["--arch", "qwen2-1.5b", "--trace", "32", "--slots", "8",
+# 16 requests, the weights drawn on the card: the script's time limit is
+# shared with every later model's phases
+SERVE = ["--arch", "qwen2-1.5b", "--trace", "16", "--slots", "8",
          "--max-len", "1024", "--prompt-range", "64,512",
-         "--gen-range", "32,256"]
+         "--gen-range", "32,256", "--init-on-device"]
 SERVE_REDUCED = ["--arch", "qwen2-1.5b-reduced", "--trace", "12",
                  "--slots", "3", "--max-len", "96", "--prompt-range", "8,24",
                  "--gen-range", "4,16"]
@@ -1162,7 +1182,7 @@ def serve_phase(args, tag, kernels):
     st, table = res["stats"], res["table"]
     cfg = res["model"].cfg
     prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
-    print(f"[{tag}] wall {wall:.3f} s (CPU init of the seeded weights, "
+    print(f"[{tag}] wall {wall:.3f} s (init of the seeded weights, "
           f"warmup and the trace); kernel launches in this run: {launches}")
     print(f"[{tag}] trace: {table['wall_s']:.3f} s, {table['tokens']} "
           f"tokens, {table['tok_per_s']:.1f} tok/s, TTFT p50/p99 "
@@ -1349,18 +1369,18 @@ LM = dict(sparsity=0.5, seqs=128, seq=512, batch=8, held=4)
 # dq, dv)
 LM_SHAPES = dict(gram=(28, 4096, 8960), attn=(8, 512, 12, 2, 128),
                  wkv=(8, 512, 40, 64), decode=(8, 1024, 12, 2, 64, 128))
+# 8 requests; the checkpoint overwrites every drawn leaf
 PRUNED_SERVE = ["--arch", "qwen2-1.5b", "--sparsity", "0.5", "--trace",
-                "16", "--slots", "8", "--max-len", "1024",
-                "--prompt-range", "64,512", "--gen-range", "32,256"]
+                "8"] + SERVE[4:]
 # gemma3-1b: sequences longer than its 512-token window, which masks
 # nothing at T <= 512 (64 x 1024 = 65,536 calibration tokens, Qwen2's
 # 128 x 512)
 GEMMA = dict(sparsity=0.5, seqs=64, seq=1024, batch=4, held=2)
-GEMMA_SERVE = ["--arch", "gemma3-1b", "--trace", "32", "--slots", "8",
+GEMMA_SERVE = ["--arch", "gemma3-1b", "--trace", "16", "--slots", "8",
                "--max-len", "2048", "--prompt-range", "256,1536",
-               "--gen-range", "32,256"]
+               "--gen-range", "32,256", "--init-on-device"]
 GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
-                                        "16"] + GEMMA_SERVE[4:]
+                                        "8"] + GEMMA_SERVE[4:]
 
 
 def zipf_tokens(vocab, n_seqs, seq, seed, dev):
@@ -2180,24 +2200,26 @@ def gemma_reference_phase():
 # qwen3-moe-235b-a22b (routed experts with capacity, class-3 attention)
 # ---------------------------------------------------------------------------
 
-# internvl2-26b serves at full width and depth (48 layers, 39.7 GB of bf16
-# weights, drawn on the card: 20 G normals on the host take minutes)
-INTERNVL_SERVE = ["--arch", "internvl2-26b", "--trace", "16", "--slots",
-                  "8", "--max-len", "2048", "--prompt-range", "64,512",
-                  "--gen-range", "32,128", "--init-on-device"]
+# the serve trace of the large models at full width: 16 requests, 8 slots,
+# weights drawn on the card (20 G normals on the host take minutes)
+BIG_TRACE = ["--trace", "16", "--slots", "8", "--max-len", "2048",
+             "--prompt-range", "64,512", "--gen-range", "32,128",
+             "--init-on-device"]
+# internvl2-26b serves at full width and 16 of its 48 layers (13.6 GB of
+# bf16 weights; the 48-layer run took its decode steps to 72.49 ms, in a
+# script that needed the time for jamba)
+INTERNVL_SERVE = ["--arch", "internvl2-26b", "--n-layers", "16"] + BIG_TRACE
 # its prune at full width and 8 layers: at 48 the MLP second moments alone
 # are 48 x 16384^2 x 4 B = 51.5 GB; 8 patches before each sequence, 256
 # sequences (16 calibration tokens a kept channel)
 INTERNVL = dict(sparsity=0.5, seqs=256, seq=512, batch=4, held=2,
                 patches=8, layers=8)
 INTERNVL_PRUNED_SERVE = ["--arch", "internvl2-26b", "--n-layers", "8",
-                         "--sparsity", "0.5", "--trace", "8"] \
-    + INTERNVL_SERVE[4:]
+                         "--sparsity", "0.5", "--trace", "8"] + BIG_TRACE[2:]
 # qwen3-moe-235b-a22b at full width and 8 of its 94 layers (42.3 GB); a
 # batch of 4 x 512 tokens is one routing group of 2048 tokens, 160 slots an
 # expert
-MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--n-layers", "8"] \
-    + INTERNVL_SERVE[2:]
+MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--n-layers", "8"] + BIG_TRACE
 MOE = dict(sparsity=0.5, seqs=512, seq=512, batch=4, held=2, layers=8)
 MOE_PRUNED_SERVE = MOE_SERVE[:4] + ["--sparsity", "0.5"] + MOE_SERVE[4:]
 
@@ -2369,10 +2391,11 @@ def logits_bf16(cfg, params, batch):
 
 
 def serve_internvl_phase(dev):
-    """internvl2-26b at full width and depth through ``launch.serve``: every
-    request served, both attention kernels launched, its slot bytes; then a
-    prefill of 256 patch embeddings and 16 tokens, and 4 decode steps, on
-    the GPU against the CPU's plain path on a reduced copy (<= 1e-3).
+    """internvl2-26b at full width and 16 layers through ``launch.serve``:
+    every request served, both attention kernels launched, its slot bytes;
+    then a prefill of 256 patch embeddings and 16 tokens, and 4 decode
+    steps, on the GPU against the CPU's plain path on a reduced copy (<=
+    1e-3).
     Returns {path: launches}."""
     import torch
     from repro_torch.configs import resolve_config
@@ -2608,13 +2631,10 @@ def internvl_moe_phases(dev, rows, launches):
     launches.update(lm_launches)
     print(f"[prune internvl] phase wall {time.time() - t0:.3f} s")
     t0 = time.time()
-    bd = new["seg0"]["p0"]["mlp"]["bd"].cpu()
-    ck = save_pruned("serve pruned internvl", new, ncfg, "internvl")
+    launches["serve_pruned_internvl"] = serve_in_process(
+        INTERNVL_PRUNED_SERVE, "serve pruned internvl", ncfg, new,
+        ("seg0/p0/mlp/bd",), ("flash_attention", "flash_decode"))
     del new
-    torch.cuda.empty_cache()
-    launches["serve_pruned_internvl"] = serve_pruned_ckpt(
-        INTERNVL_PRUNED_SERVE, "serve pruned internvl", ck, ncfg,
-        "seg0/p0/mlp/bd", bd)
     print(f"[serve pruned internvl] phase wall {time.time() - t0:.3f} s")
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -2640,7 +2660,7 @@ def internvl_moe_phases(dev, rows, launches):
 # layer (30.2 GB of bf16 weights, drawn on the card); at 5 layers (53 GB)
 # no pruned copy fits beside it
 DEEPSEEK_SERVE = ["--arch", "deepseek-v3-671b", "--n-layers", "4"] \
-    + INTERNVL_SERVE[2:]
+    + BIG_TRACE
 # 256 calibration sequences of 512 tokens in batches of 4 (one routing
 # group of 2048 tokens, 80 slots an expert): 14.2 tokens a kept dense
 # channel; the Qwen2 ridge overfits at 3.66 and not at 14.6
@@ -2825,13 +2845,14 @@ def serve_deepseek_phase(dev):
 def block_errors(cfg, params, ncfg, new, batch):
     """Output errors of the pruned blocks alone, sum ||pruned - dense||^2 /
     sum ||dense||^2 over the layers of a kind, each block given the input
-    that the dense model's forward over ``batch`` gives it: ``mla`` (the
-    attention blocks), ``dense`` (the first_k_dense MLPs), ``moe`` (the
-    routed and shared experts). Unlike the logits, one layer's error does
-    not reach the next layer's routing."""
+    that the dense model's forward over ``batch`` gives it: the mixers
+    (``mla`` for MLA attention, else ``attn`` or ``mamba``), ``dense``
+    (the dense MLPs), ``moe`` (the routed and shared experts). Unlike the
+    logits, one layer's error does not reach the next layer's routing."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import blocks as blk
     from repro_torch.models import lm as lm_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.common import apply_norm
     x = params["embed"][batch["tokens"]]
     B, T = x.shape[:2]
@@ -2842,15 +2863,17 @@ def block_errors(cfg, params, ncfg, new, batch):
         num[kind] = num.get(kind, 0.0) + float(
             (yp.float() - yd.float()).square().sum())
         den[kind] = den.get(kind, 0.0) + float(yd.float().square().sum())
+
+    def mixer(p, h, c, kind):
+        if kind == "mamba":
+            return ssm_mod.apply_mamba(p, h, c)[0]
+        return attn_mod.apply_attn(p, h, c, kind, positions=positions)[0]
     for name, key, rep, kind, moe in lm_mod._each_layer(cfg):
         p = lm_mod._at(params, name, key, rep)
         q = lm_mod._at(new, name, key, rep)
         h = apply_norm(p["ln1"], x, cfg)
-        yd, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
-                                    positions=positions)
-        yp, _ = attn_mod.apply_attn(q["mixer"], h, ncfg, kind,
-                                    positions=positions)
-        add("mla", yp, yd)
+        yd = mixer(p["mixer"], h, cfg, kind)
+        add("mla" if cfg.mla else kind, mixer(q["mixer"], h, ncfg, kind), yd)
         x = x + yd
         h = apply_norm(p["ln2"], x, cfg)
         yd = blk.ffn(p["mlp"], h, cfg, moe)
@@ -2859,16 +2882,17 @@ def block_errors(cfg, params, ncfg, new, batch):
     return {k: math.sqrt(num[k] / den[k]) for k in num}
 
 
-def mla_only(cfg, params, ncfg, new):
-    """The dense model with only its attention blocks pruned (CORP takes
-    every statistic from the dense model, so they are the MLA-only prune's):
-    its config and params, the pruned mixers and every other leaf the dense
-    one's."""
+def mixers_only(cfg, params, ncfg, new):
+    """The dense model with only its mixers pruned, attention (MLA) or
+    Mamba (CORP takes every statistic from the dense model, so they are
+    the mixer-only prune's): its config and params, the pruned mixers and
+    every other leaf the dense one's."""
     out = dict(params)
     for seg in (k for k in new if k.startswith("seg")):
         out[seg] = {lk: dict(params[seg][lk], mixer=new[seg][lk]["mixer"])
                     for lk in new[seg]}
-    return cfg.replace(qk_kept=ncfg.qk_kept), out
+    return cfg.replace(qk_kept=ncfg.qk_kept,
+                       d_inner_kept=ncfg.d_inner_kept), out
 
 
 def prune_deepseek_phase(dev, launches):
@@ -2945,7 +2969,7 @@ def prune_deepseek_phase(dev, launches):
                  "seg1/p0/mlp/shared/bd"), ("flash_attention",))
             print(f"[serve pruned deepseek] phase wall "
                   f"{time.time() - t0:.3f} s")
-        acfg, aparams = mla_only(cfg, params, ncfg, new)
+        acfg, aparams = mixers_only(cfg, params, ncfg, new)
         errs[comp] = dict(
             logits=err, held=block_errors(cfg, params, ncfg, new, held),
             seen=block_errors(cfg, params, ncfg, new, seen),
@@ -3103,6 +3127,411 @@ def deepseek_phases(dev, rows, launches):
         print(f"[{tag}] phase wall {time.time() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# jamba-1.5-large-398b (Mamba hybrid: 7 Mamba layers to 1 attention layer,
+# GQA 64/8, a MoE of 16 experts of 24576, top 2, on every odd layer)
+# ---------------------------------------------------------------------------
+
+# full width at 5 of its 72 layers (48.1 GB of bf16 weights, drawn on the
+# card): Mamba 0-3 and the attention layer 4, MoE on 1 and 3, the shallowest
+# cut that holds the attention layer
+JAMBA_SERVE = ["--arch", "jamba-1.5-large-398b", "--n-layers", "5"] \
+    + BIG_TRACE
+# its prune at 2 layers (24.4 GB: layer 0 Mamba + dense GLU, layer 1 Mamba +
+# MoE), the serve model's first two layers: 256 sequences of 512 Zipf
+# tokens in batches of 4 (one routing group of 2048 tokens, 320 slots an
+# expert)
+JAMBA = dict(sparsity=0.5, seqs=256, seq=512, batch=4, held=2, layers=2)
+JAMBA_PRUNED_SERVE = ["--arch", "jamba-1.5-large-398b", "--n-layers", "2",
+                      "--sparsity", "0.5"] + BIG_TRACE
+# host memory the prune needs free: its pass-1 moments (the MoE layer's
+# 16 x 24576^2 fp32, 38.7 GB, the dense and Mamba taps' 4.6 GB) wait there
+# between ranking and the fold
+JAMBA_HOST_BYTES = 48e9
+
+
+def jamba_kernel_phase(dev, rows):
+    """The kernels at the shapes jamba's paths give them: causal GQA
+    ``flash_attention`` at 64/8 (B 4, T 512, d 128; pruned q/k 64 against
+    v 128) in bf16; ``flash_decode`` at group 8 (8 slots of S 2048, dense
+    and pruned); ``gram`` at the dense GLU tap (1, 2048, 24576), a Mamba
+    ``mamba_y`` tap (1, 2048, 16384) and one expert queue (1, 320, 24576),
+    the launches of a pass-1 batch, and over 4 expert queues at once, whose
+    4 x 24576^2 outputs pass 2^31 (int64 offsets); each against its plain
+    version, timed beside its bound and the one-call PyTorch
+    equivalent."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_decode import ref as decode_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(31)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels jamba] the kernels against their plain versions at the "
+          "jamba-1.5-large-398b shapes")
+    B, T, H, Hkv, dv = 4, 512, 64, 8, 128
+    scale = 128 ** -0.5
+    for dq, tag in ((128, "jamba_prefill"), (64, "jamba_prefill_pruned")):
+        q, k = rand(B, T, H, dq, dtype=bf), rand(B, T, Hkv, dq, dtype=bf)
+        v = rand(B, T, Hkv, dv, dtype=bf)
+        err = check_attention(q, k, v, True, None, scale,
+                              f"{tag} group {H // Hkv}", tol=2e-2)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for a in (k, v))
+        library = "SDPA"
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           scale=scale)
+        except RuntimeError:        # a backend that needs dq == dv
+            qt, kt = (F.pad(a, (0, dv - dq)) for a in (qt, kt))
+            library = f"SDPA, q and k padded to {dv}"
+        calls = {"ms": lambda: flash_ops.attention(q, k, v, causal=True,
+                                                   scale=scale),
+                 "plain_ms": lambda: flash_ref.attention(
+                     q, k, v, causal=True, scale=scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=True, scale=scale)}
+        r = {"shape": [B, T, H, Hkv, dq, dv], "max_abs_err": err,
+             "library": library,
+             **{key: device_ms(fn, reps=10) for key, fn in calls.items()}}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * B * H * visible_keys(T, None) * (dq + dv),
+            2 * B * T * (H * (dq + dv) + Hkv * (dq + dv)), PEAK_BF16_FLOPS)
+        print(f"  flash_attention {tag} B={B} T={T} H={H}/{Hkv} dq={dq} "
+              f"dv={dv} bf16 causal, device time: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, {library} "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        by_name["flash_attention"][tag] = r
+        del q, k, v, qt, kt, vt
+
+    B, S = 8, 2048
+    lens = torch.tensor([64 + 70 * i for i in range(B)], device=dev)
+    valid = torch.arange(S, device=dev)[None] < lens[:, None]
+    keys = int(valid.sum())
+    for dq in (128, 64):
+        q = rand(B, H, dq, dtype=bf)
+        k, v = rand(B, S, Hkv, dq, dtype=bf), rand(B, S, Hkv, dv, dtype=bf)
+        tag = f"jamba_decode_{dq}_{dv}"
+        err = check_decode(q, k, v, valid, tag, 2e-2)
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for a in (k, v))
+        qt, m4 = q[:, :, None], valid[:, None, None, :]
+        calls = {"ms": lambda: decode_ops.decode_attention(
+                     q, k, v, valid, scale=scale),
+                 "plain_ms": lambda: decode_ref.decode_attention(
+                     q, k, v, valid, scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=m4, scale=scale)}
+        r = {"shape": [B, S, H, Hkv, dq, dv], "valid_keys": keys,
+             "max_abs_err": err,
+             **{key: device_ms(fn) for key, fn in calls.items()}}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * H * keys * (dq + dv),
+            keys * Hkv * (dq + dv) * 2 + 2 * B * H * (dq + dv) + B * S,
+            PEAK_BF16_FLOPS)
+        print(f"  flash_decode {tag} group {H // Hkv} ({keys} valid keys of "
+              f"{B * S}), device time: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        by_name["flash_decode"][tag] = r
+        del q, k, v, kt, vt
+
+    queues = rand(4, 320, 24576)
+    queues[:, 256:] = 0.0          # the queues' empty capacity slots
+    check_gram(queues, label="4 expert queues, > 2^31")
+    del queues
+    torch.cuda.empty_cache()
+    one = rand(1, 320, 24576)
+    one[:, 256:] = 0.0
+    for x, tag, label in ((rand(1, 4 * 512, 24576), "jamba_dense",
+                           "dense GLU tap"),
+                          (rand(1, 4 * 512, 16384), "jamba_mamba",
+                           "Mamba mamba_y tap"),
+                          (one, "jamba_expert", "one expert queue")):
+        err = check_gram(x, label=label)
+        s2 = gram_ops.gram(x)["s2"]
+        if not torch.equal(s2, s2.mT):
+            fail(f"gram {label}: s2 is not exactly symmetric")
+        del s2
+        r = {"shape": list(x.shape), "max_abs_err": err,
+             "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+             "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3,
+                                 warmup=1),
+             "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                                   warmup=1)}
+        L, N, Fd = x.shape
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            1.0 * L * N * Fd * (Fd + 1),
+            4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+        print(f"  gram at the {label} shape {tuple(x.shape)} fp32: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"torch.matmul {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
+        by_name["gram"][tag] = r
+        del x
+        torch.cuda.empty_cache()
+    del one
+
+
+def serve_jamba_phase():
+    """jamba-1.5-large-398b at full width and 5 layers through
+    ``launch.serve`` under the recurrent contract: every request served;
+    ``flash_attention`` once a prefill and ``flash_decode`` once a decode
+    or walk step (the one attention layer), gated exactly; a slot's bytes
+    split into the Mamba states and the attention K/V. Returns ({path:
+    launches}, the CLI's result)."""
+    from repro_torch.serve import ServeEngine
+    launches, res = serve_phase(JAMBA_SERVE, "serve jamba",
+                                ("flash_attention", "flash_decode"))
+    cfg = res["model"].cfg
+    arg = dict(zip(JAMBA_SERVE[::2], JAMBA_SERVE[1::2]))
+    if [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail("serve jamba: a request did not complete")
+
+    def calls(st):
+        steps = st.get("decode_steps", 0) + st.get("walk_steps", 0)
+        return sum(v for k, v in st.items() if k.startswith("prefill_b")), \
+            steps
+    warm, trace = calls(res["warmup_stats"]), calls(res["stats"])
+    attn = cfg.layer_kinds.count("attn")
+    need = (attn * (warm[0] + trace[0]), attn * (warm[1] + trace[1]))
+    print(f"[serve jamba] {cfg.n_layers} layers ({cfg.layer_kinds}); "
+          f"flash_attention {launches['flash_attention']} launches == "
+          f"{need[0]} (prefills), flash_decode {launches['flash_decode']} "
+          f"== {need[1]} (decode and walk steps), x {attn} attention layer")
+    if (launches["flash_attention"], launches["flash_decode"]) != need:
+        fail("serve jamba: the attention kernels' launches do not match "
+             "the prefills and steps")
+    max_len = int(arg["--max-len"])
+    parts = {n: ServeEngine(res["model"], res["params"], n_slots=1,
+                            max_len=n).slotcache.slot_parts
+             for n in (max_len // 2, max_len)}
+    mamba = cfg.layer_kinds.count("mamba")
+    p = parts[max_len]
+    print(f"[serve jamba] slot bytes at max_len {max_len}: Mamba states "
+          f"{p['state']} ({p['state'] / mamba / 1e6:.3f} MB a layer, "
+          f"{mamba} layers), attention K/V {p['kv']} ({attn} layer); at "
+          f"max_len {max_len // 2}: states {parts[max_len // 2]['state']}, "
+          f"K/V {parts[max_len // 2]['kv']}")
+    if parts[max_len // 2]["state"] != p["state"] \
+            or not parts[max_len // 2]["kv"] < p["kv"]:
+        fail("serve jamba: the Mamba states grow with max_len, or the K/V "
+             "rows do not")
+    return {"serve_jamba": launches}, res
+
+
+def host_free_bytes():
+    """MemAvailable of /proc/meminfo, in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def prune_jamba_phase(dev, served, launches):
+    """CORP of jamba-1.5-large-398b at full width and 2 layers, the served
+    model's first two layers (layers 2-4 freed): 0.5 of the Mamba inner
+    channels, the dense GLU's and each expert's channels (attention has no
+    layer here), compensated and plain, on 256 sequences of 512 Zipf
+    tokens in batches of 4. Refuses to start when the host has less than
+    ``JAMBA_HOST_BYTES`` free (the pass-1 moments wait there before the
+    fold). Gated: J* <= J_uncomp, the kept sizes, ``gram`` 19 launches a
+    pass-1 batch (2 Mamba taps, the dense tap, 16 expert queues), the
+    compensation leaves, peak device memory <= 76 GB; on the dense model's
+    inputs the Mamba and dense blocks' compensated held-out error <=
+    plain, and the MoE blocks' on calibration tokens (~1.3 rows a kept
+    expert channel: the ridge is underdetermined held out). Reported:
+    stage times, rows a kept channel of every unit, the Mamba-only
+    prune's held-out logits, compensated and plain. The compensated model
+    is served in process (``[serve pruned jamba]``)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    from repro_torch.models import build_model
+    from repro_torch.models import mlp as mlp_mod
+    free = host_free_bytes()
+    print(f"[prune jamba] host memory available {free / 1e9:.1f} GB "
+          f"(needs {JAMBA_HOST_BYTES / 1e9:.0f})")
+    if free < JAMBA_HOST_BYTES:
+        fail(f"prune jamba: the host has {free / 1e9:.1f} GB free, less "
+             f"than the {JAMBA_HOST_BYTES / 1e9:.0f} GB the parked MoE "
+             f"moments need")
+    full = served["params"]
+    cfg = served["model"].cfg.replace(n_layers=JAMBA["layers"])
+    params = {k: v for k, v in full.items() if not k.startswith("seg")}
+    params["seg0"] = {f"l{j}": full["seg0"][f"l{j}"]
+                      for j in range(cfg.n_layers)}
+    served.clear()
+    del full
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    calib, held = lm_calib(cfg, dev, seed=37, spec=JAMBA)
+    dense = logits_bf16(cfg, params, held)
+    sp = JAMBA["sparsity"]
+    batches = JAMBA["seqs"] // JAMBA["batch"]
+    tokens = JAMBA["seqs"] * JAMBA["seq"]
+    m = cfg.moe
+    C = mlp_mod.capacity(JAMBA["batch"] * JAMBA["seq"], cfg)
+    expert_rows = min(tokens * m.top_k / m.num_experts, C * batches)
+    print(f"[prune jamba] corp_prune of jamba-1.5-large-398b at "
+          f"{cfg.n_layers} layers ({cfg.layout()}, {cfg.layer_kinds}), "
+          f"{JAMBA['seqs']} sequences of {JAMBA['seq']} tokens in {batches} "
+          f"batches of {JAMBA['batch']} (port-only Zipf stream), sparsity "
+          f"{sp}; rows a kept channel: Mamba "
+          f"{tokens / (cfg.eff_d_inner * sp):.1f}, dense "
+          f"{tokens / (cfg.d_ff * sp):.1f}, an expert "
+          f"~{expert_rows / (m.d_expert * sp):.2f} ({C} slots a batch)")
+    seen = {"tokens": torch.cat([b["tokens"] for b in
+                                 itertools.islice(calib(), 4)])}
+    errs = {}
+    for comp in (True, False):
+        tag = "prune jamba" + ("" if comp else " no-compensate")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        new, ncfg, rep, ran, logits, err = lm_prune_run(
+            tag, model, params, calib, held, dense,
+            PruneConfig(sp, sp, compensate=comp), evaluate=logits_bf16)
+        # nothing made after this run's moments were parked may outlive it:
+        # the next run's 38.7 GB of expert moments need one free block
+        del logits
+        peak = torch.cuda.max_memory_allocated()
+        l0, l1 = new["seg0"]["l0"], new["seg0"]["l1"]
+        half = (cfg.eff_d_inner // 2, cfg.d_ff // 2)
+        if (ncfg.eff_d_inner, ncfg.eff_d_ff) != half \
+                or l0["mixer"]["out_proj"].shape[0] != half[0] \
+                or l1["mixer"]["in_proj"].shape[1] != 2 * half[0] \
+                or l0["mlp"]["wd"].shape[0] != half[1] \
+                or l1["mlp"]["wd"].shape[1] != half[1] \
+                or ("out_b" in l1["mixer"]) != comp:
+            fail(f"{tag}: kept sizes d_inner {ncfg.eff_d_inner}, d_ff "
+                 f"{ncfg.eff_d_ff}, or out_b")
+        # pass 1: a gram launch a Mamba tap (2), the dense tap (1) and each
+        # of the 16 expert queues (one 24576^2 fp32 s2 is 2.4 GB): 19
+        per_batch = 2 + 1 + 16
+        if ran["gram"] != per_batch * batches:
+            fail(f"{tag}: {ran['gram']} gram launches (want {per_batch} a "
+                 f"pass-1 batch: 2 Mamba taps, the dense tap, the 16 "
+                 f"expert queues)")
+        if peak > 76e9:
+            fail(f"{tag}: peak device memory {peak / 1e9:.1f} GB > 76 GB")
+        if comp:
+            launches["prune_jamba"] = ran
+            t0 = time.time()
+            launches["serve_pruned_jamba"] = serve_in_process(
+                JAMBA_PRUNED_SERVE, "serve pruned jamba", ncfg, new,
+                ("seg0/l0/mixer/out_b", "seg0/l1/mixer/out_b",
+                 "seg0/l0/mlp/bd", "seg0/l1/mlp/bd_moe"), ())
+            print(f"[serve pruned jamba] phase wall {time.time() - t0:.3f} s")
+        mcfg, mparams = mixers_only(cfg, params, ncfg, new)
+        errs[comp] = dict(
+            logits=err,
+            held=block_errors(cfg, params, ncfg, new, held),
+            seen=block_errors(cfg, params, ncfg, new, seen),
+            mamba_only=rel_err(logits_bf16(mcfg, mparams, held), dense))
+        e = errs[comp]
+        print(f"[{tag}] peak device memory {peak / 1e9:.1f} GB (gate 76); "
+              f"the blocks' output errors on held-out inputs "
+              + ", ".join(f"{k} {v:.4f}" for k, v in e["held"].items())
+              + "; on 4 calibration batches "
+              + ", ".join(f"{k} {v:.4f}" for k, v in e["seen"].items())
+              + f"; Mamba-only held-out logits {e['mamba_only']:.4f}")
+        del new, l0, l1, mparams
+    c, p = errs[True], errs[False]
+    print(f"[prune jamba] held-out logits |pruned - dense| / |dense| "
+          f"compensated {c['logits']:.4f}, no-compensate {p['logits']:.4f}; "
+          f"Mamba only compensated {c['mamba_only']:.4f}, no-compensate "
+          f"{p['mamba_only']:.4f}; Mamba blocks held out "
+          f"{c['held']['mamba']:.4f} / {p['held']['mamba']:.4f}; dense MLP "
+          f"held out {c['held']['dense']:.4f} / {p['held']['dense']:.4f}; "
+          f"MoE blocks on calibration tokens {c['seen']['moe']:.4f} / "
+          f"{p['seen']['moe']:.4f}, held out {c['held']['moe']:.4f} / "
+          f"{p['held']['moe']:.4f}")
+    for kind in ("mamba", "dense"):
+        if not c["held"][kind] <= p["held"][kind]:
+            fail(f"prune jamba: on held-out tokens the compensated {kind} "
+                 f"blocks are not closer to the dense ones than the plain "
+                 f"prune's")
+    if not c["seen"]["moe"] <= p["seen"]["moe"]:
+        fail("prune jamba: on calibration tokens the compensated MoE "
+             "blocks are not closer to the dense ones than the plain "
+             "prune's: the fold is not what the ridge solved")
+    del params, dense
+    torch.cuda.empty_cache()
+
+
+def jamba_reference_phase():
+    """The reduced jamba (fp32; 8 layers, Mamba and attention, dense and MoE
+    MLPs) on the GPU against the CPU's plain path: a prefill of 300 tokens
+    (two scan chunks) and 4 decode steps (logits within 1e-3), the dense
+    engine's streams, and ``launch.prune`` two-pass and with
+    ``--one-traversal`` (margin 1.0, a hit on ``gram_cross``: the class-2
+    attention unit), each checkpoint served through ``--ckpt-in`` with its
+    ``mixer/out_b`` restored (``reference_prune_cases``)."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    arch = "jamba-1.5-large-398b-reduced"
+    cfg = resolve_config(arch)
+    model = build_model(cfg)
+    toks = (torch.arange(2 * 304, dtype=torch.int32).reshape(2, 304) * 13) \
+        % cfg.vocab_size
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = model.init(torch.Generator().manual_seed(0), device)
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :300].to(device)}, 320)
+        rows = [logits[:, 0]]
+        for i in range(300, 304):
+            logits, cache = model.decode_step(
+                params, toks[:, i:i + 1].to(device), cache)
+            rows.append(logits[:, 0])
+        out[device] = torch.stack(rows).cpu()
+    err = rel_err(out["cuda"], out["cpu"])
+    print(f"[reference jamba] {arch}: prefill of 300 tokens and 4 decode "
+          f"steps, logits GPU vs CPU relative error {err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("reference jamba: the Mamba hybrid's prefill and decode on the "
+             "GPU disagree with the CPU's plain path")
+    serve_reference_phase(["--arch", arch] + SERVE_REDUCED[2:],
+                          "reference jamba")
+    reference_prune_cases("reference jamba", [
+        (arch, [], []),
+        (arch, ["--one-traversal", "--spec-margin", "1.0"], [])])
+
+
+def jamba_phases(dev, rows, launches):
+    """The jamba-1.5-large-398b phases in order, each timed; their launches
+    are added to ``launches``."""
+    import torch
+    t0 = time.time()
+    jamba_kernel_phase(dev, rows)
+    print(f"[kernels jamba] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    ran, served = serve_jamba_phase()
+    launches.update(ran)
+    print(f"[serve jamba] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    prune_jamba_phase(dev, served, launches)
+    del served
+    torch.cuda.empty_cache()
+    print(f"[prune jamba] phase wall {time.time() - t0:.3f} s (with [serve "
+          f"pruned jamba])")
+    t0 = time.time()
+    jamba_reference_phase()
+    print(f"[reference jamba] phase wall {time.time() - t0:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3217,6 +3646,7 @@ def main() -> int:
     print(f"[reference gemma] phase wall {time.time() - t0:.3f} s")
     internvl_moe_phases(dev, rows, launches)
     deepseek_phases(dev, rows, launches)
+    jamba_phases(dev, rows, launches)
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

@@ -1,11 +1,11 @@
 """Config registry of the port: the DeiT ids, the LMs it serves and prunes
 (``qwen2-1.5b``, ``granite-8b``, ``deepseek-7b``, ``gemma3-1b``,
 ``rwkv6-3b``, the VLM ``internvl2-26b``, the routed MoE
-``qwen3-moe-235b-a22b`` and the MLA MoE ``deepseek-v3-671b``) and their
-reduced variants.
+``qwen3-moe-235b-a22b``, the MLA MoE ``deepseek-v3-671b`` and the Mamba
+hybrid ``jamba-1.5-large-398b``) and their reduced variants.
 
-Copied from ``repro.configs``. The Mamba (``jamba-1.5-large-398b``) and
-enc-dec (``seamless-m4t-large-v2``) configs raise ``NotImplementedError``.
+Copied from ``repro.configs``. The enc-dec config
+(``seamless-m4t-large-v2``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ import importlib
 import dataclasses
 import math
 
-from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      RWKVConfig)
+from repro_torch.configs.base import (MambaConfig, MLAConfig, ModelConfig,
+                                      MoEConfig, RWKVConfig)
 
 DEIT_IDS = ("deit-tiny", "deit-small", "deit-base", "deit-large", "deit-huge")
 _MODULES = {
@@ -27,6 +27,7 @@ _MODULES = {
     "internvl2-26b": "internvl2_26b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 LM_IDS = tuple(_MODULES)
 
@@ -48,12 +49,13 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
     """Reduced same-family config for CPU smoke tests, as
     ``repro.configs.reduced`` gives it for a ViT, a dense LM, RWKV, a
     routed MoE (4 experts, top 2, d_expert 2 d_model, at most one shared
-    expert) or MLA with its ``first_k_dense`` layers (one dense layer of
-    4 d_model more). Mamba and enc-dec configs raise."""
-    if cfg.family not in ("vit", "lm") or cfg.mamba or cfg.n_enc_layers:
+    expert), MLA with its ``first_k_dense`` layers (one dense layer of
+    4 d_model more) or a Mamba hybrid (d_state 4, d_conv 4, expand 2).
+    Enc-dec configs raise."""
+    if cfg.family not in ("vit", "lm") or cfg.n_enc_layers:
         raise NotImplementedError(
-            f"reduced() of {cfg.name} (Mamba or enc-dec) is not ported; "
-            "see repro.configs.reduced")
+            f"reduced() of {cfg.name} (enc-dec) is not ported; see "
+            "repro.configs.reduced")
     period = len(cfg.pattern)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe_every)
@@ -81,6 +83,8 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
     if cfg.mla is not None:
         kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                               qk_nope_dim=16, qk_rope_dim=8, v_dim=16)
+    if cfg.mamba is not None:
+        kw["mamba"] = MambaConfig(d_state=4, d_conv=4, expand=2)
     if cfg.rwkv is not None:
         kw.update(rwkv=RWKVConfig(head_dim=16, decay_lora=8),
                   n_heads=d_model // 16, n_kv_heads=d_model // 16)
@@ -98,5 +102,5 @@ def resolve_config(name: str) -> ModelConfig:
     return get_config(name)
 
 
-__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "DEIT_IDS", "LM_IDS",
-           "get_config", "reduced", "resolve_config"]
+__all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "MambaConfig",
+           "DEIT_IDS", "LM_IDS", "get_config", "reduced", "resolve_config"]

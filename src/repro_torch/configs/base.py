@@ -3,7 +3,12 @@
 The field set is identical to the JAX package's ``ModelConfig`` (the
 boundary test compares the two field by field), so a config names the same
 model in both packages. Pruned models are the same dataclass with
-``d_ff_kept`` / ``qk_kept`` set; model code reads the ``eff_*`` properties.
+``d_ff_kept`` / ``qk_kept`` / ``d_inner_kept`` set; model code reads the
+``eff_*`` properties.
+
+One difference from the reference: ``layout()`` of a config cut to fewer
+layers than one period unrolls them (the reference indexes past the last
+layer there and raises ``IndexError``).
 """
 from __future__ import annotations
 
@@ -132,6 +137,13 @@ class ModelConfig:
         return self.qk_full if self.qk_kept is None else self.qk_kept
 
     @property
+    def eff_d_inner(self) -> int:
+        """Mamba inner channels (pruned or not)."""
+        assert self.mamba is not None
+        full = self.mamba.expand * self.d_model
+        return full if self.d_inner_kept is None else self.d_inner_kept
+
+    @property
     def padded_vocab(self) -> int:
         r = self.vocab_round
         return ((self.vocab_size + r - 1) // r) * r
@@ -168,6 +180,9 @@ class ModelConfig:
         rep of a scanned segment has identical per-position layer specs.
         A scanned segment's params and cache leaves carry a leading
         ``n_reps`` axis (``seg<i>/p<j>``); unrolled layers are ``seg<i>/l<j>``.
+        Fewer layers than one period (after the ``first_k_dense`` ones)
+        unroll: the layout the reference reaches with no full period if
+        its period check did not read past the last layer.
         """
         L = self.n_layers
         segs = []
@@ -179,6 +194,10 @@ class ModelConfig:
         if self.moe is not None:
             p = math.lcm(p, self.moe_every)
         rem = L - start
+        if rem < p:
+            if rem > 0:
+                segs.append(("unroll", list(range(start, L))))
+            return segs
 
         # period must reproduce identical (kind, moe) specs across reps
         def specs_ok(period: int) -> bool:

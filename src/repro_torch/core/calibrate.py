@@ -142,18 +142,21 @@ class CalibrationEngine:
 
     def reduce(self, params, batch) -> Dict:
         """One batch's statistics of this pass, from one forward. Inside
-        ``run``, pass 2 adds its class-1 G into the running accumulator in
-        place and leaves it out of the result (``stats._p2_attn``)."""
+        ``run``, pass 2 adds its class-1 G, and pass 1 every unit's sums,
+        into the running accumulator in place and leaves them out of the
+        result (``stats._p2_attn``, ``stats.pass1_reduce``)."""
         taps = {}
         with model_common.tap_dtype(self.stats_dtype), \
                 model_common.expert_taps(self.expert_moments):
             self.model.apply(params, batch, taps=taps)
         if self.phase == 1:
-            return stats_mod.pass1_reduce(taps, self.units)
+            return stats_mod.pass1_reduce(taps, self.units, self._acc)
         plan, spec_plan = self._plans_on(next(iter(taps.values())).device)
         if self.phase == 2:
             return stats_mod.pass2_reduce(taps, self.units, plan, self._acc)
-        return {"p1": stats_mod.pass1_reduce(taps, self.units),
+        return {"p1": stats_mod.pass1_reduce(
+                    taps, self.units,
+                    None if self._acc is None else self._acc["p1"]),
                 "p2spec": stats_mod.spec_pass2_reduce(taps, self.units,
                                                       spec_plan)}
 

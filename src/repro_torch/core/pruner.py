@@ -17,18 +17,26 @@ regressed onto the block input, folded into ``moe_resid`` and
 ``moe_out_b``), shared experts (an MLP unit on ``mlp/shared``, with its
 ``bd``), MLA units (class 1 on the nope blocks ``w_uq_nope``/
 ``w_uk_nope``, one group a head; the rope block is never touched), the
-``first_k_dense`` layers' MLPs, stacked units and unrolled (unstacked)
-ones; two calibration passes or one (``one_traversal``), taps streamed
-in fp32 or bf16, resumable statistics checkpoints (``ckpt_dir``) and the
-memory-bounded ``corp_prune_streamed``. ``mesh=``, Mamba and cross
-attention are not ported yet; they raise.
+``first_k_dense`` layers' MLPs, Mamba units (the inner channels on the
+``mamba_y`` tap, compensated through ``out_proj`` and an ``out_b`` bias;
+every channel-wise leaf gathered; ``include_mamba``), stacked units and
+unrolled (unstacked) ones; two calibration passes or one
+(``one_traversal``), taps streamed in fp32 or bf16, resumable statistics
+checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``.
+``mesh=`` and cross attention are not ported yet; they raise.
 
 Memory at full width (deepseek-v3 at 4 layers: 30 GB of bf16 weights,
 8.6 GB of class-1 G a layer): pass 2 adds its G in place
-(``stats._add_kron``); while it runs, the MLP units' pass-1 moments wait
-in host memory; the fold takes the attention units first, each freeing
-its statistics as it is folded, and solves class-1 systems a chunk of
-groups at a time.
+(``stats._add_kron``); a MoE unit's per-expert s2 accumulates in place a
+chunk of experts a batch when it is large (``stats._expert_moments``).
+After ranking, the pass-1 moments of every unit but the attention ones
+wait in page-locked host memory when pass 2's G and the per-expert s2
+would take more than half the card's free memory (``_park_moments``:
+deepseek-v3's MLA G; jamba at 2 layers, 38.7 GB of 24576^2 moments beside
+24 GB of weights), and each fold copies its moments back, the MoE fold a
+chunk of experts at a time. The fold takes the attention units first,
+each freeing its statistics as it is folded, and solves class-1 systems
+a chunk of groups at a time.
 
 ``one_traversal=True`` fuses the two passes: pass 1 also accumulates the
 pass-2 sums against top-k candidate keep-sets (``keep_n * (1 +
@@ -66,6 +74,7 @@ class PruneConfig:
     lam: float = 1e-4            # ridge, relative to mean diagonal
     rank_policy: str = "combined"
     compensate: bool = True      # False = rank-only baseline (paper ablation)
+    include_mamba: bool = True   # prune Mamba inner channels (beyond-paper)
     round_to: int = 1            # kept counts rounded down to a multiple
 
 
@@ -116,6 +125,25 @@ def _gather_idx(a, idx, axis: int):
     return torch.gather(a, axis, view.expand(shape))
 
 
+def _ridge_w2(w2, stats, keep_t, prune_t, pc: PruneConfig):
+    """The MLP ridge (Eq. 9) of a stacked unit against its second matrix
+    w2 (L, F, D): (w2's kept rows, compensated with pc.compensate; the
+    compensation bias c W_P (L, D) fp32, or None; the diagnostics). The
+    moments are copied to w2's device when they were parked
+    (``_park_moments``)."""
+    mu, sigma = solve_mod.mlp_cov(_to(stats, w2.device))
+    lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
+    sol = solve_mod.ridge_affine(mu, sigma, keep_t, prune_t, lam)
+    w2_S = solve_mod.gather_rows(w2, keep_t)
+    w2_P = solve_mod.gather_rows(w2, prune_t).float()
+    diag = solve_mod.mlp_distortion(sol, w2_P)
+    if not pc.compensate:
+        return w2_S, None, diag
+    comp = torch.einsum("rps,rpd->rsd", sol["B"], w2_P)
+    bias = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
+    return (w2_S.float() + comp).to(w2.dtype), bias, diag
+
+
 def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
                     report):
     """Dense MLP or RWKV channel mix of a stacked unit. keep/prune: (L, n)
@@ -123,26 +151,15 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     ``wv`` of a channel mix) and its bias: ``bd``, or for a channel mix
     ``bv_comp``, which is added before the receptance gate."""
     w2_key = "wv" if unit.kind == "rwkv_mlp" else "wd"
-    w2 = p[w2_key]                                   # (L, F, D)
     new = dict(p)
-    keep_t, prune_t = _idx(keep, w2.device), _idx(prune, w2.device)
-    mu, sigma = solve_mod.mlp_cov(stats)
-    lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
-    sol = solve_mod.ridge_affine(mu, sigma, keep_t, prune_t, lam)
-    w2_S = solve_mod.gather_rows(w2, keep_t)
-    w2_P = solve_mod.gather_rows(w2, prune_t).float()
-    diag = solve_mod.mlp_distortion(sol, w2_P)
-    if pc.compensate:
-        comp = torch.einsum("rps,rpd->rsd", sol["B"], w2_P)
-        bias = torch.einsum("rp,rpd->rd", sol["c"], w2_P)
-        new[w2_key] = (w2_S.float() + comp).to(w2.dtype)
-        if unit.kind == "rwkv_mlp":
-            new["bv_comp"] = bias
-        else:
-            old_b = p.get("bd", torch.zeros_like(bias))
-            new["bd"] = old_b.float() + bias
-    else:
-        new[w2_key] = w2_S
+    keep_t, prune_t = _idx(keep, p[w2_key].device), \
+        _idx(prune, p[w2_key].device)
+    new[w2_key], bias, diag = _ridge_w2(p[w2_key], stats, keep_t, prune_t,
+                                        pc)
+    if bias is not None and unit.kind == "rwkv_mlp":
+        new["bv_comp"] = bias
+    elif bias is not None:
+        new["bd"] = p.get("bd", torch.zeros_like(bias)).float() + bias
     for k1 in ("wu", "wg", "wk"):
         if k1 in p:
             new[k1] = _gather_idx(p[k1], keep_t, -1)
@@ -153,30 +170,64 @@ def _fold_mlp_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     return new
 
 
+def _fold_mamba_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
+                      report):
+    """Inner channels of a stacked Mamba unit (``repro.core.pruner
+    ._fold_mamba_block``): the ridge against ``out_proj`` (L, di, D),
+    compensated into its kept rows and the bias ``out_b`` (L, D); every
+    channel-wise leaf gathered to the kept channels: both halves of
+    ``in_proj`` (x and the gate z), ``conv_w``, ``conv_b``, the rows of
+    ``x_proj``, ``dt_proj``, ``dt_bias``, ``a_log`` and ``d_skip``. keep /
+    prune: (L, n). A pruned channel also leaves ``x_proj``'s input, so dt,
+    B and C of the kept channels change, which the ``out_proj`` ridge
+    does not see."""
+    new = dict(p)
+    out = p["out_proj"]                              # (L, di, D)
+    di = out.shape[1]
+    keep_t, prune_t = _idx(keep, out.device), _idx(prune, out.device)
+    new["out_proj"], bias, diag = _ridge_w2(out, stats, keep_t, prune_t, pc)
+    if bias is not None:
+        new["out_b"] = bias
+    new["in_proj"] = _gather_idx(p["in_proj"],
+                                 torch.cat([keep_t, keep_t + di], dim=-1), -1)
+    for k in ("conv_w", "conv_b", "dt_proj", "dt_bias", "d_skip"):
+        new[k] = _gather_idx(p[k], keep_t, -1)
+    for k in ("x_proj", "a_log"):
+        new[k] = _gather_idx(p[k], keep_t, 1)
+    report[unit.name] = _host(diag)
+    return new
+
+
 def _fold_moe_block(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
                     report):
     """Each expert's hidden channels of a stacked MoE unit: experts ``wg``,
     ``wu`` (L, E, D, F), ``wd`` (L, E, F, D), per-expert moments; keep /
     prune (L, E, n). Batched ridge solves over a layer's experts, 16
-    experts at a time (the covariances formed in float64 and solved in
-    fp32, as the reference does; at deepseek-v3's 256 experts of 2048 a
-    layer's pruned rows of ``wd`` in fp32 alone are 7.5 GB); the
-    compensation goes into ``wd`` and ``bd_moe`` (L, E, D), which the
-    expert adds to its output before the combine."""
+    experts at a time, fewer when their float64 covariances would pass
+    ``stats._MOE_CHUNK`` (one at jamba's 24576: 4.8 GB) (the covariances
+    formed in float64 and solved in fp32, as the reference does; at
+    deepseek-v3's
+    256 experts of 2048 a layer's pruned rows of ``wd`` in fp32 alone are
+    7.5 GB); the compensation goes into ``wd`` and ``bd_moe`` (L, E, D),
+    which the expert adds to its output before the combine. The moments
+    may wait in host memory (``_park_moments``): each chunk of ``s2`` is
+    copied to the card as it is solved."""
     new = dict(p)
     wd = p["wd"]
-    L, E, _, D = wd.shape
+    L, E, F, D = wd.shape
     keep_t, prune_t = _idx(keep, wd.device), _idx(prune, wd.device)
     ds = keep_t.shape[-1]
     wd_new = wd.new_empty((L, E, ds, D))
     bias = torch.zeros((L, E, D), dtype=torch.float32, device=wd.device)
     diags = []
-    for l, e in itertools.product(range(L), range(0, E, 16)):
-        x = slice(e, e + 16)
-        n = stats["n"][l, x].double().clamp_min(1.0)[:, None]
-        mu = stats["s1"][l, x].double() / n
-        sigma = (stats["s2"][l, x].double() / n[:, :, None]
-                 - mu[:, :, None] * mu[:, None, :]).float()
+    step = max(1, min(16, stats_mod._MOE_CHUNK // (8 * F * F)))
+    cnt, s1 = (stats[k].to(wd.device) for k in ("n", "s1"))
+    for l, e in itertools.product(range(L), range(0, E, step)):
+        x = slice(e, e + step)
+        n = cnt[l, x].double().clamp_min(1.0)[:, None]
+        mu = s1[l, x].double() / n
+        sigma = stats["s2"][l, x].to(wd.device).double() \
+            .div_(n[:, :, None]).sub_(mu[:, :, None] * mu[:, None, :]).float()
         lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
         sol = solve_mod.ridge_affine(mu.float(), sigma, keep_t[l, x],
                                      prune_t[l, x], lam)
@@ -219,9 +270,10 @@ def _fold_moe_experts(p, stats, unit: Unit, pc: PruneConfig, keep, prune,
     ar = torch.arange(D, device=wd.device)
     idx_s = ar.expand(L, D)                               # the input block
     idx_p = ((prune_t + 1)[..., None] * D + ar).reshape(L, nP * D)
-    n = stats["yn"].float().clamp_min(1.0)
-    mu = stats["ys1"] / n[:, None]
-    sigma = stats["ys2"] / n[:, None, None] \
+    yn, ys1, ys2 = (stats[k].to(wd.device) for k in ("yn", "ys1", "ys2"))
+    n = yn.float().clamp_min(1.0)
+    mu = ys1 / n[:, None]
+    sigma = ys2 / n[:, None, None] \
         - mu[:, :, None] * mu[:, None, :]
     lam = pc.lam * torch.diagonal(sigma, dim1=-2, dim2=-1).mean(dim=-1)
     sol = solve_mod.ridge_affine(mu, sigma, idx_s, idx_p, lam)
@@ -469,23 +521,29 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
     """unit.name -> (keep, prune) numpy index arrays, from pass 1.
 
     An MLP unit's ranking reads the diagonal of s2, the counts and the
-    second matrix's column norms (``wv`` of a channel mix): only those
-    leave the device, in fp32 (the norms in float64), not the (L, F, F)
-    moments. A MoE unit ranks each expert's channels alike, on its ``wd``
-    (L, E, F, D) and its per-expert moments: keep / prune (L, E, n)."""
+    second matrix's column norms (``wv`` of a channel mix, ``out_proj``
+    of a Mamba unit): only those leave the device, in fp32 (the norms in
+    float64), not the (L, F, F) moments. A MoE unit ranks each expert's
+    channels alike, on its ``wd`` (L, E, F, D) and its per-expert moments:
+    keep / prune (L, E, n). Mamba units are ranked only with
+    ``pc.include_mamba``."""
     plan = {}
+    w2_key = {"rwkv_mlp": "wv", "mamba": "out_proj"}
     for u in units:
         st = p1[u.name]
-        if u.kind in ("mlp", "rwkv_mlp", "moe"):
-            if pc.mlp_sparsity <= 0:
+        if u.kind in ("mlp", "rwkv_mlp", "moe", "mamba"):
+            if pc.mlp_sparsity <= 0 or (u.kind == "mamba"
+                                        and not pc.include_mamba):
                 continue
             w2 = _unit_block(get_block(params, u), u)[
-                "wv" if u.kind == "rwkv_mlp" else "wd"]
-            # float64 norms a few matrices at a time: qwen3-moe's wd is
-            # 8 x 128 x 1536 x 4096, 48 GB in float64
+                w2_key.get(u.kind, "wd")]
+            # float64 norms 1 GiB of rows at a time: qwen3-moe's wd is 8 x
+            # 128 x 1536 x 4096, 48 GB in float64, jamba's expert 1.6 GB
+            rows = w2.reshape(-1, w2.shape[-1])
             col = torch.cat([
-                torch.linalg.vector_norm(w.double(), dim=-1) for w in
-                w2.reshape((-1,) + w2.shape[-2:]).split(16)]) \
+                torch.linalg.vector_norm(r.double(), dim=-1) for r in
+                rows.split(max(1, stats_mod._TEMP_BYTES // 8
+                                  // rows.shape[-1]))]) \
                 .reshape(w2.shape[:-1])
             keep_n = _keep_count(u.d_hidden, pc.mlp_sparsity, pc.round_to)
             host = [t.cpu().numpy() for t in (
@@ -512,18 +570,28 @@ def _to(stats, device):
 
 
 def _park_moments(p1, units, attn_plan, device):
-    """Pass 1's MLP moments, moved to host memory when pass 2's class-1 G
-    would take more than half the card's free memory (deepseek-v3's MLA:
-    8.6 GB a layer), else as they are; the fold takes each back."""
-    g_bytes = sum(4 * np.prod(np.shape(attn_plan[u.name][0])[:-1])
-                  * np.shape(attn_plan[u.name][0])[-1] ** 4
-                  for u in units if u.name in attn_plan
-                  and u.attn_class == 1)
+    """Pass 1's moments of every unit but the attention ones, moved to
+    page-locked host memory when what must stay on the card until the
+    fold, pass 2's class-1 G (deepseek-v3's MLA: 8.6 GB a layer) and the
+    per-expert s2 (jamba's 16 experts of 24576: 38.7 GB a layer), would
+    take more than half its free memory; else left as they are. Each fold
+    copies its moments back, the MoE fold a chunk of experts at a time.
+    Page-locked, the copies both ways run at the link's rate, several
+    times a pageable copy's."""
+    need = sum(4 * np.prod(np.shape(attn_plan[u.name][0])[:-1])
+               * np.shape(attn_plan[u.name][0])[-1] ** 4
+               for u in units if u.name in attn_plan
+               and u.attn_class == 1)
+    need += sum(p1[u.name]["s2"].numel() * 4 for u in units
+                if u.kind == "moe" and u.name in p1)
     if device.type != "cuda" \
-            or g_bytes < torch.cuda.mem_get_info(device)[0] // 2:
+            or need < torch.cuda.mem_get_info(device)[0] // 2:
         return p1
-    return {k: v if k in attn_plan else _to(v, "cpu")
-            for k, v in p1.items()}
+    return {u.name: p1[u.name] if u.kind in _ATTN_KINDS else map_tree(
+                lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True).copy_(t),
+                p1[u.name])
+            for u in units if u.name in p1}
 
 
 def _tick(report, stage: str, t0: float):
@@ -567,13 +635,13 @@ def _prune_units(model, units, params, new_params, calib_batches,
     t0 = time.time()
     plan = _rank(units, p1, params, pc)
     e_plan = _moe_expert_plan(units, p1, model.cfg, pc)
-    _tick(report, "rank", t0)
-
     attn_plan = {u.name: plan[u.name] for u in units
                  if u.kind in _ATTN_KINDS and u.name in plan}
+    p1 = _park_moments(p1, units, attn_plan, device)
+    _tick(report, "rank", t0)
+
     p2 = {}
     if attn_plan:
-        p1 = _park_moments(p1, units, attn_plan, device)
         t0 = time.time()
         p2, misses = _resolve_attn_pass2(
             model, units, params, calib_batches, attn_plan, spec_plan,
@@ -594,8 +662,8 @@ def _prune_units(model, units, params, new_params, calib_batches,
     t0 = time.time()
     say("closed-form compensation + fold")
     folds = {"mlp": _fold_mlp_block, "rwkv_mlp": _fold_mlp_block,
-             "moe": _fold_moe_block, "attn": _fold_attn_block,
-             "mla": _fold_attn_block}
+             "moe": _fold_moe_block, "mamba": _fold_mamba_block,
+             "attn": _fold_attn_block, "mla": _fold_attn_block}
     # attention units first, each statistic dropped once folded; a MoE
     # block's experts, expert removal and shared expert fold in turn
     blocks = {}
@@ -605,7 +673,7 @@ def _prune_units(model, units, params, new_params, calib_batches,
         key = (u.seg, u.layer_key, u.param_key)
         block = blocks.get(key, get_block(new_params, u))
         attn = u.kind in _ATTN_KINDS
-        st = p2.pop(u.name) if attn else _to(p1.pop(u.name), device)
+        st = p2.pop(u.name) if attn else p1.pop(u.name)
         if u.name in plan:
             folded = _fold_as_stack(folds[u.kind], _unit_block(block, u),
                                     st, u, pc, *plan[u.name],
@@ -659,10 +727,13 @@ def _counted(calib_batches):
 
 
 def _pruned_cfg(cfg, pc: PruneConfig):
-    return cfg.pruned(pc.mlp_sparsity if pc.mlp_sparsity > 0 else 0.0,
-                      pc.attn_sparsity if pc.attn_sparsity > 0 else 0.0,
-                      round_to=pc.round_to,
-                      expert_sparsity=pc.expert_sparsity)
+    new = cfg.pruned(pc.mlp_sparsity if pc.mlp_sparsity > 0 else 0.0,
+                     pc.attn_sparsity if pc.attn_sparsity > 0 else 0.0,
+                     round_to=pc.round_to,
+                     expert_sparsity=pc.expert_sparsity)
+    if not pc.include_mamba and new.d_inner_kept is not None:
+        new = new.replace(d_inner_kept=None)
+    return new
 
 
 def _refuse_unported(mesh):

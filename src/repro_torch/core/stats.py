@@ -53,8 +53,13 @@ block's ``h`` tap. An MLA unit (deepseek-v3) is a class-1 unit with one
 group a head, on the taps of its nope block. Pass 2's class-1 ``G`` is
 accumulated in place (``_add_kron``): at MLA's full width it is (H,
 ds^2, ds^2) = 8.6 GB a layer, and a batch adds into it one chunk of heads
-at a time, so no batch allocates a second one. Mamba and cross attention
-are not ported yet; they raise.
+at a time, so no batch allocates a second one. Pass 1 adds each unit's
+batch sums into the running ones as soon as they are reduced, per-expert
+s2 a chunk of queues at a time (``_expert_moments``: one chunk when a
+batch's s2 is at most ``_MOE_WHOLE`` bytes; jamba's 16 experts of 24576,
+38.7 GB a layer, one a launch). A Mamba unit is an MLP-like unit on its
+``mamba_y`` tap (the gated inner channels entering ``out_proj``). Cross
+attention is not ported yet; it raises.
 """
 from __future__ import annotations
 
@@ -67,6 +72,17 @@ from repro_torch.core.units import Unit
 from repro_torch.kernels.gram import ops as gram_ops
 
 ACTIVE_EPS = 1e-2   # |x| > eps counts as 'active' (appendix E ranking)
+# Byte budgets of pruning's large temporaries on the card, for this module
+# and the pruner. A batch's per-expert s2 takes one gram launch when it is
+# at most _MOE_WHOLE, else one a chunk of queues within _MOE_CHUNK (jamba's
+# 24576-wide experts: one a launch); _MOE_CHUNK also bounds a chunk of the
+# MoE fold's float64 covariances (one expert at jamba's width: 4.8 GB). A
+# chunk of pass 2's G product (_KRON_CHUNK fp32 values) and of the
+# ranking's float64 column norms take _TEMP_BYTES.
+_MOE_WHOLE = 16 << 30
+_MOE_CHUNK = 4 << 30
+_TEMP_BYTES = 1 << 30
+_KRON_CHUNK = _TEMP_BYTES // 4
 
 
 def _moments(x):
@@ -137,22 +153,54 @@ def _unstack(unit: Unit, tree):
 # ---------------------------------------------------------------------------
 
 def _p1_mlp(taps, unit: Unit):
-    h = _stacked(unit, taps[f"{unit.tap_prefix}/h"])  # (L, B, T, F)
+    """Moments of an MLP-like unit's hidden tap: ``h``, or a Mamba unit's
+    ``mamba_y``."""
+    key = "mamba_y" if unit.kind == "mamba" else "h"
+    h = _stacked(unit, taps[f"{unit.tap_prefix}/{key}"])  # (L, B, T, F)
     return _unstack(unit, _moments(h.reshape(h.shape[0], -1, h.shape[-1])))
 
 
-def _p1_moe(taps, unit: Unit):
+def _expert_moments(h, mask, acc=None):
+    """``_masked_moments`` of R queues, one gram launch a chunk of them:
+    all R when their s2 is at most ``_MOE_WHOLE`` bytes, else as many as
+    fit in ``_MOE_CHUNK``. Each chunk's s2 is added in place into the
+    running sums ``acc['s2']`` (then left out of the result) or, on the
+    first batch, into the result's s2: the launch's own when one chunk
+    holds all R, else a zero buffer. The same sums as one launch: each
+    queue's gram is its own."""
+    R, _, F = h.shape
+    step = R if R * F * F * 4 <= _MOE_WHOLE \
+        else max(1, _MOE_CHUNK // (F * F * 4))
+    s2 = acc["s2"].view(R, F, F) if acc is not None else \
+        None if step >= R else h.new_zeros((R, F, F), dtype=torch.float32)
+    parts = []
+    for r in range(0, R, step):
+        m = _masked_moments(h[r:r + step], mask[r:r + step])
+        if s2 is None:
+            s2 = m.pop("s2")
+        else:   # the chunk's s2 is freed before the next launch
+            s2[r:r + step] += m.pop("s2")
+        parts.append(m)
+    out = {k: torch.cat([m[k] for m in parts]) for k in parts[0]}
+    if acc is None:
+        out["s2"] = s2
+    return out
+
+
+def _p1_moe(taps, unit: Unit, acc=None):
     """Per-expert moments of a routed-MoE unit: ``moe_h`` (L, G, E, C, F)
     with its ``moe_mask`` (L, G, E, C), the groups merged into the
     capacity axis -> n (L, E), s1 (L, E, F), s2 (L, E, F, F), na (L, E,
-    F). With the expert-removal taps, also the moments of z_t = [x_t,
-    c_t1..c_tE] ((E+1) D wide): yn (L,), ys1 (L, V), ys2 (L, V, V)."""
+    F); s2 added a chunk of queues at a time into the running sums
+    ``acc`` when given (``_expert_moments``). With the expert-removal taps, also the
+    moments of z_t = [x_t, c_t1..c_tE] ((E+1) D wide): yn (L,), ys1 (L,
+    V), ys2 (L, V, V)."""
     pre = unit.tap_prefix
     h = _stacked(unit, taps[f"{pre}/moe_h"])
     mask = _stacked(unit, taps[f"{pre}/moe_mask"])
     L, G, E, C, F = h.shape
-    out = _masked_moments(h.transpose(1, 2).reshape(L * E, G * C, F),
-                          mask.transpose(1, 2).reshape(L * E, G * C))
+    out = _expert_moments(h.transpose(1, 2).reshape(L * E, G * C, F),
+                          mask.transpose(1, 2).reshape(L * E, G * C), acc)
     out = {k: v.reshape((L, E) + v.shape[1:]) for k, v in out.items()}
     if f"{pre}/moe_yc" in taps:
         yc = _stacked(unit, taps[f"{pre}/moe_yc"])     # (L, G, tg, E, D)
@@ -195,10 +243,6 @@ def _take(x, idx):
     B, G, T, _ = x.shape
     return torch.gather(x, 3, idx[None, :, None, :].expand(B, G, T,
                                                           idx.shape[-1]))
-
-
-# values of one chunk of pass 2's per-batch G product (1 GiB in fp32)
-_KRON_CHUNK = 1 << 28
 
 
 def _add_kron(out, A, C):
@@ -465,21 +509,30 @@ def _spec_reconstruct_complex(spec, cf, kf, lead):
 # per-batch reductions over every unit
 # ---------------------------------------------------------------------------
 
-def pass1_reduce(taps: Dict, units: List[Unit]) -> Dict:
-    """Per-batch pass-1 sums: mlp, rwkv_mlp -> {n, s1, s2, na}; moe ->
-    per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn -> {rank, n}."""
+def pass1_reduce(taps: Dict, units: List[Unit],
+                 acc: Dict | None = None) -> Dict:
+    """Per-batch pass-1 sums: mlp, rwkv_mlp, mamba -> {n, s1, s2, na}; moe
+    -> per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn -> {rank, n}.
+    With the running accumulator ``acc``, each unit's sums are added into
+    it in place as soon as they are reduced and left out of the result, so
+    that no two units' batch moments are held at once (large per-expert
+    s2 a chunk at a time: ``_expert_moments``)."""
     out = {}
     for u in units:
-        if u.kind in ("mlp", "rwkv_mlp"):
-            out[u.name] = _p1_mlp(taps, u)
+        if u.kind in ("mlp", "rwkv_mlp", "mamba"):
+            st = _p1_mlp(taps, u)
         elif u.kind == "moe":
-            out[u.name] = _p1_moe(taps, u)
+            st = _p1_moe(taps, u, None if acc is None else acc[u.name])
         elif u.kind in ("attn", "mla"):
-            out[u.name] = _p1_attn(taps, u)
+            st = _p1_attn(taps, u)
         else:
             raise NotImplementedError(
                 f"unit {u.name} of kind {u.kind} is not ported; see "
                 f"repro.core.stats.pass1_reduce")
+        if acc is None:
+            out[u.name] = st
+        else:
+            tree_add(acc[u.name], st)
     return out
 
 

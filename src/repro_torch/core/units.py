@@ -2,9 +2,9 @@
 
 Every family and layout is discovered as in the JAX package; the
 statistics and folds cover mlp (shared experts and the ``first_k_dense``
-layers' ``dense_d_ff`` included), rwkv_mlp, moe (routed experts), attn
-units of every class and mla, stacked or unrolled, and refuse by name the
-kinds the port cannot reduce yet (mamba, cross).
+layers' ``dense_d_ff`` included), rwkv_mlp, moe (routed experts), mamba
+(inner channels), attn units of every class and mla, stacked or unrolled,
+and refuse by name the kind the port cannot reduce yet (cross).
 
 CORP operates on two kinds of structured units (paper §3.2) plus two
 framework extensions:

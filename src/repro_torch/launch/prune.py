@@ -11,7 +11,8 @@
         --expert-sparsity 0.5 --device cpu
 
 Initialises dense parameters (DeiT, Qwen2-1.5B, granite-8b, deepseek-7b,
-gemma3-1b, RWKV6-3B, internvl2-26b or qwen3-moe-235b-a22b) from seed 0
+gemma3-1b, RWKV6-3B, internvl2-26b, qwen3-moe-235b-a22b, deepseek-v3-671b
+or jamba-1.5-large-398b) from seed 0
 (no pretrained weights are in the repository), or loads them from a train
 checkpoint (``--ckpt-in``), runs the one-shot CORP pipeline over the
 synthetic calibration stream (images, or ``--calib-seq`` tokens a sequence
@@ -176,7 +177,9 @@ def main(argv=None) -> dict:
              if cfg.dense_d_ff else "")
           + f"qk {cfg.qk_full} -> {new_cfg.eff_qk}"
           + (f", experts {cfg.moe.num_experts} -> "
-             f"{new_cfg.eff_num_experts}" if cfg.moe is not None else ""))
+             f"{new_cfg.eff_num_experts}" if cfg.moe is not None else "")
+          + (f", d_inner {cfg.eff_d_inner} -> {new_cfg.eff_d_inner}"
+             if cfg.mamba is not None else ""))
     if "speculative" in report:
         sp = report["speculative"]
         print(f"[prune] one-traversal: {report['traversals']} traversal(s), "

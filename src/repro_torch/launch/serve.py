@@ -25,8 +25,8 @@ unchanged); ``--sparsity S --ckpt-in DIR`` serves
 a pruned checkpoint written by ``repro.launch.prune`` (or the port's),
 with its compensation leaves (``mlp/bd``, ``mlp/bv_comp``; a MoE's
 ``mlp/bd_moe`` and, with ``--expert-sparsity``, ``mlp/moe_resid`` and
-``mlp/moe_out_b``; a shared expert's ``mlp/shared/bd``), which the JAX
-CLI's template drops; a
+``mlp/moe_out_b``; a shared expert's ``mlp/shared/bd``; a Mamba mixer's
+``mixer/out_b``), which the JAX CLI's template drops; a
 ``--no-compensate`` checkpoint has none and serves them as zeros. A pruned qk-norm model (gemma3-1b) restores its per-head
 qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
 CLI's template cannot take (its restore fails). It
@@ -37,7 +37,11 @@ shortest-prompt-first, replicas, mesh) raise here, as does enc-dec.
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
 prompts (the engine sends no patch embeddings). ``--arch
 deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
-``k_rope``, (512 + 64) values a token and layer).
+``k_rope``, (512 + 64) values a token and layer). ``--arch
+jamba-1.5-large-398b`` serves the Mamba hybrid under the recurrent
+contract: each slot holds the Mamba layers' conv rows and SSM states and
+the attention layers' K/V rows (the stats line splits a slot's bytes into
+the two).
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ _UNPORTED = {
 # leaves CORP pruning adds: a pruned template holds them (zeros), and a
 # pruned checkpoint fills them when it was compensated
 COMPENSATION_LEAVES = ("mlp/bd", "mlp/bv_comp", "mlp/bd_moe",
-                       "mlp/moe_resid", "mlp/moe_out_b", "mlp/shared/bd")
+                       "mlp/moe_resid", "mlp/moe_out_b", "mlp/shared/bd",
+                       "mixer/out_b")
 
 
 def _sync(device):
@@ -154,8 +159,11 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
         f"{st['decode_lanes'] / max(1, st['decode_steps'] * slots):.0%}, "
         f"{st['walk_steps']} batch-1 walk steps, "
         f"cache {eng.cache_bytes / 1e6:.2f} MB "
-        f"({eng.slotcache.slot_bytes / 1e6:.2f} MB per slot, "
-        f"{eng.contract} contract)")
+        f"({eng.slotcache.slot_bytes / 1e6:.2f} MB per slot"
+        + ("".join(f", {k} {v / 1e6:.2f} MB" for k, v in
+                   eng.slotcache.slot_parts.items())
+           if eng.contract == "recurrent" else "")
+        + f", {eng.contract} contract)")
     if compare_static:
         comps_s = run_static_trace(model, params, trace, n_slots=slots,
                                    max_len=max_len)

@@ -1,10 +1,10 @@
 """Block assembly (``repro.models.blocks``): norm -> mixer -> norm -> MLP,
 pre-norm residual; full-sequence and one-token decode. The mixer is
-attention (``attn``/``swa``, MLA when ``cfg.mla``) with a dense or
-routed-MoE MLP, or the RWKV-6 time mix with its channel mix (``rwkv``).
-The ``first_k_dense`` layers of a MoE config take a dense MLP of
-``dense_ff`` hidden channels. Mamba and cross-attention blocks are not
-ported yet; they raise."""
+attention (``attn``/``swa``, MLA when ``cfg.mla``) or the Mamba SSM
+(``mamba``), with a dense or routed-MoE MLP, or the RWKV-6 time mix with
+its channel mix (``rwkv``). The ``first_k_dense`` layers of a MoE config
+take a dense MLP of ``dense_ff`` hidden channels. Cross-attention blocks
+are not ported yet; they raise."""
 from __future__ import annotations
 
 import torch
@@ -16,10 +16,7 @@ from repro_torch.models.common import apply_norm, init_norm, merge_taps
 
 
 def _check(kind: str):
-    if kind == "mamba":
-        raise NotImplementedError("the Mamba mixer is not ported; see "
-                                  "repro.models.ssm.apply_mamba")
-    if kind not in ("attn", "swa", "rwkv"):
+    if kind not in ("attn", "swa", "mamba", "rwkv"):
         raise NotImplementedError(
             f"block kind={kind!r} is not ported; see "
             f"repro.models.blocks.apply_block")
@@ -43,7 +40,8 @@ def init_block(gen: torch.Generator, cfg, kind: str = "attn",
                 "ln2": init_norm(cfg),
                 "mlp": ssm_mod.init_rwkv_channel(gen, cfg)}
     return {"ln1": init_norm(cfg),
-            "mixer": attn_mod.init_attn(gen, cfg, kind),
+            "mixer": ssm_mod.init_mamba(gen, cfg) if kind == "mamba"
+            else attn_mod.init_attn(gen, cfg, kind),
             "ln2": init_norm(cfg),
             "mlp": mlp_mod.init_moe(gen, cfg) if is_moe
             else mlp_mod.init_mlp(gen, cfg, d_ff=dense_ff)}
@@ -74,9 +72,12 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
         x, _ = rwkv_block(p, x, cfg, taps=t)
     else:
         h = apply_norm(p["ln1"], x, cfg)
-        y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
-                                   positions=positions, taps=t,
-                                   mask_kind=mask_kind)
+        if kind == "mamba":
+            y, _ = ssm_mod.apply_mamba(p["mixer"], h, cfg, taps=t)
+        else:
+            y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
+                                       positions=positions, taps=t,
+                                       mask_kind=mask_kind)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
         x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t)
@@ -89,6 +90,8 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     _check(kind)
     if kind == "rwkv":
         return ssm_mod.init_rwkv_state(cfg, batch, device)
+    if kind == "mamba":
+        return ssm_mod.init_mamba_state(cfg, batch, device)
     return attn_mod.init_cache(cfg, kind, batch, max_len, device)
 
 
@@ -99,7 +102,10 @@ def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False):
     if kind == "rwkv":
         return rwkv_block(p, x, cfg, state=cache)
     h = apply_norm(p["ln1"], x, cfg)
-    y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
+    if kind == "mamba":
+        y, cache = ssm_mod.apply_mamba(p["mixer"], h, cfg, state=cache)
+    else:
+        y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
     return x + ffn(p["mlp"], h, cfg, is_moe), cache

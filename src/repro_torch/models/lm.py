@@ -1,5 +1,5 @@
 """Decoder-only language model (``repro.models.lm``): forward, prefill and
-one-token decode, for attention stacks and RWKV-6 stacks.
+one-token decode, for attention stacks, RWKV-6 stacks and Mamba hybrids.
 
 Depth follows ``cfg.layout()`` exactly as the JAX package lays out its
 params: a scanned segment stores its layers stacked under ``seg<i>/p<j>``
@@ -9,10 +9,11 @@ scans, the port loops over the stacked axis (views, no copies). The decode
 cache has the same tree as JAX's: a top-level ``pos`` (B,) and per layer
 either ``k``, ``v``, ``pos`` (attention) or the recurrent state
 ``{"time": {"shift", "wkv"}, "channel": {"shift"}}`` (rwkv, no per-layer
-``pos``) or MLA's latent ``ckv``, ``k_rope``, ``pos``, scanned leaves
-stacked (reps, B, ...); every ``pos`` is int32.
-``lm_decode_step`` updates the cache in place (new K/V rows, or the wkv
-state and shift rows overwritten).
+``pos``) or ``{"conv", "ssm"}`` (mamba: the last d_conv - 1 inputs of
+the causal conv and the (di, d_state) fp32 SSM state, no ``pos``) or
+MLA's latent ``ckv``, ``k_rope``, ``pos``, scanned leaves stacked (reps,
+B, ...); every ``pos`` is int32. ``lm_decode_step`` updates the cache in
+place (new K/V rows, or the wkv, SSM, conv and shift rows overwritten).
 
 A ``swa`` layer's decode cache is a ring of ``min(max_len,
 sliding_window)`` slots with ``abs_pos`` (``_window_cache``); an empty
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.interop import map_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, init_stacked, layer_slice,
                                        stack_layers)
@@ -210,10 +212,14 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None,
         if kind == "rwkv":
             return blk.rwkv_block(p, x, cfg)
         h = apply_norm(p["ln1"], x, cfg)
-        y, c = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
-                                   positions=positions, return_cache=True)
-        c = _window_cache(c, cfg, max_len) if kind == "swa" \
-            else _pad_cache(c, max_len)
+        if kind == "mamba":
+            y, c = ssm_mod.apply_mamba(p["mixer"], h, cfg)
+        else:
+            y, c = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
+                                       positions=positions,
+                                       return_cache=True)
+            c = _window_cache(c, cfg, max_len) if kind == "swa" \
+                else _pad_cache(c, max_len)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
         return x + blk.ffn(p["mlp"], h, cfg, moe), c

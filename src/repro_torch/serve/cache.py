@@ -19,9 +19,11 @@ their ``pos`` may walk past ``max_len``, where the decode scatter drops the
 out-of-bounds row (as JAX does), so stale slots are inert until the next
 admit overwrites them.
 
-Under the ``recurrent`` contract (rwkv) a slot holds a fixed-size state
-instead (``RecurrentSlotCache``): there is no mask to hide a stale lane
-behind, so retire resets it. ``encdec`` is not ported.
+Under the ``recurrent`` contract (rwkv, and any stack with a Mamba layer)
+a slot holds a fixed-size state instead (``RecurrentSlotCache``): there is
+no mask to hide a stale lane behind, so retire resets it. A hybrid
+(jamba) holds its attention layers' K/V rows and ``pos`` beside the
+states. ``encdec`` is not ported.
 """
 from __future__ import annotations
 
@@ -99,16 +101,25 @@ class SlotCache:
         return self.bytes // self.n_slots
 
 
+# leaves of an attention layer's cache (its K/V rows or latents, and the
+# positions that mask them); every other leaf is a recurrent state
+_KV_LEAVES = frozenset({"k", "v", "ckv", "k_rope", "pos", "abs_pos"})
+
+
 class RecurrentSlotCache(SlotCache):
     """Slot cache for the *recurrent* contract: each slot holds a fixed-size
-    wkv6 state (and token-shift rows) instead of growing KV rows, so
-    ``slot_bytes`` is constant in ``max_len``.
+    recurrent state (wkv6 and token-shift rows, or Mamba's conv rows and
+    SSM state) instead of growing KV rows. A pure recurrent stack's
+    ``slot_bytes`` is constant in ``max_len``; a hybrid's attention layers
+    (jamba) add K/V rows that grow with it (``slot_parts`` splits the two).
 
-    Admit and decode are those of ``SlotCache`` (a recurrent state has no
-    time axis: the admit copy replaces the whole lane). Retire differs: a
+    Admit and decode are those of ``SlotCache`` (the admit copy replaces the
+    whole lane: a state has no time axis, and the K/V rows of an
+    exact-length prefill are padded to ``max_len``). Retire differs: a
     state is a lossy summary of the whole history with no mask to hide
-    behind, so ``reset_slot`` writes the empty-history (zero) batch-1 state
-    back into the lane, in place.
+    behind, so ``reset_slot`` writes the empty-history batch-1 cache back
+    into the lane, in place: zero states, and the attention lanes inert
+    (``pos`` 0, zero K/V).
     """
 
     def __init__(self, template_fn, n_slots: int, *, device):
@@ -119,3 +130,15 @@ class RecurrentSlotCache(SlotCache):
         """Retire/cancel: return ``slot``'s lane to the empty-history
         state."""
         self.write_slot(self._blank, slot)
+
+    @property
+    def slot_parts(self) -> dict:
+        """Bytes one slot occupies, split into ``state`` (the recurrent
+        states, constant in ``max_len``) and ``kv`` (attention K/V rows
+        and positions, with the top-level ``pos``)."""
+        parts = {"state": 0, "kv": 0}
+        for path, t in flatten(self._blank).items():
+            kind = "kv" if path.rsplit("/", 1)[-1] in _KV_LEAVES \
+                else "state"
+            parts[kind] += t.numel() * t.element_size()
+        return parts

@@ -25,10 +25,12 @@ Two slot-cache contracts are served (``serve/cache.py``):
 - ``kv`` (pure global-attention stacks): prompts are right-padded to the
   next power-of-two bucket and prefilled with per-sample true ``lengths``
   (causal attention keeps cache rows < length exact — see ``lm_prefill``).
-- ``recurrent`` (rwkv): a state would absorb pad tokens, so prefill is
-  exact-length, and the first chunk is a multiple of the smallest bucket,
-  at most ``P - 1``; the rest of the prompt walks through the batch-1
-  decode step. Retire and cancel reset the slot's state lanes to zeros.
+- ``recurrent`` (rwkv, and any stack with a Mamba layer: the jamba
+  hybrid): a state would absorb pad tokens, so prefill is exact-length,
+  and the first chunk is a multiple of the smallest bucket, at most
+  ``P - 1``; the rest of the prompt walks through the batch-1 decode
+  step. Retire and cancel reset the slot's lanes to the empty cache (zero
+  states; a hybrid's attention lanes back to ``pos`` 0).
 
 Pruned models plug in transparently: a ``cfg.pruned(...)`` config shrinks
 ``eff_qk`` and the slot cache's K rows shrink with it.

@@ -4,8 +4,10 @@ into the per-head qk-norm scales), GELU GLU MLP units, stacked and
 unrolled.
 
 gemma3-1b-reduced (fp32) at 6 layers (one scanned segment, as JAX's
-reduced config) and at 8 (the segment plus 2 unrolled layers, the shape of
-the full model's 4 x 6 + 2), on the same numpy-made weights and the
+reduced config) here, and at 8 (the segment plus 2 unrolled layers, the
+shape of the full model's 4 x 6 + 2) in
+``test_torch_gemma_prune_unrolled.py``, which runs this file's cases that
+take the ``s`` fixture, on the same numpy-made weights and the
 reference's own Markov calibration tokens (``torch_parity.lm_prune_setup``)
 in both packages, on the CPU; the JAX package takes its plain paths there,
 as its own tests do. Statistics are held to rtol 1e-4 (fp32 sums in
@@ -50,7 +52,7 @@ from repro_torch.models import build_model as pt_build  # noqa: E402
 from torch_parity import lm_logits, lm_prune_setup, rel  # noqa: E402
 
 KEEP_PAIRS = 4            # of 8 rotary pairs per head at sparsity 0.5
-LAYERS = [6, 8]
+LAYERS = [6]              # 8 layers: test_torch_gemma_prune_unrolled.py
 _SETUPS, _JAX = {}, {}
 
 
@@ -121,18 +123,6 @@ def _check_j(report):
 # ---------------------------------------------------------------------------
 # units, solve and fold
 # ---------------------------------------------------------------------------
-
-def test_units_are_class3_stacked_and_unrolled():
-    s = _s(8)
-    units = discover_units(s["cfg"])
-    assert [dataclasses.asdict(u) for u in units] == \
-        [dataclasses.asdict(u) for u in jax_units(s["jcfg"])]
-    attn = _attn_units(units)
-    assert {u.attn_class for u in attn} == {3}
-    assert [(u.name, u.stacked, u.reps) for u in attn[-2:]] == \
-        [("seg1/l0/attn", False, 1), ("seg1/l1/attn", False, 1)]
-    assert sum(u.stacked for u in units) == 12 and len(units) == 16
-
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_real_solve_and_fold_match_jax(seed):

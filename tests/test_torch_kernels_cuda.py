@@ -182,6 +182,24 @@ def test_gram_kernel_at_the_moe_expert_items(dev):
     _close_to_fp64_sums(got["s1"], x)
 
 
+def test_gram_kernel_over_expert_queues_past_2_31_outputs(dev):
+    """jamba's expert queues at d_expert 24576: 4 queues of 320 capacity
+    slots, 4 x 24576^2 = 2.4 G outputs in one launch, past 2^31 (int64
+    offsets), the empty slots zero."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(4, 320, 24576, generator=g, device=dev)
+    x[:, 256:] = 0.0
+    assert 4 * 24576 ** 2 > 2 ** 31
+    got = gram_ops.gram(x)
+    assert torch.equal(got["s2"], got["s2"].mT)
+    for i in (0, 3):                # one queue at a time: 2 x 2.4 GB, not 2
+        want = gram_ref.gram(x[i:i + 1])
+        rel = (got["s2"][i] - want["s2"][0]).abs().max() \
+            / want["s2"].abs().max()
+        assert rel <= 1e-5
+    _close_to_fp64_sums(got["s1"], x)
+
+
 def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
                 scale=0.125, offset=0):
     """Kernel vs plain on seeded inputs; ``offset`` > 0 makes q, k, v views
@@ -235,6 +253,8 @@ def test_flash_kernel_matches_plain(dev, B, T, S, H, Hkv, dq, dv, causal,
     (1, 77, 77, 4, 2, 256, 96, True, 30),          # dq 256 != dv 96
     (4, 520, 520, 48, 8, 128, 128, True, None),    # internvl, 8 + 512
     (2, 512, 512, 64, 4, 128, 128, True, None),    # qwen3-moe, group 16
+    (2, 512, 512, 64, 8, 128, 128, True, None),    # jamba, group 8
+    (2, 300, 300, 64, 8, 64, 128, True, None),     # pruned jamba, q/k 64
 ])
 def test_flash_kernel_bf16_matches_plain(dev, B, T, S, H, Hkv, dq, dv,
                                          causal, window):
@@ -307,6 +327,8 @@ def _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype=torch.float32, seed=0):
     (8, 2048, 48, 8, 64, 128),      # pruned internvl2-26b
     (8, 2048, 64, 4, 128, 128),     # qwen3-moe, group 16
     (8, 2048, 64, 4, 64, 128),      # pruned qwen3-moe
+    (8, 2048, 64, 8, 128, 128),     # jamba-1.5-large-398b, group 8
+    (8, 2048, 64, 8, 64, 128),      # pruned jamba
 ])
 def test_decode_kernel_matches_plain(dev, B, S, H, Hkv, dq, dv, dtype, tol):
     q, k, v, valid = _decode_inputs(dev, B, S, H, Hkv, dq, dv, dtype)

@@ -291,8 +291,9 @@ def test_complex_solve_fold_and_pair_dims_match_jax(seed):
 def test_class3_and_unported_units_raise_by_name(s):
     """Class 3 (qk-norm) units reduce (tests/test_torch_gemma_prune.py
     holds them to JAX), and so do class-1 MLA units
-    (tests/test_torch_deepseek_prune.py); the unit kinds still
-    unported, cross attention and Mamba, raise by name."""
+    (tests/test_torch_deepseek_prune.py) and Mamba units, on their
+    ``mamba_y`` tap (tests/test_torch_jamba_prune.py); the unit kind
+    still unported, cross attention, raises by name."""
     cfg = s["cfg"].replace(qk_norm=True)
     units = discover_units(cfg)
     assert units[0].attn_class == 3
@@ -304,8 +305,12 @@ def test_class3_and_unported_units_raise_by_name(s):
     with pytest.raises(NotImplementedError, match="cross"):
         stats_mod.pass1_reduce(taps, [cross])
     mamba = dataclasses.replace(units[0], kind="mamba", name="x/mamba")
-    with pytest.raises(NotImplementedError, match="mamba"):
-        stats_mod.pass1_reduce(taps, [mamba])
+    taps["seg0/p0/mamba_y"] = taps["seg0/p0/h"]
+    got = stats_mod.pass1_reduce(taps, [mamba])["x/mamba"]
+    want = stats_mod.pass1_reduce(taps, [units[1]])[units[1].name]
+    assert sorted(got) == ["n", "na", "s1", "s2"]
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
     mla = dataclasses.replace(units[0], kind="mla", name="x/mla",
                               attn_class=1)
     spec = stats_mod.spec_pass2_reduce(taps, [mla], {

@@ -7,10 +7,17 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from repro.configs import get_config, reduced
 from repro.models import build_model as jax_build
 from repro_torch import configs as pt_configs
+
+# one intra-op thread a test process: the suite runs one process a worker
+# (pytest-xdist), and torch's default of one thread a core in every worker
+# oversubscribes the cores the JAX tests share (the parity shapes are too
+# small to gain from more)
+torch.set_num_threads(1)
 
 
 def jax_params(cfg, seed=0):
@@ -54,7 +61,6 @@ def greedy_chain_ok(model, params, req, out_tokens):
     generated tokens through ONE full forward of the port's ``apply``;
     every generated token must be the argmax at the position that produced
     it (causality makes this a stepwise greedy rollout)."""
-    import torch
     P = len(req.tokens)
     seq = np.concatenate([np.asarray(req.tokens, np.int32),
                           np.asarray(out_tokens[:-1], np.int32)])
@@ -86,7 +92,6 @@ def lm_prune_setup(arch, seed, n_samples=24, batch=8, seq=32,
     them, so the MLP ridge systems are well posed) and a held-out token
     batch."""
     import jax.numpy as jnp
-    import torch
     from repro.data import calib_stream as jax_stream
     from repro_torch import interop
     from repro_torch.data import calib_stream as pt_stream
