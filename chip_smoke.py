@@ -127,7 +127,25 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      ``out_b`` (``[serve pruned jamba]``); the reduced config GPU against
      CPU: prefill and decode, engine streams, and prunes two-pass and
      one-traversal served from their checkpoints (``[reference jamba]``);
- 11. prints the card, a JSON line of per-kernel numbers with launches per
+ 11. seamless-m4t-large-v2 (the encoder-decoder: 24 encoder and 24
+     decoder layers, d 1024, MHA 16/16 of 64, relu^2 MLP of 8192) at full
+     width and depth: ``flash_attention`` non-causal at T != S (cross
+     attention: 32 and 700 decoder rows against 512 memory rows, q/k 64
+     and pruned 32 against v 64, fp32 and bf16) and at the calibration
+     forward, ``flash_decode`` over an all-valid memory of 500 rows and
+     ``gram`` at the stacked MLP tap (24, 4096, 8192) (``[kernels
+     seamless]``); served with 512 frames a request, the attention
+     kernels' launches gated at 72 a prefill and 48 a decode step, a
+     slot's bytes split into the decoder's and the memory's K/V
+     (``[serve seamless]``); pruned in fp32 at 0.5/0.5 on 128 sequences
+     of 512 Zipf tokens and 512 frames drawn on the card, compensated and
+     plain, the MLP units' held-out gate, the cross unit's prune alone
+     reported (``[prune seamless]``), the compensated model served in
+     process (``[serve pruned seamless]``); the reduced config GPU
+     against CPU: prefill and decode, engine streams, and prunes two-pass
+     and one-traversal served from their checkpoints through ``--ckpt-in
+     --mem-len`` (``[reference seamless]``);
+ 12. prints the card, a JSON line of per-kernel numbers with launches per
      path, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the exit code is not 0 and no result line is
@@ -548,10 +566,12 @@ def serve_prefill_timing(rand):
     return out
 
 
-def check_decode(q, k, v, valid, label, tol):
+def check_decode(q, k, v, valid, label, tol, scale=None):
+    """Kernel vs plain on the card at ``scale`` (default 1/sqrt(dq));
+    returns the max abs error."""
     import torch
     from repro_torch.kernels.flash_decode import ops, ref
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     got = ops.decode_attention(q, k, v, valid, scale=scale)
     want = ref.decode_attention(q, k, v, valid, scale)
     torch.cuda.synchronize()
@@ -2787,7 +2807,8 @@ def serve_in_process(args, tag, cfg, params, leaves, kernels):
         build_model(cfg), params, n=int(arg["--trace"]),
         slots=int(arg["--slots"]), max_len=int(arg["--max-len"]),
         prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
-        gen_range=tuple(map(int, arg["--gen-range"].split(","))))
+        gen_range=tuple(map(int, arg["--gen-range"].split(","))),
+        mem_len=int(arg["--mem-len"]) if "--mem-len" in arg else None)
     torch.cuda.synchronize()
     launches = read_launches()
     prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
@@ -3005,7 +3026,8 @@ def reference_prune_cases(tag, cases):
     """Reduced configs (fp32) through ``launch.prune --calib-seq 16 --out``
     on the GPU and the CPU, for each (arch, prune flags, serve flags) of
     ``cases``:
-    pruned logits within 1e-3 (8 patch embeddings before a VLM's tokens);
+    pruned logits within 1e-3 (8 patch embeddings before a VLM's tokens,
+    24 frames beside an enc-dec's);
     then the GPU's checkpoint through ``launch.serve --ckpt-in`` on both:
     equal streams, and every compensation leaf restored equal to the
     prune's."""
@@ -3027,6 +3049,10 @@ def reference_prune_cases(tag, cases):
             if pcfg.frontend == "patch_stub":
                 batch["patch_embeds"] = torch.randn(
                     (2, 8, pcfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+            if pcfg.family == "encdec":
+                batch["frames"] = torch.randn(
+                    (2, 24, pcfg.d_model),
                     generator=torch.Generator().manual_seed(1))
             batch = {k: v.to(device) for k, v in batch.items()}
             logits[device] = build_model(pcfg).apply(
@@ -3532,6 +3558,413 @@ def jamba_phases(dev, rows, launches):
     print(f"[reference jamba] phase wall {time.time() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# seamless-m4t-large-v2 (the encoder-decoder: 24 encoder and 24 decoder
+# layers, d 1024, MHA 16/16 of 64, relu^2 MLP of 8192, LayerNorm, sinusoidal
+# positions; vocabulary 256,206)
+# ---------------------------------------------------------------------------
+
+# full width and depth (1.632 G parameters, 3.26 GB in bf16): short decoder
+# prompts against 512 encoder frames, the output the long part, as in
+# speech translation
+SEAMLESS_SERVE = ["--arch", "seamless-m4t-large-v2", "--trace", "16",
+                  "--slots", "8", "--max-len", "1024", "--mem-len", "512",
+                  "--prompt-range", "4,32", "--gen-range", "16,96",
+                  "--init-on-device"]
+# its prune in fp32 (6.53 GB): 128 sequences of 512 Zipf tokens, each with
+# 512 frames drawn on the card, in batches of 8 (16 rows a kept MLP
+# channel; the logits of a batch of 16 would take 8.4 GB)
+SEAMLESS = dict(sparsity=0.5, seqs=128, seq=512, batch=8, held=4)
+SEAMLESS_PRUNED_SERVE = ["--arch", "seamless-m4t-large-v2", "--trace", "8",
+                         "--slots", "8", "--max-len", "1024", "--mem-len",
+                         "512", "--prompt-range", "4,32", "--gen-range",
+                         "16,96"]
+
+
+def encdec_attention(cfg):
+    """``flash_attention`` launches of an enc-dec forward: each encoder
+    layer's self-attention, each decoder layer's self and cross
+    attention."""
+    return cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+def seamless_kernel_phase(dev, rows):
+    """The kernels at the shapes seamless-m4t-large-v2's paths give them:
+    ``flash_attention`` non-causal at T != S (cross attention: a decoder
+    prompt of 32 against 512 frames, as a serve prefill, and 700 rows
+    against 512), MHA 16/16, q/k 64 and pruned 32 against v 64, at the
+    dense model's scale 1/sqrt(64) passed in, fp32 and bf16, and at the
+    calibration forward's cross attention (B 8, T = S = 512, fp32);
+    ``flash_decode`` over an all-valid memory of 500 rows (not a 64-key
+    tile multiple), 8 slots, dense and pruned, bf16 and fp32; ``gram`` at
+    the stacked MLP tap of a calibration batch (24, 4096, 8192) fp32. Each
+    against its plain version, timed beside its bound and SDPA or
+    ``torch.matmul``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
+    from repro_torch.kernels.flash_decode import ref as decode_ref
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.gram import ref as gram_ref
+    by_name = {row["name"]: row for row in rows}
+    g = torch.Generator(device=dev).manual_seed(41)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    print("[kernels seamless] the kernels against their plain versions at "
+          "the seamless-m4t-large-v2 shapes")
+    H, dv, scale = 16, 64, 64 ** -0.5
+    cases = [(1, 32, 512, dq, dt) for dt in (bf, f32) for dq in (64, 32)] \
+        + [(2, 700, 512, dq, dt) for dt in (bf, f32) for dq in (64, 32)] \
+        + [(8, 512, 512, 64, f32)]
+    for B, T, S, dq, dtype in cases:
+        name = str(dtype)[6:]
+        tag = (f"seamless_cross_{T}x{S}_{dq}_{dv}"
+               + ("" if dtype == bf else "_fp32"))
+        q, k = rand(B, T, H, dq, dtype=dtype), rand(B, S, H, dq, dtype=dtype)
+        v = rand(B, S, H, dv, dtype=dtype)
+        err = check_attention(q, k, v, False, None, scale,
+                              f"cross {T}x{S} {dq}/{dv} {name}",
+                              tol=2e-2 if dtype == bf else 1e-4)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        library = "SDPA"
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        except RuntimeError:        # a backend that needs dq == dv
+            qt, kt = (F.pad(a, (0, dv - dq)) for a in (qt, kt))
+            library = f"SDPA, q and k padded to {dv}"
+        calls = {"ms": lambda: flash_ops.attention(q, k, v, causal=False,
+                                                   scale=scale),
+                 "plain_ms": lambda: flash_ref.attention(
+                     q, k, v, causal=False, scale=scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, scale=scale)}
+        r = {"shape": [B, T, S, H, H, dq, dv], "dtype": name,
+             "max_abs_err": err, "library": library,
+             **{key: device_ms(fn, reps=10) for key, fn in calls.items()}}
+        size = q.element_size()
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * B * H * T * S * (dq + dv),
+            size * (B * T * H * (dq + dv) + B * S * H * (dq + dv)),
+            PEAK_BF16_FLOPS if dtype == bf else PEAK_FP32_FLOPS)
+        print(f"  flash_attention {tag} B={B} T={T} S={S} H={H} dq={dq} "
+              f"dv={dv} {name} non-causal, device time: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, {library} "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        by_name["flash_attention"][tag] = r
+        del q, k, v, qt, kt, vt
+
+    B, S = 8, 500
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    for dtype in (bf, f32):
+        for dq in (64, 32):
+            name = str(dtype)[6:]
+            q = rand(B, H, dq, dtype=dtype)
+            k, v = rand(B, S, H, dq, dtype=dtype), rand(B, S, H, dv,
+                                                       dtype=dtype)
+            tag = f"seamless_cross_decode_{dq}_{dv}" \
+                + ("" if dtype == bf else "_fp32")
+            err = check_decode(q, k, v, valid, tag,
+                               2e-2 if dtype == bf else 1e-4, scale=scale)
+            qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            m4 = valid[:, None, None, :]
+            calls = {"ms": lambda: decode_ops.decode_attention(
+                         q, k, v, valid, scale=scale),
+                     "plain_ms": lambda: decode_ref.decode_attention(
+                         q, k, v, valid, scale),
+                     "library_ms": lambda: F.scaled_dot_product_attention(
+                         qt, kt, vt, attn_mask=m4, scale=scale)}
+            r = {"shape": [B, S, H, H, dq, dv], "dtype": name,
+                 "valid_keys": B * S, "max_abs_err": err,
+                 **{key: device_ms(fn) for key, fn in calls.items()}}
+            size = q.element_size()
+            r["bound_ms"], r["bound_by"] = bound_ms(
+                2.0 * B * H * S * (dq + dv),
+                size * (B * S * H * (dq + dv) + B * H * (dq + dv)) + B * S,
+                PEAK_BF16_FLOPS if dtype == bf else PEAK_FP32_FLOPS)
+            print(f"  flash_decode {tag} ({B} slots of {S} memory rows, all "
+                  f"valid) {name}, device time: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})")
+            by_name["flash_decode"][tag] = r
+            del q, k, v, qt, kt, vt
+
+    x = rand(24, 4096, 8192)
+    err = check_gram(x, label="seamless MLP tap")
+    s2 = gram_ops.gram(x)["s2"]
+    if not torch.equal(s2, s2.mT):
+        fail("gram seamless MLP tap: s2 is not exactly symmetric")
+    del s2
+    torch.cuda.empty_cache()
+    r = {"shape": list(x.shape), "max_abs_err": err,
+         "ms": time_ms(lambda: gram_ops.gram(x), reps=3, warmup=1),
+         "plain_ms": time_ms(lambda: gram_ref.gram(x), reps=3, warmup=1),
+         "library_ms": time_ms(lambda: torch.matmul(x.mT, x), reps=3,
+                               warmup=1)}
+    L, N, Fd = x.shape
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        1.0 * L * N * Fd * (Fd + 1), 4.0 * (L * N * Fd + L * Fd * Fd + L * Fd))
+    print(f"  gram at the seamless MLP tap {tuple(x.shape)} fp32: kernel "
+          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch.matmul "
+          f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})")
+    by_name["gram"]["seamless_mlp"] = r
+    del x
+    torch.cuda.empty_cache()
+
+
+def serve_seamless_phase():
+    """seamless-m4t-large-v2 at full width and depth through
+    ``launch.serve --mem-len 512``: every request served;
+    ``flash_attention`` 72 times a prefill (the encoder's, the decoder's
+    and the cross attention of each of 24 layers) and ``flash_decode`` 48
+    times a decode step (the decoder's self and cross attention), gated
+    exactly; a slot's bytes split into the decoder's K/V and the memory's.
+    Returns ({path: launches}, the CLI's result)."""
+    from repro_torch.serve import ServeEngine
+    launches, res = serve_phase(SEAMLESS_SERVE, "serve seamless",
+                                ("flash_attention", "flash_decode"))
+    cfg = res["model"].cfg
+    arg = dict(zip(SEAMLESS_SERVE[::2], SEAMLESS_SERVE[1::2]))
+    if [len(c.tokens) for c in res["completions"]] \
+            != [r.gen for r in cli_trace(arg, cfg)]:
+        fail("serve seamless: a request did not complete")
+
+    def calls(st):
+        return sum(v for k, v in st.items() if k.startswith("prefill_b")), \
+            st.get("decode_steps", 0) + st.get("walk_steps", 0)
+    warm, trace = calls(res["warmup_stats"]), calls(res["stats"])
+    need = (encdec_attention(cfg) * (warm[0] + trace[0]),
+            2 * cfg.n_layers * (warm[1] + trace[1]))
+    print(f"[serve seamless] {cfg.n_enc_layers} + {cfg.n_layers} layers; "
+          f"flash_attention {launches['flash_attention']} launches == "
+          f"{need[0]} ({encdec_attention(cfg)} a prefill), flash_decode "
+          f"{launches['flash_decode']} == {need[1]} ({2 * cfg.n_layers} a "
+          f"decode step)")
+    if (launches["flash_attention"], launches["flash_decode"]) != need:
+        fail("serve seamless: the attention kernels' launches do not match "
+             "the prefills and steps")
+    max_len, mem_len = int(arg["--max-len"]), int(arg["--mem-len"])
+    parts = ServeEngine(res["model"], res["params"], n_slots=1,
+                        max_len=max_len, mem_len=mem_len).slotcache \
+        .slot_parts
+    row = cfg.n_layers * cfg.n_kv_heads * (cfg.eff_qk + cfg.d_head) * 2
+    print(f"[serve seamless] slot bytes: decoder self K/V {parts['self']} "
+          f"({max_len} rows), memory K/V {parts['memory']} ({mem_len} "
+          f"rows), {row} a row of the 24 layers")
+    if parts["memory"] != mem_len * row \
+            or parts["self"] != max_len * row + 4 * (cfg.n_layers + 1):
+        fail("serve seamless: the slot's bytes are not the decoder's and "
+             "the memory's K/V rows")
+    return {"serve_seamless": launches}, res
+
+
+def seamless_calib(cfg, dev, seed):
+    """``lm_calib``'s Zipf tokens, each sequence with as many frames
+    (standard normals, drawn on the card) for the encoder: the port-only
+    stand-in for the reference's enc-dec stream, whose Markov table is
+    256,206^2 x 4 B = 262 GB at seamless's vocabulary."""
+    import torch
+    calib, held = lm_calib(cfg, dev, seed=seed, spec=SEAMLESS)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+
+    def frames(b):
+        return torch.randn((b, SEAMLESS["seq"], cfg.d_model), generator=g,
+                           device=dev)
+    batches = [dict(b, frames=frames(len(b["tokens"]))) for b in calib()]
+    return (lambda: iter(batches)), dict(
+        held, frames=frames(len(held["tokens"])))
+
+
+def seamless_partial(cfg, ncfg, params, new, parts):
+    """The dense model with only ``parts`` of each layer pruned (CORP takes
+    every statistic from the dense model, so these are the blocks'
+    prune alone): (stack, param key) pairs, e.g. ("dec", "cross"). The
+    forward reads each attention's qk dims from its weights; the MLP's
+    come from the config (``ncfg``'s when the MLPs are pruned)."""
+    out = dict(params)
+    for seg in ("enc", "dec"):
+        out[seg] = {"p0": dict(params[seg]["p0"], **{
+            key: new[seg]["p0"][key] for s, key in parts if s == seg})}
+    if any(key == "mlp" for _, key in parts):
+        cfg = cfg.replace(d_ff_kept=ncfg.d_ff_kept)
+    return cfg, out
+
+
+def prune_seamless_phase(dev, served, launches):
+    """CORP of seamless-m4t-large-v2 at full width and depth in fp32 (the
+    served model's weights): 0.5/0.5 two-pass on 128 sequences of 512
+    Zipf tokens and 512 frames, batches of 8, compensated and plain.
+    Gated: J* <= J_uncomp, the kept sizes (d_ff 4096, qk 32 in the
+    encoder's, the decoder's and the cross attention), ``gram`` 2 a
+    pass-1 batch (the encoder's and the decoder's stacked MLP taps),
+    ``flash_attention`` 72 a forward in each pass; held out, the MLP
+    units' prune alone closer to the dense model compensated than plain.
+    Reported: stage times, traversals, peak device memory, held-out
+    logits of the whole prune and of the cross unit's prune alone
+    (class 1 on a decoder query against memory keys; not gated) and of
+    the self-attention units' alone. The compensated model is served in
+    process (``[serve pruned seamless]``)."""
+    import torch
+    from repro_torch.core import PruneConfig
+    from repro_torch.interop import map_tree
+    from repro_torch.models import build_model
+    cfg = served["model"].cfg.replace(dtype="float32")
+    params = map_tree(lambda t: t.float(), served["params"])
+    served.clear()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    calib, held = seamless_calib(cfg, dev, seed=43)
+    dense = logits32(cfg, params, held)
+    sp = SEAMLESS["sparsity"]
+    batches = SEAMLESS["seqs"] // SEAMLESS["batch"]
+    tokens = SEAMLESS["seqs"] * SEAMLESS["seq"]
+    print(f"[prune seamless] corp_prune of seamless-m4t-large-v2 at full "
+          f"width and depth ({cfg.n_enc_layers} + {cfg.n_layers} layers, "
+          f"fp32), {SEAMLESS['seqs']} sequences of {SEAMLESS['seq']} tokens "
+          f"and {SEAMLESS['seq']} frames in {batches} batches of "
+          f"{SEAMLESS['batch']} (port-only Zipf stream, frames drawn on the "
+          f"card), sparsity {sp}/{sp}; rows a kept MLP channel "
+          f"{tokens / (cfg.d_ff * sp):.1f}")
+    errs = {}
+    for comp in (True, False):
+        tag = "prune seamless" + ("" if comp else " no-compensate")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        new, ncfg, rep, ran, logits, err = lm_prune_run(
+            tag, model, params, calib, held, dense,
+            PruneConfig(sp, sp, compensate=comp))
+        del logits
+        peak = torch.cuda.max_memory_allocated()
+        half = (cfg.d_ff // 2, cfg.qk_full // 2)
+        shapes = {k: tuple(new[s]["p0"][b][w].shape) for k, (s, b, w) in {
+            "enc_wq": ("enc", "mixer", "wq"), "dec_wk": ("dec", "mixer", "wk"),
+            "cross_wq": ("dec", "cross", "wq"),
+            "cross_wk": ("dec", "cross", "wk"),
+            "dec_wd": ("dec", "mlp", "wd")}.items()}
+        if (ncfg.eff_d_ff, ncfg.eff_qk) != half \
+                or any(v[-1] != half[1] for k, v in shapes.items()
+                       if k != "dec_wd") \
+                or shapes["dec_wd"][1] != half[0]:
+            fail(f"{tag}: kept sizes d_ff {ncfg.eff_d_ff}, qk {ncfg.eff_qk}, "
+                 f"leaves {shapes}")
+        want = (2 * batches, 2 * encdec_attention(cfg) * batches)
+        if (ran["gram"], ran["flash_attention"]) != want:
+            fail(f"{tag}: {ran['gram']} gram and {ran['flash_attention']} "
+                 f"flash_attention launches (want {want}: 2 MLP taps a "
+                 f"pass-1 batch, {encdec_attention(cfg)} attention a "
+                 f"forward)")
+        if comp:
+            launches["prune_seamless"] = ran
+            t0 = time.time()
+            launches["serve_pruned_seamless"] = serve_in_process(
+                SEAMLESS_PRUNED_SERVE, "serve pruned seamless", ncfg, new,
+                ("enc/p0/mlp/bd", "dec/p0/mlp/bd"),
+                ("flash_attention", "flash_decode"))
+            print(f"[serve pruned seamless] phase wall "
+                  f"{time.time() - t0:.3f} s")
+        e = {"logits": err, "peak": peak}
+        for key, parts in (("mlp", (("enc", "mlp"), ("dec", "mlp"))),
+                           ("cross", (("dec", "cross"),)),
+                           ("self_attn", (("enc", "mixer"),
+                                          ("dec", "mixer")))):
+            pcfg, pparams = seamless_partial(cfg, ncfg, params, new, parts)
+            e[key] = rel_err(logits32(pcfg, pparams, held), dense)
+            del pparams
+        errs[comp] = e
+        print(f"[{tag}] peak device memory {peak / 1e9:.1f} GB; held-out "
+              f"|pruned - dense| / |dense| of fp32 logits: whole "
+              f"{err:.4f}, MLP units alone {e['mlp']:.4f}, cross unit "
+              f"alone {e['cross']:.4f}, self-attention units alone "
+              f"{e['self_attn']:.4f}")
+        del new
+    c, p = errs[True], errs[False]
+    print(f"[prune seamless] held-out logits compensated / no-compensate: "
+          f"whole {c['logits']:.4f} / {p['logits']:.4f}; MLP units alone "
+          f"{c['mlp']:.4f} / {p['mlp']:.4f}; cross unit alone "
+          f"{c['cross']:.4f} / {p['cross']:.4f} (class 1 on the cross "
+          f"block: reported, not gated); self-attention alone "
+          f"{c['self_attn']:.4f} / {p['self_attn']:.4f}")
+    if not c["mlp"] <= p["mlp"]:
+        fail("prune seamless: on held-out inputs the compensated MLP units "
+             "are not closer to the dense model than the plain prune's")
+    del params, dense
+    torch.cuda.empty_cache()
+
+
+def seamless_reference_phase():
+    """The reduced seamless-m4t-large-v2 (fp32; 2 + 2 layers) on the GPU
+    against the CPU's plain path: a ragged prefill (16 and 11 tokens
+    against 24 frames) and 4 decode steps (logits within 1e-3), the
+    engine's streams with ``--mem-len 16``, and ``launch.prune`` two-pass
+    and with ``--one-traversal`` (margin 1.0, a hit), each checkpoint
+    served through ``--ckpt-in --mem-len`` (``reference_prune_cases``)."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    arch = "seamless-m4t-large-v2-reduced"
+    cfg = resolve_config(arch)
+    model = build_model(cfg)
+    toks = (torch.arange(2 * 20, dtype=torch.int32).reshape(2, 20) * 13) \
+        % cfg.vocab_size
+    frames = torch.randn((2, 24, cfg.d_model),
+                         generator=torch.Generator().manual_seed(3))
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = model.init(torch.Generator().manual_seed(0), device)
+        logits, cache = model.prefill(
+            params, {"frames": frames.to(device),
+                     "tokens": toks[:, :16].to(device)}, 64,
+            lengths=torch.tensor([16, 11], device=device))
+        rows = [logits[:, 0]]
+        for i in range(16, 20):
+            logits, cache = model.decode_step(
+                params, toks[:, i:i + 1].to(device), cache)
+            rows.append(logits[:, 0])
+        out[device] = torch.stack(rows).cpu()
+    err = rel_err(out["cuda"], out["cpu"])
+    print(f"[reference seamless] {arch}: ragged prefill (16, 11) against 24 "
+          f"frames and 4 decode steps, logits GPU vs CPU relative error "
+          f"{err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("reference seamless: the enc-dec's prefill and decode on the "
+             "GPU disagree with the CPU's plain path")
+    mem = ["--mem-len", "16"]
+    serve_reference_phase(["--arch", arch] + mem + SERVE_REDUCED[2:],
+                          "reference seamless")
+    reference_prune_cases("reference seamless", [
+        (arch, [], mem),
+        (arch, ["--one-traversal", "--spec-margin", "1.0"], mem)])
+
+
+def seamless_phases(dev, rows, launches):
+    """The seamless-m4t-large-v2 phases in order, each timed; their
+    launches are added to ``launches``."""
+    import torch
+    t0 = time.time()
+    seamless_kernel_phase(dev, rows)
+    print(f"[kernels seamless] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    ran, served = serve_seamless_phase()
+    launches.update(ran)
+    print(f"[serve seamless] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    prune_seamless_phase(dev, served, launches)
+    del served
+    torch.cuda.empty_cache()
+    print(f"[prune seamless] phase wall {time.time() - t0:.3f} s (with "
+          f"[serve pruned seamless])")
+    t0 = time.time()
+    seamless_reference_phase()
+    print(f"[reference seamless] phase wall {time.time() - t0:.3f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3647,6 +4080,7 @@ def main() -> int:
     internvl_moe_phases(dev, rows, launches)
     deepseek_phases(dev, rows, launches)
     jamba_phases(dev, rows, launches)
+    seamless_phases(dev, rows, launches)
     for row in rows:
         row["launches_by_path"] = {path: n.get(row["name"], 0)
                                    for path, n in launches.items()}

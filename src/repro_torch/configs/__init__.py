@@ -2,10 +2,10 @@
 (``qwen2-1.5b``, ``granite-8b``, ``deepseek-7b``, ``gemma3-1b``,
 ``rwkv6-3b``, the VLM ``internvl2-26b``, the routed MoE
 ``qwen3-moe-235b-a22b``, the MLA MoE ``deepseek-v3-671b`` and the Mamba
-hybrid ``jamba-1.5-large-398b``) and their reduced variants.
+hybrid ``jamba-1.5-large-398b``), the encoder-decoder
+``seamless-m4t-large-v2`` and their reduced variants.
 
-Copied from ``repro.configs``. The enc-dec config
-(``seamless-m4t-large-v2``) raises ``NotImplementedError``.
+Copied from ``repro.configs``.
 """
 from __future__ import annotations
 
@@ -30,6 +30,8 @@ _MODULES = {
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 LM_IDS = tuple(_MODULES)
+ENCDEC_IDS = ("seamless-m4t-large-v2",)
+_MODULES["seamless-m4t-large-v2"] = "seamless_m4t_large_v2"
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -39,9 +41,9 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id in _MODULES:
         return importlib.import_module(
             f"repro_torch.configs.{_MODULES[arch_id]}").CONFIG
-    raise NotImplementedError(
-        f"arch {arch_id!r} is not ported to repro_torch yet (only "
-        f"{DEIT_IDS + LM_IDS}); its config lives in repro.configs.get_config")
+    raise KeyError(
+        f"unknown arch id {arch_id!r}; known: "
+        f"{DEIT_IDS + LM_IDS + ENCDEC_IDS}")
 
 
 def reduced(cfg: ModelConfig, *, d_model: int = 64,
@@ -50,12 +52,8 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
     ``repro.configs.reduced`` gives it for a ViT, a dense LM, RWKV, a
     routed MoE (4 experts, top 2, d_expert 2 d_model, at most one shared
     expert), MLA with its ``first_k_dense`` layers (one dense layer of
-    4 d_model more) or a Mamba hybrid (d_state 4, d_conv 4, expand 2).
-    Enc-dec configs raise."""
-    if cfg.family not in ("vit", "lm") or cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"reduced() of {cfg.name} (enc-dec) is not ported; see "
-            "repro.configs.reduced")
+    4 d_model more), a Mamba hybrid (d_state 4, d_conv 4, expand 2) or an
+    enc-dec (2 encoder layers)."""
     period = len(cfg.pattern)
     if cfg.moe is not None:
         period = math.lcm(period, cfg.moe_every)
@@ -90,6 +88,8 @@ def reduced(cfg: ModelConfig, *, d_model: int = 64,
                   n_heads=d_model // 16, n_kv_heads=d_model // 16)
     if cfg.first_k_dense:
         kw.update(first_k_dense=1, dense_d_ff=4 * d_model)
+    if cfg.n_enc_layers:
+        kw["n_enc_layers"] = 2
     if cfg.family == "vit":
         kw.update(img_size=32, patch=8, n_classes=min(cfg.n_classes, 10) or 10)
     return cfg.replace(name=cfg.name + "-reduced", **kw)
@@ -103,4 +103,4 @@ def resolve_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ModelConfig", "MoEConfig", "MLAConfig", "MambaConfig",
-           "DEIT_IDS", "LM_IDS", "get_config", "reduced", "resolve_config"]
+           "DEIT_IDS", "LM_IDS", "ENCDEC_IDS", "get_config", "reduced", "resolve_config"]

@@ -22,8 +22,10 @@ regressed onto the block input, folded into ``moe_resid`` and
 every channel-wise leaf gathered; ``include_mamba``), stacked units and
 unrolled (unstacked) ones; two calibration passes or one
 (``one_traversal``), taps streamed in fp32 or bf16, resumable statistics
-checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``.
-``mesh=`` and cross attention are not ported yet; they raise.
+checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``;
+the enc-dec's encoder and decoder units, its cross-attention units
+class 1 on ``cross/{wq,wk}`` (a decoder query against memory keys).
+``mesh=`` is not ported yet; it raises.
 
 Memory at full width (deepseek-v3 at 4 layers: 30 GB of bf16 weights,
 8.6 GB of class-1 G a layer): pass 2 adds its G in place
@@ -663,7 +665,8 @@ def _prune_units(model, units, params, new_params, calib_batches,
     say("closed-form compensation + fold")
     folds = {"mlp": _fold_mlp_block, "rwkv_mlp": _fold_mlp_block,
              "moe": _fold_moe_block, "mamba": _fold_mamba_block,
-             "attn": _fold_attn_block, "mla": _fold_attn_block}
+             "attn": _fold_attn_block, "mla": _fold_attn_block,
+             "cross": _fold_attn_block}
     # attention units first, each statistic dropped once folded; a MoE
     # block's experts, expert removal and shared expert fold in turn
     blocks = {}

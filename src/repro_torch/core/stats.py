@@ -58,8 +58,10 @@ batch sums into the running ones as soon as they are reduced, per-expert
 s2 a chunk of queues at a time (``_expert_moments``: one chunk when a
 batch's s2 is at most ``_MOE_WHOLE`` bytes; jamba's 16 experts of 24576,
 38.7 GB a layer, one a launch). A Mamba unit is an MLP-like unit on its
-``mamba_y`` tap (the gated inner channels entering ``out_proj``). Cross
-attention is not ported yet; it raises.
+``mamba_y`` tap (the gated inner channels entering ``out_proj``). A
+cross-attention unit (enc-dec) is a class-1 unit on its ``cross_q``
+(B, T, H, d) and ``cross_k`` (B, S, Hkv, d) taps: the query rows are
+the decoder's and the key rows the memory's, T and S taken as they come.
 """
 from __future__ import annotations
 
@@ -127,11 +129,11 @@ def _to_complex_pairs(q):
     return torch.complex(q[..., 0::2], q[..., 1::2])
 
 
-def _check_attn(unit: Unit, fn: str = "_p2_attn"):
-    if unit.kind not in ("attn", "mla"):
-        raise NotImplementedError(
-            f"attention unit {unit.name} (kind {unit.kind}) is not ported; "
-            f"see repro.core.stats.{fn}")
+def _qk_taps(taps, unit: Unit):
+    """An attention unit's query and key taps, with the layer axis: ``q``
+    and ``k``, a cross unit's ``cross_q`` and ``cross_k``."""
+    pre = f"{unit.tap_prefix}/{'cross_' if unit.kind == 'cross' else ''}"
+    return _stacked(unit, taps[pre + "q"]), _stacked(unit, taps[pre + "k"])
 
 
 def _stacked(unit: Unit, x):
@@ -216,9 +218,8 @@ def _p1_moe(taps, unit: Unit, acc=None):
 
 
 def _p1_attn(taps, unit: Unit):
-    _check_attn(unit)
-    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"]).float()  # (L,B,T,H,d)
-    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"]).float()
+    q, k = _qk_taps(taps, unit)                       # (L, B, T|S, H, d)
+    q, k = q.float(), k.float()
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     if unit.attn_class == 1:
@@ -308,9 +309,8 @@ def _p2_attn(taps, unit: Unit, keep, prune, acc=None):
     ``acc``: the unit's running pass-2 sums. A class-1 unit then adds this
     batch's G into ``acc["G"]`` in place and returns only h and t2 (for
     ``tree_add``); without it a zero G is made and returned."""
-    _check_attn(unit)
-    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"]).float()
-    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"]).float()
+    q, k = _qk_taps(taps, unit)
+    q, k = q.float(), k.float()
     keep, prune = _stacked(unit, keep), _stacked(unit, prune)
     qg = _group_q(q, unit.n_groups)
     kg = k.permute(0, 1, 3, 2, 4)
@@ -406,9 +406,7 @@ def _p2spec_attn(taps, unit: Unit, cand):
     The taps keep their streaming dtype into ``_bgram``; the candidate
     gathers run on its fp32 results. Gc is contracted over the batch inside
     one product, so no per-sample (B, c, c, c, c) tensor is formed."""
-    _check_attn(unit, "_p2spec_attn")
-    q = _stacked(unit, taps[f"{unit.tap_prefix}/q"])
-    k = _stacked(unit, taps[f"{unit.tap_prefix}/k"])
+    q, k = _qk_taps(taps, unit)
     cand = _stacked(unit, cand)
     if unit.attn_class != 1:
         return _unstack(unit, _p2spec_complex(q, k, unit, cand))
@@ -512,7 +510,8 @@ def _spec_reconstruct_complex(spec, cf, kf, lead):
 def pass1_reduce(taps: Dict, units: List[Unit],
                  acc: Dict | None = None) -> Dict:
     """Per-batch pass-1 sums: mlp, rwkv_mlp, mamba -> {n, s1, s2, na}; moe
-    -> per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn -> {rank, n}.
+    -> per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn, mla, cross ->
+    {rank, n}.
     With the running accumulator ``acc``, each unit's sums are added into
     it in place as soon as they are reduced and left out of the result, so
     that no two units' batch moments are held at once (large per-expert
@@ -523,12 +522,10 @@ def pass1_reduce(taps: Dict, units: List[Unit],
             st = _p1_mlp(taps, u)
         elif u.kind == "moe":
             st = _p1_moe(taps, u, None if acc is None else acc[u.name])
-        elif u.kind in ("attn", "mla"):
+        elif u.kind in ("attn", "mla", "cross"):
             st = _p1_attn(taps, u)
         else:
-            raise NotImplementedError(
-                f"unit {u.name} of kind {u.kind} is not ported; see "
-                f"repro.core.stats.pass1_reduce")
+            raise ValueError(f"unit {u.name}: unknown kind {u.kind!r}")
         if acc is None:
             out[u.name] = st
         else:

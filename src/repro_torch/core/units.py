@@ -1,10 +1,10 @@
 """Prunable-unit discovery, copied from ``repro.core.units`` (numpy-only).
 
 Every family and layout is discovered as in the JAX package; the
-statistics and folds cover mlp (shared experts and the ``first_k_dense``
-layers' ``dense_d_ff`` included), rwkv_mlp, moe (routed experts), mamba
-(inner channels), attn units of every class and mla, stacked or unrolled,
-and refuse by name the kind the port cannot reduce yet (cross).
+statistics and folds cover every unit kind: mlp (shared experts and the
+``first_k_dense`` layers' ``dense_d_ff`` included), rwkv_mlp, moe (routed
+experts), mamba (inner channels), attn units of every class, mla and the
+enc-dec's class-1 cross units, stacked or unrolled.
 
 CORP operates on two kinds of structured units (paper §3.2) plus two
 framework extensions:

@@ -2,9 +2,9 @@
 batches and the LM token stream.
 
 numpy makes every array, with the same generators, seeds and call order as
-the JAX package, so both packages see bit-identical images and tokens; they
-are returned as torch tensors on the requested device. The enc-dec
-calibration stream is not ported yet.
+the JAX package, so both packages see bit-identical images, tokens and
+enc-dec frames; they are returned as torch tensors on the requested
+device.
 
 Images are class prototypes plus structured (low-rank) noise; tokens follow
 an order-1 Markov chain whose rows prefer a small successor set; so models
@@ -98,12 +98,10 @@ def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
     calibration batches per call (CORP traverses the stream twice):
     ``{"images"}`` for a ViT, ``{"tokens"}`` of ``seq`` tokens for an LM,
     plus ``{"patch_embeds"}`` (batch, 8, d_model) float32 for the VLM
-    stub frontend, drawn after the tokens from ``RandomState(seed + i)``."""
-    if cfg.family not in ("vit", "lm"):
-        raise NotImplementedError(
-            f"calibration stream of family {cfg.family!r} (frontend "
-            f"{cfg.frontend!r}) is not ported; see "
-            f"repro.data.synthetic.calib_stream")
+    stub frontend, drawn after the tokens from ``RandomState(seed + i)``;
+    an enc-dec's ``{"frames", "tokens"}``, its frames (batch, seq,
+    d_model) float32 drawn from ``RandomState(seed + i)`` after the
+    tokens."""
     dev = resolve_device(device)
     steps = max(1, n_samples // batch)
 
@@ -114,6 +112,14 @@ def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
                               n_classes=max(cfg.n_classes, 2), seed=seed,
                               device=dev)
                 yield {"images": b["images"]}
+            elif cfg.family == "encdec":
+                b = lm_batch(10_000 + i, batch=batch, seq=seq,
+                             vocab=cfg.vocab_size, seed=seed, device=dev)
+                rng = np.random.RandomState(seed + i)
+                frames = rng.randn(batch, seq, cfg.d_model) \
+                    .astype(np.float32)
+                yield {"frames": torch.from_numpy(frames).to(dev),
+                       "tokens": b["tokens"]}
             else:
                 b = lm_batch(10_000 + i, batch=batch, seq=seq,
                              vocab=cfg.vocab_size, seed=seed, device=dev)

@@ -8,7 +8,7 @@ with its batch cursor. Calibration batches are deterministic by index, so
 a restarted pass skips the consumed prefix and lands on the same sums.
 
 ``run_with_restarts``, ``TolerantAccumulator`` and ``remesh`` of the JAX
-module serve no path of the port yet (ROADMAP Queue 1 items 5 and 6).
+module serve no path of the port yet (ROADMAP Queue 1 items 2 and 3).
 """
 from __future__ import annotations
 

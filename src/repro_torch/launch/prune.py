@@ -11,13 +11,14 @@
         --expert-sparsity 0.5 --device cpu
 
 Initialises dense parameters (DeiT, Qwen2-1.5B, granite-8b, deepseek-7b,
-gemma3-1b, RWKV6-3B, internvl2-26b, qwen3-moe-235b-a22b, deepseek-v3-671b
-or jamba-1.5-large-398b) from seed 0
+gemma3-1b, RWKV6-3B, internvl2-26b, qwen3-moe-235b-a22b, deepseek-v3-671b,
+jamba-1.5-large-398b or seamless-m4t-large-v2) from seed 0
 (no pretrained weights are in the repository), or loads them from a train
 checkpoint (``--ckpt-in``), runs the one-shot CORP pipeline over the
 synthetic calibration stream (images, or ``--calib-seq`` tokens a sequence
 from the reference's Markov chain, whose V x V table suits reduced
-vocabularies only, with 8 patch embeddings a sequence for internvl2-26b)
+vocabularies only, with 8 patch embeddings a sequence for internvl2-26b
+and ``--calib-seq`` encoder frames a sequence for seamless-m4t-large-v2)
 on the GPU (``--device cpu`` for the plain PyTorch
 path) and, with ``--out``,
 writes the pruned checkpoint in the JAX package's layout plus
@@ -46,9 +47,9 @@ from repro_torch.models import build_model
 # they are refused by name
 _UNPORTED = {
     "mesh": "mesh-sharded calibration (repro.launch.mesh, repro.core"
-            ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
+            ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 2)",
     "calib_sharded": "mesh-sharded calibration (repro.core.calibrate"
-                     ".CalibrationEngine(mesh=); ROADMAP Queue 1 item 5)",
+                     ".CalibrationEngine(mesh=); ROADMAP Queue 1 item 2)",
     "gram_tiles": "the TPU gram autotuner (repro.kernels.gram.autotune), "
                   "which is not carried over: the CUDA kernel's 128x128 "
                   "tiles are fixed",

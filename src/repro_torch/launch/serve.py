@@ -33,7 +33,7 @@ CLI's template cannot take (its restore fails). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
 PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
 the front-end is not ported, so its flags (queue, deadlines, prefix cache,
-shortest-prompt-first, replicas, mesh) raise here, as does enc-dec.
+shortest-prompt-first, replicas, mesh) raise here.
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
 prompts (the engine sends no patch embeddings). ``--arch
 deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
@@ -41,7 +41,12 @@ deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
 jamba-1.5-large-398b`` serves the Mamba hybrid under the recurrent
 contract: each slot holds the Mamba layers' conv rows and SSM states and
 the attention layers' K/V rows (the stats line splits a slot's bytes into
-the two).
+the two). ``--arch seamless-m4t-large-v2 --mem-len S`` serves the
+encoder-decoder: every request of the trace carries S frames (drawn from
+the trace's seed), the decoder prompt is the request's tokens, and a slot
+holds the decoder's K/V beside the memory K/V of S rows (the stats line
+splits the two); the fixed-batch loop draws frames of ``--prompt-len``
+rows, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -71,7 +76,6 @@ _UNPORTED = {
     "route": "the replica router (repro/serve/router.py)",
     "mesh_shape": "mesh-sharded serving (repro/serve/sharding.py)",
     "serve_sharded": "mesh-sharded serving (repro/serve/sharding.py)",
-    "mem_len": "enc-dec serving (repro/models/encdec.py)",
 }
 
 
@@ -98,6 +102,10 @@ def serve_loop(model, params, *, batch, prompt_len, gen, max_len, device,
                                         size=(batch, prompt_len))
                             .astype(np.int32)).to(device)
     req = {"tokens": toks}
+    if cfg.family == "encdec":
+        req["frames"] = torch.from_numpy(
+            rng.randn(batch, prompt_len, cfg.d_model).astype(np.float32)) \
+            .to(device)
 
     def argmax(logits):
         return logits[:, -1, : cfg.vocab_size].argmax(-1)[:, None] \
@@ -132,15 +140,17 @@ def serve_loop(model, params, *, batch, prompt_len, gen, max_len, device,
 
 def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                 gen_range, rate=None, seed=0, compare_static=False,
-                prefill_chunk=None, log=print):
+                prefill_chunk=None, mem_len=None, log=print):
     """Continuous-batching engine over a synthetic ragged trace (warmed
-    first, outside the timed region). Returns (completions, table, engine
-    stats, the warmup's engine stats)."""
+    first, outside the timed region); ``mem_len``: the enc-dec requests'
+    frame count. Returns (completions, table, engine stats, the warmup's
+    engine stats)."""
     cfg = model.cfg
     trace = synthetic_trace(n, cfg.vocab_size, seed=seed,
                             prompt_range=prompt_range, gen_range=gen_range,
-                            rate=rate)
-    eng = ServeEngine(model, params, n_slots=slots, max_len=max_len)
+                            rate=rate, mem_len=mem_len, d_model=cfg.d_model)
+    eng = ServeEngine(model, params, n_slots=slots, max_len=max_len,
+                      mem_len=mem_len)
     warm = eng.warmup(prompt_lens=[len(r.tokens) for r in trace],
                prefill_chunk=prefill_chunk)
     t0 = time.perf_counter()
@@ -162,7 +172,7 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
         f"({eng.slotcache.slot_bytes / 1e6:.2f} MB per slot"
         + ("".join(f", {k} {v / 1e6:.2f} MB" for k, v in
                    eng.slotcache.slot_parts.items())
-           if eng.contract == "recurrent" else "")
+           if eng.contract in ("recurrent", "encdec") else "")
         + f", {eng.contract} contract)")
     if compare_static:
         comps_s = run_static_trace(model, params, trace, n_slots=slots,
@@ -223,6 +233,9 @@ def parse_args(argv=None):
                     help="draw the seeded weights with a generator on the "
                          "serving device (fast at full width; other values "
                          "than the default CPU draw)")
+    ap.add_argument("--mem-len", type=int, default=None,
+                    help="enc-dec only: fixed encoder-memory length; trace "
+                         "requests carry synthetic frames of this length")
     # flags of layers that are not ported yet: each raises when given
     ap.add_argument("--queue-depth", type=int, default=None)
     ap.add_argument("--deadline-ms", default=None)
@@ -234,7 +247,6 @@ def parse_args(argv=None):
     ap.add_argument("--route", default=None)
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--serve-sharded", action="store_true", default=None)
-    ap.add_argument("--mem-len", type=int, default=None)
     return ap.parse_args(argv)
 
 
@@ -276,7 +288,7 @@ def main(argv=None) -> dict:
             max_len=args.max_len, prompt_range=pr, gen_range=gr,
             rate=args.rate, seed=args.seed,
             compare_static=args.compare_static,
-            prefill_chunk=args.prefill_chunk)
+            prefill_chunk=args.prefill_chunk, mem_len=args.mem_len)
     else:
         out["tokens"], out["prefill_s"], out["decode_s"] = serve_loop(
             model, params, batch=args.batch, prompt_len=args.prompt_len,

@@ -1,5 +1,5 @@
-"""Models of the port (``repro.models``): the ViT, dense-LM and RWKV-6
-paths."""
+"""Models of the port (``repro.models``): the ViT, the LMs (dense, MoE,
+MLA, RWKV-6 and Mamba stacks) and the encoder-decoder."""
 from repro_torch.models.api import Model, build_model
 
 __all__ = ["Model", "build_model"]

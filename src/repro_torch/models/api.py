@@ -1,17 +1,19 @@
-"""Public model API (``repro.models.api``): the vit and lm branches of
-``build_model``. ``Model`` bundles plain functions:
+"""Public model API (``repro.models.api``): the vit, lm and encdec
+branches of ``build_model``. ``Model`` bundles plain functions:
 
   init(gen, device=None)                      -> params
   apply(params, batch, taps=None)             -> logits (vit) |
-                                                 (logits, aux) (lm)
-  prefill(params, batch, max_len, lengths=None) -> (logits, cache)   (lm)
-  decode_step(params, token, cache)           -> (logits, cache)     (lm)
-  init_cache(batch, max_len, device=None)     -> empty cache         (lm)
+                                                 (logits, aux) (lm, encdec)
+  prefill(params, batch, max_len, lengths=None) -> (logits, cache)
+  decode_step(params, token, cache)           -> (logits, cache)
+  init_cache(batch, max_len, device=None[, mem_len]) -> empty cache
 
 ``decode_step`` updates the cache in place. A VLM stub batch
 (``frontend="patch_stub"``) carries ``patch_embeds`` (B, P, D) beside its
-``tokens``; ``apply`` and ``prefill`` put them before the tokens. The
-enc-dec family is not ported yet; it raises.
+``tokens``; ``apply`` and ``prefill`` put them before the tokens. An
+enc-dec batch carries the encoder's ``frames`` (B, S, D) beside the
+decoder's ``tokens``, and its ``init_cache`` takes the memory length
+``mem_len`` (S).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import map_tree
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import vit as vit_mod
 
@@ -38,11 +41,10 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("vit", "lm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; see "
-            f"repro.models.api.build_model")
-    init_fn = vit_mod.init_vit if cfg.family == "vit" else lm_mod.init_lm
+    init_fn = {"vit": vit_mod.init_vit, "lm": lm_mod.init_lm,
+               "encdec": encdec_mod.init_encdec}.get(cfg.family)
+    if init_fn is None:
+        raise ValueError(f"unknown model family {cfg.family!r}")
 
     def init(gen: torch.Generator, device=None):
         dev = resolve_device(device)
@@ -54,6 +56,9 @@ def build_model(cfg: ModelConfig) -> Model:
             return vit_mod.apply_vit(params, inputs, cfg, taps=taps)
 
         return Model(cfg=cfg, init=init, apply=apply)
+
+    if cfg.family == "encdec":
+        return _encdec_model(cfg, init)
 
     def lm_apply(params, batch, taps=None):
         return lm_mod.apply_lm(params, batch["tokens"], cfg, taps=taps,
@@ -71,5 +76,27 @@ def build_model(cfg: ModelConfig) -> Model:
                               patch_embeds=batch.get("patch_embeds")),
         decode_step=lambda params, token, cache:
             lm_mod.lm_decode_step(params, token, cache, cfg),
+        init_cache=init_cache,
+    )
+
+
+def _encdec_model(cfg: ModelConfig, init) -> Model:
+    def init_cache(batch, max_len, device=None, mem_len=None):
+        if mem_len is None:
+            raise ValueError("an enc-dec cache needs mem_len= (the encoder "
+                             "memory's length)")
+        dev = resolve_device(None) if device is None else torch.device(device)
+        return encdec_mod.init_encdec_cache(cfg, batch, max_len, mem_len, dev)
+
+    return Model(
+        cfg=cfg, init=init,
+        apply=lambda params, batch, taps=None: encdec_mod.apply_encdec(
+            params, batch["frames"], batch["tokens"], cfg, taps=taps),
+        prefill=lambda params, batch, max_len, lengths=None:
+            encdec_mod.encdec_prefill(params, batch["frames"],
+                                      batch["tokens"], cfg, max_len,
+                                      lengths=lengths),
+        decode_step=lambda params, token, cache:
+            encdec_mod.encdec_decode_step(params, token, cache, cfg),
         init_cache=init_cache,
     )

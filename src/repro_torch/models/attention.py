@@ -32,7 +32,14 @@ The cache holds the latent ``ckv`` (B, S, kv_lora_rank) and the roped
 query and ``w_uv`` after the softmax, in fp32 logits over the latent
 cache (plain torch ops, as the reference's jnp).
 
-Not ported yet: cross attention.
+Cross attention (the enc-dec decoder, no rope): the query comes from the
+decoder states and the keys and values from the encoder memory, with
+taps ``q`` (B, T, H, dq) and ``k`` (B, S, Hkv, dq), which the block
+renames ``cross_q``/``cross_k``. Prefill runs the attention kernel
+non-causal over T decoder rows against S memory rows; the decoder's
+cache keeps the memory's K/V (``k_mem``, ``v_mem``), and decode runs the
+decode kernel over them with every key valid. The logit scale is
+1/sqrt(qk_full), after pruning too.
 """
 from __future__ import annotations
 
@@ -50,8 +57,11 @@ def _uses_rope(cfg) -> bool:
     return cfg.family == "lm" and cfg.rwkv is None
 
 
-def init_attn(gen: torch.Generator, cfg, kind: str = "attn"):
-    if cfg.mla is not None:
+def init_attn(gen: torch.Generator, cfg, kind: str = "attn",
+              cross: bool = False):
+    """kind: 'attn' | 'swa'; ``cross=True`` for decoder cross attention
+    (never MLA)."""
+    if cfg.mla is not None and not cross:
         return _init_mla(gen, cfg)
     dt = dtype_of(cfg)
     D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
@@ -236,6 +246,57 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
                  "pos": torch.full((x.shape[0],), x.shape[1],
                                    dtype=torch.int32, device=x.device)}
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec)
+# ---------------------------------------------------------------------------
+
+def _project_mem(p, mem):
+    """The memory's keys and values (B, S, Hkv, dq|dv), with the bias."""
+    k = torch.einsum("bsd,dhq->bshq", mem, p["wk"])
+    v = torch.einsum("bsd,dhv->bshv", mem, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return k, v
+
+
+def _cross_q(p, x):
+    q = torch.einsum("btd,dhq->bthq", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    return q
+
+
+def apply_cross_attn(p, x, mem, cfg, *, taps=None):
+    """x: (B, T, D) decoder states; mem: (B, S, D) encoder memory ->
+    (B, T, D). Every decoder row sees every memory row (non-causal, T and
+    S independent)."""
+    q = _cross_q(p, x)
+    k, v = _project_mem(p, mem)
+    tap(taps, "q", q)
+    tap(taps, "k", k)
+    o = flash_ops.attention(q, k, v, causal=False,
+                            scale=1.0 / math.sqrt(cfg.qk_full))
+    return torch.einsum("bthv,hvd->btd", o, p["wo"])
+
+
+def precompute_cross_cache(p, mem, cfg):
+    """The memory's K/V a decode step attends: {"k_mem", "v_mem"}."""
+    k, v = _project_mem(p, mem)
+    return {"k_mem": k, "v_mem": v}
+
+
+def decode_cross_attn(p, x, cross_cache, cfg):
+    """x: (B, 1, D) one decoder token against the precomputed memory K/V,
+    every key valid -> (B, 1, D)."""
+    q = _cross_q(p, x)
+    k = cross_cache["k_mem"]
+    valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    y = _decode_sdpa(q, k, cross_cache["v_mem"], valid,
+                     1.0 / math.sqrt(cfg.qk_full))
+    return torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
 
 
 # ---------------------------------------------------------------------------

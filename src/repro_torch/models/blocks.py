@@ -3,8 +3,10 @@ pre-norm residual; full-sequence and one-token decode. The mixer is
 attention (``attn``/``swa``, MLA when ``cfg.mla``) or the Mamba SSM
 (``mamba``), with a dense or routed-MoE MLP, or the RWKV-6 time mix with
 its channel mix (``rwkv``). The ``first_k_dense`` layers of a MoE config
-take a dense MLP of ``dense_ff`` hidden channels. Cross-attention blocks
-are not ported yet; they raise."""
+take a dense MLP of ``dense_ff`` hidden channels. An enc-dec decoder
+block (``cross=True``) adds a cross-attention sub-layer (``ln_cross``,
+``cross``) between the mixer and the MLP, whose taps it renames
+``cross_q``/``cross_k``."""
 from __future__ import annotations
 
 import torch
@@ -17,9 +19,7 @@ from repro_torch.models.common import apply_norm, init_norm, merge_taps
 
 def _check(kind: str):
     if kind not in ("attn", "swa", "mamba", "rwkv"):
-        raise NotImplementedError(
-            f"block kind={kind!r} is not ported; see "
-            f"repro.models.blocks.apply_block")
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def ffn(p, h, cfg, is_moe: bool, taps=None):
@@ -30,21 +30,27 @@ def ffn(p, h, cfg, is_moe: bool, taps=None):
 
 
 def init_block(gen: torch.Generator, cfg, kind: str = "attn",
-               is_moe: bool = False, dense_ff: int | None = None):
+               is_moe: bool = False, dense_ff: int | None = None,
+               cross: bool = False):
     """``dense_ff``: the hidden dim of a dense MLP other than
-    ``cfg.eff_d_ff`` (a ``first_k_dense`` layer's)."""
+    ``cfg.eff_d_ff`` (a ``first_k_dense`` layer's); ``cross``: an enc-dec
+    decoder block."""
     _check(kind)
     if kind == "rwkv":
         return {"ln1": init_norm(cfg),
                 "mixer": ssm_mod.init_rwkv_time(gen, cfg),
                 "ln2": init_norm(cfg),
                 "mlp": ssm_mod.init_rwkv_channel(gen, cfg)}
-    return {"ln1": init_norm(cfg),
-            "mixer": ssm_mod.init_mamba(gen, cfg) if kind == "mamba"
-            else attn_mod.init_attn(gen, cfg, kind),
-            "ln2": init_norm(cfg),
-            "mlp": mlp_mod.init_moe(gen, cfg) if is_moe
-            else mlp_mod.init_mlp(gen, cfg, d_ff=dense_ff)}
+    p = {"ln1": init_norm(cfg),
+         "mixer": ssm_mod.init_mamba(gen, cfg) if kind == "mamba"
+         else attn_mod.init_attn(gen, cfg, kind),
+         "ln2": init_norm(cfg),
+         "mlp": mlp_mod.init_moe(gen, cfg) if is_moe
+         else mlp_mod.init_mlp(gen, cfg, d_ff=dense_ff)}
+    if cross:
+        p["ln_cross"] = init_norm(cfg)
+        p["cross"] = attn_mod.init_attn(gen, cfg, "attn", cross=True)
+    return p
 
 
 def rwkv_block(p, x, cfg, state=None, taps=None):
@@ -64,8 +70,9 @@ def rwkv_block(p, x, cfg, state=None, taps=None):
 
 
 def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
-                positions=None, taps=None, mask_kind="causal"):
-    """Full-sequence block. Returns x after both residual sub-layers."""
+                positions=None, taps=None, mask_kind="causal", mem=None):
+    """Full-sequence block. Returns x after its residual sub-layers; a
+    decoder block attends the encoder memory ``mem`` (B, S, D)."""
     _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
@@ -79,11 +86,24 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
                                        positions=positions, taps=t,
                                        mask_kind=mask_kind)
         x = x + y
+        if "cross" in p and mem is not None:
+            x = x + cross_sublayer(p, x, mem, cfg, t)
         h = apply_norm(p["ln2"], x, cfg)
         x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t)
     if taps is not None:
         merge_taps(taps, t, "")
     return x
+
+
+def cross_sublayer(p, x, mem, cfg, taps=None):
+    """ln_cross -> cross attention to ``mem``; its taps go into ``taps``
+    as ``cross_q``/``cross_k``. Returns the residual update."""
+    tc = {} if taps is not None else None
+    h = apply_norm(p["ln_cross"], x, cfg)
+    y = attn_mod.apply_cross_attn(p["cross"], h, mem, cfg, taps=tc)
+    if taps is not None:
+        taps.update({"cross_" + k: v for k, v in tc.items()})
+    return y
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
@@ -95,9 +115,11 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
     return attn_mod.init_cache(cfg, kind, batch, max_len, device)
 
 
-def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False):
-    """One-token decode. x: (B,1,D); ``cache`` is updated in place.
-    Returns (x, cache)."""
+def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False,
+                 *, cross_cache=None):
+    """One-token decode. x: (B,1,D); ``cache`` is updated in place; a
+    decoder block attends its memory K/V ``cross_cache``. Returns (x,
+    cache)."""
     _check(kind)
     if kind == "rwkv":
         return rwkv_block(p, x, cfg, state=cache)
@@ -107,5 +129,8 @@ def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False):
     else:
         y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
     x = x + y
+    if "cross" in p and cross_cache is not None:
+        h = apply_norm(p["ln_cross"], x, cfg)
+        x = x + attn_mod.decode_cross_attn(p["cross"], h, cross_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
     return x + ffn(p["mlp"], h, cfg, is_moe), cache

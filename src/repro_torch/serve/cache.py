@@ -23,7 +23,14 @@ Under the ``recurrent`` contract (rwkv, and any stack with a Mamba layer)
 a slot holds a fixed-size state instead (``RecurrentSlotCache``): there is
 no mask to hide a stale lane behind, so retire resets it. A hybrid
 (jamba) holds its attention layers' K/V rows and ``pos`` beside the
-states. ``encdec`` is not ported.
+states.
+
+Under the ``encdec`` contract (seamless) a ``SlotCache`` slot holds the
+decoder's self-attention K/V rows up to ``max_len`` with their ``pos``,
+and the memory K/V (``dec/cross/k_mem``, ``v_mem``) of ``mem_len`` rows
+that the admit's prefill computed from the request's frames; every
+memory row is valid, and a stale slot is inert under its ``pos`` mask as
+under ``kv``.
 """
 from __future__ import annotations
 
@@ -99,6 +106,17 @@ class SlotCache:
     def slot_bytes(self) -> int:
         """Bytes one slot occupies (the per-request cache cost)."""
         return self.bytes // self.n_slots
+
+    @property
+    def slot_parts(self) -> dict:
+        """Bytes one slot occupies, split into ``self`` (the decoder's
+        K/V rows and positions) and ``memory`` (an enc-dec's memory K/V,
+        ``dec/cross``; 0 for any other contract)."""
+        parts = {"self": 0, "memory": 0}
+        for path, t in flatten(self.cache).items():
+            kind = "memory" if path.startswith("dec/cross/") else "self"
+            parts[kind] += t.numel() * t.element_size() // self.n_slots
+        return parts
 
 
 # leaves of an attention layer's cache (its K/V rows or latents, and the

@@ -31,6 +31,10 @@ Two slot-cache contracts are served (``serve/cache.py``):
   ``P - 1``; the rest of the prompt walks through the batch-1 decode
   step. Retire and cancel reset the slot's lanes to the empty cache (zero
   states; a hybrid's attention lanes back to ``pos`` 0).
+- ``encdec`` (seamless): a slot holds the decoder's self-attention K/V up
+  to ``max_len`` beside the memory K/V of ``mem_len`` rows, which every
+  request's ``frames`` must match; the decoder prompt is bucketed and
+  ragged as under ``kv``, and the frames go into the first prefill chunk.
 
 Pruned models plug in transparently: a ``cfg.pruned(...)`` config shrinks
 ``eff_qk`` and the slot cache's K rows shrink with it.
@@ -41,8 +45,8 @@ of shared decode steps (``decode_s``) and of first-chunk prefills
 they include the device work. ``walk_steps`` counts the batch-1 decode
 steps that consume prompt tokens after the first chunk.
 
-Not ported yet: mesh sharding (``sharding=``), the prefix cache
-(``prefix_cache=``), and the enc-dec slot-cache contract; they raise.
+Not ported yet: mesh sharding (``sharding=``) and the prefix cache
+(``prefix_cache=``); they raise.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ class Request:
     tokens: np.ndarray            # (P,) int32 prompt tokens
     gen: int                      # tokens to generate (>= 1)
     arrival: float = 0.0          # seconds relative to trace start
+    frames: Optional[np.ndarray] = None   # (S, D) enc-dec memory frames
 
 
 @dataclasses.dataclass
@@ -139,10 +144,13 @@ class ServeEngine:
     n_slots       : concurrent requests sharing the decode step.
     max_len       : per-slot sequence budget (prompt + generation).
     buckets       : prompt-length buckets (default: powers of two).
+    mem_len       : enc-dec only — fixed encoder-memory length every
+                    request's ``frames`` must match (cross K/V is unmasked).
     """
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
-                 buckets=None, sharding=None):
+                 buckets=None, mem_len: Optional[int] = None,
+                 sharding=None):
         cfg = model.cfg
         if model.prefill is None or model.decode_step is None:
             raise ValueError(errors.msg("no_serving_path", name=cfg.name,
@@ -151,10 +159,7 @@ class ServeEngine:
             raise NotImplementedError("mesh-sharded serving is not ported; "
                                       "see repro/serve/sharding.py")
         self.contract = cache_contract(cfg)
-        if self.contract == "encdec":
-            raise NotImplementedError(
-                f"{cfg.name}: the {self.contract!r} slot-cache contract is "
-                f"not ported; see repro/serve/cache.py")
+        self.mem_len = mem_len
         # ragged (bucketed) prefill: sound iff every cache row < length is
         # independent of the padded tail — pure causal global attention (a
         # window ring or a recurrent state would take in the pad tokens)
@@ -176,7 +181,12 @@ class ServeEngine:
     # -- steps --------------------------------------------------------------
 
     def _cache_template(self, batch: int, device):
-        return self.model.init_cache(batch, self.max_len, device)
+        if self.contract != "encdec":
+            return self.model.init_cache(batch, self.max_len, device)
+        if self.mem_len is None:
+            raise ValueError(errors.msg("encdec_needs_mem_len"))
+        return self.model.init_cache(batch, self.max_len, device,
+                                     mem_len=self.mem_len)
 
     def _argmax(self, logits):
         return logits[:, -1, : self.cfg.vocab_size].argmax(-1) \
@@ -186,9 +196,14 @@ class ServeEngine:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
             .to(self.device)
 
-    def _prefill(self, tokens, lengths):
+    def _prefill(self, tokens, lengths, frames=None):
+        """One prefill; ``frames`` (S, D): an enc-dec request's memory."""
+        batch = {"tokens": self._tensor(tokens)}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(
+                np.asarray(frames, np.float32))[None].to(self.device)
         logits, cache = self.model.prefill(
-            self.params, {"tokens": self._tensor(tokens)}, self.max_len,
+            self.params, batch, self.max_len,
             lengths=self._tensor(lengths) if self.ragged_ok else None)
         return self._argmax(logits).cpu().numpy(), cache
 
@@ -262,6 +277,12 @@ class ServeEngine:
             raise ValueError(errors.msg("request_exceeds_max_len",
                                         rid=req.rid, prompt=P, gen=req.gen,
                                         max_len=self.max_len))
+        if self.contract == "encdec":
+            fr = np.asarray(req.frames)
+            if fr.shape[0] != self.mem_len:
+                raise ValueError(errors.msg(
+                    "frames_mem_len_mismatch", rid=req.rid,
+                    frames=fr.shape[0], mem_len=self.mem_len))
         s = self.slots[slot]
         if s.out:                      # slot previously served a request
             self.stats["refills"] += 1
@@ -297,7 +318,9 @@ class ServeEngine:
             toks = np.zeros((1, self._bucket(L0)), np.int32)
             toks[0, :L0] = req.tokens[:L0]
             t0 = time.perf_counter()
-            nxt, st.local = self._prefill(toks, [L0])
+            nxt, st.local = self._prefill(
+                toks, [L0],
+                req.frames if self.contract == "encdec" else None)
             self.stats["prefill_s"] += time.perf_counter() - t0
             self.stats[f"prefill_b{self._stat_bucket(L0)}"] += 1
             st.consumed = L0
@@ -450,8 +473,13 @@ class ServeEngine:
             # a bucket-sized prompt can overflow the per-slot budget
             # (b == max_len); shrink it — it rounds back up to the bucket
             p = max(1, min(b, self.max_len - gen))
+            frames = None
+            if self.contract == "encdec":
+                frames = np.zeros((self.mem_len, self.cfg.d_model),
+                                  np.float32)
             reqs.append(Request(rid=-(i + 1),
-                                tokens=np.zeros((p,), np.int32), gen=gen))
+                                tokens=np.zeros((p,), np.int32), gen=gen,
+                                frames=frames))
         self.run(reqs, prefill_chunk=prefill_chunk)
         stats = dict(self.stats)
         self.reset()
@@ -551,19 +579,26 @@ def _substream(seed: int, salt: int) -> np.random.RandomState:
 
 def synthetic_trace(n: int, vocab: int, *, seed: int = 0,
                     prompt_range=(8, 48), gen_range=(4, 48),
-                    rate: Optional[float] = None) -> List[Request]:
+                    rate: Optional[float] = None,
+                    mem_len: Optional[int] = None,
+                    d_model: int = 0) -> List[Request]:
     """Ragged arrival trace: mixed prompt/gen lengths, optional Poisson
     arrivals at ``rate`` req/s (default: all available at t=0).
+    ``mem_len`` (with ``d_model``) attaches per-request encoder-memory
+    frames of that fixed length: the enc-dec workload
+    (``ServeEngine(mem_len=...)``).
 
     Every field draws from its own seed-derived substream, exactly as
     ``repro.serve.engine.synthetic_trace`` does, so the same seed gives the
-    same requests in both packages. (Deadlines, shared prefixes and
-    enc-dec frames, the JAX trace's other fields, serve layers not ported
-    yet.)
+    same requests and frames in both packages. (Deadlines and shared
+    prefixes, the JAX trace's other fields, serve layers not ported yet.)
     """
     rng_arr = _substream(seed, 1)
     rng_len = _substream(seed, 2)
     rng_tok = _substream(seed, 3)
+    rng_fr = _substream(seed, 5)
+    if mem_len is not None and d_model <= 0:
+        raise ValueError("synthetic_trace: mem_len= needs d_model=")
     arrivals = np.zeros(n) if rate is None else \
         np.cumsum(rng_arr.exponential(1.0 / rate, size=n))
     reqs = []
@@ -571,8 +606,11 @@ def synthetic_trace(n: int, vocab: int, *, seed: int = 0,
         P = int(rng_len.randint(prompt_range[0], prompt_range[1] + 1))
         G = int(rng_len.randint(gen_range[0], gen_range[1] + 1))
         toks = rng_tok.randint(0, vocab, size=P).astype(np.int32)
+        frames = None
+        if mem_len is not None:
+            frames = rng_fr.randn(mem_len, d_model).astype(np.float32)
         reqs.append(Request(rid=i, tokens=toks, gen=G,
-                            arrival=float(arrivals[i])))
+                            arrival=float(arrivals[i]), frames=frames))
     return reqs
 
 

@@ -63,7 +63,8 @@ def test_port_imports_neither_jax_nor_repro():
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", jax_configs.DEIT_IDS + pt_configs.LM_IDS)
+@pytest.mark.parametrize("arch", jax_configs.DEIT_IDS + pt_configs.LM_IDS
+                         + pt_configs.ENCDEC_IDS)
 def test_copied_configs_equal_jax_configs(arch):
     want = jax_configs.get_config(arch)
     got = pt_configs.get_config(arch)
@@ -115,17 +116,23 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """The enc-dec config is not ported: ``get_config`` and ``reduced``
-    refuse it by name (deepseek-v3-671b is ported since its MLA, shared
-    experts and dense layers are, and jamba-1.5-large-398b since its Mamba
-    mixer is)."""
+    """Every model of the JAX package is ported: the enc-dec
+    ``seamless-m4t-large-v2`` resolves in both packages, full and
+    reduced, to equal configs (as deepseek-v3-671b and
+    jamba-1.5-large-398b do); mesh-sharded calibration still refuses by
+    name."""
     arch = "seamless-m4t-large-v2"
-    with pytest.raises(NotImplementedError, match="repro.configs"):
-        pt_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        pt_configs.reduced(to_port_cfg(jax_configs.get_config(arch)))
-    assert {"deepseek-v3-671b", "jamba-1.5-large-398b"} \
-        <= set(pt_configs.LM_IDS)
+    for name in (arch, arch + "-reduced"):
+        got = pt_configs.resolve_config(name)
+        want = jax_configs.get_config(arch)
+        if name.endswith("-reduced"):
+            want = jax_configs.reduced(want)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(pt_configs.reduced(to_port_cfg(
+        jax_configs.get_config(arch)))) == dataclasses.asdict(
+        jax_configs.reduced(jax_configs.get_config(arch)))
+    assert set(jax_configs.ARCH_IDS) \
+        == set(pt_configs.LM_IDS + pt_configs.ENCDEC_IDS)
     with pytest.raises(NotImplementedError, match="--mesh"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
                        "--mesh", "2x2"])

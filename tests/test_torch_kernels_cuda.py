@@ -200,6 +200,24 @@ def test_gram_kernel_over_expert_queues_past_2_31_outputs(dev):
     _close_to_fp64_sums(got["s1"], x)
 
 
+def test_gram_kernel_at_the_seamless_mlp_tap(dev):
+    """seamless-m4t-large-v2's stacked MLP tap of a calibration batch: 24
+    layers of 8 x 512 tokens of d_ff 8192 in one launch (6.4 GB of s2),
+    each layer held to its plain gram."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(24, 4096, 8192, generator=g, device=dev)
+    before = gram_ops.launches
+    got = gram_ops.gram(x)
+    assert gram_ops.launches == before + 1
+    for i in (0, 23):
+        want = gram_ref.gram(x[i:i + 1])
+        rel = (got["s2"][i] - want["s2"][0]).abs().max() \
+            / want["s2"].abs().max()
+        assert rel <= 1e-5
+        assert torch.equal(got["s2"][i], got["s2"][i].mT)
+    _close_to_fp64_sums(got["s1"], x)
+
+
 def _flash_case(dev, dtype, tol, B, T, S, H, Hkv, dq, dv, causal, window,
                 scale=0.125, offset=0):
     """Kernel vs plain on seeded inputs; ``offset`` > 0 makes q, k, v views
@@ -284,6 +302,19 @@ def test_flash_kernel_reads_unaligned_views(dev, dtype, tol):
                 offset=1)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,S", [(24, 512), (700, 512), (33, 500)])
+@pytest.mark.parametrize("dq", [64, 32])
+def test_flash_kernel_at_the_cross_attention(dev, T, S, dq, dtype, tol):
+    """seamless-m4t-large-v2's cross attention: T decoder rows against S
+    memory rows, non-causal (every key visible), T < S and T > S and S not
+    a tile multiple, MHA 16/16, q/k 64 (32 when pruned) against v 64, at
+    the dense model's scale 1/sqrt(64) passed in, not derived from dq."""
+    _flash_case(dev, dtype, tol, 2, T, S, 16, 16, dq, 64, False, None,
+                scale=64 ** -0.5)
+
+
 def test_flash_kernel_refuses_wide_heads(dev):
     q = torch.randn(1, 4, 1, 264, device=dev)
     with pytest.raises(ValueError):
@@ -337,6 +368,28 @@ def test_decode_kernel_matches_plain(dev, B, S, H, Hkv, dq, dv, dtype, tol):
     want = decode_ref.decode_attention(q, k, v, valid, 0.088)
     assert decode_ops.launches == before + 1
     assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dq", [64, 32])
+def test_decode_kernel_over_the_cross_memory(dev, dq, dtype, tol):
+    """seamless's decode cross attention: one decoder token a slot against
+    its 500 memory rows (not a multiple of the 64-key tile), every key
+    valid, 16/16 heads, q/k 64 (32 pruned) against v 64, scale
+    1/sqrt(64); read from one layer's slice of the stacked memory K/V."""
+    g = torch.Generator(device=dev).manual_seed(dq)
+    B, S = 8, 500
+    q = torch.randn(B, 16, dq, generator=g, device=dev).to(dtype)
+    k = torch.randn(3, B, S, 16, dq, generator=g, device=dev).to(dtype)[1]
+    v = torch.randn(3, B, S, 16, 64, generator=g, device=dev).to(dtype)[1]
+    valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k, v, valid, scale=0.125)
+    want = decode_ref.decode_attention(q, k, v, valid, 0.125)
+    assert decode_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, 16, 64)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

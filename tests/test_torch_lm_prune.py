@@ -164,17 +164,18 @@ def test_lm_batch_and_calib_stream_are_token_identical(s, seq, nshards):
 
 @pytest.mark.parametrize("frontend,family", [("patch_stub", "lm"),
                                              (None, "encdec")])
-def test_calib_stream_refuses_unported_streams_by_name(s, frontend, family):
-    """The enc-dec stream is refused by name; the VLM stub's is ported (its
-    patch embeddings beside the tokens; tests/test_torch_internvl.py holds
+def test_calib_stream_carries_the_frontend_inputs(s, frontend, family):
+    """The VLM stub's stream carries patch embeddings beside the tokens
+    (tests/test_torch_internvl.py holds them to JAX's), the enc-dec's the
+    encoder frames, one a token (tests/test_torch_seamless_prune.py holds
     them to JAX's)."""
     cfg = s["cfg"].replace(frontend=frontend, family=family)
-    if family == "encdec":
-        with pytest.raises(NotImplementedError, match="calib_stream"):
-            calib_stream(cfg, n_samples=4, batch=2, device="cpu")
-        return
     b = next(iter(calib_stream(cfg, n_samples=4, batch=2, device="cpu")()))
-    assert b["patch_embeds"].shape == (2, 8, cfg.d_model)
+    extra = "patch_embeds" if family == "lm" else "frames"
+    assert sorted(b) == sorted(["tokens", extra])
+    assert b[extra].shape == ((2, 8, cfg.d_model) if family == "lm"
+                              else (2, 64, cfg.d_model))
+    assert b[extra].dtype == torch.float32
     assert b["tokens"].shape == (2, 64)
 
 
@@ -291,9 +292,11 @@ def test_complex_solve_fold_and_pair_dims_match_jax(seed):
 def test_class3_and_unported_units_raise_by_name(s):
     """Class 3 (qk-norm) units reduce (tests/test_torch_gemma_prune.py
     holds them to JAX), and so do class-1 MLA units
-    (tests/test_torch_deepseek_prune.py) and Mamba units, on their
-    ``mamba_y`` tap (tests/test_torch_jamba_prune.py); the unit kind
-    still unported, cross attention, raises by name."""
+    (tests/test_torch_deepseek_prune.py), Mamba units, on their
+    ``mamba_y`` tap (tests/test_torch_jamba_prune.py), and cross units,
+    on their ``cross_q``/``cross_k`` taps as a class-1 attention unit on
+    ``q``/``k`` (tests/test_torch_seamless_prune.py): no unit kind is left
+    to refuse."""
     cfg = s["cfg"].replace(qk_norm=True)
     units = discover_units(cfg)
     assert units[0].attn_class == 3
@@ -301,9 +304,16 @@ def test_class3_and_unported_units_raise_by_name(s):
     s["pt_model"].apply(s["pt_params"], s["pt_held"], taps=taps)
     p1 = stats_mod.pass1_reduce(taps, units)
     assert p1[ATTN]["rank"].shape == (2, 1, 8)      # (L, G, pairs)
-    cross = dataclasses.replace(units[0], kind="cross", name="x/cross")
-    with pytest.raises(NotImplementedError, match="cross"):
-        stats_mod.pass1_reduce(taps, [cross])
+    cross = dataclasses.replace(units[0], kind="cross", name="x/cross",
+                                attn_class=1)
+    attn1 = dataclasses.replace(units[0], name="x/attn", attn_class=1)
+    taps["seg0/p0/cross_q"] = taps["seg0/p0/q"]
+    taps["seg0/p0/cross_k"] = taps["seg0/p0/k"]
+    got = stats_mod.pass1_reduce(taps, [cross])["x/cross"]
+    want = stats_mod.pass1_reduce(taps, [attn1])["x/attn"]
+    assert got["rank"].shape == (2, 1, 16)          # (L, G, dims)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
     mamba = dataclasses.replace(units[0], kind="mamba", name="x/mamba")
     taps["seg0/p0/mamba_y"] = taps["seg0/p0/h"]
     got = stats_mod.pass1_reduce(taps, [mamba])["x/mamba"]

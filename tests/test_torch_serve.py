@@ -211,7 +211,7 @@ def test_serve_cli_fixed_batch_loop():
                                   ["--prefix-cache", "4"],
                                   ["--replicas", "2"],
                                   ["--mesh-shape", "1x2"],
-                                  ["--mem-len", "16"]])
+                                  ["--prefix-len", "16"]])
 def test_unported_serve_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="repro/"):
         pt_serve.main(["--arch", "qwen2-1.5b-reduced", "--device", "cpu",
