@@ -39,7 +39,19 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      steps (with the decode kernel's device time a call); checks at full
      width in fp32 that teacher-forced prefill + decode logits equal one
      full forward, and on a reduced Qwen2 that the engine's token streams
-     on the GPU equal the CPU plain path's;
+     on the GPU equal the CPU plain path's; then the serving front-end at
+     full width and depth (``[serve frontend]``: 16 requests sharing a
+     384-token prompt through ``launch.serve`` with a prefix cache of 8, a
+     queue of 4 and a deadline mix: one terminal status each, every admit
+     after the first a prefix hit, the attention kernels' launches equal
+     28 x the prefills and the decode and walk steps, every cached entry
+     bitwise as inserted; a hit's first-token logits against a cold
+     prefill, <= 2e-2 in bf16) and the replica router (``[serve fleet]``,
+     fp32: two replicas of 4 slots on one params tree, stepped from a
+     thread each with prefix-affinity routing, whose streams equal one
+     engine's, also when replica 1 is killed after its 4th decode step,
+     with exact launch counts over both threads and the re-prefills'
+     top-1/top-2 logit margins printed);
   5. recurrent serve path: the same for RWKV6-3B at full width under the
      recurrent slot-cache contract (every prefill and decode step runs the
      ``wkv6`` kernel once per layer), with its slot bytes at two max_len;
@@ -154,6 +166,7 @@ fp32 product is full fp32.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -1372,6 +1385,398 @@ def serve_reference_phase(args, tag):
     if not same:
         fail(f"{args[1]}: the engine's streams on the GPU differ from the "
              f"CPU's")
+
+
+# ---------------------------------------------------------------------------
+# the serving front-end (bounded queue, deadlines, prefix cache) and the
+# replica router at Qwen2-1.5B's full width and depth
+# ---------------------------------------------------------------------------
+
+# 16 requests sharing a 384-token system prompt, suffixes of 4-16 tokens;
+# half of them carry a deadline of 0.5-4 s and 4 of the 16 wait in the queue
+SERVE_FRONTEND = ["--arch", "qwen2-1.5b", "--trace", "16", "--slots", "8",
+                  "--max-len", "1024", "--prompt-range", "4,16",
+                  "--gen-range", "16,64", "--prefix-cache", "8",
+                  "--prefix-len", "384", "--queue-depth", "4",
+                  "--deadline-ms", "500,4000", "--deadline-frac", "0.5",
+                  "--init-on-device"]
+# in process, fp32: 8 requests sharing a 128-token prompt, two replicas of 4
+# slots with prefix-affinity routing against one engine of 4 slots
+FLEET = dict(n=8, prefix_len=128, prompt_range=(4, 16), gen_range=(16, 32),
+             slots=4, max_len=256, cap=4, kill_after=4)
+
+
+def attention_calls(st):
+    """(prefills, shared decode steps + batch-1 walk steps) of an engine's
+    stats: each runs ``flash_attention`` or ``flash_decode`` once a layer."""
+    return (sum(v for k, v in st.items() if k.startswith("prefill_b")),
+            st.get("decode_steps", 0) + st.get("walk_steps", 0))
+
+
+def check_attention_launches(tag, launches, layers, stats):
+    """Each kernel's launches against ``layers`` x the engines' calls."""
+    pre = sum(attention_calls(st)[0] for st in stats)
+    dec = sum(attention_calls(st)[1] for st in stats)
+    print(f"[{tag}] flash_attention launches {launches['flash_attention']} "
+          f"== {layers} layers x {pre} prefills; flash_decode launches "
+          f"{launches['flash_decode']} == {layers} layers x {dec} decode and "
+          f"walk steps")
+    if (launches["flash_attention"], launches["flash_decode"]) \
+            != (layers * pre, layers * dec):
+        fail(f"{tag}: the attention kernels' launches do not match the "
+             f"engines' prefills and steps")
+
+
+class EntryWatch:
+    """Keeps, on the card, a copy of every prefix-cache entry as it is
+    inserted and the prompts of every lookup that hit, by patching
+    ``PrefixCache`` for the length of a ``with`` block."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.interop import map_tree
+        from repro_torch.serve.prefix import PrefixCache
+        self.cls, self.snaps, self.hits = PrefixCache, {}, set()
+        self.orig = (PrefixCache.insert, PrefixCache.lookup)
+        insert, lookup = self.orig
+        watch = self
+
+        def watched_insert(pc, tokens, cache, nbytes):
+            key = pc._key(tokens)
+            if key not in pc._entries:
+                watch.snaps[key] = map_tree(torch.clone, cache)
+            insert(pc, tokens, cache, nbytes)
+
+        def watched_lookup(pc, tokens, whole_entry=False):
+            hit = lookup(pc, tokens, whole_entry)
+            if hit is not None:
+                watch.hits.add(pc._key(tokens))
+            return hit
+
+        PrefixCache.insert, PrefixCache.lookup = watched_insert, \
+            watched_lookup
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.insert, self.cls.lookup = self.orig
+
+    def changed(self, pc):
+        """Entries of ``pc`` whose tensors differ from their insert."""
+        import torch
+        from repro_torch.interop import flatten
+        bad = 0
+        for key, e in pc._entries.items():
+            got, want = flatten(e.cache), flatten(self.snaps[key])
+            bad += not all(torch.equal(got[k], want[k]) for k in want)
+        return bad
+
+
+class FirstLogits:
+    """Records, on ``engines``, the logits each admit takes its first token
+    from: the last ``_argmax`` of the admit, which closes a cold prefill
+    or, on a prefix hit, the last batch-1 walk step. Armed only around an
+    admit on the calling thread (``with watch.admit() as first:``), so
+    the shared decode steps that replicas run from threads record
+    nothing."""
+
+    def __init__(self, engines):
+        self.engines, self.armed, self.last = engines, False, None
+        for e in engines:
+            e._argmax = self._hook(e, e._argmax)
+
+    def _hook(self, engine, argmax):
+        def recorded(logits):
+            if self.armed:
+                self.last = (engine, logits[0, -1, :engine.cfg.vocab_size]
+                             .float())
+            return argmax(logits)
+        return recorded
+
+    @contextlib.contextmanager
+    def admit(self):
+        """Yields a dict that holds, on exit, the admit's ``logits``, the
+        ``engine`` that made them, its ``path`` ("prefill" or "hit + s walk
+        steps") and the top-1 minus top-2 logit ``margin``."""
+        before = [(e.stats["prefix_hits"], e.stats["walk_steps"])
+                  for e in self.engines]
+        self.armed, self.last, out = True, None, {}
+        try:
+            yield out
+        finally:
+            self.armed = False
+        if self.last is None:
+            return                     # no replica took the admit
+        engine, logits = self.last
+        hits, walk = before[self.engines.index(engine)]
+        top = logits.topk(2).values
+        out.update(logits=logits, engine=engine,
+                   margin=float(top[0] - top[1]),
+                   path=("prefill" if engine.stats["prefix_hits"] == hits
+                         else f"hit + {engine.stats['walk_steps'] - walk} "
+                              f"walk steps"))
+
+
+def hit_logits_phase(model, params, reqs):
+    """The engine's prefix-hit path against its cold path, in the served
+    dtype: a ``ServeEngine`` admits request A with a prefix cache, then B,
+    which hits A's entry and walks its suffix by batch-1 decode steps; B's
+    first-token logits from that walk are held against the engine's cold
+    admit of B (no cache), relative error <= 2e-2 (bf16, the attention
+    gate), the argmax agreement reported."""
+    from repro_torch.serve import PrefixCache, ServeEngine
+    eng = ServeEngine(model, params, n_slots=2, max_len=1024)
+    eng.begin()
+    watch = FirstLogits([eng])
+    errs, agree = [], 0
+    pairs = list(zip(reqs[:-1], reqs[1:]))[:3]
+    for a, b in pairs:
+        pc = PrefixCache(cap=2)
+        eng.admit(a, 0, prefix_cache=pc)
+        with watch.admit() as hit:
+            eng.admit(b, 1, prefix_cache=pc)
+        eng.reset()
+        with watch.admit() as cold:
+            eng.admit(b, 0)
+        eng.reset()
+        if hit.get("path", "prefill") == "prefill" \
+                or cold.get("path") != "prefill":
+            fail(f"request {b.rid}: the hit took the {hit.get('path')} path, "
+                 f"the cold admit {cold.get('path')}")
+        got, want = hit["logits"], cold["logits"]
+        errs.append(rel_err(got, want))
+        agree += int(got.argmax()) == int(want.argmax())
+    err = max(errs)
+    print(f"[serve frontend] prefix hit: first-token logits vs a cold "
+          f"prefill of the same prompt (one ServeEngine, admit with and "
+          f"without a prefix cache), {len(pairs)} prompts of "
+          f"{[len(b.tokens) for _, b in pairs]} tokens: max relative error "
+          f"{err:.3e} (tol 2e-2), argmax agrees on {agree}/{len(pairs)} "
+          f"(reported, not gated in {model.cfg.dtype})")
+    if not err <= 2e-2:
+        fail("a prefix hit's logits disagree with a cold prefill")
+
+
+def serve_frontend_phase():
+    """Qwen2-1.5B at full width and depth (bf16, weights drawn on the
+    card) through ``launch.serve``'s front-end with a prefix cache, a
+    queue of 4 and a deadline mix: every handle ends in exactly one
+    terminal status; every admit after the first hits the first's entry
+    (admits are atomic, so each sees the insert before it) and reuses the
+    shared tokens; the attention kernels launched once a layer for
+    each prefill and for each shared decode and batch-1 walk step; every
+    entry still cached is bitwise what was inserted. Returns ({kernel:
+    launches}, the CLI's result)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve.queue import TERMINAL
+    tag = "serve frontend"
+    arg = dict(zip(SERVE_FRONTEND[::2], SERVE_FRONTEND[1::2]))
+    n, shared = int(arg["--trace"]), int(arg["--prefix-len"])
+    print(f"[{tag}] python -m repro_torch.launch.serve "
+          f"{' '.join(SERVE_FRONTEND)}")
+    reset_launches()
+    t0 = time.time()
+    with EntryWatch() as watch:
+        res = serve.main(SERVE_FRONTEND)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    st, warm, table = res["stats"], res["warmup_stats"], res["table"]
+    fe, handles = res["frontend"], res["handles"]
+    cfg = res["model"].cfg
+    pc = fe.prefix_cache
+    counts = {k: table[k] for k in ("done", "rejected", "expired",
+                                    "cancelled", "failed")}
+    print(f"[{tag}] wall {wall:.3f} s (init, warmup and the trace); "
+          f"outcomes {counts}; kernel launches in this run: {launches}")
+    print(f"[{tag}] engine stats: {dict(sorted(st.items()))}")
+    print(f"[{tag}] prefix cache: {pc.stats()}")
+    print(f"[{tag}] table: {json.dumps(table)}")
+    if not all(h.status in TERMINAL for h in handles) \
+            or sum(counts.values()) != n or len(handles) != n:
+        fail(f"{tag}: a request did not reach exactly one terminal status")
+    if st["prefix_hits"] != st["admits"] - 1 or st["prefix_hits"] < 1:
+        fail(f"{tag}: {st['prefix_hits']} prefix hits for {st['admits']} "
+             f"atomic admits")
+    if st["prefix_reused_tokens"] < shared * st["prefix_hits"]:
+        fail(f"{tag}: the hits reused fewer than the {shared} shared "
+             f"tokens")
+    check_attention_launches(tag, launches, cfg.n_layers, (warm, st))
+    if launches["gram"] or launches["wkv6"]:
+        fail(f"{tag}: a kernel off the serve path launched")
+    bad = watch.changed(pc)
+    print(f"[{tag}] {len(pc)} entries still cached "
+          f"({pc.bytes / 1e6:.1f} MB), each held bitwise to its copy at "
+          f"insertion: {len(pc) - bad} unchanged, {bad} changed")
+    if bad:
+        fail(f"{tag}: a prefix-cache entry changed after its insert")
+    for h in handles:
+        toks = np.asarray(h.tokens)
+        if not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            fail(f"{tag}: request {h.rid}: tokens out of range")
+    served = [h for h in handles if h.t_first is not None]
+    hits = [h.ttft for h in served if h.req.tokens.tobytes() in watch.hits]
+    cold = [h.ttft for h in served
+            if h.req.tokens.tobytes() not in watch.hits]
+    prefills, steps = attention_calls(st)
+
+    def pct(xs):
+        return (f"{1e3 * np.percentile(xs, 50):.1f}/"
+                f"{1e3 * np.percentile(xs, 99):.1f} ms over {len(xs)}"
+                if xs else "none")
+    print(f"[{tag}] TTFT p50/p99: prefix hits {pct(hits)}, cold admits "
+          f"{pct(cold)}; {1e3 * st['walk_s'] / max(1, st['walk_steps']):.2f}"
+          f" ms per batch-1 walk step ({st['walk_steps']} steps over "
+          f"{st['prefix_suffix_tokens']} suffix tokens), "
+          f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms per "
+          f"shared decode step ({st['decode_steps']} steps), "
+          f"{1e3 * st['prefill_s'] / max(1, prefills):.2f} ms per cold "
+          f"prefill ({prefills})")
+    hit_logits_phase(res["model"], res["params"],
+                     sorted((h.req for h in handles), key=lambda r: r.rid))
+    return launches, res
+
+
+def fleet_run(m32, p32, trace, n_engines, route=None, kill=False):
+    """The trace through ``ServeFrontend`` over one engine with a prefix
+    cache, or over a ``ReplicaRouter`` of ``n_engines`` by ``route``
+    (prefix-affinity with a cache a replica, least-loaded with none);
+    ``kill`` kills replica 1 after its ``kill_after``-th decode step.
+    Returns (streams, router or None, wall seconds, launches, engine
+    stats, re-dispatches: [(rid, tokens delivered, the survivor's path to
+    its first token, that token's top-1 minus top-2 logit)])."""
+    import torch
+    from repro_torch.serve import (PrefixCache, ReplicaRouter, ServeEngine,
+                                   ServeFrontend)
+    engines = [ServeEngine(m32, p32, n_slots=FLEET["slots"],
+                           max_len=FLEET["max_len"])
+               for _ in range(n_engines)]
+    for e in engines:
+        e.warmup(prompt_lens=[len(r.tokens) for r in trace], prefix=True)
+    redispatched = []
+    if n_engines > 1:
+        eng = ReplicaRouter(engines, route=route, prefix_cap=FLEET["cap"]
+                            if route == "prefix-affinity" else 0)
+        fe = ServeFrontend(eng, queue_depth=16)
+        watch, bind = FirstLogits(engines), eng._bind
+
+        def watched_bind(gid, req, prefix_cache=None, begin=False):
+            v = eng.vslots[gid]
+            if not v.out:                         # a first admit
+                return bind(gid, req, prefix_cache, begin)
+            with watch.admit() as first:
+                ok = bind(gid, req, prefix_cache, begin)
+            if not ok:
+                return ok
+            if first.get("engine") is not engines[v.replica]:
+                fail(f"[serve fleet] rid {v.rid}: the first token's logits "
+                     f"came from another replica than its survivor")
+            redispatched.append((v.rid, len(v.out), first["path"],
+                                 first["margin"]))
+            return ok
+        eng._bind = watched_bind
+    else:
+        eng = None
+        fe = ServeFrontend(engines[0], queue_depth=16,
+                           prefix_cache=PrefixCache(cap=FLEET["cap"]))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = [fe.submit(r) for r in trace]
+    killed = False
+    while fe.step():
+        if kill and not killed \
+                and engines[1].stats["decode_steps"] >= FLEET["kill_after"]:
+            eng.kill(1)
+            killed = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if kill and not killed:
+        fail("[serve fleet] replica 1 was never killed")
+    streams = {h.rid: (h.status.value, list(h.tokens)) for h in handles}
+    return (streams, eng, wall, launches, [e.stats for e in engines],
+            redispatched)
+
+
+def serve_fleet_phase(model, params):
+    """Two replicas of Qwen2-1.5B at full width and depth in fp32 (TF32
+    off), sharing one params tree on the card, stepped from a thread each
+    by ``ReplicaRouter``: with prefix-affinity routing their streams equal
+    one engine's serving the same trace through ``ServeFrontend``, no
+    replica down and nothing orphaned; again when replica 1 is killed
+    after its 4th decode step (its requests re-dispatched by a prefix hit
+    and a walk, none failed, the kill the only replica down); and again
+    under least-loaded routing without caches, whose survivor re-prefills
+    every orphan through ``flash_attention``. Both attention kernels'
+    launches are exact over the two threads; the top-1 minus top-2 logit
+    of each re-dispatched first token is printed, on the path the
+    survivor took. Returns {path: launches}."""
+    import traceback
+    from repro_torch.interop import map_tree
+    from repro_torch.models import build_model
+    from repro_torch.serve import synthetic_trace
+    tag = "serve fleet"
+    cfg = model.cfg.replace(dtype="float32")
+    m32 = build_model(cfg)
+    p32 = map_tree(lambda t: t.float(), params)
+    trace = synthetic_trace(FLEET["n"], cfg.vocab_size, seed=0,
+                            prompt_range=FLEET["prompt_range"],
+                            gen_range=FLEET["gen_range"],
+                            prefix_len=FLEET["prefix_len"])
+    tokens = sum(r.gen for r in trace)
+    ref, _, wall1, _, _, _ = fleet_run(m32, p32, trace, 1)
+    out = {}
+    for name, route, kill in (("fleet", "prefix-affinity", False),
+                              ("fleet kill", "prefix-affinity", True),
+                              ("fleet kill least-loaded", "least-loaded",
+                               True)):
+        streams, router, wall, launches, stats, redisp = fleet_run(
+            m32, p32, trace, 2, route, kill)
+        rs = dict(router.rstats)
+        step_ms = [round(1e3 * st["decode_s"] / max(1, st["decode_steps"]),
+                         2) for st in stats]
+        print(f"[{tag}] {name}: {wall:.3f} s, {tokens / wall:.1f} tok/s "
+              f"against one engine's {tokens / wall1:.1f} tok/s "
+              f"({wall1:.3f} s); ms per decode step by replica {step_ms} "
+              f"(one card's default stream and the GIL are shared, so "
+              f"each includes the other's work); router {rs}; replica "
+              f"prefix caches {router.prefix_stats()}; launches {launches}")
+        raised = [r.error for r in router.replicas]
+        for i, e in enumerate(raised):
+            if e is not None:
+                print(f"[{tag}] {name}: replica {i} went down on "
+                      + "".join(traceback.format_exception(e)))
+        down, orphaned = rs.get("replicas_down", 0), rs.get("orphaned", 0)
+        if any(raised) or down != int(kill) or (orphaned > 0) != kill:
+            fail(f"{tag}: {name}: {down} replicas down and {orphaned} "
+                 f"orphaned where the run killed {int(kill)}, and "
+                 f"{sum(e is not None for e in raised)} raised")
+        check_attention_launches(tag, launches, cfg.n_layers, stats)
+        same = streams == ref
+        print(f"[{tag}] {name}: streams of {len(streams)} requests "
+              f"{'identical to' if same else 'DIFFERENT from'} one engine's")
+        if not same:
+            fail(f"{tag}: {name} streams differ from one engine's")
+        if kill:
+            print(f"[{tag}] {name}: re-dispatches (rid, tokens delivered, "
+                  f"the survivor's path to its first token, that token's "
+                  f"top-1 minus top-2 logit): {redisp}; smallest margin "
+                  f"{min(m for *_, m in redisp):.4e}")
+            if not (orphaned == rs.get("redispatches", 0) == len(redisp) > 0
+                    and rs.get("failed", 0) == 0):
+                fail(f"{tag}: the kill did not re-dispatch every orphan")
+        if route == "least-loaded":
+            prefills = sum(attention_calls(st)[0] for st in stats)
+            walks = sum(st.get("walk_steps", 0) for st in stats)
+            print(f"[{tag}] {name}: {prefills} prefills == {FLEET['n']} "
+                  f"admits + {len(redisp)} re-prefills, {walks} walk steps")
+            if prefills != FLEET["n"] + len(redisp) or walks \
+                    or any(path != "prefill" for _, _, path, _ in redisp):
+                fail(f"{tag}: {name}: a re-dispatch did not re-prefill")
+        out["serve_" + name.replace(" ", "_").replace("-", "_")] = launches
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2803,7 +3208,7 @@ def serve_in_process(args, tag, cfg, params, leaves, kernels):
           f"trace path with the flags {' '.join(args)}")
     reset_launches()
     t0 = time.time()
-    comps, table, st, _ = serve.serve_trace(
+    comps, table, st, *_ = serve.serve_trace(
         build_model(cfg), params, n=int(arg["--trace"]),
         slots=int(arg["--slots"]), max_len=int(arg["--max-len"]),
         prompt_range=tuple(map(int, arg["--prompt-range"].split(","))),
@@ -4036,6 +4441,13 @@ def main() -> int:
     logit_phase(served["model"], served["params"], "logits", [40, 25])
     del served
     serve_reference_phase(SERVE_REDUCED, "reference")
+    t1 = time.time()
+    launches["serve_frontend"], served = serve_frontend_phase()
+    print(f"[serve frontend] phase wall {time.time() - t1:.3f} s")
+    t1 = time.time()
+    launches.update(serve_fleet_phase(served["model"], served["params"]))
+    print(f"[serve fleet] phase wall {time.time() - t1:.3f} s")
+    del served
     launches["serve_rwkv"], served = serve_phase(SERVE_RWKV, "serve rwkv",
                                                  ("wkv6",))
     recurrent_checks(launches["serve_rwkv"], served)

@@ -28,10 +28,21 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 _fns = {}                # bound C entry points, by name
 build_seconds = None     # wall time of the build in this process (None: cached)
 build_log = ""           # nvcc's -Xptxas -v report (registers, spills, smem)
+
+
+def count(module, by=None):
+    """Add one to a wrapper module's ``launches`` (and to its
+    ``launches_by[by]`` when ``by`` is given), under one lock: replicas
+    step from threads, and the launch call releases the GIL."""
+    with _count_lock:
+        module.launches += 1
+        if by is not None:
+            module.launches_by[by] += 1
 
 
 def sources():

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -78,7 +79,6 @@ def decode_attention(q, k, v, valid, *, scale=None, bs=None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if all(t.device.type == "cpu" for t in (q, k, v, valid)):
         return _ref.decode_attention(q, k, v, valid, scale)
-    global launches
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, valid)):
         raise ValueError(f"decode_attention: q, k, v, valid on {q.device}, "
@@ -128,5 +128,5 @@ def decode_attention(q, k, v, valid, *, scale=None, bs=None):
              float(scale), rows16(k) | rows16(v) << 1,
              ctypes.addressof(strides), stream)
     _build.check(err, "flash_decode")
-    launches += 1
+    _build.count(sys.modules[__name__])
     return o

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import sys
 
 import torch
 
@@ -67,7 +68,6 @@ def gram_cross(x: torch.Tensor, y: torch.Tensor) -> dict:
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, sym: bool) -> dict:
-    global launches
     if x.device.type != "cuda" or y.device != x.device:
         raise ValueError(f"gram_cross: tensors on {x.device} and {y.device}; "
                          f"need both on one CUDA device (or both on the CPU)")
@@ -105,8 +105,8 @@ def _launch(x: torch.Tensor, y: torch.Tensor, sym: bool) -> dict:
                  int(rows16(x3)) | int(rows16(y3)) << 1, full, splits,
                  stream)
         _build.check(err, "gram_cross")
-        launches += 1
-        launches_by["gram" if sym else "gram_cross", str(x.dtype)[6:]] += 1
+        _build.count(sys.modules[__name__],
+                     ("gram" if sym else "gram_cross", str(x.dtype)[6:]))
     return {"s2": s2.reshape(lead + (Fx, Fy)), "s1": s1.reshape(lead + (Fy,))}
 
 

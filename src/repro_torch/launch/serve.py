@@ -1,12 +1,24 @@
 """Serving entry point of the port (``repro.launch.serve``).
 
-Continuous batching over a synthetic ragged trace, through the slot engine
-(``repro_torch.serve.ServeEngine.run``); prints the latency-percentile
-table and the engine's stats:
+Continuous batching over a synthetic ragged trace, driven through the
+serving front-end (``repro_torch.serve.ServeFrontend``: bounded queue,
+deadlines, prefix cache) over the slot engine; prints per-status counts,
+the latency-percentile table and the engine's stats:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --trace 32 --slots 8 --max-len 1024 --prompt-range 64,512 \\
         --gen-range 32,256 [--compare-static] [--prefill-chunk N]
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+        --trace 16 --slots 8 --max-len 1024 --prompt-range 4,16 \\
+        --gen-range 16,64 --queue-depth 4 --deadline-ms 500,4000 \\
+        --deadline-frac 0.5 --prefix-cache 8 --prefix-len 384
+
+``--replicas N`` serves the trace by N engines behind a
+``ReplicaRouter`` (``--route least-loaded`` or ``prefix-affinity``, whose
+per-replica prefix caches hold ``--prefix-cache`` entries each); the
+replicas share one params tree on one card and step from a thread each.
+The table's ``mode`` column reads ``frontend`` or ``fleet-xN``.
 
 Fixed-batch baseline loop (the default without ``--trace``):
 
@@ -14,9 +26,10 @@ Fixed-batch baseline loop (the default without ``--trace``):
         --batch 4 --prompt-len 32 --gen 16
 
 ``--arch rwkv6-3b`` serves RWKV-6 under the recurrent slot-cache contract
-(exact-length prefill, a fixed-size state per slot); ``--compare-static``
-then raises after the engine's run, as the JAX CLI does (the static
-baseline needs ragged prefill).
+(exact-length prefill, a fixed-size state per slot; its prefix cache
+reuses whole-prompt state snapshots); ``--compare-static`` then raises
+after the front-end's run, as the JAX CLI does (the static baseline needs
+ragged prefill).
 
 Weights are seeded random (seed 0), drawn on the CPU, or on the serving
 device with ``--init-on-device`` (other values; a 20-billion-parameter
@@ -31,9 +44,8 @@ with its compensation leaves (``mlp/bd``, ``mlp/bv_comp``; a MoE's
 qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
 CLI's template cannot take (its restore fails). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
-PyTorch path. The JAX CLI drives ``--trace`` through its async front-end;
-the front-end is not ported, so its flags (queue, deadlines, prefix cache,
-shortest-prompt-first, replicas, mesh) raise here.
+PyTorch path. Mesh-sharded serving is not ported: ``--mesh-shape`` and
+``--serve-sharded`` raise.
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
 prompts (the engine sends no patch embeddings). ``--arch
 deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
@@ -51,6 +63,7 @@ rows, as the JAX CLI does.
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import numpy as np
@@ -60,20 +73,15 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import resolve_config
 from repro_torch.models import build_model
-from repro_torch.serve import (ServeEngine, percentile_table,
-                               run_static_trace, synthetic_trace)
+from repro_torch.serve import (Completion, PrefixCache, ReplicaRouter,
+                               ServeEngine, ServeFrontend, frontend_table,
+                               percentile_table, run_static_trace,
+                               synthetic_trace)
 from repro_torch.serve.engine import format_table
+from repro_torch.serve.router import ROUTES
 
 # flag -> the unported layer it needs
 _UNPORTED = {
-    "queue_depth": "the serving front-end (repro/serve/frontend.py)",
-    "deadline_ms": "the serving front-end (repro/serve/frontend.py)",
-    "deadline_frac": "the serving front-end (repro/serve/frontend.py)",
-    "prefix_cache": "the prefix cache (repro/serve/prefix.py)",
-    "prefix_len": "the prefix cache (repro/serve/prefix.py)",
-    "spf": "the front-end's admission queue (repro/serve/frontend.py)",
-    "replicas": "the replica router (repro/serve/router.py)",
-    "route": "the replica router (repro/serve/router.py)",
     "mesh_shape": "mesh-sharded serving (repro/serve/sharding.py)",
     "serve_sharded": "mesh-sharded serving (repro/serve/sharding.py)",
 }
@@ -140,50 +148,97 @@ def serve_loop(model, params, *, batch, prompt_len, gen, max_len, device,
 
 def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                 gen_range, rate=None, seed=0, compare_static=False,
-                prefill_chunk=None, mem_len=None, log=print):
-    """Continuous-batching engine over a synthetic ragged trace (warmed
-    first, outside the timed region); ``mem_len``: the enc-dec requests'
-    frame count. Returns (completions, table, engine stats, the warmup's
-    engine stats)."""
+                queue_depth=16, deadline_ms=None, deadline_frac=1.0,
+                prefix_cache=0, prefix_len=0, spf=False, replicas=1,
+                route="least-loaded", prefill_chunk=None, mem_len=None,
+                log=print):
+    """The front-end over the continuous-batching engine (each engine
+    warmed first, outside the timed region) on a synthetic trace: Poisson
+    arrivals (``rate``), a deadline mix (``deadline_ms`` range on
+    ``deadline_frac`` of the requests), bounded-queue admission
+    (``queue_depth``, FIFO or shortest-prompt-first) and optional reuse of
+    a shared ``prefix_len``-token system prompt through a
+    ``prefix_cache``-entry cache. With ``replicas > 1`` a
+    ``ReplicaRouter`` (``route``) serves the trace from that many engines
+    on one params tree; its per-replica prefix caches replace the
+    front-end's. ``mem_len``: the enc-dec requests' frame count.
+
+    Returns (completions in rid order, one per handle with the tokens it
+    got, the table, the engine or fleet stats, the warmup's stats, the
+    front-end)."""
     cfg = model.cfg
+    dl_range = None if deadline_ms is None else \
+        tuple(x / 1e3 for x in deadline_ms)
     trace = synthetic_trace(n, cfg.vocab_size, seed=seed,
                             prompt_range=prompt_range, gen_range=gen_range,
-                            rate=rate, mem_len=mem_len, d_model=cfg.d_model)
-    eng = ServeEngine(model, params, n_slots=slots, max_len=max_len,
-                      mem_len=mem_len)
-    warm = eng.warmup(prompt_lens=[len(r.tokens) for r in trace],
-               prefill_chunk=prefill_chunk)
+                            rate=rate, deadline_range=dl_range,
+                            deadline_frac=deadline_frac,
+                            prefix_len=prefix_len, mem_len=mem_len,
+                            d_model=cfg.d_model)
+    engines = [ServeEngine(model, params, n_slots=slots, max_len=max_len,
+                           mem_len=mem_len)
+               for _ in range(max(1, replicas))]
+    warm = collections.Counter()
+    for e in engines:
+        warm.update(e.warmup(prompt_lens=[len(r.tokens) for r in trace],
+                             prefix=prefix_cache > 0,
+                             prefill_chunk=prefill_chunk))
+    if replicas > 1:
+        eng = ReplicaRouter(engines, route=route, prefix_cap=prefix_cache)
+        pc = None
+    else:
+        eng = engines[0]
+        pc = PrefixCache(cap=prefix_cache) if prefix_cache > 0 else None
+    fe = ServeFrontend(eng, queue_depth=queue_depth,
+                       policy="spf" if spf else "fifo", prefix_cache=pc,
+                       prefill_chunk=prefill_chunk)
     t0 = time.perf_counter()
-    comps = eng.run(trace, prefill_chunk=prefill_chunk)
+    handles = fe.run(trace, log=log)
     wall = time.perf_counter() - t0
-    table = percentile_table(comps, wall)
-    table["mode"] = "continuous"
+    table = frontend_table(handles, wall)
+    table["mode"] = f"fleet-x{replicas}" if replicas > 1 else "frontend"
     rows = [table]
     st = eng.stats
+    e0 = engines[0]
     prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
-    log(f"[serve] engine: {st['admits']} admits ({st['refills']} refills), "
-        f"{st['decode_steps']} decode steps at "
+    log(f"[serve] frontend: {st['admits']} admits ({st['refills']} "
+        f"refills), {st['decode_steps']} decode steps at "
         f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms/step, "
         f"prefill {1e3 * st['prefill_s'] / max(1, prefills):.2f} ms/admit, "
         f"lane utilization "
         f"{st['decode_lanes'] / max(1, st['decode_steps'] * slots):.0%}, "
-        f"{st['walk_steps']} batch-1 walk steps, "
-        f"cache {eng.cache_bytes / 1e6:.2f} MB "
-        f"({eng.slotcache.slot_bytes / 1e6:.2f} MB per slot"
+        f"{st['walk_steps']} batch-1 walk steps at "
+        f"{1e3 * st['walk_s'] / max(1, st['walk_steps']):.2f} ms/step, "
+        f"{st['prefix_hits']} prefix hits, "
+        f"cache {sum(e.cache_bytes for e in engines) / 1e6:.2f} MB "
+        f"({e0.slotcache.slot_bytes / 1e6:.2f} MB per slot"
         + ("".join(f", {k} {v / 1e6:.2f} MB" for k, v in
-                   eng.slotcache.slot_parts.items())
-           if eng.contract in ("recurrent", "encdec") else "")
-        + f", {eng.contract} contract)")
+                   e0.slotcache.slot_parts.items())
+           if e0.contract in ("recurrent", "encdec") else "")
+        + f", {e0.contract} contract)")
+    if replicas > 1:
+        log(f"[serve] router: {dict(eng.rstats)}; "
+            f"states {[s.value for s in eng.states]}")
+        if eng.prefix_stats() is not None:
+            for i, pst in enumerate(eng.prefix_stats()):
+                log(f"[serve] replica {i} prefix cache: {pst}")
+    if pc is not None:
+        log(f"[serve] prefix cache: {pc.stats()}")
     if compare_static:
         comps_s = run_static_trace(model, params, trace, n_slots=slots,
                                    max_len=max_len)
         ts = percentile_table(comps_s, max(c.t_done for c in comps_s))
         ts["mode"] = "static"
         rows.append(ts)
-    keys = ["mode", "requests", "tokens", "tok_per_s", "lat_p50_ms",
-            "lat_p99_ms", "ttft_p50_ms", "ttft_p99_ms"]
+    keys = ["mode", "requests", "done", "rejected", "expired", "failed",
+            "tokens", "tok_per_s", "lat_p50_ms", "lat_p99_ms",
+            "ttft_p50_ms", "ttft_p99_ms"]
     log(format_table(rows, keys))
-    return comps, table, dict(st), warm
+    comps = [Completion(rid=h.rid, tokens=np.asarray(h.tokens, np.int32),
+                        prompt_len=h.prompt_len, arrival=h.req.arrival,
+                        t_admit=h.t_admit, t_first=h.t_first,
+                        t_done=h.t_done) for h in handles]
+    return comps, table, dict(st), dict(warm), fe
 
 
 def parse_args(argv=None):
@@ -236,15 +291,31 @@ def parse_args(argv=None):
     ap.add_argument("--mem-len", type=int, default=None,
                     help="enc-dec only: fixed encoder-memory length; trace "
                          "requests carry synthetic frames of this length")
-    # flags of layers that are not ported yet: each raises when given
-    ap.add_argument("--queue-depth", type=int, default=None)
-    ap.add_argument("--deadline-ms", default=None)
-    ap.add_argument("--deadline-frac", type=float, default=None)
-    ap.add_argument("--prefix-cache", type=int, default=None)
-    ap.add_argument("--prefix-len", type=int, default=None)
-    ap.add_argument("--spf", action="store_true", default=None)
-    ap.add_argument("--replicas", type=int, default=None)
-    ap.add_argument("--route", default=None)
+    ap.add_argument("--queue-depth", type=int, default=16,
+                    help="bounded admission queue beyond the slots; "
+                         "requests past it are rejected (backpressure)")
+    ap.add_argument("--deadline-ms", default=None,
+                    help="per-request deadline budget, 'lo,hi' ms after "
+                         "arrival; expired requests keep partial tokens")
+    ap.add_argument("--deadline-frac", type=float, default=1.0,
+                    help="fraction of requests given a deadline "
+                         "(the deadline mix)")
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="prefix-cache capacity in entries; 0 disables "
+                         "(pure global-attention LMs and recurrent "
+                         "stacks only)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="shared system-prompt tokens prepended to every "
+                         "trace request (the prefix-cache workload)")
+    ap.add_argument("--spf", action="store_true",
+                    help="shortest-prompt-first admission instead of FIFO")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas behind the ReplicaRouter; 1 "
+                         "serves through a single engine (no router)")
+    ap.add_argument("--route", default="least-loaded", choices=ROUTES,
+                    help="fleet routing policy: fewest occupied slots, or "
+                         "longest cached prefix (per-replica caches)")
+    # mesh-sharded serving is not ported: each raises when given
     ap.add_argument("--mesh-shape", default=None)
     ap.add_argument("--serve-sharded", action="store_true", default=None)
     return ap.parse_args(argv)
@@ -282,13 +353,21 @@ def main(argv=None) -> dict:
     if args.trace > 0:
         pr = tuple(int(x) for x in args.prompt_range.split(","))
         gr = tuple(int(x) for x in args.gen_range.split(","))
+        dl = None if args.deadline_ms is None else \
+            tuple(float(x) for x in args.deadline_ms.split(","))
         (out["completions"], out["table"], out["stats"],
-         out["warmup_stats"]) = serve_trace(
+         out["warmup_stats"], out["frontend"]) = serve_trace(
             model, params, n=args.trace, slots=args.slots,
             max_len=args.max_len, prompt_range=pr, gen_range=gr,
             rate=args.rate, seed=args.seed,
             compare_static=args.compare_static,
+            queue_depth=args.queue_depth, deadline_ms=dl,
+            deadline_frac=args.deadline_frac,
+            prefix_cache=args.prefix_cache, prefix_len=args.prefix_len,
+            spf=args.spf, replicas=args.replicas, route=args.route,
             prefill_chunk=args.prefill_chunk, mem_len=args.mem_len)
+        out["handles"] = [out["frontend"].handles[c.rid]
+                          for c in out["completions"]]
     else:
         out["tokens"], out["prefill_s"], out["decode_s"] = serve_loop(
             model, params, batch=args.batch, prompt_len=args.prompt_len,

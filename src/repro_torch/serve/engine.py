@@ -39,14 +39,22 @@ Two slot-cache contracts are served (``serve/cache.py``):
 Pruned models plug in transparently: a ``cfg.pruned(...)`` config shrinks
 ``eff_qk`` and the slot cache's K rows shrink with it.
 
-Besides the JAX engine's counters, ``stats`` sums the host-clock seconds
-of shared decode steps (``decode_s``) and of first-chunk prefills
-(``prefill_s``); both end in a device-to-host copy of the next tokens, so
-they include the device work. ``walk_steps`` counts the batch-1 decode
-steps that consume prompt tokens after the first chunk.
+A prefix cache (``serve/prefix.py``) handed to ``admit`` lets a prompt that
+starts with a cached prompt skip the cached rows: under ``kv`` the entry
+is rewound to the hit length, under ``recurrent`` a whole-prompt state
+snapshot is reused as it is, and the suffix walks through the batch-1
+decode step. That step writes its cache in place, so a hit walks on a
+private copy of the entry, never on the entry (the copy rule,
+``serve/prefix.py``).
 
-Not ported yet: mesh sharding (``sharding=``) and the prefix cache
-(``prefix_cache=``); they raise.
+Besides the JAX engine's counters, ``stats`` sums the host-clock seconds
+of shared decode steps (``decode_s``), of first-chunk prefills
+(``prefill_s``) and of batch-1 walk steps (``walk_s``); each ends in a
+device-to-host copy of the next tokens, so it includes the device work.
+``walk_steps`` counts the batch-1 decode steps that consume prompt tokens
+after the first chunk or after a prefix hit.
+
+Not ported yet: mesh sharding (``sharding=``); it raises.
 """
 from __future__ import annotations
 
@@ -58,16 +66,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.interop import flatten
+from repro_torch.interop import flatten, map_tree
 from repro_torch.serve import errors
 from repro_torch.serve.cache import (RecurrentSlotCache, SlotCache,
-                                     cache_contract)
+                                     cache_bytes, cache_contract)
 
 
-def _no_prefix_cache(prefix_cache):
-    if prefix_cache is not None:
-        raise NotImplementedError("the prefix cache is not ported; see "
-                                  "repro/serve/prefix.py")
+def _private(cache):
+    """A copy of a cache tree that later in-place writes to either side
+    cannot reach (the copy rule of ``serve/prefix.py``)."""
+    return map_tree(torch.clone, cache)
 
 
 @dataclasses.dataclass
@@ -77,6 +85,7 @@ class Request:
     gen: int                      # tokens to generate (>= 1)
     arrival: float = 0.0          # seconds relative to trace start
     frames: Optional[np.ndarray] = None   # (S, D) enc-dec memory frames
+    deadline: Optional[float] = None      # absolute trace time; None = none
 
 
 @dataclasses.dataclass
@@ -108,6 +117,7 @@ class _Prefill:
     local: object = None           # batch-1 cache tree (None pre-chunk-1)
     consumed: int = 0              # prompt tokens absorbed into ``local``
     first: Optional[int] = None    # first generated token (set at the end)
+    prefix_cache: object = None    # insert/lookup target (None if unused)
 
 
 @dataclasses.dataclass
@@ -264,14 +274,30 @@ class ServeEngine:
         return time.perf_counter() - self._t0
 
     def begin(self, t0: Optional[float] = None):
-        """Anchor the engine clock (``run``/``warmup`` call this)."""
+        """Anchor the engine clock. ``run``/``warmup`` call this; callers
+        that call ``admit``/``decode_step`` directly (the front-end) call
+        it once before serving."""
         self._t0 = time.perf_counter() if t0 is None else t0
+
+    # prefix reuse needs a replayable contract: pure causal global
+    # attention (any prefix of the rows is a rewind), or a recurrent state
+    # reused whole (serve/prefix.py::usable_prefix_len). Enc-dec is
+    # excluded because the encoder memory keys the cross attention, not the
+    # prompt alone; window rings are neither rewindable nor whole snapshots
+    def prefix_eligible(self) -> bool:
+        return (self.ragged_ok and self.cfg.family == "lm") \
+            or self.contract == "recurrent"
 
     def begin_admit(self, req: Request, slot: int, prefix_cache=None):
         """Bind ``req`` to ``slot`` without running any prefill work: the
         slot is PREFILLING — occupied (``free`` is False) but skipping
-        decode lanes until ``continue_admit`` consumes the whole prompt."""
-        _no_prefix_cache(prefix_cache)
+        decode lanes until ``continue_admit`` consumes the whole prompt.
+
+        With a ``prefix_cache`` on a prefix-eligible stack the cache is
+        consulted here. A hit adopts the cached rows up front, on a
+        private copy of the entry (the walk writes its cache in place):
+        the ``kv`` contract rewinds the copy to the hit length, the
+        ``recurrent`` contract reuses the whole-prompt state snapshot."""
         P = len(req.tokens)
         if P + req.gen > self.max_len:
             raise ValueError(errors.msg("request_exceeds_max_len",
@@ -283,12 +309,29 @@ class ServeEngine:
                 raise ValueError(errors.msg(
                     "frames_mem_len_mismatch", rid=req.rid,
                     frames=fr.shape[0], mem_len=self.mem_len))
+        use_prefix = prefix_cache is not None and self.prefix_eligible()
+        recurrent = self.contract == "recurrent"
+        st = _Prefill(req=req,
+                      prefix_cache=prefix_cache if use_prefix else None)
+        hit = prefix_cache.lookup(req.tokens, whole_entry=recurrent) \
+            if use_prefix else None
+        if hit is not None:
+            entry, hit_len = hit
+            st.local = _private(entry.cache)
+            if not recurrent:
+                from repro_torch.models.lm import override_cache_pos
+                st.local = override_cache_pos(st.local, torch.full(
+                    (1,), hit_len, dtype=torch.int32, device=self.device))
+            st.consumed = hit_len
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_reused_tokens"] += hit_len
+            self.stats["prefix_suffix_tokens"] += P - hit_len
         s = self.slots[slot]
         if s.out:                      # slot previously served a request
             self.stats["refills"] += 1
         s.rid, s.req, s.out = req.rid, req, []
         s.remaining = req.gen
-        s.pending = _Prefill(req=req)
+        s.pending = st
         self.stats["admits"] += 1
 
     def continue_admit(self, slot: int,
@@ -325,9 +368,18 @@ class ServeEngine:
             self.stats[f"prefill_b{self._stat_bucket(L0)}"] += 1
             st.consumed = L0
             budget -= L0
+            if st.prefix_cache is not None and self.contract == "recurrent" \
+                    and L0 >= st.prefix_cache.min_hit:
+                # the chunk's state under its exact token prefix: the
+                # whole-entry snapshot a later prompt extending it reuses;
+                # a copy, since the walk below advances st.local in place
+                st.prefix_cache.insert(req.tokens[:L0], _private(st.local),
+                                       cache_bytes(st.local))
         while budget > 0 and st.consumed < P:
             t = int(req.tokens[st.consumed])
+            t0 = time.perf_counter()
             nxt = self._decode([[t]], st.local)
+            self.stats["walk_s"] += time.perf_counter() - t0
             self.stats["walk_steps"] += 1
             st.consumed += 1
             budget -= 1
@@ -339,8 +391,13 @@ class ServeEngine:
         return True
 
     def _install(self, slot: int, st: _Prefill):
-        """Prefill complete: write the local cache into the slot lane and
-        make the slot decode-eligible with its first generated token."""
+        """Prefill complete: insert the local cache into the prefix cache
+        (it is the admit's own tree, which nothing writes after the slot
+        copy below), write it into the slot lane and make the slot
+        decode-eligible with its first generated token."""
+        if st.prefix_cache is not None:
+            st.prefix_cache.insert(st.req.tokens, st.local,
+                                   cache_bytes(st.local))
         s = self.slots[slot]
         now = self._now()
         s.out = [st.first]
@@ -353,7 +410,9 @@ class ServeEngine:
     def admit(self, req: Request, slot: int, prefix_cache=None):
         """Prefill ``req`` and install it into ``slot`` — the atomic
         composition of ``begin_admit`` + ``continue_admit`` with an
-        unbounded budget."""
+        unbounded budget. With a ``prefix_cache`` on a prefix-eligible
+        stack a prompt sharing a cached prefix skips recomputing it; the
+        full prefill result is inserted back into the cache either way."""
         self.begin_admit(req, slot, prefix_cache=prefix_cache)
         self.continue_admit(slot)
 
@@ -458,15 +517,28 @@ class ServeEngine:
                 done[comp.rid] = comp
         return [done[r.rid] for r in sorted(requests, key=lambda r: r.rid)]
 
-    def warmup(self, prompt_lens=(8,), gen: int = 2,
+    def warmup(self, prompt_lens=(8,), gen: int = 2, prefix: bool = False,
                prefill_chunk: Optional[int] = None):
         """Run one short request per prompt bucket the trace will use (and
         the decode step) outside any timed region — the kernels' build,
         cuBLAS handles and the allocator's first blocks — then reset the
-        engine. ``prefill_chunk`` warms the chunked path instead.
+        engine. ``prefix=True`` also runs the prefix-hit path's batch-1
+        suffix walk once, over an empty cache (counted in ``walk_steps``);
+        ``prefill_chunk`` warms the chunked path instead.
         Exact-length (recurrent) prefills warm one prompt per bucket of the
         table, not per length: eager PyTorch builds nothing per shape.
         Returns the warmup run's stats."""
+        if prefix and not self.prefix_eligible():
+            raise ValueError(errors.msg("prefix_ineligible",
+                                        name=self.cfg.name))
+        if prefix:
+            local = self._cache_template(1, self.device)
+            if self.contract != "recurrent":
+                from repro_torch.models.lm import override_cache_pos
+                local = override_cache_pos(local, torch.zeros(
+                    (1,), dtype=torch.int32, device=self.device))
+            self._decode([[0]], local)
+            self.stats["walk_steps"] += 1
         key = self._bucket if self.ragged_ok else self._stat_bucket
         reqs = []
         for i, b in enumerate(sorted({key(p) for p in prompt_lens})):
@@ -580,7 +652,8 @@ def _substream(seed: int, salt: int) -> np.random.RandomState:
 def synthetic_trace(n: int, vocab: int, *, seed: int = 0,
                     prompt_range=(8, 48), gen_range=(4, 48),
                     rate: Optional[float] = None,
-                    mem_len: Optional[int] = None,
+                    deadline_range=None, deadline_frac: float = 1.0,
+                    prefix_len: int = 0, mem_len: Optional[int] = None,
                     d_model: int = 0) -> List[Request]:
     """Ragged arrival trace: mixed prompt/gen lengths, optional Poisson
     arrivals at ``rate`` req/s (default: all available at t=0).
@@ -588,29 +661,49 @@ def synthetic_trace(n: int, vocab: int, *, seed: int = 0,
     frames of that fixed length: the enc-dec workload
     (``ServeEngine(mem_len=...)``).
 
+    ``deadline_range=(lo, hi)`` gives a ``deadline_frac`` fraction of
+    requests an absolute deadline ``arrival + U(lo, hi)`` seconds (the rest
+    run without one: the deadline mix). ``prefix_len > 0`` prepends one
+    shared system prompt of that many tokens to every request
+    (``prompt_range`` then sizes the per-request suffix): the prefix-cache
+    workload.
+
     Every field draws from its own seed-derived substream, exactly as
-    ``repro.serve.engine.synthetic_trace`` does, so the same seed gives the
-    same requests and frames in both packages. (Deadlines and shared
-    prefixes, the JAX trace's other fields, serve layers not ported yet.)
+    ``repro.serve.engine.synthetic_trace`` does (the shared prefix from the
+    token stream before any request's tokens, deadlines from their own
+    stream), so the same seed gives the same requests, deadlines and
+    frames in both packages, and a trace without ``prefix_len`` or
+    deadlines is the one earlier versions drew.
     """
     rng_arr = _substream(seed, 1)
     rng_len = _substream(seed, 2)
     rng_tok = _substream(seed, 3)
+    rng_dl = _substream(seed, 4)
     rng_fr = _substream(seed, 5)
     if mem_len is not None and d_model <= 0:
         raise ValueError("synthetic_trace: mem_len= needs d_model=")
     arrivals = np.zeros(n) if rate is None else \
         np.cumsum(rng_arr.exponential(1.0 / rate, size=n))
+    shared = rng_tok.randint(0, vocab, size=prefix_len).astype(np.int32) \
+        if prefix_len else None
     reqs = []
     for i in range(n):
         P = int(rng_len.randint(prompt_range[0], prompt_range[1] + 1))
         G = int(rng_len.randint(gen_range[0], gen_range[1] + 1))
         toks = rng_tok.randint(0, vocab, size=P).astype(np.int32)
+        if shared is not None:
+            toks = np.concatenate([shared, toks])
+        deadline = None
+        if deadline_range is not None:
+            budget = float(rng_dl.uniform(*deadline_range))
+            if rng_dl.uniform() < deadline_frac:
+                deadline = float(arrivals[i]) + budget
         frames = None
         if mem_len is not None:
             frames = rng_fr.randn(mem_len, d_model).astype(np.float32)
         reqs.append(Request(rid=i, tokens=toks, gen=G,
-                            arrival=float(arrivals[i]), frames=frames))
+                            arrival=float(arrivals[i]), deadline=deadline,
+                            frames=frames))
     return reqs
 
 

@@ -1,7 +1,7 @@
 """Scheduling layer (``repro.serve.scheduler``, copied; pure Python): the
 admit/prefill/decode interleaving policy over an engine's slot surface.
 
-    caller (engine.run)
+    caller (frontend.py step / engine.run / router stepping)
         |
         v
     Scheduler -- owns *when* admission work happens
@@ -36,9 +36,9 @@ class AdmissionQueue:
     Items must expose ``prompt_len`` and ``deadline`` attributes (the
     front-end queues its request handles). ``push`` refuses items beyond
     ``depth`` — the caller turns that into an ``Overloaded`` result
-    (``repro.serve.queue``; the front-end is not ported yet). Deadlines
-    are enforced here too: ``take_expired`` drops waiting items whose
-    deadline passed without ever touching the engine.
+    (``serve/queue.py``). Deadlines are enforced here too:
+    ``take_expired`` drops waiting items whose deadline passed without
+    ever touching the engine.
 
     ``policy``:
       - ``"fifo"`` — strict arrival order.

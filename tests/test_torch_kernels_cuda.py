@@ -694,3 +694,26 @@ def test_wkv6_kernel_refuses_what_it_does_not_take(dev):
     big = torch.zeros(3, 2, 16, 16, device=dev)
     with pytest.raises(ValueError):               # overlapping, not equal
         wkv_ops.wkv6(r, k, v, w, u, big[:2], out_state=big[1:])
+
+
+def test_decode_launch_count_is_exact_under_two_threads(dev):
+    """A fleet steps its replicas from a thread each, and the launch call
+    releases the GIL: two threads launching ``flash_decode`` N times each
+    add exactly 2N to its count."""
+    import threading
+    n = 500
+    q, k, v, valid = _decode_inputs(dev, 2, 300, 4, 1, 16, 16,
+                                    torch.float32)
+    before = decode_ops.launches
+
+    def launch():
+        for _ in range(n):
+            decode_ops.decode_attention(q, k, v, valid)
+
+    threads = [threading.Thread(target=launch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 2 * n

@@ -29,8 +29,8 @@ from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.launch import serve as pt_serve  # noqa: E402
 from repro_torch.models import build_model as pt_build  # noqa: E402
-from repro_torch.serve import (Request, ServeEngine, errors,  # noqa: E402
-                               run_static_trace)
+from repro_torch.serve import (PrefixCache, Request,  # noqa: E402
+                               ServeEngine, errors, run_static_trace)
 from torch_parity import greedy_chain_ok, jax_params, lm_cfgs  # noqa: E402
 
 SLOTS, MAX_LEN = 3, 64
@@ -207,11 +207,7 @@ def test_serve_cli_fixed_batch_loop():
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--queue-depth", "4"], ["--spf"],
-                                  ["--prefix-cache", "4"],
-                                  ["--replicas", "2"],
-                                  ["--mesh-shape", "1x2"],
-                                  ["--prefix-len", "16"]])
+@pytest.mark.parametrize("flag", [["--mesh-shape", "1x2"]])
 def test_unported_serve_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="repro/"):
         pt_serve.main(["--arch", "qwen2-1.5b-reduced", "--device", "cpu",
@@ -223,8 +219,17 @@ def test_unported_engine_options_raise(lm):
         ServeEngine(lm["model"], lm["params"], n_slots=2, max_len=MAX_LEN,
                     sharding=object())
     eng = _engine(lm)
-    with pytest.raises(NotImplementedError, match="prefix.py"):
-        eng.admit(lm["trace"][0], 0, prefix_cache=object())
+    pc = PrefixCache(cap=2)
+    eng.begin()
+    eng.admit(lm["trace"][5], 0, prefix_cache=pc)
+    eng.admit(lm["trace"][5], 1, prefix_cache=pc)
+    assert pc.stats()["hits"] == eng.stats["prefix_hits"] == 1
+    assert eng.stats["prefix_reused_tokens"] == 16 and len(pc) == 1
+    outs = {}
+    while eng.active_count():
+        for slot in eng.decode_step():
+            outs[slot] = eng.retire(slot).tokens.tolist()
+    assert outs == {0: lm["streams"][5], 1: lm["streams"][5]}
     too_long = Request(rid=7, tokens=np.zeros(60, np.int32), gen=8)
     with pytest.raises(ValueError, match=re.escape(errors.msg(
             "request_exceeds_max_len", rid=7, prompt=60, gen=8,
