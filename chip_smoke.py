@@ -29,9 +29,18 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      bf16 at the default margin and a sure hit at margin 1.0, <= 1e-4), an
      interrupted and resumed calibration pass and two CLI runs on one
      ``--calib-ckpt`` (bit-identical), and ``corp_prune_streamed`` one unit
-     a group (2 groups, 3 traversals, <= 1e-4); on a reduced DeiT the same
-     pruned output on the GPU as on the CPU's plain path; then profiles one
-     prune;
+     a group (2 groups, 3 traversals, <= 1e-4); sharded calibration
+     (``[calib sharded]``: four ``gloo`` ranks share the card as a 2 data x
+     2 model mesh, each launching ``gram_cross`` on its rows and its
+     1536-column block of every batch's MLP tap, none ``gram`` or a plain
+     version; each rank's s2 blocks F/2 wide and its accumulator at most
+     half the unsharded one plus the replicated leaves; the gathered pass-1
+     and pass-2 statistics within 1e-4 of the single-device engine's; then
+     ``launch.prune --mesh 2x2 --calib-sharded --dist-backend gloo`` as a
+     subprocess: the main path's kept sizes, held-out logits within 1e-4
+     of its prune's, equal parameter checksums on the four ranks); on a
+     reduced DeiT the same pruned output on the GPU as on the CPU's plain
+     path; then profiles one prune;
   4. serve path: serves a ragged trace of 16 requests with Qwen2-1.5B at
      full width (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
@@ -173,6 +182,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -941,7 +951,8 @@ def pruned_logits(res, batch):
 
 def main_path_phase(dev):
     """DeiT-Base CORP pruning end to end; returns ({kernel: launches}, the
-    held-out batch, the pruned model's logits on it)."""
+    held-out batch, the pruned model's logits on it, its kept (d_ff,
+    qk))."""
     import torch
     from repro_torch.launch import prune
 
@@ -980,7 +991,8 @@ def main_path_phase(dev):
           f"compensated {comp:.4f}, --no-compensate {nocomp:.4f} "
           f"(d_ff {cfg.d_ff} -> {res_nc['pruned_cfg'].eff_d_ff}, qk "
           f"{cfg.qk_full} -> {res_nc['pruned_cfg'].eff_qk})")
-    return launches, batch, pruned
+    return launches, batch, pruned, (res_nc["pruned_cfg"].eff_d_ff,
+                                     res_nc["pruned_cfg"].eff_qk)
 
 
 def cli_prune_phase(tag, extra, kernels):
@@ -1171,6 +1183,300 @@ def streamed_phase(dev, batch, ref):
         fail("streamed CORP did not take 2 groups and 3 traversals")
     if not err <= 1e-4:
         fail("streamed CORP is more than 1e-4 from corp_prune")
+    return launches
+
+
+# [calib sharded]: four gloo ranks on one card, a 2 data x 2 model mesh;
+# the engine-level checks stream 32 of the main path's 128 images (cut: the
+# single-device reference runs beside them), the CLI all 128. A rank's
+# pass peak (the memory it allocates above what it held when the pass
+# began, up to the gather) is gated at `peak` x the single-device pass's:
+# its rows and its statistics' columns both halve, so it is near half
+SHARDED = dict(mesh=(2, 2), images=32, tol=1e-4, peak=0.75)
+
+
+def calib_sharded_rank(device, out_dir):
+    """One rank of ``[calib sharded]``: pass 1 and pass 2 of DeiT-Base on
+    the main path's weights and stream, sharded over the 2 x 2 mesh, each
+    gated on its launches (``gram_cross`` once a batch, no ``gram``, no
+    plain-version call) and footprint (every dense s2 block F/m wide, the
+    accumulator at most half the unsharded one plus its replicated leaves);
+    the mesh's first rank also holds the gathered statistics against the
+    single-device engine's on the card (relative Frobenius error a leaf),
+    and each rank's peak of a pass, up to the gather that returns the full
+    statistics, against that engine's. Writes ``rank<r>.json``; a failed
+    gate raises, which fails the launch."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import resolve_config
+    from repro_torch.core import CalibrationEngine, discover_units, ranking
+    from repro_torch.data import calib_stream
+    from repro_torch.distrib import CalibSharding, stats_specs
+    from repro_torch.interop import flatten
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    cfg = resolve_config(MAIN["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=device)
+    B = MAIN["calib_batch"]
+    stream = calib_stream(cfg, n_samples=SHARDED["images"], batch=B,
+                          device=device)
+    n_batches = SHARDED["images"] // B
+    units = discover_units(cfg)
+    dense = [u.name for u in units if u.kind == "mlp"]
+    shard = CalibSharding(make_mesh(SHARDED["mesh"], device_type="cuda"))
+    plain = [0]
+    for mod in kernel_modules().values():       # count plain-version calls
+        for name in [n for n in dir(mod._ref) if not n.startswith("_")]:
+            fn = getattr(mod._ref, name)
+            if callable(fn) and getattr(fn, "__module__", "") \
+                    == mod._ref.__name__:
+                def counted(*a, _fn=fn, **k):
+                    plain[0] += 1
+                    return _fn(*a, **k)
+                setattr(mod._ref, name, counted)
+    def held():
+        """The bytes allocated now, the peak counter reset to them."""
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    out, plan = {"rank": rank}, None
+    for phase in (1, 2):
+        kw = dict(phase=phase, plan=plan)
+        start = held()
+        reset_launches()
+        plain[0] = 0
+        t0 = time.time()
+        eng = CalibrationEngine(model, units, mesh=shard, **kw)
+        gathered, at_gather = eng._gathered, []
+
+        def before_gather(acc, _gathered=gathered):
+            # the pass's peak before the gather, which returns the full
+            # statistics on every rank as the single-device engine does
+            torch.cuda.synchronize(device)
+            at_gather.append(torch.cuda.max_memory_allocated(device))
+            return _gathered(acc)
+        eng._gathered = before_gather
+        got = eng.run(params, stream())
+        torch.cuda.synchronize(device)
+        wall = time.time() - t0
+        launches, calls = read_launches(), plain[0]
+        specs = flatten(stats_specs(got, shard))
+        full = flatten(got)
+        total = sum(t.numel() * t.element_size() for t in full.values())
+        replicated = sum(t.numel() * t.element_size()
+                         for k, t in full.items() if specs[k] is None)
+        rec = {"wall_s": wall, "launches": launches, "plain_calls": calls,
+               "local_bytes": eng.local_bytes, "unsharded_bytes": total,
+               "replicated_bytes": replicated,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(
+                   device),
+               "peak_bytes": at_gather[0] - start,
+               "s2_blocks": {u: eng.local_shapes.get(f"{u}/s2")
+                             for u in dense} if phase == 1 else {}}
+        out[f"pass{phase}"] = rec
+        want_cross = n_batches * len(dense) if phase == 1 else 0
+        if launches["gram_cross"] != want_cross or launches["gram"] \
+                or calls:
+            fail(f"[calib sharded] rank {rank} pass {phase}: gram_cross "
+                 f"{launches['gram_cross']} launches (want {want_cross}), "
+                 f"gram {launches['gram']}, plain-version calls {calls}")
+        if not launches["flash_attention"]:
+            fail(f"[calib sharded] rank {rank} pass {phase}: no "
+                 f"flash_attention launch")
+        for u, shape in rec["s2_blocks"].items():
+            F = full[f"{u}/s2"].shape[-1]
+            if shape is None or shape[-1] != F // shard.model_size:
+                fail(f"[calib sharded] rank {rank}: {u} s2 block {shape}, "
+                     f"not F/m = {F // shard.model_size} columns")
+        if not eng.local_bytes <= total / 2 + replicated:
+            fail(f"[calib sharded] rank {rank} pass {phase}: accumulator "
+                 f"{eng.local_bytes} B > half of {total} B + {replicated} "
+                 f"B replicated")
+        if rank == 0:
+            start = held()
+            ref = CalibrationEngine(model, units, **kw).run(params, stream())
+            torch.cuda.synchronize(device)
+            rec["unsharded_peak_bytes"] = \
+                torch.cuda.max_memory_allocated(device) - start
+            errs = {k: rel_err(full[k].double(), t.double())
+                    for k, t in flatten(ref).items()}
+            rec["max_rel_err"] = max(errs.values())
+            rec["worst_leaf"] = max(errs, key=errs.get)
+            if full.keys() != errs.keys() \
+                    or not rec["max_rel_err"] <= SHARDED["tol"]:
+                fail(f"[calib sharded] pass {phase}: gathered statistics "
+                     f"{rec['max_rel_err']:.3e} from the single-device "
+                     f"engine's at {rec['worst_leaf']} (tol "
+                     f"{SHARDED['tol']:g})")
+            del ref
+        if phase == 1:
+            plan = {}
+            for u in units:
+                if u.kind == "attn":
+                    st = {k: v.cpu().numpy() for k, v in got[u.name].items()}
+                    plan[u.name] = ranking.rank_attn(
+                        st, int(round(st["rank"].shape[-1]
+                                      * (1 - MAIN["sparsity"]))))
+        del got, full
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_gram_timing(dev, row):
+    """gram_cross at a [calib sharded] rank's launch: its 8 of 16 images'
+    MLP tap (12, 1576, 3072) against its 1536-column block, a strided view
+    of the tap (``gram_ops.gram_sharded``), fp32, event-timed beside its
+    plain version and ``torch.matmul``; added to ``row`` (the JSON line's
+    gram_cross). The bound reads the tap once (the block is part of it)."""
+    import torch
+    from repro_torch.kernels.gram import ops, ref
+    x = torch.randn(12, 1576, 3072, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    y = x[..., 1536:]
+    L, N, F = x.shape
+    Fb = y.shape[-1]
+    r = {"shape": [L, N, F, Fb],
+         "max_abs_err": check_gram(x, y, label="a sharded rank's block"),
+         "ms": time_ms(lambda: ops.gram_cross(x, y), reps=5, warmup=1),
+         "plain_ms": time_ms(lambda: ref.gram_cross(x, y), reps=5, warmup=1),
+         "library_ms": time_ms(lambda: torch.matmul(x.mT, y), reps=5,
+                               warmup=1)}
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        2.0 * L * N * F * Fb + L * N * Fb, 4.0 * (L * N * F + L * F * Fb
+                                               + L * Fb))
+    print(f"  gram_cross at a sharded rank's block X {tuple(x.shape)} Y "
+          f"{tuple(y.shape)} (strided) fp32: kernel {r['ms']:.3f} ms, plain "
+          f"{r['plain_ms']:.3f} ms, torch.matmul {r['library_ms']:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    row["calib_sharded_rank"] = r
+
+
+def calib_sharded_phase(dev, batch, ref, kept):
+    """``[calib sharded]``: four ranks share the card over ``gloo``
+    (NCCL takes one rank a card). The engine-level checks of
+    ``calib_sharded_rank`` through ``launch.mesh.launch`` and, at the same
+    time, the prune CLI with ``--mesh 2x2 --calib-sharded --dist-backend
+    gloo`` as a subprocess: its checkpoint holds the main path's kept
+    sizes, its held-out logits are within 1e-4 of the single-device
+    prune's (``ref``), and the four ranks' parameter checksums are equal.
+    Each rank's pass peaks are gated against the single-device engine's. Times here are of
+    four ranks on one card: they say nothing of scaling. Returns the
+    engine-level passes' launches, summed over the ranks."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import resolve_config
+    from repro_torch.launch.mesh import launch
+    from repro_torch.models import build_model
+    out_dir = OUT + "_sharded_ranks"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    world = math.prod(SHARDED["mesh"])
+    out = OUT + "_sharded"
+    args = prune_args(MAIN["arch"], "cuda", out,
+                      ["--mesh", "x".join(map(str, SHARDED["mesh"])),
+                       "--calib-sharded", "--dist-backend", "gloo"])
+    print(f"[calib sharded] python -m repro_torch.launch.prune "
+          f"{' '.join(args)}, beside the engine's ranks")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the CLI's ranks and the engine's run at once (eight processes on the
+    # card): their cold starts overlap
+    t0 = time.time()
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.prune",
+                            *args], env=env, cwd=ROOT, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    done = {}
+
+    def drain():
+        done["out"], done["err"] = cli.communicate()
+        done["wall"] = time.time() - t0
+    reader = threading.Thread(target=drain)
+    reader.start()
+    try:
+        launch(calib_sharded_rank, world, backend="gloo", device="cuda",
+               args=(out_dir,))
+        wall = time.time() - t0
+        reader.join(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+        reader.join()
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in range(world)]
+    print(f"[calib sharded] {world} gloo ranks on one card, mesh "
+          f"{SHARDED['mesh']} (data x model), {SHARDED['images']} images: "
+          f"launch wall {wall:.3f} s (ranks sharing the card with the "
+          f"CLI's)")
+    for r in recs:      # a JSON line a rank: walls of ranks sharing a card
+        print(json.dumps({"calib_sharded_rank": r}))
+        for phase in ("pass1", "pass2"):
+            p = r[phase]
+            single = recs[0][phase]["unsharded_peak_bytes"]
+            print(f"[calib sharded] rank {r['rank']} {phase}: accumulator "
+                  f"{p['local_bytes']} B of {p['unsharded_bytes']} B "
+                  f"unsharded ({p['replicated_bytes']} B replicated), "
+                  f"max_memory_allocated {p['max_memory_allocated']} B; "
+                  f"peak above the pass's start, to the gather, "
+                  f"{p['peak_bytes']} B against the single-device pass's "
+                  f"{single} B ({p['peak_bytes'] / single:.3f}, gate "
+                  f"{SHARDED['peak']:g})"
+                  + (f", s2 blocks {p['s2_blocks']}" if p["s2_blocks"]
+                     else "")
+                  + (f"; gathered vs single-device max relative error "
+                     f"{p['max_rel_err']:.3e} at {p['worst_leaf']} (tol "
+                     f"{SHARDED['tol']:g})" if "max_rel_err" in p else ""))
+            if not p["peak_bytes"] <= SHARDED["peak"] * single:
+                fail(f"[calib sharded] rank {r['rank']} {phase}: peak "
+                     f"{p['peak_bytes']} B above the pass's start > "
+                     f"{SHARDED['peak']:g} x the single-device pass's "
+                     f"{single} B")
+    cli_wall = done["wall"]
+    print("\n".join("  " + ln for ln in done["out"].splitlines()))
+    if cli.returncode != 0:
+        print(done["err"][-4000:], file=sys.stderr)
+        fail(f"[calib sharded] the sharded prune CLI exited {cli.returncode}")
+    line = [ln for ln in done["out"].splitlines() if "checksums:" in ln]
+    sums = json.loads(line[0].split("checksums:")[1]) if line else []
+    if len(sums) != world or len(set(sums)) != 1:
+        fail(f"[calib sharded] rank checksums {sums}: not {world} equal")
+    # the kept sizes the CLI wrote: its checkpoint's MLP and query widths
+    with np.load(os.path.join(out, "step_00000000", "arrays.npz")) as z:
+        wrote = (z["seg0/p0/mlp/wd"].shape[-2],
+                 z["seg0/p0/mixer/wq"].shape[-1])
+    if wrote != kept:
+        fail(f"[calib sharded] the CLI's checkpoint keeps (d_ff, qk) "
+             f"{wrote}, not the main path's {kept}")
+    ncfg = resolve_config(MAIN["arch"]).pruned(MAIN["sparsity"],
+                                               MAIN["sparsity"])
+    model = build_model(ncfg)
+    like = model.init(torch.Generator().manual_seed(0), device=dev)
+    params, _ = restore_checkpoint(out, 0, like)
+    err = rel_err(model.apply(params, batch), ref)
+    launches = {}
+    for r in recs:
+        for phase in ("pass1", "pass2"):
+            for k, n in r[phase]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    print(json.dumps({"calib_sharded_cli": {
+        "wall_s": cli_wall, "kept": list(wrote),
+        "checksums": sums, "held_out_rel_err": err, "tol": SHARDED["tol"],
+        "engine_launches": launches}}))
+    print(f"[calib sharded] CLI wall {cli_wall:.3f} s (its ranks beside the "
+          f"engine's on one card); kept d_ff {wrote[0]}, qk {wrote[1]}; rank "
+          f"checksums equal; held-out |sharded - single-device| / "
+          f"|single-device| pruned logits {err:.3e} (tol "
+          f"{SHARDED['tol']:g})")
+    if not err <= SHARDED["tol"]:
+        fail("[calib sharded] the sharded prune is more than 1e-4 from the "
+             "single-device one")
+    shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
 
@@ -2643,9 +2949,10 @@ INTERNVL_PRUNED_SERVE = ["--arch", "internvl2-26b", "--n-layers", "8",
                          "--sparsity", "0.5", "--trace", "8"] + BIG_TRACE[2:]
 # qwen3-moe-235b-a22b at full width and 8 of its 94 layers (42.3 GB); a
 # batch of 4 x 512 tokens is one routing group of 2048 tokens, 160 slots an
-# expert
+# expert; 128 sequences (~4k rows an expert, cut from 512 for the time of
+# [calib sharded]: its gate is on calibration tokens)
 MOE_SERVE = ["--arch", "qwen3-moe-235b-a22b", "--n-layers", "8"] + BIG_TRACE
-MOE = dict(sparsity=0.5, seqs=512, seq=512, batch=4, held=2, layers=8)
+MOE = dict(sparsity=0.5, seqs=128, seq=512, batch=4, held=2, layers=8)
 MOE_PRUNED_SERVE = MOE_SERVE[:4] + ["--sparsity", "0.5"] + MOE_SERVE[4:]
 
 
@@ -2948,8 +3255,9 @@ def prune_moe_phase(dev, launches):
     tokens, reported with the logits. Seeded experts are random features
     of x with d_expert 1536 < d 4096: their channels are near
     uncorrelated, so the held-out gain of the ridge is below its
-    estimation noise at 16k rows an expert (PERF.md). Held-out logits are
-    the bf16 model's (42 GB do not fit twice in fp32). The 0.5/0.5 model
+    estimation noise at 16k rows an expert (PERF.md; ~4k here). Held-out
+    logits are the bf16 model's (42 GB do not fit twice in fp32). The
+    0.5/0.5 model
     is served in process (``[serve pruned moe]``); its checkpoint round
     trip runs on the reduced config (``[reference moe]``). Its launches are
     added to ``launches``."""
@@ -3978,7 +4286,8 @@ SEAMLESS_SERVE = ["--arch", "seamless-m4t-large-v2", "--trace", "16",
                   "--init-on-device"]
 # its prune in fp32 (6.53 GB): 128 sequences of 512 Zipf tokens, each with
 # 512 frames drawn on the card, in batches of 8 (16 rows a kept MLP
-# channel; the logits of a batch of 16 would take 8.4 GB)
+# channel; at 64 sequences, 8 rows, a Cholesky of the MLP ridge fails; the
+# logits of a batch of 16 would take 8.4 GB)
 SEAMLESS = dict(sparsity=0.5, seqs=128, seq=512, batch=8, held=4)
 SEAMLESS_PRUNED_SERVE = ["--arch", "seamless-m4t-large-v2", "--trace", "8",
                          "--slots", "8", "--max-len", "1024", "--mem-len",
@@ -4415,7 +4724,7 @@ def main() -> int:
     gemma_kernel_phase(dev, rows)
     print(f"[kernels gemma] phase wall {time.time() - t0:.3f} s")
     launches = {}
-    launches["prune"], held, ref = main_path_phase(dev)
+    launches["prune"], held, ref, kept = main_path_phase(dev)
     t0 = time.time()
     launches["prune_bf16"], ref_bf16 = bf16_phase(held, ref)
     print(f"[main path bf16] phase wall {time.time() - t0:.3f} s")
@@ -4429,6 +4738,10 @@ def main() -> int:
     t0 = time.time()
     launches["prune_streamed"] = streamed_phase(dev, held, ref)
     print(f"[streamed] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    sharded_gram_timing(dev, by_name["gram_cross"])
+    launches["calib_sharded"] = calib_sharded_phase(dev, held, ref, kept)
+    print(f"[calib sharded] phase wall {time.time() - t0:.3f} s")
     del held, ref, ref_bf16
     reference_phase(dev)
     profile_phase(dev)

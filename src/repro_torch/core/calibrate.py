@@ -13,20 +13,35 @@ Phase ``"1+2"`` is the one-traversal mode: pass-1 statistics and the
 speculative pass-2 sums against fixed candidate keep-sets, from the same
 forward. ``stats_dtype="bfloat16"`` streams the taps in bf16 (every sum
 stays fp32). ``run(checkpointer=)`` makes a pass resumable
-(``repro_torch.distrib.fault.CalibrationCheckpointer``). Single device:
-``mesh=`` is not ported and raises.
+(``repro_torch.distrib.fault.CalibrationCheckpointer``).
+
+``mesh=`` (a ``DeviceMesh`` of ``launch.mesh.make_mesh``, or a
+``distrib.sharding.CalibSharding``) shards the pass, every rank running
+the engine: a rank forwards its share of each batch's rows (routed MoE
+routes the whole batch's groups: ``models.mlp._group_tokens``) and adds
+their statistics into its blocks of the accumulator, column-sharded over the
+model axis by ``stats_specs`` (a dense unit's s2 is F x F/m on each rank,
+through ``gram_ops.gram_sharded``). The blocks are summed over the batch
+axes once a pass and before each checkpoint save, after which only the
+ranks at batch index 0 keep the sums and the others start again from
+zeros; ``run`` returns on every rank the statistics gathered over the
+model axis, what the engine without a mesh returns. Parameters stay
+replicated on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.units import Unit
+from repro_torch.distrib.sharding import as_sharding
 from repro_torch.interop import flatten
 from repro_torch.models import common as model_common
 
@@ -53,13 +68,19 @@ class CalibrationEngine:
       expert_moments: also reduce the MoE expert-removal moments (``yn``,
         ``ys1``, ``ys2``; ((E+1) D)^2 a layer), which only whole-expert
         pruning reads. Off, the forward does not even record their taps.
+      mesh: a ``DeviceMesh`` (its "model" axis splits the columns) or a
+        ``CalibSharding``: the pass runs sharded on its ranks (module
+        docstring).
 
     Attributes:
       fingerprint: hash of what this engine accumulates (phase, streaming
-        dtype, units, the pass-2 plan and the candidate sets), the recipe
-        of the JAX engine without its mesh part. Stored with every
-        statistics checkpoint, so a checkpoint of another configuration is
+        dtype, units, the pass-2 plan, the candidate sets and, sharded, the
+        mesh), the JAX engine's recipe. Stored with every statistics
+        checkpoint, so a checkpoint of another configuration or mesh is
         never resumed.
+      local_shapes: sharded, after ``run``: ``{key path: shape}`` of this
+        rank's accumulator blocks before the gather, and ``local_bytes``
+        their bytes.
     """
 
     def __init__(self, model, units: List[Unit], *, phase=1,
@@ -68,10 +89,6 @@ class CalibrationEngine:
                  stats_dtype="float32", expert_moments: bool = False):
         if phase not in (1, 2, "1+2"):
             raise ValueError(f"phase {phase!r}; need 1, 2 or '1+2'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded calibration is not ported; see "
-                "repro.core.calibrate.CalibrationEngine(mesh=)")
         if stats_dtype not in STATS_DTYPES:
             raise ValueError(f"stats_dtype {stats_dtype!r}; need one of "
                              f"{STATS_DTYPES}")
@@ -91,8 +108,11 @@ class CalibrationEngine:
             for k, v in plan.items()}
         self.spec_plan = None if spec_plan is None else {
             k: np.asarray(v, np.int32) for k, v in spec_plan.items()}
+        self.shard = as_sharding(mesh)
         self._device_plans = None
         self._acc = None            # the running sums of ``run``
+        self._specs = {}            # sharded: the placements of their leaves
+        self.local_shapes, self.local_bytes = None, None
         self.fingerprint = self._fingerprint()
 
     def _fingerprint(self) -> str:
@@ -112,6 +132,9 @@ class CalibrationEngine:
             for k in sorted(self.spec_plan):
                 h.update(f";spec:{k}".encode())
                 h.update(self.spec_plan[k].tobytes())
+        if self.shard is not None:
+            h.update(f";mesh={self.shard.axis_names}x{self.shard.shape}"
+                     f":{self.shard.model_axis}".encode())
         return h.hexdigest()[:16]
 
     def _plans_on(self, device):
@@ -145,20 +168,29 @@ class CalibrationEngine:
         ``run``, pass 2 adds its class-1 G, and pass 1 every unit's sums,
         into the running accumulator in place and leaves them out of the
         result (``stats._p2_attn``, ``stats.pass1_reduce``)."""
-        taps = {}
+        taps, share = {}, contextlib.nullcontext()
+        if self.shard is not None and self.shard.batch_size > 1:
+            n = len(next(iter(batch.values())))
+            share = model_common.row_share(*self.shard.row_range(n), n)
+            batch = self.shard.rows(batch)
         with model_common.tap_dtype(self.stats_dtype), \
-                model_common.expert_taps(self.expert_moments):
+                model_common.expert_taps(self.expert_moments), share:
             self.model.apply(params, batch, taps=taps)
+        sh, specs = self.shard, self._specs
         if self.phase == 1:
-            return stats_mod.pass1_reduce(taps, self.units, self._acc)
+            return stats_mod.pass1_reduce(taps, self.units, self._acc,
+                                          shard=sh, specs=specs)
         plan, spec_plan = self._plans_on(next(iter(taps.values())).device)
         if self.phase == 2:
-            return stats_mod.pass2_reduce(taps, self.units, plan, self._acc)
+            return stats_mod.pass2_reduce(taps, self.units, plan, self._acc,
+                                          shard=sh, specs=specs)
         return {"p1": stats_mod.pass1_reduce(
                     taps, self.units,
-                    None if self._acc is None else self._acc["p1"]),
-                "p2spec": stats_mod.spec_pass2_reduce(taps, self.units,
-                                                      spec_plan)}
+                    None if self._acc is None else self._acc["p1"],
+                    shard=sh, specs=specs.setdefault("p1", {})),
+                "p2spec": stats_mod.spec_pass2_reduce(
+                    taps, self.units, spec_plan, shard=sh,
+                    specs=specs.setdefault("p2spec", {}))}
 
     @torch.no_grad()
     def run(self, params, batches: Iterable, *, checkpointer=None,
@@ -172,7 +204,9 @@ class CalibrationEngine:
             it covers are skipped (batches are deterministic by index), the
             accumulator is saved every N batches (a host copy, written in
             the background) and the last save is on disk before ``run``
-            returns.
+            returns. Sharded, the full tree is saved, gathered (``_save``),
+            and every rank restores it and keeps its blocks; a checkpoint
+            of another mesh has another fingerprint and is ignored.
           fail_hook: optional ``hook(i)`` called before batch ``i``; if it
             raises, the batch is dropped and the pass goes on (statistics
             carry their own sample counts, so a dropped batch only shrinks
@@ -184,11 +218,16 @@ class CalibrationEngine:
         except StopIteration:
             raise ValueError("empty calibration stream") from None
         acc, start = None, 0
+        self._specs = {}
         if checkpointer is not None:
             device = next(iter(flatten(params).values())).device
             flat, start = checkpointer.restore(self.fingerprint, device)
             if flat is not None:
                 acc = self._unflatten(flat)
+                if self.shard is not None:
+                    acc = self._own(acc)
+            if self.shard is not None:     # all restored before any save
+                self._barrier()
         try:
             for i, batch in enumerate(itertools.chain([first], it)):
                 if i < start:
@@ -200,15 +239,68 @@ class CalibrationEngine:
                         continue
                 self._acc = acc
                 acc = stats_mod.tree_add(acc, self.reduce(params, batch))
-                if checkpointer is not None:
-                    checkpointer.maybe_save(acc, i + 1, self.fingerprint)
+                if checkpointer is not None and checkpointer.due(i + 1):
+                    self._save(checkpointer, acc, i + 1)
         finally:
             self._acc = None
         if acc is None:
             raise ValueError("every calibration batch failed")
         if checkpointer is not None:
             checkpointer.finish()
+        if self.shard is not None:
+            acc = self._gathered(acc)
+            if checkpointer is not None:
+                self._barrier()
         return acc
+
+    # -- sharded --------------------------------------------------------------
+
+    def _save(self, checkpointer, acc, n_batches: int):
+        """Save the sums of the first ``n_batches``. Sharded: summed over
+        the batch axes first; the batch-index-0 ranks keep the sums (the
+        others start again from zeros) and gather them over the model
+        axis, and the mesh's first rank writes the full tree."""
+        sh = self.shard
+        if sh is None:
+            checkpointer.save(acc, n_batches, self.fingerprint)
+            return
+        sh.reduce(acc)
+        if sh.batch_index != 0:
+            for t in flatten(acc).values():
+                t.zero_()
+            return
+        full = sh.gather(acc, self._specs)
+        if sh.model_index == 0:
+            checkpointer.save(full, n_batches, self.fingerprint)
+
+    def _own(self, full: Dict) -> Dict:
+        """A restored full tree -> this rank's blocks, zeros off batch
+        index 0 (the sums live on the batch-index-0 ranks)."""
+        self._specs = self.shard.specs(full)
+        acc = self.shard.take(full, self._specs)
+        if self.shard.batch_index != 0:
+            for t in flatten(acc).values():
+                t.zero_()
+        return acc
+
+    def _gathered(self, acc: Dict) -> Dict:
+        """The pass's blocks summed over the batch axes and gathered over
+        the model axis, on every rank; records ``local_shapes`` and
+        ``local_bytes`` first."""
+        blocks = flatten(acc)
+        self.local_shapes = {k: tuple(t.shape) for k, t in blocks.items()}
+        self.local_bytes = sum(t.numel() * t.element_size()
+                               for t in blocks.values())
+        self.shard.reduce(acc)
+        return self.shard.gather(acc, self._specs)
+
+    def _barrier(self):
+        """Every rank of the mesh waits for every other: over the model
+        axis, then over the batch axes."""
+        for group, size in ((self.shard.model_group, self.shard.model_size),
+                            (self.shard.batch_group, self.shard.batch_size)):
+            if size > 1:
+                dist.barrier(group=group)
 
 
 def run_pass(model, units: List[Unit], params, batches: Iterable, *,

@@ -25,7 +25,10 @@ unrolled (unstacked) ones; two calibration passes or one
 checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``;
 the enc-dec's encoder and decoder units, its cross-attention units
 class 1 on ``cross/{wq,wk}`` (a decoder query against memory keys).
-``mesh=`` is not ported yet; it raises.
+``mesh=`` shards every calibration pass over its ranks
+(``calibrate.CalibrationEngine(mesh=)``); each rank ranks, solves and
+folds from the gathered statistics, and the ranks' pruned parameters are
+checked equal.
 
 Memory at full width (deepseek-v3 at 4 layers: 30 GB of bf16 weights,
 8.6 GB of class-1 G a layer): pass 2 adds its G in place
@@ -50,6 +53,7 @@ targeted pass 2.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import os
 import time
@@ -57,6 +61,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import calibrate as calib_mod
 from repro_torch.core import ranking as rank_mod
@@ -65,6 +70,7 @@ from repro_torch.core import stats as stats_mod
 from repro_torch.core.units import (Unit, discover_units, get_block,
                                     set_block)
 from repro_torch.distrib.fault import CalibrationCheckpointer
+from repro_torch.distrib.sharding import as_sharding
 from repro_torch.interop import flatten, map_tree
 
 
@@ -449,7 +455,7 @@ def _checkpointer(ckpt_dir: Optional[str], tag: str, every: int):
 def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
                       spec_margin: float, stats_dtype,
                       expert_moments: bool = False, ckpt_dir=None,
-                      ckpt_every: int = 8):
+                      ckpt_every: int = 8, shard=None):
     """One traversal gathering pass-1 and speculative pass-2 statistics.
 
     The candidate keep-sets come from the first batch's attention scores
@@ -464,7 +470,7 @@ def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
     # the selector needs only the attention scores, not the dense moments
     attn_units = [u for u in units if u.kind in _ATTN_KINDS]
     s0 = calib_mod.CalibrationEngine(model, attn_units, phase=1,
-                                     stats_dtype=stats_dtype) \
+                                     stats_dtype=stats_dtype, mesh=shard) \
         .run(params, [first])
     spec_plan = {}
     for u in attn_units:
@@ -473,7 +479,8 @@ def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
             st, _attn_keep_n(u, st["rank"].shape[-1], pc), spec_margin)
     combined = calib_mod.CalibrationEngine(
         model, units, phase="1+2", spec_plan=spec_plan,
-        stats_dtype=stats_dtype, expert_moments=expert_moments).run(
+        stats_dtype=stats_dtype, expert_moments=expert_moments,
+        mesh=shard).run(
             params, itertools.chain([first], it),
             checkpointer=_checkpointer(ckpt_dir, "pass12", ckpt_every))
     return combined["p1"], spec_plan, combined["p2spec"]
@@ -481,7 +488,8 @@ def _speculative_pass(model, units, params, batches, pc: PruneConfig, *,
 
 def _resolve_attn_pass2(model, units, params, calib_batches, attn_plan,
                         spec_plan, spec_stats, *, stats_dtype, device,
-                        ckpt_dir=None, ckpt_every: int = 8, say=None):
+                        ckpt_dir=None, ckpt_every: int = 8, say=None,
+                        shard=None):
     """Pass-2 statistics of every unit in ``attn_plan``.
 
     Speculative (``spec_plan`` given): a unit whose keep-set lies inside
@@ -513,7 +521,8 @@ def _resolve_attn_pass2(model, units, params, calib_batches, attn_plan,
             say("pass 2: attention compensation statistics")
     if todo:
         p2.update(calib_mod.CalibrationEngine(
-            model, units, phase=2, plan=todo, stats_dtype=stats_dtype).run(
+            model, units, phase=2, plan=todo, stats_dtype=stats_dtype,
+            mesh=shard).run(
                 params, calib_batches(),
                 checkpointer=_checkpointer(ckpt_dir, "pass2", ckpt_every)))
     return p2, misses
@@ -604,7 +613,7 @@ def _tick(report, stage: str, t0: float):
 def _prune_units(model, units, params, new_params, calib_batches,
                  pc: PruneConfig, report, *, device, say, stats_dtype,
                  one_traversal, spec_margin, ckpt_dir=None,
-                 ckpt_every: int = 8):
+                 ckpt_every: int = 8, shard=None):
     """Calibrate, rank, compensate and fold ``units``: statistics from
     ``params``, blocks folded from ``new_params``. Returns ``({(seg, layer
     key, param key): folded block}, plan)``; adds the stage times (each
@@ -623,12 +632,12 @@ def _prune_units(model, units, params, new_params, calib_batches,
             model, units, params, calib_batches(), pc,
             spec_margin=spec_margin, stats_dtype=stats_dtype,
             expert_moments=experts, ckpt_dir=ckpt_dir,
-            ckpt_every=ckpt_every)
+            ckpt_every=ckpt_every, shard=shard)
     else:
         say("pass 1: ranking/MLP statistics")
         p1 = calib_mod.CalibrationEngine(
             model, units, phase=1, stats_dtype=stats_dtype,
-            expert_moments=experts).run(
+            expert_moments=experts, mesh=shard).run(
                 params, calib_batches(),
                 checkpointer=_checkpointer(ckpt_dir, "pass1", ckpt_every))
     _sync(device)
@@ -648,7 +657,7 @@ def _prune_units(model, units, params, new_params, calib_batches,
         p2, misses = _resolve_attn_pass2(
             model, units, params, calib_batches, attn_plan, spec_plan,
             spec_stats, stats_dtype=stats_dtype, device=device,
-            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, say=say)
+            ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, say=say, shard=shard)
         _sync(device)
         _tick(report, "pass2", t0)
         if speculate:
@@ -739,11 +748,33 @@ def _pruned_cfg(cfg, pc: PruneConfig):
     return new
 
 
-def _refuse_unported(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded calibration is not ported; "
-                                  "see repro.core.calibrate"
-                                  ".CalibrationEngine(mesh=)")
+def _checksum(params) -> int:
+    """A 63-bit hash of every leaf's bytes, in key-path order."""
+    h = hashlib.sha256()
+    for k, t in flatten(params).items():
+        h.update(k.encode())
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little") >> 1
+
+
+def _check_replicas(params, shard, report):
+    """Gather every rank's checksum of ``params`` (over the model axis,
+    then the batch axes) into ``report["checksums"]``; raises unless they
+    are all equal."""
+    device = next(iter(flatten(params).values())).device
+    sums = torch.tensor([_checksum(params)], dtype=torch.int64,
+                        device=device)
+    for group, size in ((shard.model_group, shard.model_size),
+                        (shard.batch_group, shard.batch_size)):
+        if size > 1:
+            parts = [torch.empty_like(sums) for _ in range(size)]
+            dist.all_gather(parts, sums, group=group)
+            sums = torch.cat(parts)
+    report["checksums"] = sums.tolist()
+    if len(set(report["checksums"])) != 1:
+        raise RuntimeError(f"the ranks' pruned parameters differ: checksums "
+                           f"{report['checksums']}")
 
 
 # ---------------------------------------------------------------------------
@@ -777,7 +808,9 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
         every ``ckpt_every`` batches under ``<ckpt_dir>/pass1``, ``pass2``
         (``pass12`` for the one-traversal pass) and resumes from the newest
         valid one.
-      mesh: not ported; raises.
+      mesh: a ``DeviceMesh`` or ``CalibSharding``: the calibration passes
+        run sharded on its ranks, each of which calls ``corp_prune`` alike
+        (module docstring); the checksums land in ``report["checksums"]``.
       stats_dtype: streaming dtype of the taps in every pass, "float32" or
         "bfloat16" (statistics accumulate in fp32 either way).
       one_traversal: fuse the two passes into one traversal (module
@@ -792,7 +825,7 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
       traversals, counted) and, with ``one_traversal``, ``speculative``
       (margin, candidate sizes, hit and missed units).
     """
-    _refuse_unported(mesh)
+    shard = as_sharding(mesh)
     cfg = model.cfg
     units = discover_units(cfg)
     device = next(iter(flatten(params).values())).device
@@ -803,10 +836,12 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
         model, units, params, new_params, calib, pc, report, device=device,
         say=progress or (lambda s: None), stats_dtype=stats_dtype,
         one_traversal=one_traversal, spec_margin=spec_margin,
-        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, shard=shard)
     _set_blocks(new_params, units, blocks)
     report["plan_sizes"] = {k: v[0].shape for k, v in plan.items()}
     report["traversals"] = calls[0]
+    if shard is not None:
+        _check_replicas(new_params, shard, report)
     return new_params, _pruned_cfg(cfg, pc), report
 
 
@@ -826,11 +861,13 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
     Units are those of ``discover_units``, as in the JAX package: a stacked
     unit holds all its layers (DeiT-Base has 2 units, attention and MLP).
 
+    ``mesh`` as ``corp_prune``'s: every group's passes run sharded.
+
     Returns ``(pruned_params, pruned_config, report)`` as ``corp_prune``
     (stage times summed over the groups), with ``report["groups"]``
     counting the unit groups and ``report["traversals"]`` all traversals.
     """
-    _refuse_unported(mesh)
+    shard = as_sharding(mesh)
     if unit_group_size < 1:
         raise ValueError(f"unit_group_size {unit_group_size} must be >= 1")
     cfg = model.cfg
@@ -849,10 +886,13 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
         blocks, plan = _prune_units(
             model, units, params, new_params, calib, pc, report,
             device=device, say=say, stats_dtype=stats_dtype,
-            one_traversal=one_traversal, spec_margin=spec_margin)
+            one_traversal=one_traversal, spec_margin=spec_margin,
+            shard=shard)
         _set_blocks(new_params, units, blocks)
         merged_plan.update(plan)
         report["groups"] += 1
     report["plan_sizes"] = {k: v[0].shape for k, v in merged_plan.items()}
     report["traversals"] = calls[0]
+    if shard is not None:
+        _check_replicas(new_params, shard, report)
     return new_params, _pruned_cfg(cfg, pc), report

@@ -62,9 +62,22 @@ batch's s2 is at most ``_MOE_WHOLE`` bytes; jamba's 16 experts of 24576,
 cross-attention unit (enc-dec) is a class-1 unit on its ``cross_q``
 (B, T, H, d) and ``cross_k`` (B, S, Hkv, d) taps: the query rows are
 the decoder's and the key rows the memory's, T and S taken as they come.
+
+Sharded (``shard=``, a ``distrib.sharding.CalibSharding``; the engine's
+``mesh=``), every reduction is of this rank's rows, and each unit's sums
+are this rank's column blocks by ``stats_specs``. The products are
+reduced for the block alone: the dense and MoE moments (s1, s2, na; ys1,
+ys2), one gram_cross against the block's columns (``_sharded_moments``,
+``gram_ops.gram_sharded``); pass 2's class-1 G, added in place into the
+rank's block from the j rows of A that reach it (``_add_kron``); the
+class-1 speculative Gc and Hfull, from the block's columns of K^T K_C.
+The rest, small beside them (the attention energies, pass 2's h and a
+rope unit's G, the rope units' speculative sums), is reduced at full width
+and cut (``_local``).
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, List
 
 import numpy as np
@@ -72,6 +85,8 @@ import torch
 
 from repro_torch.core.units import Unit
 from repro_torch.kernels.gram import ops as gram_ops
+
+log = logging.getLogger("repro_torch.stats")
 
 ACTIVE_EPS = 1e-2   # |x| > eps counts as 'active' (appendix E ranking)
 # Byte budgets of pruning's large temporaries on the card, for this module
@@ -101,16 +116,25 @@ def _moments(x):
             "na": (x.abs() > ACTIVE_EPS).sum(dim=-2, dtype=torch.float32)}
 
 
-def _masked_moments(h, mask):
+def _gram(x, shard=None):
+    """``gram`` of x (..., N, F); with ``shard``, this rank's column block
+    of it (``gram_ops.gram_sharded``: s2 (..., F, F/m), s1 of the block)."""
+    return gram_ops.gram(x) if shard is None \
+        else gram_ops.gram_sharded(x, shard)
+
+
+def _masked_moments(h, mask, shard=None):
     """h: (R, N, F) per-queue hidden taps; mask: (R, N) fp32 slot validity
     -> dict(n (R,), s1 (R,F), s2 (R,F,F), na (R,F)), fp32. The R queues
-    take one gram launch in h's own dtype (the 0/1 mask is exact in it)."""
+    take one gram launch in h's own dtype (the 0/1 mask is exact in it);
+    with ``shard``, s1, s2 and na are this rank's column block's."""
     hf = h * mask.to(h.dtype)[..., None]
-    g = gram_ops.gram(hf)
+    g = _gram(hf, shard)
+    hb = hf if shard is None else hf[..., slice(*shard.block(h.shape[-1]))]
     return {"n": mask.sum(dim=1),
             "s1": g["s1"],
             "s2": g["s2"],
-            "na": ((hf.abs() > ACTIVE_EPS) * mask[..., None])
+            "na": ((hb.abs() > ACTIVE_EPS) * mask[..., None])
             .sum(dim=1, dtype=torch.float32)}
 
 
@@ -154,30 +178,77 @@ def _unstack(unit: Unit, tree):
 # pass 1
 # ---------------------------------------------------------------------------
 
-def _p1_mlp(taps, unit: Unit):
+def _sharded_moments(x, shard):
+    """Model-sharded ``_moments`` (``repro.core.stats._sharded_moments``):
+    x (L, N, F), this rank's rows -> n (L,) and this rank's column block
+    [lo, hi) of s1 (L, F/m), s2 (L, F, F/m) and na (L, F/m): X^T X[:, lo:hi]
+    through one gram_cross launch (``gram_ops.gram_sharded``). A width that
+    does not divide the model axis gives None, warned as JAX warns: the unit
+    stays replicated, a full F x F on every rank."""
+    m, F = shard.model_size, x.shape[-1]
+    if not shard.splits(F):
+        if m > 1:
+            log.warning(
+                "sharded calibration: unit width F=%d does not divide the "
+                "%r axis (%d-way); this unit's Sigma stays REPLICATED "
+                "(F*F fp32 per device)", F, shard.model_axis, m)
+        return None
+    g = gram_ops.gram_sharded(x, shard)
+    lo, hi = shard.block(F)
+    return {"n": torch.full((x.shape[0],), float(x.shape[1]),
+                            dtype=torch.float32, device=x.device),
+            "s1": g["s1"],
+            "s2": g["s2"],
+            "na": (x[..., lo:hi].abs() > ACTIVE_EPS)
+            .sum(dim=-2, dtype=torch.float32)}
+
+
+def _p1_mlp(taps, unit: Unit, shard=None):
     """Moments of an MLP-like unit's hidden tap: ``h``, or a Mamba unit's
-    ``mamba_y``."""
+    ``mamba_y`` -> (stats, the leaves that are this rank's column blocks
+    already: with ``shard``, s1, s2 and na where the width divides the
+    model axis)."""
     key = "mamba_y" if unit.kind == "mamba" else "h"
     h = _stacked(unit, taps[f"{unit.tap_prefix}/{key}"])  # (L, B, T, F)
-    return _unstack(unit, _moments(h.reshape(h.shape[0], -1, h.shape[-1])))
+    x = h.reshape(h.shape[0], -1, h.shape[-1])
+    st = None if shard is None else _sharded_moments(x, shard)
+    if st is None:
+        return _unstack(unit, _moments(x)), ()
+    return _unstack(unit, st), ("s1", "s2", "na")
 
 
-def _expert_moments(h, mask, acc=None):
+def _local(st, shard, specs, name, blocks=()):
+    """A unit's statistics -> this rank's blocks, their placements
+    (``stats_specs`` of the full widths) recorded in ``specs[name]``. The
+    leaves named in ``blocks`` are blocks already; every other sharded
+    leaf is cut from its full width."""
+    m = shard.model_size
+    full = {k: tuple(v.shape[:-1]) + (v.shape[-1] * m,)
+            if k in blocks else tuple(v.shape) for k, v in st.items()}
+    sp = shard.specs(full)
+    specs.setdefault(name, {}).update(sp)
+    return shard.take(st, {k: None if k in blocks else v
+                           for k, v in sp.items()})
+
+
+def _expert_moments(h, mask, acc=None, shard=None):
     """``_masked_moments`` of R queues, one gram launch a chunk of them:
     all R when their s2 is at most ``_MOE_WHOLE`` bytes, else as many as
     fit in ``_MOE_CHUNK``. Each chunk's s2 is added in place into the
     running sums ``acc['s2']`` (then left out of the result) or, on the
     first batch, into the result's s2: the launch's own when one chunk
     holds all R, else a zero buffer. The same sums as one launch: each
-    queue's gram is its own."""
+    queue's gram is its own. ``shard``: this rank's column block's s1, s2
+    and na."""
     R, _, F = h.shape
-    step = R if R * F * F * 4 <= _MOE_WHOLE \
-        else max(1, _MOE_CHUNK // (F * F * 4))
-    s2 = acc["s2"].view(R, F, F) if acc is not None else \
-        None if step >= R else h.new_zeros((R, F, F), dtype=torch.float32)
+    Fb = F if shard is None else F // shard.model_size
+    step = R if R * F * Fb * 4 <= _MOE_WHOLE \
+        else max(1, _MOE_CHUNK // (F * Fb * 4))
+    s2 = acc["s2"].view(R, F, Fb) if acc is not None else \
+        None if step >= R else h.new_zeros((R, F, Fb), dtype=torch.float32)
     parts = []
     for r in range(0, R, step):
-        m = _masked_moments(h[r:r + step], mask[r:r + step])
+        m = _masked_moments(h[r:r + step], mask[r:r + step], shard)
         if s2 is None:
             s2 = m.pop("s2")
         else:   # the chunk's s2 is freed before the next launch
@@ -189,20 +260,26 @@ def _expert_moments(h, mask, acc=None):
     return out
 
 
-def _p1_moe(taps, unit: Unit, acc=None):
+def _p1_moe(taps, unit: Unit, acc=None, shard=None):
     """Per-expert moments of a routed-MoE unit: ``moe_h`` (L, G, E, C, F)
     with its ``moe_mask`` (L, G, E, C), the groups merged into the
     capacity axis -> n (L, E), s1 (L, E, F), s2 (L, E, F, F), na (L, E,
     F); s2 added a chunk of queues at a time into the running sums
-    ``acc`` when given (``_expert_moments``). With the expert-removal taps, also the
-    moments of z_t = [x_t, c_t1..c_tE] ((E+1) D wide): yn (L,), ys1 (L,
-    V), ys2 (L, V, V)."""
+    ``acc`` when given (``_expert_moments``). With the expert-removal taps,
+    also the moments of z_t = [x_t, c_t1..c_tE] ((E+1) D wide): yn (L,),
+    ys1 (L, V), ys2 (L, V, V). Returns (stats, the leaves that are this
+    rank's column blocks already): with ``shard``, s1, s2 and na, and ys1
+    and ys2, are reduced for the block alone where their width divides the
+    model axis."""
     pre = unit.tap_prefix
     h = _stacked(unit, taps[f"{pre}/moe_h"])
     mask = _stacked(unit, taps[f"{pre}/moe_mask"])
     L, G, E, C, F = h.shape
+    hshard = shard if shard is not None and shard.splits(F) else None
     out = _expert_moments(h.transpose(1, 2).reshape(L * E, G * C, F),
-                          mask.transpose(1, 2).reshape(L * E, G * C), acc)
+                          mask.transpose(1, 2).reshape(L * E, G * C), acc,
+                          hshard)
+    blocks = () if hshard is None else ("s1", "s2", "na")
     out = {k: v.reshape((L, E) + v.shape[1:]) for k, v in out.items()}
     if f"{pre}/moe_yc" in taps:
         yc = _stacked(unit, taps[f"{pre}/moe_yc"])     # (L, G, tg, E, D)
@@ -210,11 +287,14 @@ def _p1_moe(taps, unit: Unit, acc=None):
         D = yc.shape[-1]
         z = torch.cat([x.reshape(L, -1, D), yc.reshape(L, -1, E * D)],
                       dim=-1)
-        g = gram_ops.gram(z)
+        zshard = shard if shard is not None and shard.splits(z.shape[-1]) \
+            else None
+        g = _gram(z, zshard)
         out.update(yn=torch.full((L,), float(z.shape[1]),
                                  dtype=torch.float32, device=z.device),
                    ys1=g["s1"], ys2=g["s2"])
-    return _unstack(unit, out)
+        blocks += () if zshard is None else ("ys1", "ys2")
+    return _unstack(unit, out), blocks
 
 
 def _p1_attn(taps, unit: Unit):
@@ -246,34 +326,47 @@ def _take(x, idx):
                                                           idx.shape[-1]))
 
 
-def _add_kron(out, A, C):
-    """out (G, ds^2, ds^2) += sum_b A[g, b, i, j] C[g, b, l, k] at [g, (i
-    l), (j k)], in place; A, C (G, B, ds, ds). The batch contraction is
-    one bmm a chunk of groups, in the (i j),(l k) layout, added into
-    ``out``'s layout through a transposed view: a batch allocates one
-    chunk's product (``_KRON_CHUNK`` values), never a second G."""
+def _add_kron(out, A, C, cols=None):
+    """out (G, ds^2, w) += sum_b A[g, b, i, j] C[g, b, l, k] at [g, (i l),
+    (j k)], in place; A, C (G, B, ds, ds). ``cols`` = (lo, hi): ``out``
+    holds only the columns [lo, hi) of the (j k) axis (a rank's block under
+    a mesh, w = hi - lo), and only the j of A that reach them enter the
+    product; else all ds^2. The batch contraction is one bmm a chunk of
+    groups, in the (i j),(l k) layout, added into ``out``'s layout through
+    a transposed view (a block that cuts a j row takes a copy of the
+    chunk): a batch allocates one chunk's product (``_KRON_CHUNK`` values),
+    never a second G."""
     n_g, B, ds, _ = A.shape
-    Af = A.reshape(n_g, B, ds * ds).transpose(1, 2)       # (G, ds^2, B)
+    lo, hi = (0, ds * ds) if cols is None else cols
+    j0, j1 = lo // ds, -(-hi // ds)
+    jb = j1 - j0
+    Af = A[..., j0:j1].reshape(n_g, B, ds * jb).transpose(1, 2)  # (G,ds jb,B)
     Cf = C.reshape(n_g, B, ds * ds)                       # (G, B, ds^2)
-    o = out.view(n_g, ds, ds, ds, ds)                     # [g, i, l, j, k]
-    step = max(1, _KRON_CHUNK // ds ** 4)
+    step = max(1, _KRON_CHUNK // (ds ** 3 * jb))
     for g0 in range(0, n_g, step):
-        prod = torch.bmm(Af[g0:g0 + step], Cf[g0:g0 + step])
-        o[g0:g0 + step].add_(prod.view(-1, ds, ds, ds, ds).transpose(2, 3))
+        prod = torch.bmm(Af[g0:g0 + step], Cf[g0:g0 + step]) \
+            .view(-1, ds, jb, ds, ds).transpose(2, 3)     # [g, i, l, j, k]
+        o = out[g0:g0 + step]
+        if (lo, hi) == (j0 * ds, j1 * ds):
+            o.view(-1, ds, ds, jb, ds).add_(prod)
+        else:
+            o.add_(prod.reshape(-1, ds * ds, jb * ds)
+                   [..., lo - j0 * ds:hi - j0 * ds])
 
 
-def _p2_layer(qg, kg, keep, prune, G_out):
+def _p2_layer(qg, kg, keep, prune, G_out, cols=None):
     """One layer. qg (B, G, TQ, d), kg (B, G, T, d); keep (G, ds),
-    prune (G, dp); G_out (G, ds^2, ds^2) -> {h (G, ds^2), t2 (G,)}, and
-    G[i, l, j, k] = sum_b A_ss[b, i, j] C_ss[b, l, k] added into G_out
-    (``_add_kron``): no per-sample (B, ds, ds, ds, ds) product is formed."""
+    prune (G, dp); G_out (G, ds^2, ds^2), or its columns ``cols`` -> {h
+    (G, ds^2), t2 (G,)}, and G[i, l, j, k] = sum_b A_ss[b, i, j] C_ss[b,
+    l, k] added into G_out (``_add_kron``): no per-sample (B, ds, ds, ds,
+    ds) product is formed."""
     qS, qP = _take(qg, keep), _take(qg, prune)
     kS, kP = _take(kg, keep), _take(kg, prune)
     A_ss = torch.einsum("bgts,bgtu->gbsu", qS, qS)
     C_ss = torch.einsum("bgts,bgtu->gbsu", kS, kS)
     A_sp = torch.einsum("bgts,bgtp->gbsp", qS, qP)
     C_ps = torch.einsum("bgtp,bgts->gbps", kP, kS)
-    _add_kron(G_out, A_ss, C_ss)
+    _add_kron(G_out, A_ss, C_ss, cols)
     h_vec = torch.einsum("gbsp,gbpu->gsu", A_sp, C_ps).reshape(
         keep.shape[0], -1)
     t2 = torch.einsum("bgtp,bgup->bgtu", qP, kP).square().sum(dim=(0, 2, 3))
@@ -299,7 +392,7 @@ def _p2_layer_complex(qg, kg, keep, prune):
     return {"G": Gd, "h": hd, "t2": t2}
 
 
-def _p2_attn(taps, unit: Unit, keep, prune, acc=None):
+def _p2_attn(taps, unit: Unit, keep, prune, acc=None, shard=None):
     """keep/prune: int64 tensors (L, G, ds) / (L, G, dp) of kept / pruned
     dims (class 1) or rotary pairs (classes 2, 3); (G, ..) for an unstacked
     unit -> class 1: {G (L, G, ds^2, ds^2), h (L, G, ds^2), t2 (L, G)};
@@ -308,18 +401,24 @@ def _p2_attn(taps, unit: Unit, keep, prune, acc=None):
 
     ``acc``: the unit's running pass-2 sums. A class-1 unit then adds this
     batch's G into ``acc["G"]`` in place and returns only h and t2 (for
-    ``tree_add``); without it a zero G is made and returned."""
+    ``tree_add``); without it a zero G is made and returned. ``shard``: a
+    class-1 G is this rank's column block (``acc["G"]`` is the rank's).
+    Returns (stats, the leaves that are this rank's blocks already)."""
     q, k = _qk_taps(taps, unit)
     q, k = q.float(), k.float()
     keep, prune = _stacked(unit, keep), _stacked(unit, prune)
     qg = _group_q(q, unit.n_groups)
     kg = k.permute(0, 1, 3, 2, 4)
     L = q.shape[0]
+    cols = None
     if unit.attn_class == 1:
         n_g, ds = keep.shape[1:]
-        G = q.new_zeros(L, n_g, ds * ds, ds * ds) if acc is None \
+        if shard is not None and shard.splits(ds * ds):
+            cols = shard.block(ds * ds)
+        w = ds * ds if cols is None else cols[1] - cols[0]
+        G = q.new_zeros(L, n_g, ds * ds, w) if acc is None \
             else _stacked(unit, acc["G"])
-        per_layer = [_p2_layer(qg[i], kg[i], keep[i], prune[i], G[i])
+        per_layer = [_p2_layer(qg[i], kg[i], keep[i], prune[i], G[i], cols)
                      for i in range(L)]
     else:
         qg, kg = _to_complex_pairs(qg), _to_complex_pairs(kg)
@@ -331,7 +430,7 @@ def _p2_attn(taps, unit: Unit, keep, prune, acc=None):
         out["G"] = G
     if unit.attn_class == 3:
         out["G"], out["h"] = out["G"].real, out["h"].real
-    return _unstack(unit, out)
+    return _unstack(unit, out), () if cols is None else ("G",)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +491,7 @@ def _p2spec_complex(q, k, unit: Unit, cand):
             "t2_tot": E.real.sum(dim=(1, 3, 4))}
 
 
-def _p2spec_attn(taps, unit: Unit, cand):
+def _p2spec_attn(taps, unit: Unit, cand, shard=None):
     """Speculative pass-2 sums of one attention unit (classes 2 and 3: see
     ``_p2spec_complex``).
 
@@ -405,11 +504,14 @@ def _p2spec_attn(taps, unit: Unit, cand):
       t2_tot ()            sum_b <Q^T Q, K^T K>  (full Frobenius)
     The taps keep their streaming dtype into ``_bgram``; the candidate
     gathers run on its fp32 results. Gc is contracted over the batch inside
-    one product, so no per-sample (B, c, c, c, c) tensor is formed."""
+    one product, so no per-sample (B, c, c, c, c) tensor is formed.
+    ``shard``: a class-1 unit's Gc and Hfull are this rank's column blocks
+    (of k and u: the block's columns of K^T K_C enter the products).
+    Returns (stats, the leaves that are this rank's blocks already)."""
     q, k = _qk_taps(taps, unit)
     cand = _stacked(unit, cand)
     if unit.attn_class != 1:
-        return _unstack(unit, _p2spec_complex(q, k, unit, cand))
+        return _unstack(unit, _p2spec_complex(q, k, unit, cand)), ()
     qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     A_ff = _bgram(qg, qg)                             # (L, B, G, d, d)
@@ -418,19 +520,28 @@ def _p2spec_attn(taps, unit: Unit, cand):
     C_fc = _cols(C_ff, cand)                          # K^T K_C (L,B,G,d,c)
     A_cc = _cols(A_cf, cand)
     C_cc = _rows(C_fc, cand)
+    blocks = ()
+    if shard is not None and shard.splits(cand.shape[-1]):
+        lo, hi = shard.block(cand.shape[-1])
+        C_fc, C_cc, blocks = C_fc[..., lo:hi], C_cc[..., lo:hi], \
+            ("Gc", "Hfull")
     return _unstack(unit, {
         "Gc": torch.einsum("xbgij,xbglk->xgiljk", A_cc, C_cc),
         "Hfull": torch.einsum("xbgcp,xbgpu->xgcu", A_cf, C_fc),
-        "t2_tot": (A_ff * C_ff).sum(dim=(1, 3, 4))})
+        "t2_tot": (A_ff * C_ff).sum(dim=(1, 3, 4))}), blocks
 
 
-def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict) -> Dict:
+def spec_pass2_reduce(taps: Dict, units: List[Unit], spec_plan: Dict, *,
+                      shard=None, specs: Dict | None = None) -> Dict:
     """Per-batch speculative pass-2 sums for every attention unit with a
-    candidate set in ``spec_plan`` ({unit.name: (L, G, c) int64})."""
+    candidate set in ``spec_plan`` ({unit.name: (L, G, c) int64});
+    ``shard``: this rank's blocks (``_p2spec_attn``, ``_local``)."""
     out = {}
     for u in units:
         if u.kind in ("attn", "mla", "cross") and u.name in spec_plan:
-            out[u.name] = _p2spec_attn(taps, u, spec_plan[u.name])
+            st, blocks = _p2spec_attn(taps, u, spec_plan[u.name], shard)
+            out[u.name] = st if shard is None \
+                else _local(st, shard, specs, u.name, blocks)
     return out
 
 
@@ -508,24 +619,36 @@ def _spec_reconstruct_complex(spec, cf, kf, lead):
 # ---------------------------------------------------------------------------
 
 def pass1_reduce(taps: Dict, units: List[Unit],
-                 acc: Dict | None = None) -> Dict:
+                 acc: Dict | None = None, *, shard=None,
+                 specs: Dict | None = None) -> Dict:
     """Per-batch pass-1 sums: mlp, rwkv_mlp, mamba -> {n, s1, s2, na}; moe
     -> per expert {n, s1, s2, na} (+ {yn, ys1, ys2}); attn, mla, cross ->
     {rank, n}.
     With the running accumulator ``acc``, each unit's sums are added into
     it in place as soon as they are reduced and left out of the result, so
     that no two units' batch moments are held at once (large per-expert
-    s2 a chunk at a time: ``_expert_moments``)."""
+    s2 a chunk at a time: ``_expert_moments``).
+
+    ``shard`` (a ``distrib.sharding.CalibSharding``): the sums are this
+    rank's blocks, each unit's placements recorded in ``specs``. The
+    moments of dense and MoE units take their blocks directly (a gram_cross
+    against the block's columns: ``_sharded_moments``, ``_p1_moe``); the
+    attention energies are reduced at full width from this rank's rows and
+    cut (``_local``)."""
     out = {}
     for u in units:
+        blocks = ()
         if u.kind in ("mlp", "rwkv_mlp", "mamba"):
-            st = _p1_mlp(taps, u)
+            st, blocks = _p1_mlp(taps, u, shard)
         elif u.kind == "moe":
-            st = _p1_moe(taps, u, None if acc is None else acc[u.name])
+            st, blocks = _p1_moe(taps, u, None if acc is None
+                                 else acc[u.name], shard)
         elif u.kind in ("attn", "mla", "cross"):
             st = _p1_attn(taps, u)
         else:
             raise ValueError(f"unit {u.name}: unknown kind {u.kind!r}")
+        if shard is not None:
+            st = _local(st, shard, specs, u.name, blocks)
         if acc is None:
             out[u.name] = st
         else:
@@ -534,16 +657,22 @@ def pass1_reduce(taps: Dict, units: List[Unit],
 
 
 def pass2_reduce(taps: Dict, units: List[Unit], plan: Dict,
-                 acc: Dict | None = None) -> Dict:
+                 acc: Dict | None = None, *, shard=None,
+                 specs: Dict | None = None) -> Dict:
     """Per-batch pass-2 sums of every attention unit in ``plan``; with the
     running accumulator ``acc``, class-1 units add their G into it in
-    place and leave it out of the result (``_p2_attn``)."""
+    place and leave it out of the result (``_p2_attn``). ``shard``: each
+    unit's sums are this rank's blocks from its rows (a class-1 G its
+    block, in place; the rest cut by ``_local``)."""
     out = {}
     for u in units:
         if u.kind in ("attn", "mla", "cross") and u.name in plan:
             keep, prune = plan[u.name]
-            out[u.name] = _p2_attn(taps, u, keep, prune,
-                                   None if acc is None else acc[u.name])
+            st, blocks = _p2_attn(taps, u, keep, prune,
+                                  None if acc is None else acc[u.name],
+                                  shard)
+            out[u.name] = st if shard is None \
+                else _local(st, shard, specs, u.name, blocks)
     return out
 
 

@@ -7,13 +7,21 @@ on a background thread) and restores the newest valid one
 with its batch cursor. Calibration batches are deterministic by index, so
 a restarted pass skips the consumed prefix and lands on the same sums.
 
-``run_with_restarts``, ``TolerantAccumulator`` and ``remesh`` of the JAX
-module serve no path of the port yet (ROADMAP Queue 1 items 2 and 3).
+Under a mesh the checkpoint is gathered on save, as in JAX: the engine
+sums its blocks over the batch axes and gathers them over the model axis,
+and the mesh's first rank alone writes the full tree; on restore every rank
+reads it and keeps its own blocks. The format does not depend on the mesh,
+but the engine's fingerprint does, so a checkpoint written under another
+mesh is ignored. ``remesh`` builds the largest mesh the live ranks allow.
+
+``run_with_restarts`` and ``TolerantAccumulator`` of the JAX module serve
+no path of the port (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, load_arrays
@@ -25,7 +33,8 @@ class CalibrationCheckpointer:
     """Periodic, atomic checkpoints of a calibration-statistics tree.
 
     ``CalibrationEngine.run(..., checkpointer=)`` calls ``restore`` once,
-    ``maybe_save`` after every batch and ``finish`` after the last one.
+    ``save`` after every batch that ``due`` names and ``finish`` after the
+    last one.
 
     The engine adds each batch's statistics into its accumulator in place,
     so a save must not hold the live tensors: ``AsyncCheckpointer.save``
@@ -70,11 +79,35 @@ class CalibrationCheckpointer:
         log.info("resumed calibration stats at batch %d", last)
         return flat, last
 
-    def maybe_save(self, acc, n_batches: int, fingerprint: str = ""):
-        if n_batches % self.every == 0:
-            self._async.save(n_batches, acc, {"n_batches": n_batches,
-                                              "fingerprint": fingerprint})
+    def due(self, n_batches: int) -> bool:
+        """Whether the sums of the first ``n_batches`` are to be saved."""
+        return n_batches % self.every == 0
+
+    def save(self, acc, n_batches: int, fingerprint: str = ""):
+        self._async.save(n_batches, acc, {"n_batches": n_batches,
+                                          "fingerprint": fingerprint})
+
 
     def finish(self):
         """Block until the save in flight is on disk; re-raises its error."""
         self._async.wait()
+
+
+def remesh(shape_hint=None, axis_names=("data", "model"), *,
+           device_type: str = "cuda"):
+    """The largest mesh the live ranks support (``repro.distrib.fault
+    .remesh``): ``shape_hint`` when the default group has that many ranks,
+    else the squarest two-axis factorisation of its size. Every rank calls
+    it (``launch.mesh.make_mesh``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    n = dist.get_world_size()
+    if shape_hint is not None and math.prod(shape_hint) <= n:
+        shape = tuple(shape_hint)
+    else:
+        a = math.isqrt(n)
+        while n % a:
+            a -= 1
+        shape = (n // a, a)
+    return make_mesh(shape, tuple(axis_names)[-len(shape):],
+                     device_type=device_type)

@@ -1,7 +1,8 @@
 """Gram op: the calibration second moments X^T Y plus column sums.
 
 Replaces ``repro.kernels.gram.ops.gram`` / ``gram_cross`` (Pallas TPU
-kernels ``gram.py:104`` / ``gram.py:152``). On a CUDA tensor the wrapper
+kernels ``gram.py:104`` / ``gram.py:152``) and ``gram_sharded``, a rank's
+column block of ``gram`` on the same ``gram_cross`` kernel. On a CUDA tensor the wrapper
 launches the hand-written kernel in ``csrc/gram.cu`` or raises; only a CPU
 tensor takes the plain version in ``ref.py``. Leading dims (the stacked
 layer axis of a tap) are folded into the kernel's work items: one launch
@@ -108,6 +109,22 @@ def _launch(x: torch.Tensor, y: torch.Tensor, sym: bool) -> dict:
         _build.count(sys.modules[__name__],
                      ("gram" if sym else "gram_cross", str(x.dtype)[6:]))
     return {"s2": s2.reshape(lead + (Fx, Fy)), "s1": s1.reshape(lead + (Fy,))}
+
+
+def gram_sharded(x: torch.Tensor, shard) -> dict:
+    """Model-sharded gram (``repro.kernels.gram.ops.gram_sharded``): x
+    (..., N, F), this rank's rows -> {'s2': (..., F, F/m) fp32 X^T X[:,
+    lo:hi], 's1': (..., F/m) its column sums}, for this rank's column block
+    [lo, hi) = ``shard.block(F)`` (a ``distrib.sharding.CalibSharding``).
+
+    One gram_cross launch against the block as a strided view of x: for
+    rows of a contiguous x, ``_as3d``'s reshape of the view is a view too
+    (no copy), and its rows stay 16-byte copyable when the block's offset
+    is. Nothing is reduced here: the calibration engine sums the batch
+    axes' partial sums once a pass. ``shard.block`` raises for a width the
+    model axis does not split."""
+    lo, hi = shard.block(x.shape[-1])
+    return gram_cross(x, x[..., lo:hi])
 
 
 def gram(x: torch.Tensor) -> dict:

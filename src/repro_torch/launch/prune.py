@@ -10,6 +10,10 @@
         --arch qwen3-moe-235b-a22b-reduced --sparsity 0.5 \
         --expert-sparsity 0.5 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.prune \
+        --arch deit-base-reduced --mesh 2x2 --calib-sharded \
+        --dist-backend gloo --device cpu --out /tmp/sharded
+
 Initialises dense parameters (DeiT, Qwen2-1.5B, granite-8b, deepseek-7b,
 gemma3-1b, RWKV6-3B, internvl2-26b, qwen3-moe-235b-a22b, deepseek-v3-671b,
 jamba-1.5-large-398b or seamless-m4t-large-v2) from seed 0
@@ -23,13 +27,24 @@ on the GPU (``--device cpu`` for the plain PyTorch
 path) and, with ``--out``,
 writes the pruned checkpoint in the JAX package's layout plus
 ``report.json``. ``--one-traversal``, ``--stats-dtype bfloat16`` and
-resumable statistics checkpoints (``--calib-ckpt``) are ported; the flags
-of unported layers parse and raise ``NotImplementedError`` naming them.
+resumable statistics checkpoints (``--calib-ckpt``) are ported.
+
+``--mesh DxM`` (or ``PxDxM``) runs the pipeline on prod(shape) ranks
+(``launch.mesh.launch``: spawned, or joined under torchrun), each with the
+same parameters and stream; alone it gives the unsharded result, as the
+JAX CLI's mesh context does. ``--calib-sharded`` shards the calibration
+statistics over the mesh (``corp_prune(mesh=)``) and checks that every
+rank folds bitwise the same parameters. The mesh's first rank prints and
+writes. ``--dist-backend`` defaults to nccl for CUDA ranks (one card a
+rank) and gloo for CPU ranks; ``--dist-backend gloo --device cuda`` puts
+several ranks on one card. ``--gram-tiles`` (the TPU autotuner's tiles)
+parses and raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 
@@ -41,15 +56,15 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,
 from repro_torch.configs import resolve_config
 from repro_torch.core import PruneConfig, corp_prune
 from repro_torch.data import calib_stream
+from repro_torch.distrib.sharding import CalibSharding
+from repro_torch.launch.mesh import (check_backend, default_backend,
+                                     host_ranks, joined, launch, make_mesh,
+                                     parse_shape)
 from repro_torch.models import build_model
 
-# flags of the JAX CLI whose layers are not ported: they parse, so that
-# they are refused by name
+# flags of the JAX CLI whose layers are not carried over: they parse, so
+# that they are refused by name
 _UNPORTED = {
-    "mesh": "mesh-sharded calibration (repro.launch.mesh, repro.core"
-            ".calibrate.CalibrationEngine(mesh=); ROADMAP Queue 1 item 2)",
-    "calib_sharded": "mesh-sharded calibration (repro.core.calibrate"
-                     ".CalibrationEngine(mesh=); ROADMAP Queue 1 item 2)",
     "gram_tiles": "the TPU gram autotuner (repro.kernels.gram.autotune), "
                   "which is not carried over: the CUDA kernel's 128x128 "
                   "tiles are fixed",
@@ -121,26 +136,61 @@ def parse_args(argv=None):
                     help="fraction of WHOLE routed experts to remove (MoE "
                          "archs): their contributions are ridge-folded "
                          "into a residual map of the block input")
-    # not ported: parsed so that main() refuses them by name
     ap.add_argument("--mesh", default=None,
-                    help="not ported (mesh-sharded calibration)")
-    ap.add_argument("--calib-sharded", action="store_true", default=None,
-                    help="not ported (mesh-sharded calibration)")
+                    help="mesh shape 'DxM' (data x model) or 'PxDxM': the "
+                         "pipeline runs on that many ranks")
+    ap.add_argument("--calib-sharded", action="store_true",
+                    help="shard the calibration statistics over --mesh: "
+                         "column blocks over the model axis, batch rows "
+                         "over the data axes (requires --mesh)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the --mesh ranks "
+                         "(default nccl for cuda, one card a rank; gloo for "
+                         "cpu, or for several ranks on one card)")
+    # not carried over: parsed so that it is refused by name
     ap.add_argument("--gram-tiles", default=None,
-                    help="not ported (the TPU gram autotuner's tiles)")
-    return ap.parse_args(argv)
-
-
-def main(argv=None) -> dict:
-    """Run the CLI; returns the dense and pruned params, configs and the
-    report, for callers that drive it in-process."""
-    args = parse_args(argv)
+                    help="not carried over (the TPU gram autotuner's tiles)")
+    args = ap.parse_args(argv)
     for flag, layer in _UNPORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} needs {layer}, which is not "
-                f"ported to repro_torch yet")
-    device = resolve_device(args.device)
+                f"ported to repro_torch")
+    if args.calib_sharded and not args.mesh:
+        ap.error("--calib-sharded requires --mesh")
+    return args
+
+
+def main(argv=None):
+    """Run the CLI; returns the dense and pruned params, configs and the
+    report, for callers that drive it in-process. With ``--mesh`` the ranks
+    are spawned and it returns None (under torchrun: this rank's result)."""
+    args = parse_args(argv)
+    if not args.mesh:
+        return _run(args, resolve_device(args.device))
+    shape = parse_shape(args.mesh)
+    world = math.prod(shape)
+    backend = args.dist_backend or default_backend(args.device)
+    check_backend(backend, host_ranks(world), args.device)
+    if resolve_device(args.device).type == "cuda" and not joined():
+        from repro_torch.kernels import _build
+        _build.library()        # once, before the spawned ranks load it
+    return launch(_mesh_rank, world, backend=backend, device=args.device,
+                  args=(args, shape))
+
+
+def _mesh_rank(device, args, shape):
+    """One rank of a ``--mesh`` run."""
+    mesh = make_mesh(shape, device_type=device.type)
+    shard = CalibSharding(mesh) if args.calib_sharded else None
+    first = not any(mesh.get_coordinate())
+    return _run(args, device, shard, first)
+
+
+def _run(args, device, shard=None, first=True) -> dict:
+    """The pipeline on ``device``; ``shard`` shards its statistics, and
+    only the ``first`` rank prints and writes."""
+    say = print if first else (lambda *a, **k: None)
     cfg = resolve_config(args.arch)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device=device)
@@ -151,7 +201,7 @@ def main(argv=None) -> dict:
         # train checkpoints hold (params, opt_state): restore the params
         params, _ = restore_checkpoint(args.ckpt_in, last, params,
                                        prefix="0/")
-        print(f"[prune] loaded step {last} from {args.ckpt_in}")
+        say(f"[prune] loaded step {last} from {args.ckpt_in}")
     pc = PruneConfig(
         mlp_sparsity=(args.mlp_sparsity if args.mlp_sparsity is not None
                       else args.sparsity),
@@ -167,12 +217,17 @@ def main(argv=None) -> dict:
                           seq=args.calib_seq, device=device)
     t0 = time.time()
     new_params, new_cfg, report = corp_prune(
-        model, params, stream, pc, progress=print, ckpt_dir=args.calib_ckpt,
+        model, params, stream, pc, progress=say, ckpt_dir=args.calib_ckpt,
         ckpt_every=args.calib_ckpt_every, stats_dtype=args.stats_dtype,
-        one_traversal=args.one_traversal, spec_margin=args.spec_margin)
+        one_traversal=args.one_traversal, spec_margin=args.spec_margin,
+        mesh=shard)
     dt = time.time() - t0
     timing = ", ".join(f"{k} {v:.3f}s" for k, v in report["timing"].items())
-    print(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
+    if shard is not None:
+        say(f"[prune] mesh {args.mesh} {shard.axis_names}, statistics "
+            f"sharded over {math.prod(shard.shape)} ranks; parameter "
+            f"checksums: {json.dumps(report['checksums'])}")
+    say(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
           f"d_ff {cfg.d_ff} -> {new_cfg.eff_d_ff}, "
           + (f"dense d_ff {cfg.dense_d_ff} -> {new_cfg.eff_dense_d_ff}, "
              if cfg.dense_d_ff else "")
@@ -183,12 +238,12 @@ def main(argv=None) -> dict:
              if cfg.mamba is not None else ""))
     if "speculative" in report:
         sp = report["speculative"]
-        print(f"[prune] one-traversal: {report['traversals']} traversal(s), "
+        say(f"[prune] one-traversal: {report['traversals']} traversal(s), "
               f"margin {sp['margin']}, {len(sp['hits'])} hit / "
               f"{len(sp['misses'])} miss"
               + (f" (re-passed: {', '.join(sp['misses'])})"
                  if sp["misses"] else ""))
-    if args.out:
+    if args.out and first:
         save_checkpoint(args.out, 0, new_params,
                         extra={"config": new_cfg.name,
                                "mlp_sparsity": pc.mlp_sparsity,
@@ -197,7 +252,7 @@ def main(argv=None) -> dict:
         with open(os.path.join(args.out, "report.json"), "w") as f:
             json.dump({u: {k: v.tolist() for k, v in d.items()}
                        for u, d in report["units"].items()}, f, indent=1)
-        print(f"[prune] saved to {args.out}")
+        say(f"[prune] saved to {args.out}")
     return {"model": model, "params": params, "pruned_params": new_params,
             "pruned_cfg": new_cfg, "report": report}
 

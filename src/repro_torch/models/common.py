@@ -203,6 +203,28 @@ def expert_taps_on() -> bool:
     return _EXPERT_TAPS
 
 
+_ROW_SHARE = None
+
+
+@contextlib.contextmanager
+def row_share(lo: int, hi: int, total: int):
+    """The forward inside runs rows [lo, hi) of a batch of ``total`` rows:
+    a rank's share under sharded calibration. A layer whose result for a
+    row depends on the other rows, routed MoE's capacity, reads it
+    (``row_share_of``) to route as the whole batch would, or to raise."""
+    global _ROW_SHARE
+    prev, _ROW_SHARE = _ROW_SHARE, (lo, hi, total)
+    try:
+        yield
+    finally:
+        _ROW_SHARE = prev
+
+
+def row_share_of():
+    """``(lo, hi, total)`` inside ``row_share``, else None."""
+    return _ROW_SHARE
+
+
 def tap(taps: dict | None, name: str, value):
     """Record an intermediate activation; ``taps`` is None when not taping."""
     if taps is not None:

@@ -15,7 +15,7 @@ import math
 import torch
 
 from repro_torch.models.common import (activation, dense_init, dtype_of,
-                                       expert_taps_on, tap)
+                                       expert_taps_on, row_share_of, tap)
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
@@ -101,14 +101,44 @@ def init_moe(gen: torch.Generator, cfg):
     return p
 
 
-def _group_tokens(x, target: int = 2048):
-    """(B, T, D) -> (G, tg, D) with tg <= target dividing B*T."""
-    B, T, D = x.shape
-    n = B * T
+def _group_size(n: int, target: int = 2048) -> int:
+    """The routing-group size of n tokens: the largest divisor of n that
+    is at most ``target``."""
     tg = min(target, n)
     while n % tg:
         tg -= 1
-    return x.reshape(n // tg, tg, D)
+    return tg
+
+
+def _group_tokens(x, cfg):
+    """(B, T, D) -> (G, tg, D) routing groups, tg <= 2048 dividing B*T.
+
+    Inside ``common.row_share`` (x holds rows [lo, hi) of a batch of
+    ``total``: a rank's share under sharded calibration) the groups are the
+    whole batch's, so that every (token, k) pair takes its slot, or is
+    dropped, as in the whole batch; the share must then be whole groups of
+    it. A share that is not is routed on its own groups only where no
+    expert can overflow at either size (the capacity holds a whole group),
+    which gives every token what the whole batch gives it; else it raises
+    before routing."""
+    B, T, D = x.shape
+    tg = _group_size(B * T)
+    share = row_share_of()
+    if share is not None:
+        lo, hi, total = share
+        whole = _group_size(total * T)
+        if (lo * T) % whole == 0 and (hi * T) % whole == 0:
+            tg = whole
+        elif capacity(whole, cfg) < whole or capacity(tg, cfg) < tg:
+            rows = whole // math.gcd(whole, T)
+            raise ValueError(
+                f"routed MoE under a row split: rows [{lo}, {hi}) of a "
+                f"{total}-row batch ({T} tokens a row) cut its routing "
+                f"groups of {whole} tokens, and an expert's "
+                f"{capacity(whole, cfg)} slots a group can overflow, so "
+                f"the share would drop other tokens than the whole batch; "
+                f"give each batch rank a multiple of {rows} rows")
+    return x.reshape(B * T // tg, tg, D)
 
 
 def capacity(tg: int, cfg) -> int:
@@ -134,7 +164,7 @@ def apply_moe(p, x, cfg, taps=None):
     E, K = cfg.eff_num_experts, m.top_k
     B, T, D = x.shape
     dt = x.dtype
-    xg = _group_tokens(x)
+    xg = _group_tokens(x, cfg)
     G, tg, _ = xg.shape
     C = capacity(tg, cfg)
 

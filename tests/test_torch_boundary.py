@@ -36,6 +36,8 @@ def _port_files():
         for n in names:
             if n.endswith(".py"):
                 yield os.path.join(dirpath, n)
+    # the sharded tests' rank code runs in spawned ranks, as the port does
+    yield os.path.join(ROOT, "tests", "torch_dist_parity.py")
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
@@ -119,8 +121,8 @@ def test_unported_paths_raise():
     """Every model of the JAX package is ported: the enc-dec
     ``seamless-m4t-large-v2`` resolves in both packages, full and
     reduced, to equal configs (as deepseek-v3-671b and
-    jamba-1.5-large-398b do); mesh-sharded calibration still refuses by
-    name."""
+    jamba-1.5-large-398b do); the TPU autotuner's ``--gram-tiles`` and
+    mesh-sharded serving's ``--mesh-shape`` still refuse by name."""
     arch = "seamless-m4t-large-v2"
     for name in (arch, arch + "-reduced"):
         got = pt_configs.resolve_config(name)
@@ -133,9 +135,12 @@ def test_unported_paths_raise():
         jax_configs.reduced(jax_configs.get_config(arch)))
     assert set(jax_configs.ARCH_IDS) \
         == set(pt_configs.LM_IDS + pt_configs.ENCDEC_IDS)
-    with pytest.raises(NotImplementedError, match="--mesh"):
+    with pytest.raises(NotImplementedError, match="--gram-tiles"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
-                       "--mesh", "2x2"])
+                       "--gram-tiles", "128,512"])
+    with pytest.raises(NotImplementedError, match="--mesh-shape"):
+        pt_serve.main(["--arch", "qwen2-1.5b-reduced", "--device", "cpu",
+                       "--mesh-shape", "1x2"])
 
 
 def test_cli_checkpoint_restores_into_jax(tmp_path):

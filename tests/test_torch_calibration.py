@@ -498,15 +498,25 @@ def test_cli_parses_every_new_flag():
                                               "float32")
 
 
-@pytest.mark.parametrize("flag", [["--calib-sharded", "--gram-tiles",
-                                   "128,512"],
-                                  ["--mesh", "2x2"], ["--calib-sharded"],
-                                  ["--gram-tiles", "128,512"]])
-def test_cli_refuses_unported_flags_by_name(flag):
-    """Each unported flag is refused by name; of two, the first."""
-    with pytest.raises(NotImplementedError, match=flag[0]):
+@pytest.mark.parametrize("flag", [
+    (["--calib-sharded", "--gram-tiles", "128,512"], NotImplementedError,
+     "--gram-tiles"),
+    (["--mesh", "2x2", "--device", "cuda"], RuntimeError,
+     "--dist-backend gloo"),
+    (["--calib-sharded"], SystemExit, "--calib-sharded requires --mesh"),
+    (["--gram-tiles", "128,512"], NotImplementedError, "--gram-tiles")])
+def test_cli_refuses_unported_flags_by_name(flag, capsys):
+    """``--gram-tiles`` (the TPU autotuner's, not carried over) is refused
+    by name, also beside ``--calib-sharded``; ``--calib-sharded`` without
+    ``--mesh`` is JAX's argparse error; ``--mesh`` on nccl (the CUDA
+    default) with more ranks than cards (none here) raises and names
+    ``--dist-backend gloo``: nothing falls back."""
+    args, error, match = flag
+    with pytest.raises(error, match=None if error is SystemExit else match):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
-                       *flag])
+                       *args])
+    if error is SystemExit:
+        assert match in capsys.readouterr().err
 
 
 def test_cli_one_traversal_bf16_checkpointed_run(tmp_path, capsys):

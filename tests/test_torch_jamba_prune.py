@@ -216,9 +216,9 @@ def test_chunked_expert_moments_equal_one_launch(s, monkeypatch):
     calls = []
     orig = stats_mod._masked_moments
 
-    def counted(h, mask):
+    def counted(h, mask, *shard):
         calls.append(h.shape[0])
-        return orig(h, mask)
+        return orig(h, mask, *shard)
     monkeypatch.setattr(stats_mod, "_masked_moments", counted)
     monkeypatch.setattr(stats_mod, "_MOE_WHOLE", 0)
     monkeypatch.setattr(stats_mod, "_MOE_CHUNK", 128 * 128 * 4)

@@ -7,6 +7,8 @@ decides at run time). On a machine with one:
 """
 from __future__ import annotations
 
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -121,6 +123,33 @@ def test_gram_cross_kernel_at_the_bgram_shape(dev, dtype, tol):
     s1 = x.double().sum(dim=-2)
     rel1 = (got["s1"].double() - s1).abs().max() / s1.abs().max()
     assert rel1 <= tol, rel1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_cross_on_a_column_block_equals_those_columns_of_gram(dev,
+                                                                   dtype):
+    """``gram_sharded``'s launch on the [calib sharded] path: a rank's 8 of
+    16 images (12 layers, 1576 tokens, d_ff 3072) against its 1536-column
+    block, a strided view of the same tensor (no copy), equals those
+    columns of ``gram`` on the whole: both sum exact fp32 products in fp32,
+    in another order."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(12, 1576, 3072, generator=g, device=dev).to(dtype)
+    whole = gram_ops.gram(x)
+    for j in range(2):
+        lo, hi = 1536 * j, 1536 * (j + 1)
+        shard = types.SimpleNamespace(model_size=2,
+                                      block=lambda F, lo=lo, hi=hi: (lo, hi))
+        before = gram_ops.launches_by["gram_cross", str(dtype)[6:]]
+        got = gram_ops.gram_sharded(x, shard)
+        assert gram_ops.launches_by["gram_cross", str(dtype)[6:]] \
+            == before + 1
+        want = whole["s2"][..., lo:hi]
+        assert got["s2"].shape == (12, 3072, 1536)
+        rel = (got["s2"] - want).abs().max() / want.abs().max()
+        assert rel <= 1e-5, (j, rel)
+        torch.testing.assert_close(got["s1"], whole["s1"][..., lo:hi],
+                                   rtol=1e-5, atol=1e-3)
 
 
 def test_gram_kernel_bf16_at_the_main_path_shape(dev):
