@@ -42,14 +42,14 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      reduced DeiT the same pruned output on the GPU as on the CPU's plain
      path; then profiles one prune;
   4. serve path: serves a ragged trace of 16 requests with Qwen2-1.5B at
-     full width (seeded random bf16 weights) through
+     full width and 4 of its 28 layers (seeded random bf16 weights) through
      ``repro_torch.launch.serve`` and the continuous-batching engine,
      counting the kernels' launches in that run; profiles 20 shared decode
      steps (with the decode kernel's device time a call); checks at full
      width in fp32 that teacher-forced prefill + decode logits equal one
      full forward, and on a reduced Qwen2 that the engine's token streams
      on the GPU equal the CPU plain path's; then the serving front-end at
-     full width and depth (``[serve frontend]``: 16 requests sharing a
+     full width and 4 layers (``[serve frontend]``: 16 requests sharing a
      384-token prompt through ``launch.serve`` with a prefix cache of 8, a
      queue of 4 and a deadline mix: one terminal status each, every admit
      after the first a prefix hit, the attention kernels' launches equal
@@ -61,9 +61,25 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      engine's, also when replica 1 is killed after its 4th decode step,
      with exact launch counts over both threads and the re-prefills'
      top-1/top-2 logit margins printed);
-  5. recurrent serve path: the same for RWKV6-3B at full width under the
-     recurrent slot-cache contract (every prefill and decode step runs the
-     ``wkv6`` kernel once per layer), with its slot bytes at two max_len;
+  5. recurrent serve path: the same for RWKV6-3B at full width and 4 of
+     its 32 layers under the recurrent slot-cache contract (every prefill
+     and decode step runs the ``wkv6`` kernel once per layer), with its
+     slot bytes at two max_len; then sharded serving (``[serve sharded]``):
+     ``--mesh-shape 1x4`` on Qwen2-1.5B (2 kv heads) refused with
+     ``shard_ineligible`` before any weights load, the three kernels of
+     the path against their plain versions at a rank's shapes (6/1 heads;
+     wkv6 at 10 and 20 heads), and one launch of four ``gloo`` ranks
+     sharing the card: Qwen2-1.5B in fp32 at full width and depth as a
+     2 data x 2 model mesh, then RWKV6-3B likewise as 1 x 4, 8 requests
+     each through the front-end with the model axis' collectives through
+     shared memory, gated on streams token-identical to the single-device
+     engine's on the same seeded weights, first-step logits within 1e-4,
+     each rank's parameter bytes equal to its spec blocks and cache bytes
+     to ``device_bytes_estimate``, every kernel of the path launched on
+     every rank; a rank's decode step and its share in collectives are
+     printed; beside them the serve CLI's ``--serve-sharded --mesh-shape
+     2x2 --dist-backend gloo`` (bf16, gloo collectives) serves 4 requests
+     and prints its per-device cache line;
   6. LM pruning: ``gram``, ``flash_attention``, ``wkv6`` and
      ``flash_decode`` against their plain versions at the shapes of the LM
      prune and pruned-serve paths (``[kernels lm prune]``); CORP of
@@ -175,11 +191,13 @@ fp32 product is full fp32.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -197,10 +215,13 @@ PEAK_BYTES = 3.35e12
 
 MAIN = dict(arch="deit-base", sparsity=0.5, calib=128, calib_batch=16)
 # 16 requests, the weights drawn on the card: the script's time limit is
-# shared with every later model's phases
-SERVE = ["--arch", "qwen2-1.5b", "--trace", "16", "--slots", "8",
-         "--max-len", "1024", "--prompt-range", "64,512",
-         "--gen-range", "32,256", "--init-on-device"]
+# shared with every later model's phases. Served at 4 of Qwen2's 28 and of
+# RWKV's 32 layers (cut for [serve sharded]'s time: their gates hold at
+# any depth); the pruned models serve whole (SERVE_BASE)
+SERVE_BASE = ["--arch", "qwen2-1.5b", "--trace", "16", "--slots", "8",
+              "--max-len", "1024", "--prompt-range", "64,512",
+              "--gen-range", "32,256", "--init-on-device"]
+SERVE = SERVE_BASE[:2] + ["--n-layers", "4"] + SERVE_BASE[2:]
 SERVE_REDUCED = ["--arch", "qwen2-1.5b-reduced", "--trace", "12",
                  "--slots", "3", "--max-len", "96", "--prompt-range", "8,24",
                  "--gen-range", "4,16"]
@@ -1705,7 +1726,7 @@ SERVE_FRONTEND = ["--arch", "qwen2-1.5b", "--trace", "16", "--slots", "8",
                   "--gen-range", "16,64", "--prefix-cache", "8",
                   "--prefix-len", "384", "--queue-depth", "4",
                   "--deadline-ms", "500,4000", "--deadline-frac", "0.5",
-                  "--init-on-device"]
+                  "--init-on-device", "--n-layers", "4"]     # 4 of 28
 # in process, fp32: 8 requests sharing a 128-token prompt, two replicas of 4
 # slots with prefix-affinity routing against one engine of 4 slots
 FLEET = dict(n=8, prefix_len=128, prompt_range=(4, 16), gen_range=(16, 32),
@@ -2102,7 +2123,7 @@ LM_SHAPES = dict(gram=(28, 4096, 8960), attn=(8, 512, 12, 2, 128),
                  wkv=(8, 512, 40, 64), decode=(8, 1024, 12, 2, 64, 128))
 # 8 requests; the checkpoint overwrites every drawn leaf
 PRUNED_SERVE = ["--arch", "qwen2-1.5b", "--sparsity", "0.5", "--trace",
-                "8"] + SERVE[4:]
+                "8"] + SERVE_BASE[4:]
 # gemma3-1b: sequences longer than its 512-token window, which masks
 # nothing at T <= 512 (64 x 1024 = 65,536 calibration tokens, Qwen2's
 # 128 x 512)
@@ -2112,6 +2133,448 @@ GEMMA_SERVE = ["--arch", "gemma3-1b", "--trace", "16", "--slots", "8",
                "--gen-range", "32,256", "--init-on-device"]
 GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
                                         "8"] + GEMMA_SERVE[4:]
+
+
+
+# [serve sharded]: four gloo ranks share the card in one launch: Qwen2-1.5B
+# at full width and depth as 2 data x 2 model, then RWKV6-3B at full width
+# and depth as 1 x 4 (the model axis alone), fp32, 8 requests through the
+# front-end each; ranks that share the card reduce through shared memory
+# (serve.sharding.shares_card; a gloo collective between them costs
+# 0.9-13 ms, PERF.md §5), and the first request's prefill is run once more
+# over the model group's gloo collectives. The serve CLI's --serve-sharded
+# beside them (bf16, short requests, its weights drawn on the host and
+# only each rank's blocks placed on the card)
+SERVE_SHARDED = dict(
+    cases=(dict(tag="qwen2", arch="qwen2-1.5b", mesh=(2, 2),
+                kernels=("flash_attention", "flash_decode")),
+           dict(tag="rwkv", arch="rwkv6-3b", mesh=(1, 4),
+                kernels=("wkv6",))),
+    requests=8, prompts=(64, 256), gens=(16, 32), slots=8, max_len=320,
+    seed=5, tol=1e-4)
+SERVE_SHARDED_CLI = ["--arch", "qwen2-1.5b", "--trace", "4",
+                     "--serve-sharded", "--mesh-shape", "2x2",
+                     "--dist-backend", "gloo", "--prompt-range", "8,24",
+                     "--gen-range", "4,12"]
+# the caching allocator may keep, past a block's bytes, under this much of
+# its segment's rounding with it (a block of 10 MB or more takes a segment
+# rounded to 2 MiB and keeps a remainder of 1 MiB or less): a rank's set-up
+# is held to its blocks plus this much a leaf
+LEAF_SLACK = 1 << 20
+
+
+def spec_bytes(params, specs, sizes):
+    """Bytes of a rank's blocks of ``params`` by ``specs``, from the whole
+    leaves' sizes: each over the product of the axis sizes it is split
+    over."""
+    from repro_torch.interop import flatten
+    sp = flatten(specs)
+    total = 0
+    for path, t in flatten(params).items():
+        den = math.prod(sizes[a] for a in sp[path] if a is not None)
+        total += t.numel() * t.element_size() // den
+    return total
+
+
+def _drive(eng, sharding, fn):
+    """Run ``fn`` on the lead, which posts its device operations, while
+    the other ranks follow them; then release them."""
+    if sharding.lead:
+        fn()
+        eng.stop()
+    else:
+        eng.follow()
+
+
+def serve_sharded_case(device, case):
+    """One case of ``serve_sharded_rank`` on this rank; returns its
+    record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import resolve_config
+    from repro_torch.distrib.sharding import param_specs
+    from repro_torch.interop import flatten
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import TensorParallel
+    from repro_torch.serve import (Request, ServeFrontend, cache_bytes,
+                                   synthetic_trace)
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sharding import (ServeSharding,
+                                            device_bytes_estimate)
+    S = SERVE_SHARDED
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = resolve_config(case["arch"]).replace(dtype="float32")
+    model = build_model(cfg)
+    sh = ServeSharding(make_mesh(case["mesh"], device_type=device.type))
+    t0 = time.time()
+    # the single-device engine's weights, drawn on the card (a host draw of
+    # 3 G values takes ~30 s a rank), one whole tree at a time; the serve
+    # CLI draws on the host and places only the blocks
+    for r in range(world):
+        if r == rank:
+            full = model.init(torch.Generator(device=device).manual_seed(0),
+                              device=device)
+            blocks = sh.take_params(full)
+            # JAX's rule, whose per-rank element counts forward_specs keeps
+            want_params = spec_bytes(full, param_specs(full, sh.sizes),
+                                     sh.sizes)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier(group=sh.control)
+    rec = {"rank": rank, "coords": sh.coords, "draw_s": time.time() - t0,
+           "transport": sh.transport, "layers": cfg.n_layers}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, blocks, n_slots=S["slots"],
+                      max_len=S["max_len"], sharding=sh)
+    del blocks
+    sc = eng.slotcache
+    rec.update(param_bytes=cache_bytes(eng.params), want_params=want_params,
+               cache_bytes=cache_bytes(sc.cache),
+               blank_bytes=cache_bytes(sc._blank),
+               cache_leaves=len(flatten(sc.cache)) + len(flatten(sc._blank)),
+               param_leaves=len(flatten(eng.params)),
+               cache_peak=eng.rank_setup_peak[rank] - base,
+               want_cache=device_bytes_estimate(sc._meta, sc.specs, sh),
+               unsharded_cache=eng.cache_bytes)
+    trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
+                            prompt_range=S["prompts"], gen_range=S["gens"])
+    def warm():     # one 9-token request: a prefill, a walk, a step
+        eng.begin()
+        eng.admit(Request(rid=-1, tokens=np.zeros(9, np.int32), gen=2), 0)
+        eng.decode_step()
+        eng.retire(0)
+        eng.reset()
+    _drive(eng, sh, warm)
+    torch.cuda.synchronize()
+    reset_launches()
+    eng.tp.timed = True         # the collectives' seconds, after a sync
+    dist.barrier(group=sh.control)
+
+    def serve():
+        posted, post = [], sh.post
+
+        def log_post(op, slot=-1, *args):     # each device operation
+            posted.append((op, sc.owner(slot) if slot >= 0 else -1))
+            return post(op, slot, *args)
+        sh.post = log_post
+        t1 = time.time()
+        handles = ServeFrontend(eng, queue_depth=len(trace)).run(trace)
+        rec["trace_s"] = time.time() - t1
+        sh.post = post
+        rec["posted"] = posted
+        rec["streams"] = {h.rid: [int(t) for t in h.tokens]
+                          for h in handles}
+        rec["stats"] = dict(eng.stats)
+    _drive(eng, sh, serve)
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    rec["coll_s"], rec["colls"] = eng.tp.coll_s, eng.tp.calls
+    eng.tp.timed = False
+    # the first request's prefill logits, the rank's vocab blocks gathered:
+    # through the shared memory the engine took, and through the model
+    # group's gloo collectives (the transport of ranks on cards of their
+    # own), on the card
+    toks = torch.from_numpy(trace[0].tokens[None]).to(device)
+    group = TensorParallel(sh.model_group, sh.model_index, sh.model_size)
+    for key, tp in (("logits", eng.tp), ("logits_group", group)):
+        t1 = time.time()
+        logits, _ = model.prefill(eng.params, {"tokens": toks},
+                                  S["max_len"], tp=tp)
+        rec[key] = tp.all_gather(logits[:, -1], -1)[0].cpu()
+        torch.cuda.synchronize()
+        rec[key + "_s"] = time.time() - t1
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_sharded_rank(device, out_dir):
+    """One rank of ``[serve sharded]``: each case of ``SERVE_SHARDED`` on
+    the four ranks (a mesh a case): the rank cuts its blocks of the seeded
+    weights (drawn on the card, one rank at a time), the lead serves the
+    trace through the front-end while the others follow, its kernels'
+    launches are counted and its collectives timed from the trace's start
+    to its end, and the first request's prefill logits are gathered.
+    Writes ``rank<r>.pt`` for the phase to gate."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {case["tag"]: serve_sharded_case(device, case)
+            for case in SERVE_SHARDED["cases"]}
+    torch.save(recs, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+
+
+def serve_sharded_reference(dev, case):
+    """The single-device engine on the same seeded weights and trace:
+    its streams and the first request's prefill logits."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeFrontend, synthetic_trace
+    from repro_torch.serve.engine import ServeEngine
+    S = SERVE_SHARDED
+    cfg = resolve_config(case["arch"]).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
+                            prompt_range=S["prompts"], gen_range=S["gens"])
+    eng = ServeEngine(model, params, n_slots=S["slots"],
+                      max_len=S["max_len"])
+    eng.warmup(prompt_lens=[len(r.tokens) for r in trace])
+    t0 = time.time()
+    handles = ServeFrontend(eng, queue_depth=len(trace)).run(trace)
+    wall = time.time() - t0
+    toks = torch.from_numpy(trace[0].tokens[None]).to(dev)
+    logits = model.prefill(params, {"tokens": toks}, S["max_len"])[0]
+    out = {"streams": {h.rid: [int(t) for t in h.tokens] for h in handles},
+           "logits": logits[0, -1].cpu(), "trace_s": wall,
+           "step_ms": 1e3 * eng.stats["decode_s"]
+           / max(1, eng.stats["decode_steps"])}
+    del eng, params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded_kernels(dev):
+    """The three kernels of the path against their plain versions at the
+    shapes a rank gives them: Qwen2's 6/1 heads a rank (a 256-token
+    prefill, 8 slots of decode over 320 rows), RWKV's 10 heads a rank at
+    m = 4 and 20 at m = 2 (a 248-token prefill, 8 slots of decode)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q, k, v = randn(1, 256, 6, 128), randn(1, 256, 1, 128), \
+        randn(1, 256, 1, 128)
+    check_attention(q, k, v, True, None, 128 ** -0.5, "rank 6/1 T 256")
+    S = SERVE_SHARDED["max_len"]
+    lens = torch.tensor([64 + 30 * i for i in range(8)], device=dev)
+    valid = torch.arange(S, device=dev)[None] < lens[:, None]
+    check_decode(randn(8, 6, 128), randn(8, S, 1, 128), randn(8, S, 1, 128),
+                 valid, "rank 6/1 8 slots", 1e-4)
+    for H in (10, 20):
+        for B, T, state in ((1, 248, None), (8, 1, randn(8, H, 64, 64))):
+            r, kk, vv = (randn(B, T, H, 64) for _ in range(3))
+            w = 0.35 + 0.6 * torch.sigmoid(randn(B, T, H, 64))
+            check_wkv6(r, kk, vv, w, 0.1 * randn(H, 64), state,
+                       f"rank {H} heads T {T}")
+
+
+def serve_sharded_phase(dev):
+    """``[serve sharded]``: (d) ``--mesh-shape 1x4`` on Qwen2-1.5B (2 kv
+    heads) refused before any weights load; then (c) the serve CLI's
+    ``--serve-sharded --mesh-shape 2x2 --dist-backend gloo`` as a
+    subprocess and (a, b) the four ranks of ``serve_sharded_rank`` from a
+    thread, while this thread runs the single-device engine for each case
+    (its streams and first logits) and the kernels at a rank's shapes.
+    Gates: streams token-identical to the
+    single-device engine's, first-step logits within 1e-4 (relative
+    Frobenius) through shared memory and through the model group's gloo
+    collectives, each rank's cache bytes equal to
+    ``device_bytes_estimate`` and its parameter bytes to the sum of its
+    blocks by ``param_specs`` (JAX's rule), its cache built within its
+    blocks and one empty slot, its ranks on shared memory, each kernel's
+    exact launches on each rank (layers times the prefills and walk steps
+    of its data index' slots and the decode steps), the CLI's run done
+    with its per-device line and each CLI rank's set-up peak on the card
+    within its blocks. Times are of four ranks on one card: they say
+    nothing of scaling. Returns the trace's launches, summed over the
+    ranks."""
+    import shutil
+    import torch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import launch
+    from repro_torch.serve.errors import msg
+    S = SERVE_SHARDED
+    t0, before = time.time(), torch.cuda.memory_allocated()
+    refused = None
+    try:
+        serve_cli.main(SERVE_SHARDED_CLI[:4] + [
+            "--serve-sharded", "--mesh-shape", "1x4", "--dist-backend",
+            "gloo"])
+    except ValueError as e:
+        refused = str(e)
+    want = msg("shard_ineligible", name="qwen2-1.5b", leaf="k", m=4)
+    print(f"[serve sharded] --mesh-shape 1x4 on qwen2-1.5b: {refused!r} in "
+          f"{time.time() - t0:.3f} s, {torch.cuda.memory_allocated() - before}"
+          f" B allocated")
+    if refused != want or torch.cuda.memory_allocated() != before:
+        fail("[serve sharded] a 1x4 mesh on Qwen2-1.5B was not refused "
+             "before its weights loaded")
+    out_dir = OUT + "_serve_sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    print(f"[serve sharded] python -m repro_torch.launch.serve "
+          f"{' '.join(SERVE_SHARDED_CLI)}, beside the engine's ranks")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t1 = time.time()
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve",
+                            *SERVE_SHARDED_CLI], env=env, cwd=ROOT,
+                           text=True, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE)
+    done = {}
+
+    def drain():
+        done["out"], done["err"] = cli.communicate()
+        done["wall"] = time.time() - t1
+    reader = threading.Thread(target=drain)
+    reader.start()
+    ranks = {}
+
+    def run_ranks():
+        try:
+            launch(serve_sharded_rank, 4, backend="gloo", device=dev.type,
+                   args=(out_dir,))
+        except BaseException as e:      # re-raised below, in this thread
+            ranks["error"] = e
+        ranks["wall"] = time.time() - t1
+    runner = threading.Thread(target=run_ranks)
+    runner.start()
+    refs = {}
+    try:
+        # the single-device references and the kernels at a rank's shapes
+        # run here while the ranks start and serve
+        for case in S["cases"]:
+            t2 = time.time()
+            refs[case["tag"]] = serve_sharded_reference(dev, case)
+            print(f"[serve sharded] {case['arch']} single device, fp32 "
+                  f"(beside the ranks): trace "
+                  f"{refs[case['tag']]['trace_s']:.3f} s, "
+                  f"{refs[case['tag']]['step_ms']:.2f} ms a decode step; "
+                  f"reference wall {time.time() - t2:.3f} s")
+        serve_sharded_kernels(dev)
+        torch.cuda.empty_cache()
+    finally:
+        runner.join()
+        reader.join(timeout=600)
+        if cli.poll() is None:
+            cli.kill()
+        reader.join()
+    if "error" in ranks:
+        raise ranks["error"]
+    wall = ranks["wall"]
+    recs = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+            for r in range(4)]
+    launches = {}
+    for case in S["cases"]:
+        tag, ref = case["tag"], refs[case["tag"]]
+        lead = recs[0][tag]
+        err = rel_err(lead["logits"].float(), ref["logits"].float())
+        same = lead["streams"] == ref["streams"]
+        st = lead["stats"]
+        prefills = sum(v for k, v in st.items() if k.startswith("prefill_b"))
+        print(f"[serve sharded] {case['arch']} fp32 on a {case['mesh']} "
+              f"(data x model) mesh of 4 gloo ranks on one card, "
+              f"model-axis collectives through shared memory, each timed "
+              f"after a device sync: trace {lead['trace_s']:.3f} s, "
+              f"{1e3 * st['decode_s'] / max(1, st['decode_steps']):.2f} ms "
+              f"a decode step ({st['decode_steps']} steps; single device "
+              f"{ref['step_ms']:.2f}), "
+              f"{1e3 * st['prefill_s'] / max(1, prefills):.2f} ms a prefill,"
+              f" {st.get('walk_steps', 0)} walk steps; the "
+              f"lead's {lead['colls']} collectives took {lead['coll_s']:.3f}"
+              f" s, {100 * lead['coll_s'] / lead['trace_s']:.1f}% of the "
+              f"trace; streams equal to the single device's: {same}; "
+              f"first-step logits relative error {err:.3e} (tol "
+              f"{S['tol']:g})")
+        if not same:
+            fail(f"[serve sharded] {tag}: streams differ from the single "
+                 f"device's")
+        if not err <= S["tol"]:
+            fail(f"[serve sharded] {tag}: first-step logits {err:.3e} from "
+                 f"the single device's")
+        err_g = rel_err(lead["logits_group"].float(), ref["logits"].float())
+        gap = (lead["logits_group"] - lead["logits"]).abs().max().item()
+        print(f"[serve sharded] {tag} first-request prefill over the model "
+              f"group's gloo collectives: {lead['logits_group_s']:.3f} s "
+              f"(shared memory {lead['logits_s']:.3f}), logits relative "
+              f"error {err_g:.3e}, max gap to shared memory's {gap:.3e}")
+        if not err_g <= S["tol"]:
+            fail(f"[serve sharded] {tag}: the gloo group's first-step "
+                 f"logits {err_g:.3e} from the single device's")
+        # each rank's exact launches: a layer's kernel in every prefill and
+        # walk step of the slots its data index holds, and in every decode
+        # step
+        ops = collections.Counter(lead["posted"])
+        for r, rec in enumerate(recs):
+            rec = rec[tag]
+            d, L = rec["coords"].get("data", 0), rec["layers"]
+            pre, walk = ops[("prefill", d)], ops[("walk", d)]
+            dec = sum(n for (op, _), n in ops.items() if op == "decode")
+            want = {k: 0 for k in rec["launches"] if " " not in k}
+            if "wkv6" in case["kernels"]:
+                want["wkv6"] = L * (pre + walk + dec)
+            else:
+                want.update(flash_attention=L * pre,
+                            flash_decode=L * (walk + dec))
+            got = {k: rec["launches"][k] for k in want}
+            print(f"[serve sharded] {tag} rank {r} {rec['coords']} "
+                  f"({rec['transport']} collectives): params "
+                  f"{rec['param_bytes']} B (JAX's spec blocks "
+                  f"{rec['want_params']}), cache {rec['cache_bytes']} B "
+                  f"(estimate {rec['want_cache']}, unsharded "
+                  f"{rec['unsharded_cache']}), the cache's set-up peak "
+                  f"{rec['cache_peak']} B (blocks and one empty slot "
+                  f"{rec['cache_bytes'] + rec['blank_bytes']}), draw and "
+                  f"cut {rec['draw_s']:.3f} s, launches {got} ({pre} "
+                  f"prefills, {walk} walk steps, {dec} decode steps)")
+            if rec["param_bytes"] != rec["want_params"] \
+                    or rec["cache_bytes"] != rec["want_cache"]:
+                fail(f"[serve sharded] {tag} rank {r}: bytes off its specs")
+            if rec["cache_peak"] > rec["cache_bytes"] + rec["blank_bytes"] \
+                    + rec["cache_leaves"] * LEAF_SLACK:
+                fail(f"[serve sharded] {tag} rank {r}: building the cache "
+                     f"took more than its blocks")
+            if rec["transport"] != "host":
+                fail(f"[serve sharded] {tag} rank {r}: ranks sharing the "
+                     f"card did not reduce through shared memory")
+            if got != want:
+                fail(f"[serve sharded] {tag} rank {r}: launches {got}, "
+                     f"want {want}")
+            for k, n in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    print("\n".join("  " + ln for ln in done["out"].splitlines()))
+    if cli.returncode != 0:
+        print(done["err"][-4000:], file=sys.stderr)
+        fail(f"[serve sharded] the sharded serve CLI exited {cli.returncode}")
+    row = [ln for ln in done["out"].splitlines() if ln.startswith("| front")]
+    if "sharded over {'data': 2, 'model': 2}: per-device cache" \
+            not in done["out"] or not row \
+            or row[0].split("|")[3].strip() != "4":
+        fail("[serve sharded] the CLI did not serve its 4 requests sharded")
+    # each CLI rank drew on the host and placed only its blocks: its card's
+    # peak over the set-up stays within its parameter and cache blocks, one
+    # empty slot's (at most the cache again) and the allocator's rounding
+    # (the engine's Qwen2 ranks hold the same leaves)
+    q = recs[0]["qwen2"]
+    slack = (q["param_leaves"] + q["cache_leaves"]) * LEAF_SLACK
+    per = re.search(r"\[serve\] per rank \(host collectives\): params "
+                    r"\[(.*)\] B, cache \[(.*)\] B; the card's peak over "
+                    r"the set-up \[(.*)\] B", done["out"])
+    if not per:
+        fail("[serve sharded] the CLI printed no per-rank line of host "
+             "collectives")
+    params_b, cache_b, peak_b = ([int(x) for x in g.split(", ")]
+                                 for g in per.groups())
+    for r, (p, c, k) in enumerate(zip(params_b, cache_b, peak_b)):
+        print(f"[serve sharded] CLI rank {r}: set-up peak {k} B on the "
+              f"card, {k - p - c} B past its blocks (params {p} B, cache "
+              f"{c} B; bound: the cache again and {slack} B of rounding)")
+        if k > p + 2 * c + slack:
+            fail(f"[serve sharded] CLI rank {r}: its set-up peak {k} B "
+                 f"passes its blocks")
+    print(f"[serve sharded] launch wall {wall:.3f} s, CLI wall "
+          f"{done['wall']:.3f} s (its ranks beside the engine's on one "
+          f"card)")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return launches
 
 
 def zipf_tokens(vocab, n_seqs, seq, seed, dev):
@@ -4771,6 +5234,9 @@ def main() -> int:
                 [100, 100])
     del served
     serve_reference_phase(SERVE_RWKV_REDUCED, "reference rwkv")
+    t1 = time.time()
+    launches["serve_sharded"] = serve_sharded_phase(dev)
+    print(f"[serve sharded] phase wall {time.time() - t1:.3f} s")
     print(f"[serve] serve phases wall {time.time() - t0:.3f} s")
     t0 = time.time()
     lm_launches, qwen_new, qwen_cfg = prune_qwen2_phase(dev)

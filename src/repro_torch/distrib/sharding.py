@@ -17,16 +17,24 @@ A calibration pass on a mesh splits two ways:
 A rank adds its rows' statistics into its own blocks; ``reduce`` sums them
 over the batch axes (once a pass, and before each checkpoint save) and
 ``gather`` concatenates the model axis' blocks into the full leaves.
-Parameters stay replicated on every rank: placing them by ``param_specs``
-needs the tensor-parallel forward, which is not ported (ROADMAP Queue 1
-item 2b), and so do ``activation_policy``, ``constrain`` and
-``batch_specs`` as placements.
+Calibration keeps the parameters replicated on every rank.
+
+Parameters have their own rule (``param_specs``, JAX's leaf for leaf) and
+the serving forward its variant (``forward_specs``: the head-parallel
+forward splits a few leaves on another dim, with as many elements a rank);
+``shard_params`` cuts a rank's blocks by either. A spec is a tuple with one
+entry a dim: ``None``, an axis name, or a tuple of axis names, as a JAX
+``PartitionSpec`` reads. ``batch_specs`` places a batch's leading dim.
+``activation_policy``, ``constrain`` and ``constrain_qkv`` are GSPMD layout
+hints and are not carried over: the port's tensor-parallel forward keeps
+the residual replicated over the model axis.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -37,10 +45,12 @@ _REPLICATED_STATS = frozenset({"n", "t2", "t2_tot"})
 
 
 def _sizes(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a dict, a ``CalibSharding``/``ServeSharding``
+    (anything with ``sizes``) or a ``DeviceMesh``, in axis order."""
     if isinstance(mesh, dict):
         return dict(mesh)
-    if isinstance(mesh, CalibSharding):
-        return mesh.sizes
+    if hasattr(mesh, "sizes"):
+        return dict(mesh.sizes)
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
@@ -83,11 +93,12 @@ def stats_specs(stats, mesh, *, model_axis: str = "model"):
             if isinstance(v, dict) else spec(k, v) for k, v in stats.items()}
 
 
-def _axis_group(mesh, axes: Tuple[str, ...]):
+def _axis_group(mesh, axes: Tuple[str, ...], backend=None):
     """The process group of the ranks that differ only along ``axes``
     (one a combination of the other coordinates), and this rank's linear
     index along them. Every rank of the default group creates every group,
-    in one order, as ``dist.new_group`` requires."""
+    in one order, as ``dist.new_group`` requires; ``backend`` (default: the
+    default group's) is e.g. ``"gloo"`` for a group of host tensors."""
     names = list(mesh.mesh_dim_names)
     ranks = mesh.mesh
     rest = [i for i, a in enumerate(names) if a not in axes]
@@ -96,7 +107,7 @@ def _axis_group(mesh, axes: Tuple[str, ...]):
         -1, math.prod(ranks.shape[i] for i in along))
     me, mine = dist.get_rank(), (None, 0)
     for row in rows.tolist():
-        group = dist.new_group(row)
+        group = dist.new_group(row, backend=backend)
         if me in row:
             mine = (group, row.index(me))
     return mine
@@ -227,3 +238,236 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+# ---------------------------------------------------------------------------
+# parameter placement
+# ---------------------------------------------------------------------------
+
+def _divisible(n: int, size: int) -> bool:
+    return size > 0 and n % size == 0
+
+
+def _spec_for(path: str, shape, model_size: int, fsdp_axes, fsdp_size: int,
+              scanned: bool):
+    """The spec of one parameter leaf, with JAX's rule and priority: the
+    expert axis, then the head axis, then the wider dim of a linear (the
+    other one if it does not divide), then the vocab dim of ``embed`` and
+    ``head``; a router and a vector stay replicated, a leading scan axis
+    is never sharded, and a dim is never padded. With FSDP the first other
+    dim of a >= 2-D leaf that divides goes over ``fsdp_axes``."""
+    dims = list(shape)
+    off = 1 if scanned else 0
+    body = dims[off:]
+    spec = [None] * len(dims)
+    leaf = path.rsplit("/", 1)[-1]
+
+    model_dim = None
+    if leaf in ("wg", "wu", "wd") and len(body) == 3:        # MoE (E, D, F)
+        if _divisible(body[0], model_size):
+            model_dim = 0
+    elif leaf in ("wq", "wk", "wv") and len(body) == 3:      # (D, H, dq)
+        if _divisible(body[1], model_size):
+            model_dim = 1
+        elif _divisible(body[0], model_size):
+            model_dim = 0
+    elif leaf == "wo" and len(body) == 3:                    # (H, dv, D)
+        if _divisible(body[0], model_size):
+            model_dim = 0
+        elif _divisible(body[2], model_size):
+            model_dim = 2
+    elif leaf in ("w_uq_nope", "w_uq_rope", "w_uk_nope", "w_uv") \
+            and len(body) == 3:                              # (r, H, d)
+        if _divisible(body[1], model_size):
+            model_dim = 1
+    elif leaf in ("embed", "head") and len(body) == 2:
+        vdim = 0 if body[0] >= body[1] else 1
+        if _divisible(body[vdim], model_size):
+            model_dim = vdim
+    elif leaf == "router":
+        model_dim = None
+    elif len(body) == 2:
+        cand = 0 if body[0] >= body[1] else 1
+        if _divisible(body[cand], model_size):
+            model_dim = cand
+        elif _divisible(body[1 - cand], model_size):
+            model_dim = 1 - cand
+
+    if model_dim is not None:
+        spec[off + model_dim] = "model"
+    if fsdp_axes and fsdp_size > 1:
+        for i, d in enumerate(body):
+            if spec[off + i] is None and len(body) >= 2 \
+                    and _divisible(d, fsdp_size):
+                spec[off + i] = fsdp_axes if len(fsdp_axes) > 1 \
+                    else fsdp_axes[0]
+                break
+    return tuple(spec)
+
+
+def _shape(leaf):
+    return tuple(getattr(leaf, "shape", leaf))
+
+
+def _scanned(path: str) -> bool:
+    """A leaf of a scanned segment (``seg<i>/p<j>/...``): its first dim is
+    the layer stack."""
+    return "/p" in path and any(seg.startswith("p") and seg[1:].isdigit()
+                                for seg in path.split("/"))
+
+
+def _map_paths(fn, tree, prefix=""):
+    return {k: _map_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+            if isinstance(v, dict)
+            else fn(f"{prefix}/{k}" if prefix else str(k), v)
+            for k, v in tree.items()}
+
+
+def param_specs(params, mesh, *, fsdp: bool = False):
+    """Specs of a parameter tree (``repro.distrib.sharding.param_specs``):
+    a nested dict of spec tuples, one a leaf.
+
+    Args:
+      params: nested dict whose leaves have a ``.shape`` or are shape
+        tuples (only shapes are read).
+      mesh: a ``DeviceMesh``, a ``CalibSharding``/``ServeSharding`` or a
+        plain ``{axis: size}`` dict; the sizes gate divisibility.
+      fsdp: also shard one remaining dim of every >= 2-D leaf over
+        ("pod", "data") (ZeRO-3).
+
+    >>> specs = param_specs({"embed": (504, 64), "ln": {"scale": (64,)},
+    ...                      "seg0": {"p0": {"mixer": {"wq": (2, 64, 4, 16)},
+    ...                                      "mlp": {"wd": (2, 256, 64)}}}},
+    ...                     {"data": 2, "model": 2})
+    >>> specs["embed"], specs["ln"]["scale"]
+    (('model', None), (None,))
+    >>> specs["seg0"]["p0"]["mixer"]["wq"], specs["seg0"]["p0"]["mlp"]["wd"]
+    ((None, None, 'model', None), (None, 'model', None))
+    """
+    sizes = _sizes(mesh)
+    model_size = sizes.get("model", 1)
+    fsdp_axes = tuple(a for a in ("pod", "data") if a in sizes) if fsdp \
+        else ()
+    fsdp_size = math.prod(sizes[a] for a in fsdp_axes) if fsdp_axes else 1
+    return _map_paths(lambda path, leaf: _spec_for(
+        path, _shape(leaf), model_size, fsdp_axes, fsdp_size,
+        _scanned(path)), params)
+
+
+# leaves the head-parallel forward splits on their head (first) dim: the
+# per-head biases, rope tables and qk-norm scales (H, d), and RWKV's bonus
+# u (H, N); JAX's generic rule splits the wider trailing dim
+_HEAD_DIM_LEAVES = frozenset({"bq", "bk", "bv", "rope_inv_q", "rope_inv_k",
+                              "q_scale", "k_scale", "u"})
+# RWKV's square projections of the time mix (a dict with ``w_lora_a``),
+# r, k, v, g, which the forward splits on their output dim (columns: its
+# heads' channels); JAX splits the input dim
+_RWKV_TIME_COLS = frozenset({"wr", "wk", "wv", "wg"})
+
+
+def forward_specs(params, mesh):
+    """``param_specs`` with the head-parallel forward's splits
+    (``models.common.TensorParallel``): the leaves of ``_HEAD_DIM_LEAVES``
+    on their head dim, and the RWKV time mix's square ``wr``, ``wk``,
+    ``wv``, ``wg`` on their output dim. Each such
+    leaf keeps the element count of JAX's block, since JAX splits its
+    other dim and both divide the model axis; a leaf whose dim does not
+    divide keeps JAX's spec."""
+    sizes = _sizes(mesh)
+    m = sizes.get("model", 1)
+    specs = param_specs(params, sizes)
+
+    def walk(tree, sp, path):
+        cols = _RWKV_TIME_COLS if "w_lora_a" in tree else frozenset()
+        out = {}
+        for k, v in tree.items():
+            p = f"{path}/{k}" if path else k
+            if isinstance(v, dict):
+                out[k] = walk(v, sp[k], p)
+                continue
+            shape = _shape(v)
+            off = 1 if _scanned(p) else 0
+            body = shape[off:]
+            dim = 0 if k in _HEAD_DIM_LEAVES and len(body) == 2 else \
+                1 if k in cols and len(body) == 2 and body[0] == body[1] \
+                else None
+            if m > 1 and dim is not None and _divisible(body[dim], m):
+                spec = [None] * len(shape)
+                spec[off + dim] = "model"
+                out[k] = tuple(spec)
+            else:
+                out[k] = sp[k]
+        return out
+
+    return walk(params, specs, "")
+
+
+def batch_specs(batch, mesh):
+    """The leading (batch) dim of every leaf over ("pod", "data") where
+    their size divides it; otherwise replicated, never padded."""
+    sizes = _sizes(mesh)
+    axes = tuple(a for a in ("pod", "data") if a in sizes)
+    n = math.prod(sizes[a] for a in axes) if axes else 1
+
+    def one(leaf):
+        shape = _shape(leaf)
+        spec = [None] * len(shape)
+        if shape and axes and shape[0] % n == 0:
+            spec[0] = axes if len(axes) > 1 else axes[0]
+        return tuple(spec)
+    return {k: batch_specs(v, sizes) if isinstance(v, dict) else one(v)
+            for k, v in batch.items()}
+
+
+def coordinates(mesh, rank: int) -> Dict[str, int]:
+    """``{axis: index}`` of global ``rank`` on a ``DeviceMesh`` (its rank
+    tensor) or, for a ``{axis: size}`` dict, row-major over the axes in
+    their order."""
+    if isinstance(mesh, dict) or hasattr(mesh, "sizes"):
+        sizes = _sizes(mesh)
+        idx = np.unravel_index(rank, tuple(sizes.values()))
+        return {a: int(i) for a, i in zip(sizes, idx)}
+    pos = (mesh.mesh == rank).nonzero()
+    if pos.numel() == 0:
+        raise ValueError(f"rank {rank} lies outside the mesh")
+    return {a: int(i) for a, i in zip(mesh.mesh_dim_names, pos[0].tolist())}
+
+
+def block_of(leaf, spec, sizes: Dict[str, int], coords: Dict[str, int]):
+    """A rank's block of one leaf (a tensor or numpy array) by its spec: on
+    each sharded dim the ``1/n`` slice at the rank's linear index over the
+    dim's axes (row-major in the spec's order). A view; a spec of
+    ``None`` entries returns the leaf itself."""
+    index = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            index.append(slice(None))
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * sizes.get(a, 1), i * sizes.get(a, 1) + coords.get(a, 0)
+        step = leaf.shape[d] // n
+        index.append(slice(i * step, (i + 1) * step))
+    return leaf[tuple(index)] if any(e is not None for e in spec) else leaf
+
+
+def shard_params(params, specs, mesh, rank: int):
+    """Rank ``rank``'s blocks of a parameter tree by ``specs``
+    (``param_specs`` or ``forward_specs``): a sharded leaf becomes a
+    contiguous copy of its block, a replicated one stays the same object.
+    ``mesh``: a ``DeviceMesh``, a sharding object or an ``{axis: size}``
+    dict."""
+    sizes, coords = _sizes(mesh), coordinates(mesh, rank)
+
+    def one(leaf, spec):
+        out = block_of(leaf, spec, sizes, coords)
+        if out is leaf:
+            return leaf
+        return out.contiguous() if isinstance(out, torch.Tensor) \
+            else np.ascontiguousarray(out)
+
+    def walk(tree, sp):
+        return {k: walk(v, sp[k]) if isinstance(v, dict) else one(v, sp[k])
+                for k, v in tree.items()}
+    return walk(params, specs)

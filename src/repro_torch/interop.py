@@ -3,7 +3,8 @@
 A JAX param pytree of this repo is a nested dict; its leaves, as numpy
 arrays, map one to one onto the port's nested dict of tensors. Key paths
 stay identical to ``repro.checkpoint.ckpt._flatten`` (``seg0/p0/mixer/wq``),
-including the leading layer-stack axis of the scanned segments.
+including the leading layer-stack axis of the scanned segments. A sharded
+rank takes its blocks of such a tree (``rank_blocks``).
 """
 from __future__ import annotations
 
@@ -46,3 +47,13 @@ def from_numpy(tree, device=None) -> dict:
 def to_numpy(tree) -> dict:
     """Nested dict of tensors -> nested dict of numpy arrays on the host."""
     return map_tree(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def rank_blocks(tree, specs, mesh, rank: int, device=None) -> dict:
+    """A JAX tree (numpy leaves) -> rank ``rank``'s blocks of it by
+    ``specs`` (``distrib.sharding.param_specs`` or ``forward_specs``), as
+    tensors on ``device``: each leaf is cut on the host, so only the
+    rank's block is copied to the device. ``mesh``: a ``DeviceMesh``, a
+    sharding object or an ``{axis: size}`` dict."""
+    from repro_torch.distrib.sharding import shard_params
+    return from_numpy(shard_params(tree, specs, mesh, rank), device)

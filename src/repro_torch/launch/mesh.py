@@ -11,7 +11,8 @@ the trailing names of ("pod", "data", "model"), over ranks 0 .. prod(shape)
 torch.multiprocessing (the spawn method) unless the process already is one
 (``RANK`` and ``WORLD_SIZE`` set, as under torchrun): then it joins that
 group and runs the body in this process. Rank r takes cuda:(r %
-device_count), or the CPU when asked (its share of the host's threads).
+device_count), or the CPU when asked; either way a rank takes its share
+of the host's threads.
 
 The backend is explicit: nccl for CUDA ranks by default, gloo for CPU ranks.
 NCCL takes one rank a card, so nccl with more ranks than cards raises and
@@ -126,9 +127,11 @@ def _rank(rank, world, init_method, backend, dev_type, body, args):
     if dev_type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    else:       # CPU ranks share the host's cores
+    else:
         device = torch.device("cpu")
-        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    # the ranks of a host share its cores
+    torch.set_num_threads(max(1, torch.get_num_threads()
+                              // host_ranks(world)))
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
     try:

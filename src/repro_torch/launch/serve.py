@@ -44,8 +44,34 @@ with its compensation leaves (``mlp/bd``, ``mlp/bv_comp``; a MoE's
 qk-norm scales, ``(H, qk_kept)`` and ``(Hkv, qk_kept)``, which the JAX
 CLI's template cannot take (its restore fails). It
 runs on CUDA and raises without it; ``--device cpu`` runs the plain
-PyTorch path. Mesh-sharded serving is not ported: ``--mesh-shape`` and
-``--serve-sharded`` raise.
+PyTorch path.
+
+Mesh-sharded serving (``--serve-sharded --mesh-shape DxM``; without
+``--mesh-shape`` a usage error, as in the JAX CLI) runs the trace on DxM
+ranks (``launch.mesh.launch``: spawned, or joined under torchrun), each
+with its blocks of the params and of the slot cache and a tensor-parallel
+forward over the model axis; the mesh's first rank runs the front-end and
+prints, besides the table, the JAX CLI's ``sharded over {...}:
+per-device cache ... MB (...x smaller than unsharded)`` line.
+``--dist-backend`` is nccl for cuda (one card a rank) or gloo (cpu, or
+ranks that share a card, whose forward then reduces through shared
+memory: ``serve.sharding.shares_card``). Each rank draws (or restores)
+the whole tree on the host and moves only its blocks to its card; its
+cache blocks are allocated at their own shapes. The lead also prints each
+rank's parameter and cache bytes and, on CUDA, its card's peak allocation
+over the set-up:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-7b-reduced --trace 6 --slots 2 --max-len 48 \
+        --prompt-range 4,10 --gen-range 2,6 --serve-sharded \
+        --mesh-shape 2x2 --dist-backend gloo --device cpu
+
+A config whose slot cache does not split (``shard_ineligible``) is refused
+before any rank starts, and so is a family whose tensor-parallel forward
+is not ported (MLA, enc-dec, MoE, Mamba: ``NotImplementedError``), as are
+``--prefix-cache``, ``--replicas`` and ``--compare-static`` beside
+``--serve-sharded``, and ``--serve-sharded`` without ``--trace`` (the
+fixed-batch loop is not sharded).
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
 prompts (the engine sends no patch embeddings). ``--arch
 deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
@@ -64,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import math
 import time
 
 import numpy as np
@@ -72,19 +99,20 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import resolve_config
+from repro_torch.launch.mesh import (AXES, check_backend, default_backend,
+                                     host_ranks, joined, launch, make_mesh,
+                                     parse_shape)
 from repro_torch.models import build_model
 from repro_torch.serve import (Completion, PrefixCache, ReplicaRouter,
                                ServeEngine, ServeFrontend, frontend_table,
                                percentile_table, run_static_trace,
                                synthetic_trace)
+from repro_torch.serve.cache import _infer_batch_axes, cache_contract
 from repro_torch.serve.engine import format_table
+from repro_torch.serve.errors import msg
 from repro_torch.serve.router import ROUTES
-
-# flag -> the unported layer it needs
-_UNPORTED = {
-    "mesh_shape": "mesh-sharded serving (repro/serve/sharding.py)",
-    "serve_sharded": "mesh-sharded serving (repro/serve/sharding.py)",
-}
+from repro_torch.serve.sharding import (ServeSharding, check_tensor_parallel,
+                                        slot_specs)
 
 
 # leaves CORP pruning adds: a pruned template holds them (zeros), and a
@@ -151,7 +179,7 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                 queue_depth=16, deadline_ms=None, deadline_frac=1.0,
                 prefix_cache=0, prefix_len=0, spf=False, replicas=1,
                 route="least-loaded", prefill_chunk=None, mem_len=None,
-                log=print):
+                sharding=None, log=print):
     """The front-end over the continuous-batching engine (each engine
     warmed first, outside the timed region) on a synthetic trace: Poisson
     arrivals (``rate``), a deadline mix (``deadline_ms`` range on
@@ -162,6 +190,9 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
     ``ReplicaRouter`` (``route``) serves the trace from that many engines
     on one params tree; its per-replica prefix caches replace the
     front-end's. ``mem_len``: the enc-dec requests' frame count.
+    ``sharding``: this is the lead rank of a sharded engine, whose other
+    ranks run ``follow_trace`` with the same arguments; they are released
+    at the end.
 
     Returns (completions in rid order, one per handle with the tokens it
     got, the table, the engine or fleet stats, the warmup's stats, the
@@ -176,7 +207,7 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                             prefix_len=prefix_len, mem_len=mem_len,
                             d_model=cfg.d_model)
     engines = [ServeEngine(model, params, n_slots=slots, max_len=max_len,
-                           mem_len=mem_len)
+                           mem_len=mem_len, sharding=sharding)
                for _ in range(max(1, replicas))]
     warm = collections.Counter()
     for e in engines:
@@ -195,6 +226,8 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
     t0 = time.perf_counter()
     handles = fe.run(trace, log=log)
     wall = time.perf_counter() - t0
+    if sharding is not None:
+        engines[0].stop()
     table = frontend_table(handles, wall)
     table["mode"] = f"fleet-x{replicas}" if replicas > 1 else "frontend"
     rows = [table]
@@ -216,6 +249,16 @@ def serve_trace(model, params, *, n, slots, max_len, prompt_range,
                    e0.slotcache.slot_parts.items())
            if e0.contract in ("recurrent", "encdec") else "")
         + f", {e0.contract} contract)")
+    if sharding is not None:
+        log(f"[serve] sharded over {dict(sharding.sizes)}: per-device "
+            f"cache {e0.device_cache_bytes / 1e6:.2f} MB "
+            f"({e0.cache_bytes / max(e0.device_cache_bytes, 1):.2f}x "
+            f"smaller than unsharded)")
+        peak = "" if e0.device.type != "cuda" else \
+            f"; the card's peak over the set-up {e0.rank_setup_peak} B"
+        log(f"[serve] per rank ({sharding.transport} collectives): "
+            f"params {e0.rank_param_bytes} B, cache "
+            f"{e0.slotcache.rank_bytes} B{peak}")
     if replicas > 1:
         log(f"[serve] router: {dict(eng.rstats)}; "
             f"states {[s.value for s in eng.states]}")
@@ -315,29 +358,41 @@ def parse_args(argv=None):
     ap.add_argument("--route", default="least-loaded", choices=ROUTES,
                     help="fleet routing policy: fewest occupied slots, or "
                          "longest cached prefix (per-replica caches)")
-    # mesh-sharded serving is not ported: each raises when given
-    ap.add_argument("--mesh-shape", default=None)
-    ap.add_argument("--serve-sharded", action="store_true", default=None)
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="mesh shape 'DxM' (data x model) for "
+                         "--serve-sharded, e.g. 2x2")
+    ap.add_argument("--serve-sharded", action="store_true",
+                    help="serve on the --mesh-shape ranks: params and slot "
+                         "cache in blocks, a tensor-parallel forward "
+                         "(requires --mesh-shape)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend of the --serve-sharded "
+                         "ranks (default nccl for cuda, one card a rank; "
+                         "gloo for cpu, or for several ranks on one card)")
+    args = ap.parse_args(argv)
+    if args.serve_sharded and not args.mesh_shape:
+        ap.error("--serve-sharded requires --mesh-shape")
+    if args.serve_sharded and args.init_on_device:
+        ap.error("--serve-sharded draws the weights on the host and places "
+                 "each rank's blocks on its card; drop --init-on-device, "
+                 "which draws the whole tree on the card")
+    return args
 
 
-def main(argv=None) -> dict:
-    """Run the CLI; returns the model, params and what was served, for
-    callers that drive it in-process."""
-    args = parse_args(argv)
-    for flag, layer in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs {layer}, which is not "
-                f"ported to repro_torch yet")
-    device = resolve_device(args.device)
+def _config(args):
     cfg = resolve_config(args.arch)
     if args.n_layers is not None:
         cfg = cfg.replace(n_layers=args.n_layers)
     if args.sparsity > 0 or args.expert_sparsity > 0:
         cfg = cfg.pruned(args.sparsity, args.sparsity,
                          expert_sparsity=args.expert_sparsity)
-    model = build_model(cfg)
+    return cfg
+
+
+def _load(args, device, say=print):
+    """The config's model and its seeded params on ``device`` (restored
+    from ``--ckpt-in`` when given)."""
+    model = build_model(_config(args))
     gen = torch.Generator(device=device if args.init_on_device else "cpu")
     params = model.init(gen.manual_seed(0), device=device)
     if args.ckpt_in:
@@ -348,26 +403,120 @@ def main(argv=None) -> dict:
         # prune writes none, which serves as zeros
         params, _ = restore_checkpoint(args.ckpt_in, last, params,
                                        zero_if_absent=COMPENSATION_LEAVES)
-        print(f"[serve] loaded {args.ckpt_in} step {last}")
+        say(f"[serve] loaded {args.ckpt_in} step {last}")
+    return model, params
+
+
+def _trace_kw(args) -> dict:
+    """serve_trace's keyword arguments from the flags."""
+    return dict(
+        n=args.trace, slots=args.slots, max_len=args.max_len,
+        prompt_range=tuple(int(x) for x in args.prompt_range.split(",")),
+        gen_range=tuple(int(x) for x in args.gen_range.split(",")),
+        rate=args.rate, seed=args.seed, compare_static=args.compare_static,
+        queue_depth=args.queue_depth,
+        deadline_ms=None if args.deadline_ms is None else
+        tuple(float(x) for x in args.deadline_ms.split(",")),
+        deadline_frac=args.deadline_frac, prefix_cache=args.prefix_cache,
+        prefix_len=args.prefix_len, spf=args.spf, replicas=args.replicas,
+        route=args.route, prefill_chunk=args.prefill_chunk,
+        mem_len=args.mem_len)
+
+
+def check_shardable(cfg, shape, *, slots: int, max_len: int,
+                    mem_len=None) -> None:
+    """Refuse, before any rank loads its weights, a config that a
+    ``shape`` mesh cannot serve: its slot cache by ``slot_specs``
+    (``shard_ineligible``, as the JAX engine), then a family whose
+    tensor-parallel forward is not ported (``check_tensor_parallel``)."""
+    model = build_model(cfg)
+    meta = torch.device("meta")
+    if cache_contract(cfg) == "encdec" and mem_len is None:
+        raise ValueError(msg("encdec_needs_mem_len"))
+
+    def template(batch):
+        kw = {} if mem_len is None or cfg.family != "encdec" \
+            else {"mem_len": mem_len}
+        return model.init_cache(batch, max_len, meta, **kw)
+    sizes = dict(zip(AXES[-len(shape):], shape))
+    slot_specs(template(slots), _infer_batch_axes(template(1), template(2)),
+               sizes, name=cfg.name)
+    check_tensor_parallel(cfg)
+
+
+def follow_trace(model, params, *, slots, max_len, mem_len=None,
+                 sharding) -> None:
+    """A rank of a sharded ``serve_trace`` other than the lead: build the
+    engine with the lead's arguments and run its posted operations until
+    the lead releases it."""
+    ServeEngine(model, params, n_slots=slots, max_len=max_len,
+                mem_len=mem_len, sharding=sharding).follow()
+
+
+def _serve_sharded(args):
+    """``--serve-sharded``: refuse what the ranks cannot serve, then start
+    them."""
+    for flag, given in (("--prefix-cache", args.prefix_cache > 0),
+                        ("--replicas", args.replicas > 1),
+                        ("--compare-static", args.compare_static),
+                        ("no --trace", args.trace <= 0)):
+        if given:
+            raise NotImplementedError(
+                f"--serve-sharded with {flag} is not ported (a prefix "
+                f"cache and replicas on a sharded engine: ROADMAP Queue 1 "
+                f"item 2b-ii; the static baseline and the fixed-batch loop "
+                f"run on one device); serve sharded with --trace alone")
+    shape = parse_shape(args.mesh_shape)
+    check_shardable(_config(args), shape, slots=args.slots,
+                    max_len=args.max_len, mem_len=args.mem_len)
+    world = math.prod(shape)
+    backend = args.dist_backend or default_backend(args.device)
+    check_backend(backend, host_ranks(world), args.device)
+    if resolve_device(args.device).type == "cuda" and not joined():
+        from repro_torch.kernels import _build
+        _build.library()        # once, before the spawned ranks load it
+    return launch(_serve_rank, world, backend=backend, device=args.device,
+                  args=(args, shape))
+
+
+def _serve_rank(device, args, shape):
+    """One rank of ``--serve-sharded``: its blocks of the params, drawn or
+    restored on the host and cut there; then the lead serves the trace
+    through the front-end, the others follow it."""
+    sharding = ServeSharding(make_mesh(shape, device_type=device.type))
+    model, params = _load(args, torch.device("cpu"),
+                          say=print if sharding.lead else lambda *a: None)
+    params = sharding.take_params(params, device)
+    if not sharding.lead:
+        follow_trace(model, params, slots=args.slots, max_len=args.max_len,
+                     mem_len=args.mem_len, sharding=sharding)
+        return None
+    return _serve(args, model, params, sharding)
+
+
+def _serve(args, model, params, sharding=None) -> dict:
+    out = {"model": model, "params": params}
+    (out["completions"], out["table"], out["stats"], out["warmup_stats"],
+     out["frontend"]) = serve_trace(model, params, sharding=sharding,
+                                    **_trace_kw(args))
+    out["handles"] = [out["frontend"].handles[c.rid]
+                      for c in out["completions"]]
+    return out
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns the model, params and what was served, for
+    callers that drive it in-process. With ``--serve-sharded`` the ranks
+    are spawned and it returns None (under torchrun: this rank's
+    result)."""
+    args = parse_args(argv)
+    if args.serve_sharded:
+        return _serve_sharded(args)
+    device = resolve_device(args.device)
+    model, params = _load(args, device)
     out = {"model": model, "params": params}
     if args.trace > 0:
-        pr = tuple(int(x) for x in args.prompt_range.split(","))
-        gr = tuple(int(x) for x in args.gen_range.split(","))
-        dl = None if args.deadline_ms is None else \
-            tuple(float(x) for x in args.deadline_ms.split(","))
-        (out["completions"], out["table"], out["stats"],
-         out["warmup_stats"], out["frontend"]) = serve_trace(
-            model, params, n=args.trace, slots=args.slots,
-            max_len=args.max_len, prompt_range=pr, gen_range=gr,
-            rate=args.rate, seed=args.seed,
-            compare_static=args.compare_static,
-            queue_depth=args.queue_depth, deadline_ms=dl,
-            deadline_frac=args.deadline_frac,
-            prefix_cache=args.prefix_cache, prefix_len=args.prefix_len,
-            spf=args.spf, replicas=args.replicas, route=args.route,
-            prefill_chunk=args.prefill_chunk, mem_len=args.mem_len)
-        out["handles"] = [out["frontend"].handles[c.rid]
-                          for c in out["completions"]]
+        out = _serve(args, model, params)
     else:
         out["tokens"], out["prefill_s"], out["decode_s"] = serve_loop(
             model, params, batch=args.batch, prompt_len=args.prompt_len,

@@ -4,13 +4,15 @@ branches of ``build_model``. ``Model`` bundles plain functions:
   init(gen, device=None)                      -> params
   apply(params, batch, taps=None)             -> logits (vit) |
                                                  (logits, aux) (lm, encdec)
-  prefill(params, batch, max_len, lengths=None) -> (logits, cache)
-  decode_step(params, token, cache)           -> (logits, cache)
+  prefill(params, batch, max_len, lengths=None[, tp]) -> (logits, cache)
+  decode_step(params, token, cache[, tp])     -> (logits, cache)
   init_cache(batch, max_len, device=None[, mem_len]) -> empty cache
 
 ``decode_step`` updates the cache in place. A VLM stub batch
 (``frontend="patch_stub"``) carries ``patch_embeds`` (B, P, D) beside its
-``tokens``; ``apply`` and ``prefill`` put them before the tokens. An
+``tokens``; ``apply`` and ``prefill`` put them before the tokens. An LM's
+``prefill`` and ``decode_step`` take ``tp=``, a rank's tensor-parallel
+context (``models.common.TensorParallel``) over its blocks. An
 enc-dec batch carries the encoder's ``frames`` (B, S, D) beside the
 decoder's ``tokens``, and its ``init_cache`` takes the memory length
 ``mem_len`` (S).
@@ -70,12 +72,12 @@ def build_model(cfg: ModelConfig) -> Model:
 
     return Model(
         cfg=cfg, init=init, apply=lm_apply,
-        prefill=lambda params, batch, max_len, lengths=None:
+        prefill=lambda params, batch, max_len, lengths=None, tp=None:
             lm_mod.lm_prefill(params, batch["tokens"], cfg, max_len,
                               lengths=lengths,
-                              patch_embeds=batch.get("patch_embeds")),
-        decode_step=lambda params, token, cache:
-            lm_mod.lm_decode_step(params, token, cache, cfg),
+                              patch_embeds=batch.get("patch_embeds"), tp=tp),
+        decode_step=lambda params, token, cache, tp=None:
+            lm_mod.lm_decode_step(params, token, cache, cfg, tp=tp),
         init_cache=init_cache,
     )
 

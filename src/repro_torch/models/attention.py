@@ -50,7 +50,8 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
-                                       rms_head_norm, rope_freqs, tap)
+                                       no_tensor_parallel, rms_head_norm,
+                                       rope_freqs, tap)
 
 
 def _uses_rope(cfg) -> bool:
@@ -222,15 +223,22 @@ def _project_qkv(p, x, cfg, positions, taps):
 
 
 def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
-               return_cache=False, mask_kind="causal"):
+               return_cache=False, mask_kind="causal", tp=None):
     """Full-sequence attention. x: (B, T, D); mask_kind 'causal' | 'full'
     (a ``swa`` layer adds its sliding window to 'causal'); ``positions``
     (B, T) for rope. Returns (y, cache | None).
 
     The scale is 1/sqrt(qk_full) even after pruning: the folded weights
     carry the compensation, the logit scale stays the dense model's. An
-    MLA layer runs ``_apply_mla``."""
+    MLA layer runs ``_apply_mla``.
+
+    Head-parallel under ``tp`` (``common.TensorParallel``): ``p`` holds
+    the rank's heads (``wq``, ``wk``, ``wv`` and the per-head biases and
+    rope tables split on H, ``wo`` on its H rows), so q, k, v, the kernel
+    and the cache are the rank's heads, and ``wo`` gives a partial sum
+    that one ``all_reduce`` completes."""
     if cfg.mla is not None:
+        no_tensor_parallel(tp, "MLA")
         return _apply_mla(p, x, cfg, positions=positions, taps=taps,
                           return_cache=return_cache)
     q, k, v = _project_qkv(p, x, cfg, positions, taps)
@@ -240,6 +248,8 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
     o = flash_ops.attention(q, k, v, causal=(mask_kind != "full"),
                             window=window, scale=scale)
     y = torch.einsum("bthv,hvd->btd", o, p["wo"])
+    if tp is not None:
+        y = tp.all_reduce(y)
     cache = None
     if return_cache:
         cache = {"k": k, "v": v,
@@ -330,11 +340,13 @@ def init_cache(cfg, kind: str, batch: int, max_len: int, device):
     return c
 
 
-def decode_attn(p, x, cache, cfg, kind="attn"):
+def decode_attn(p, x, cache, cfg, kind="attn", tp=None):
     """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` (a
     ``swa`` ring: at ``pos mod S``, with ``abs_pos``) and advances ``pos``
-    in place; returns (y, cache). An MLA layer runs ``_decode_mla``."""
+    in place; returns (y, cache). An MLA layer runs ``_decode_mla``.
+    Under ``tp`` the cache holds the rank's kv heads (``apply_attn``)."""
     if cfg.mla is not None:
+        no_tensor_parallel(tp, "MLA")
         return _decode_mla(p, x, cache, cfg)
     pos = cache["pos"]                          # (B,) current length
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], None)
@@ -352,6 +364,8 @@ def decode_attn(p, x, cache, cfg, kind="attn"):
     scale = 1.0 / math.sqrt(cfg.qk_full)
     y = _decode_sdpa(q, k, v, valid, scale)
     o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
+    if tp is not None:
+        o = tp.all_reduce(o)
     pos.add_(1)
     return o, cache
 

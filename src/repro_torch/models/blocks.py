@@ -22,11 +22,12 @@ def _check(kind: str):
         raise ValueError(f"unknown block kind {kind!r}")
 
 
-def ffn(p, h, cfg, is_moe: bool, taps=None):
-    """The block's MLP: routed experts or a dense MLP."""
+def ffn(p, h, cfg, is_moe: bool, taps=None, tp=None):
+    """The block's MLP: routed experts or a dense MLP; ``tp``: the
+    tensor-parallel context (``common.TensorParallel``) or None."""
     if is_moe:
-        return mlp_mod.apply_moe(p, h, cfg, taps=taps)
-    return mlp_mod.apply_mlp(p, h, cfg, taps=taps)
+        return mlp_mod.apply_moe(p, h, cfg, taps=taps, tp=tp)
+    return mlp_mod.apply_mlp(p, h, cfg, taps=taps, tp=tp)
 
 
 def init_block(gen: torch.Generator, cfg, kind: str = "attn",
@@ -53,19 +54,23 @@ def init_block(gen: torch.Generator, cfg, kind: str = "attn",
     return p
 
 
-def rwkv_block(p, x, cfg, state=None, taps=None):
+def rwkv_block(p, x, cfg, state=None, taps=None, tp=None, prev=None):
     """RWKV block: ln1 -> time mix -> residual -> ln2 -> channel mix ->
     residual. ``state`` ({"time", "channel"}) is read and updated in place
-    (decode); without one a fresh state is returned (prefill).
+    (decode); without one a fresh state is returned (prefill). ``prev``
+    ({"time", "channel"}): the whole token-shift rows a sharded decode
+    step gathered for every layer at once.
     Returns (x, state)."""
-    state = state or {}
+    state, prev = state or {}, prev or {}
     h = apply_norm(p["ln1"], x, cfg)
     y, st = ssm_mod.apply_rwkv_time(p["mixer"], h, cfg, taps=taps,
-                                    state=state.get("time"))
+                                    state=state.get("time"), tp=tp,
+                                    prev=prev.get("time"))
     x = x + y
     h = apply_norm(p["ln2"], x, cfg)
     y, sc = ssm_mod.apply_rwkv_channel(p["mlp"], h, cfg, taps=taps,
-                                       state=state.get("channel"))
+                                       state=state.get("channel"), tp=tp,
+                                       prev=prev.get("channel"))
     return x + y, {"time": st, "channel": sc}
 
 
@@ -116,21 +121,24 @@ def init_block_cache(cfg, kind: str, batch: int, max_len: int, device):
 
 
 def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False,
-                 *, cross_cache=None):
+                 *, cross_cache=None, tp=None, prev=None):
     """One-token decode. x: (B,1,D); ``cache`` is updated in place; a
-    decoder block attends its memory K/V ``cross_cache``. Returns (x,
-    cache)."""
+    decoder block attends its memory K/V ``cross_cache``; ``tp``: the
+    tensor-parallel context or None; ``prev``: an RWKV block's gathered
+    token-shift rows (``rwkv_block``). Returns (x, cache)."""
     _check(kind)
     if kind == "rwkv":
-        return rwkv_block(p, x, cfg, state=cache)
+        return rwkv_block(p, x, cfg, state=cache, tp=tp, prev=prev)
     h = apply_norm(p["ln1"], x, cfg)
     if kind == "mamba":
-        y, cache = ssm_mod.apply_mamba(p["mixer"], h, cfg, state=cache)
+        y, cache = ssm_mod.apply_mamba(p["mixer"], h, cfg, state=cache,
+                                       tp=tp)
     else:
-        y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind)
+        y, cache = attn_mod.decode_attn(p["mixer"], h, cache, cfg, kind,
+                                        tp=tp)
     x = x + y
     if "cross" in p and cross_cache is not None:
         h = apply_norm(p["ln_cross"], x, cfg)
         x = x + attn_mod.decode_cross_attn(p["cross"], h, cross_cache, cfg)
     h = apply_norm(p["ln2"], x, cfg)
-    return x + ffn(p["mlp"], h, cfg, is_moe), cache
+    return x + ffn(p["mlp"], h, cfg, is_moe, tp=tp), cache

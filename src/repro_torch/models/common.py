@@ -235,3 +235,119 @@ def merge_taps(dst: dict | None, src: dict, prefix: str):
     if dst is not None:
         for k, v in src.items():
             dst[f"{prefix}/{k}" if prefix else k] = v
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (the serving forward over a mesh's model axis)
+# ---------------------------------------------------------------------------
+
+def no_tensor_parallel(tp, layer: str) -> None:
+    """Raise for a layer whose tensor-parallel forward is not ported."""
+    if tp is not None:
+        raise NotImplementedError(f"the tensor-parallel forward of {layer} "
+                                  f"is not ported")
+
+
+class TensorParallel:
+    """A rank's share of the model axis: its process group, its index and
+    the axis' size. The serving forward takes it as ``tp=`` (None when
+    unsharded, so an unsharded call runs as before) and runs Megatron's
+    split over the rank's blocks (``distrib.sharding.forward_specs``):
+    column blocks in, row blocks out, one ``all_reduce`` of the partial
+    sums, which are reduced in fp32 and cast back. The residual stream
+    stays replicated over the model axis.
+
+    The collectives go through the process group, or with ``host`` (a
+    ``distrib.hostcoll.HostCollectives`` of the group's ranks, which share
+    a host) through shared memory.
+
+    ``timed`` adds the host seconds of every collective to ``coll_s``
+    (after a device sync, so that they hold the collective alone);
+    ``calls`` counts them.
+    """
+
+    def __init__(self, group, index: int, size: int, host=None):
+        self.group, self.index, self.size = group, index, size
+        self.host = host
+        self.timed = False
+        self.coll_s = 0.0
+        self.calls = 0
+
+    def block(self, n: int):
+        """This rank's block [lo, hi) of a dim of ``n``."""
+        step = n // self.size
+        return self.index * step, (self.index + 1) * step
+
+    def local(self, t, n_local: int):
+        """The rank's block of ``t``'s last dim when it holds the whole dim
+        (a replicated vector, e.g. an MLP bias), else ``t``."""
+        if t.shape[-1] == n_local:
+            return t
+        lo, hi = self.block(t.shape[-1])
+        return t[..., lo:hi]
+
+    def _run(self, fn, t):
+        """``fn(t)``, counted (and timed when ``timed``)."""
+        self.calls += 1
+        if not self.timed:
+            return fn(t)
+        import time
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = fn(t)
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.coll_s += time.perf_counter() - t0
+        return out
+
+    def all_reduce(self, x):
+        """Sum of the ranks' partial ``x``, reduced in fp32, in x's
+        dtype."""
+        if self.host is not None:
+            return self._run(self.host.all_reduce, x)
+        import torch.distributed as dist
+        y = x.float().contiguous()
+        self._run(lambda t: dist.all_reduce(t, group=self.group), y)
+        return y.to(x.dtype)
+
+    def all_gather(self, x, dim: int = -1):
+        """The ranks' blocks of ``x`` concatenated along ``dim``."""
+        if self.host is not None:
+            return self._run(lambda t: self.host.all_gather(t, dim), x)
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self._run(lambda t: dist.all_gather(parts, t, group=self.group), x)
+        return torch.cat(parts, dim=dim)
+
+    def embed(self, table, ids, rows: int, cols: int):
+        """Embedding lookup of ``ids`` in the rank's block of a ``rows`` x
+        ``cols`` table: split on rows (the vocab), the ids outside the
+        block are masked and the ranks' lookups summed (exact: one term is
+        not zero); split on columns, the columns are gathered; whole, a
+        plain lookup."""
+        if table.shape[0] != rows:
+            lo = self.index * table.shape[0]
+            inside = (ids >= lo) & (ids < lo + table.shape[0])
+            x = table[(ids - lo).clamp(0, table.shape[0] - 1)]
+            return self.all_reduce(x * inside[..., None].to(x.dtype))
+        x = table[ids]
+        return self.all_gather(x, -1) if table.shape[1] != cols else x
+
+    def vocab_argmax(self, logits, vocab_size: int):
+        """argmax over the last dim of the whole row, from this rank's
+        column block of it (``logits`` (..., V/m)): pad columns past
+        ``vocab_size`` are masked, each rank takes its block's max and its
+        first index, and one ``all_gather`` picks the largest, on a tie the
+        lowest index, as ``argmax`` over the row does. int64 indices."""
+        w = logits.shape[-1]
+        lo = self.index * w
+        cols = torch.arange(lo, lo + w, device=logits.device)
+        lf = logits.float().masked_fill(cols >= vocab_size, float("-inf"))
+        idx = lf.argmax(-1)
+        best = lf.gather(-1, idx[..., None])[..., 0]
+        packed = torch.stack([best.double(), (idx + lo).double()], dim=0)
+        both = self.all_gather(packed[None], dim=0)      # (m, 2, ...)
+        rank = both[:, 0].argmax(0)                      # first max: lowest
+        return both[:, 1].gather(0, rank[None])[0].long()

@@ -24,6 +24,14 @@ precomputed ``patch_embeds`` (B, P, D), which ``apply_lm`` and
 ``lm_prefill`` put before the token embeddings; positions then run over
 P + T. Blocks take a dense or a routed-MoE MLP (``blocks.ffn``).
 
+``lm_prefill`` and ``lm_decode_step`` take ``tp``, a rank's
+``common.TensorParallel`` (None: unsharded), with its blocks as params
+(``distrib.sharding.forward_specs``): the embedding lookup is
+vocab-parallel (``TensorParallel.embed``), the blocks head- and
+channel-parallel, and the logits are the rank's column block of the
+vocab when the head is split there (``TensorParallel.vocab_argmax`` reads
+them; ``all_gather`` gives the whole row).
+
 Not ported yet: ``lm_loss``.
 """
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.interop import map_tree
+from repro_torch.interop import flatten, map_tree
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_mod
@@ -69,6 +77,16 @@ def _head(params):
     return params["embed"].T if head is None else head
 
 
+def _logits(params, x, cfg, tp=None):
+    """x @ head; under ``tp`` a head split on D gives partial sums, which
+    are reduced, and one split on the vocab the rank's column block."""
+    head = _head(params)
+    out = x @ head
+    if tp is not None and head.shape[0] != cfg.d_model:
+        out = tp.all_reduce(out)
+    return out
+
+
 def init_lm(gen: torch.Generator, cfg):
     """Parameters on the CPU, drawn from ``gen``."""
     dt = dtype_of(cfg)
@@ -101,9 +119,10 @@ def _positions(B: int, T: int, device):
         .expand(B, T)
 
 
-def _embed(params, tokens, patch_embeds):
+def _embed(params, tokens, patch_embeds, cfg=None, tp=None):
     """Token embeddings, after the patch embeddings when given."""
-    x = params["embed"][tokens]
+    x = params["embed"][tokens] if tp is None else tp.embed(
+        params["embed"], tokens, cfg.padded_vocab, cfg.d_model)
     if patch_embeds is None:
         return x
     return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
@@ -167,21 +186,46 @@ def init_lm_cache(cfg, batch: int, max_len: int, device):
     return caches
 
 
-def lm_decode_step(params, token, cache, cfg):
+def gather_shifts(cache, tp):
+    """Every RWKV layer's token-shift rows, whole: a rank holds its block
+    of D of each ``shift`` leaf (``tp``), and one ``all_gather`` over all
+    of them serves the whole decode step. -> {leaf path: (..., B, D)}."""
+    shifts = {p: t for p, t in flatten(cache).items()
+              if p.endswith("/shift")}
+    rows = torch.cat([t.reshape(-1, t.shape[-1]) for t in shifts.values()])
+    whole = tp.all_gather(rows, -1)
+    out, at = {}, 0
+    for path, t in shifts.items():
+        n = t.numel() // t.shape[-1]
+        out[path] = whole[at:at + n].reshape(t.shape[:-1] + (-1,))
+        at += n
+    return out
+
+
+def lm_decode_step(params, token, cache, cfg, tp=None):
     """token: (B, 1) int. Returns (logits (B, 1, V), cache); the cache is
     updated in place (new K/V rows or recurrent states, every ``pos`` +
     1)."""
-    x = params["embed"][token]
+    x = _embed(params, token, None, cfg, tp)
     cache["pos"].add_(1)
+    shifts = gather_shifts(cache, tp) \
+        if tp is not None and "rwkv" in cfg.layer_kinds else None
     for name, key, rep, kind, moe in _each_layer(cfg):
+        prev = None
+        if shifts is not None and kind == "rwkv":
+            prev = {part: shifts[f"{name}/{key}/{part}/shift"]
+                    for part in ("time", "channel")}
+            if rep is not None:
+                prev = {k: v[rep] for k, v in prev.items()}
         x, _ = blk.decode_block(_at(params, name, key, rep), x,
-                                _at(cache, name, key, rep), cfg, kind, moe)
+                                _at(cache, name, key, rep), cfg, kind, moe,
+                                tp=tp, prev=prev)
     x = apply_norm(params["final_norm"], x, cfg)
-    return x @ _head(params), cache
+    return _logits(params, x, cfg, tp), cache
 
 
 def lm_prefill(params, tokens, cfg, max_len: int, lengths=None,
-               patch_embeds=None):
+               patch_embeds=None, tp=None):
     """Prefill: full forward returning (last-token logits, populated cache).
     ``patch_embeds`` (B, P, D) go before the tokens; the cache ``pos`` is
     then P + T.
@@ -203,26 +247,26 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None,
         raise ValueError("ragged prefill (lengths=) with patch_embeds: "
                          "lengths would index the patch positions; not "
                          "supported")
-    x = _embed(params, tokens, patch_embeds)
+    x = _embed(params, tokens, patch_embeds, cfg, tp)
     B, T = x.shape[:2]
     positions = _positions(B, T, x.device)
 
     def run_layer(p, x, kind, moe):
         blk._check(kind)
         if kind == "rwkv":
-            return blk.rwkv_block(p, x, cfg)
+            return blk.rwkv_block(p, x, cfg, tp=tp)
         h = apply_norm(p["ln1"], x, cfg)
         if kind == "mamba":
-            y, c = ssm_mod.apply_mamba(p["mixer"], h, cfg)
+            y, c = ssm_mod.apply_mamba(p["mixer"], h, cfg, tp=tp)
         else:
             y, c = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
                                        positions=positions,
-                                       return_cache=True)
+                                       return_cache=True, tp=tp)
             c = _window_cache(c, cfg, max_len) if kind == "swa" \
                 else _pad_cache(c, max_len)
         x = x + y
         h = apply_norm(p["ln2"], x, cfg)
-        return x + blk.ffn(p["mlp"], h, cfg, moe), c
+        return x + blk.ffn(p["mlp"], h, cfg, moe, tp=tp), c
 
     cache = {"pos": torch.full((B,), T, dtype=torch.int32, device=x.device)}
     per_key = {}
@@ -240,7 +284,7 @@ def lm_prefill(params, tokens, cfg, max_len: int, lengths=None,
                                                                           None]
         cache = override_cache_pos(cache, lengths)
     x = apply_norm(params["final_norm"], x_last, cfg)
-    return x @ _head(params), cache
+    return _logits(params, x, cfg, tp), cache
 
 
 def override_cache_pos(tree, lengths):

@@ -15,7 +15,8 @@ import math
 import torch
 
 from repro_torch.models.common import (activation, dense_init, dtype_of,
-                                       expert_taps_on, row_share_of, tap)
+                                       expert_taps_on, no_tensor_parallel,
+                                       row_share_of, tap)
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
@@ -45,23 +46,36 @@ def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
     return p
 
 
-def apply_mlp(p, x, cfg, taps=None):
+def apply_mlp(p, x, cfg, taps=None, tp=None):
     """x: (..., D) -> (..., D). Biases are stored fp32 and cast to the
-    activation dtype before they are added."""
+    activation dtype before they are added.
+
+    Under ``tp`` (``common.TensorParallel``) ``wg`` and ``wu`` are the
+    rank's column blocks of F and ``wd`` its row block, so the rank's
+    hidden channels give a partial sum that one ``all_reduce`` completes;
+    the biases of F are taken at the rank's block, ``bd`` is added once,
+    after the reduction."""
     act = activation(cfg.act)
     dt = x.dtype
     u = x @ p["wu"]
+    F_local = u.shape[-1]
+
+    def vec(name):
+        v = p[name] if tp is None else tp.local(p[name], F_local)
+        return v.to(dt)
     if "bu" in p:
-        u = u + p["bu"].to(dt)
+        u = u + vec("bu")
     if "wg" in p:
         gpre = x @ p["wg"]
         if "bg" in p:
-            gpre = gpre + p["bg"].to(dt)
+            gpre = gpre + vec("bg")
         h = act(gpre) * u
     else:
         h = act(u)
     tap(taps, "h", h)
     y = h @ p["wd"]
+    if tp is not None:
+        y = tp.all_reduce(y)
     if "bd" in p:
         y = y + p["bd"].to(dt)
     return y
@@ -148,7 +162,7 @@ def capacity(tg: int, cfg) -> int:
     return min(tg, max(K, int(math.ceil(tg * K * m.capacity_factor / E))))
 
 
-def apply_moe(p, x, cfg, taps=None):
+def apply_moe(p, x, cfg, taps=None, tp=None):
     """Top-k routed experts with capacity: x (B, T, D) -> (B, T, D).
 
     Routing is an fp32 softmax of ``x @ router``, its top k (ties to the
@@ -160,6 +174,7 @@ def apply_moe(p, x, cfg, taps=None):
     weights are rounded to the model dtype before they combine, as the
     reference rounds its combine tensor. Shared experts add their dense
     MLP of x; its ``h`` tap lands beside ``moe_h``."""
+    no_tensor_parallel(tp, "MoE (expert parallelism)")
     m = cfg.moe
     E, K = cfg.eff_num_experts, m.top_k
     B, T, D = x.shape

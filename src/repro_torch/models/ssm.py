@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import ops as wkv_ops
-from repro_torch.models.common import dense_init, dtype_of, tap
+from repro_torch.models.common import (dense_init, dtype_of,
+                                       no_tensor_parallel, tap)
 
 _SCAN_CHUNK = 256   # tokens a scan chunk (module docstring)
 
@@ -67,22 +68,65 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def apply_rwkv_time(p, x, cfg, taps=None, state=None):
+def _prev(state, tp, prev):
+    """The token-shift row a decode step reads: ``prev`` when given (the
+    whole row, gathered for every layer at once: ``lm.gather_shifts``),
+    else the state's, whole (under ``tp`` a rank holds its block of D, and
+    the blocks are gathered)."""
+    if prev is not None or state is None:
+        return prev
+    return state["shift"] if tp is None else tp.all_gather(state["shift"])
+
+
+def _keep_shift(x, state, tp):
+    """The last row of x as the next shift state (the rank's block of D
+    under ``tp``): a new state, or written into ``state``'s in place."""
+    last = x[:, -1]
+    if tp is not None:
+        lo, hi = tp.block(last.shape[-1])
+        last = last[:, lo:hi]
+    if state is None:
+        return {"shift": last.clone()}
+    state["shift"].copy_(last)
+    return state
+
+
+def apply_rwkv_time(p, x, cfg, taps=None, state=None, tp=None, prev=None):
     """x: (B, T, D). state: {'shift': (B, D), 'wkv': (B, H, N, N) fp32} or
     None. Returns (y, state): the given state updated in place, or a new
-    one."""
+    one.
+
+    Head-parallel under ``tp`` (``common.TensorParallel``): ``wr``, ``wk``,
+    ``wv``, ``wg`` and ``w_lora_b`` are the rank's output columns (its
+    heads' channels), ``u`` its heads, ``w_lora_a`` its input rows (the
+    decay LoRA's partial sums are reduced), ``wo`` its input rows (a
+    partial sum, reduced); the state holds the rank's heads of ``wkv`` and
+    its block of D of ``shift``, which a decode step gathers (or takes
+    whole as ``prev``)."""
     B, T, D = x.shape
     N = cfg.rwkv.head_dim
-    H = D // N
-    xs = _shift(x, None if state is None else state["shift"])
+    xs = _shift(x, _prev(state, tp, prev))
     r = _mix(x, xs, p["mu_r"]) @ p["wr"]
     k = _mix(x, xs, p["mu_k"]) @ p["wk"]
     v = _mix(x, xs, p["mu_v"]) @ p["wv"]
     g = _mix(x, xs, p["mu_g"]) @ p["wg"]
     xw = _mix(x, xs, p["mu_w"]).float()
     # data-dependent decay (the v6 feature), fp32
-    dd = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = torch.exp(-torch.exp(p["w0"] + dd))
+    if tp is None:
+        dd = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+        w0, ln_scale, ln_bias = p["w0"], p["ln_scale"], p["ln_bias"]
+    else:
+        a = p["w_lora_a"]
+        if a.shape[0] != D:         # the rank's input rows: partial sums
+            lo, hi = tp.block(D)
+            lora = tp.all_reduce(xw[..., lo:hi] @ a)
+        else:
+            lora = xw @ a
+        dd = torch.tanh(lora) @ p["w_lora_b"]
+        w0, ln_scale, ln_bias = (tp.local(p[n], r.shape[-1])
+                                 for n in ("w0", "ln_scale", "ln_bias"))
+    w = torch.exp(-torch.exp(w0 + dd))
+    H = r.shape[-1] // N
 
     def hd(z):
         return z.reshape(B, T, H, N)
@@ -95,12 +139,15 @@ def apply_rwkv_time(p, x, cfg, taps=None, state=None):
     mu = yh.mean(dim=-1, keepdim=True)
     var = yh.var(dim=-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, T, D) * p["ln_scale"] + p["ln_bias"]
+    y = yh.reshape(B, T, H * N) * ln_scale + ln_bias
     y = (y.to(x.dtype) * F.silu(g)) @ p["wo"]
+    if tp is not None:
+        y = tp.all_reduce(y)
     if state is None:
-        return y, {"shift": x[:, -1].clone(), "wkv": s_new}
-    state["shift"].copy_(x[:, -1])
-    return y, state
+        st = _keep_shift(x, None, tp)
+        st["wkv"] = s_new
+        return y, st
+    return y, _keep_shift(x, state, tp)
 
 
 def init_rwkv_channel(gen: torch.Generator, cfg):
@@ -122,20 +169,33 @@ def init_rwkv_channel(gen: torch.Generator, cfg):
     return p
 
 
-def apply_rwkv_channel(p, x, cfg, taps=None, state=None):
+def apply_rwkv_channel(p, x, cfg, taps=None, state=None, tp=None,
+                       prev=None):
     """RWKV channel mix (the 'MLP'): squared relu, receptance gate. A given
-    ``state`` ({'shift': (B, D)}) is updated in place."""
-    xs = _shift(x, None if state is None else state["shift"])
+    ``state`` ({'shift': (B, D)}) is updated in place.
+
+    Under ``tp`` ``wk`` is the rank's column block of F and ``wv`` its row
+    block, ``wr`` its row block of D (JAX's split): both give partial sums,
+    reduced together in one ``all_reduce`` before ``bv_comp`` and the
+    gate; the state holds the rank's block of D of ``shift``."""
+    D = x.shape[-1]
+    xs = _shift(x, _prev(state, tp, prev))
     h = F.relu(_mix(x, xs, p["mu_k"]) @ p["wk"]).square()
     tap(taps, "h", h)
     kv = h @ p["wv"]
+    xr = _mix(x, xs, p["mu_r"])
+    if tp is None:
+        r = xr @ p["wr"]
+    else:
+        if p["wr"].shape[0] != D:       # the rank's input rows
+            lo, hi = tp.block(D)
+            xr = xr[..., lo:hi]
+        kv, r = tp.all_reduce(torch.cat([kv, xr @ p["wr"]], dim=-1)) \
+            .split(D, dim=-1)
     if "bv_comp" in p:   # CORP compensation bias (added by pruning)
         kv = kv + p["bv_comp"].to(kv.dtype)
-    y = torch.sigmoid(_mix(x, xs, p["mu_r"]) @ p["wr"]) * kv
-    if state is None:
-        return y, {"shift": x[:, -1].clone()}
-    state["shift"].copy_(x[:, -1])
-    return y, state
+    y = torch.sigmoid(r) * kv
+    return y, _keep_shift(x, state, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -211,12 +271,13 @@ def _inclusive_scan(a, b):
     return a, b
 
 
-def apply_mamba(p, x, cfg, taps=None, state=None):
+def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
     """x: (B, T, D). state: {'conv': (B, dc-1, di), 'ssm': (B, di, ns)
     fp32} or None. Returns (y, state): the given state updated in place
     (decode), or a new one. Taps ``mamba_y``, the gated input of
     ``out_proj``; adds ``out_b`` when present (CORP's compensation
     bias)."""
+    no_tensor_parallel(tp, "the Mamba mixer")
     B, T, _ = x.shape
     di = p["d_skip"].shape[-1]
     ns = cfg.mamba.d_state

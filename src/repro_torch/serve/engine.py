@@ -54,7 +54,23 @@ device-to-host copy of the next tokens, so it includes the device work.
 ``walk_steps`` counts the batch-1 decode steps that consume prompt tokens
 after the first chunk or after a prefix hit.
 
-Not ported yet: mesh sharding (``sharding=``); it raises.
+Mesh sharding (``sharding=``, a ``serve.sharding.ServeSharding``): every
+rank builds the engine with the same arguments and keeps its blocks of the
+params (``distrib.sharding.forward_specs``) and of the slot cache
+(``slot_specs``); its forward is tensor-parallel over the model axis
+(``models.common.TensorParallel``). The lead (the mesh's first rank) alone
+runs the scheduler, the front-end and every method above; each device
+operation it makes (a prefill or a chunk of one, a batch-1 walk step, the
+write of a slot, a decode step, the reset of a slot or of the cache) is
+posted to every rank before it runs, and the other ranks run them in
+``follow`` until the lead's ``stop``. A slot's prefill and walk run only
+on the ranks of the data index that holds the slot, and their token comes
+to the lead from that index' first rank; a decode step runs on every rank
+over its slots, and the next tokens reach the lead with one gather over
+the data axis. Only the lead decides on admission and retirement. The
+dense-attention and RWKV-6 stacks are served; MLA, enc-dec, MoE and Mamba
+raise by name (``sharding.check_tensor_parallel``), and so does a prefix
+cache.
 """
 from __future__ import annotations
 
@@ -76,6 +92,13 @@ def _private(cache):
     """A copy of a cache tree that later in-place writes to either side
     cannot reach (the copy rule of ``serve/prefix.py``)."""
     return map_tree(torch.clone, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Held:
+    """The lead's handle of a sharded admit's batch-1 cache, which the
+    ranks that hold ``slot`` keep (``ServeEngine._locals``)."""
+    slot: int
 
 
 @dataclasses.dataclass
@@ -135,6 +158,11 @@ class _Slot:
         return self.req is None
 
 
+_SHARDED_PREFIX = ("a prefix cache on a mesh-sharded engine is not ported "
+                   "(ROADMAP Queue 1 item 2b-ii); serve sharded without "
+                   "one")
+
+
 def default_buckets(max_len: int, lo: int = 8):
     """Power-of-two prompt buckets up to max_len."""
     out, b = [], lo
@@ -156,6 +184,10 @@ class ServeEngine:
     buckets       : prompt-length buckets (default: powers of two).
     mem_len       : enc-dec only — fixed encoder-memory length every
                     request's ``frames`` must match (cross K/V is unmasked).
+    sharding      : a ``serve.sharding.ServeSharding``: serve this rank's
+                    blocks of ``params`` (the whole tree on the rank's
+                    device, or its ``RankParams``) and of the slot cache
+                    (module docstring).
     """
 
     def __init__(self, model, params, *, n_slots: int, max_len: int,
@@ -165,9 +197,7 @@ class ServeEngine:
         if model.prefill is None or model.decode_step is None:
             raise ValueError(errors.msg("no_serving_path", name=cfg.name,
                                         family=cfg.family))
-        if sharding is not None:
-            raise NotImplementedError("mesh-sharded serving is not ported; "
-                                      "see repro/serve/sharding.py")
+        self.sharding, self.tp = sharding, None
         self.contract = cache_contract(cfg)
         self.mem_len = mem_len
         # ragged (bucketed) prefill: sound iff every cache row < length is
@@ -184,7 +214,25 @@ class ServeEngine:
         cache_cls = RecurrentSlotCache if self.contract == "recurrent" \
             else SlotCache
         self.slotcache = cache_cls(self._cache_template, n_slots,
-                                   device=self.device)
+                                   device=self.device, sharding=sharding,
+                                   name=cfg.name)
+        if sharding is not None:
+            from repro_torch.serve.sharding import (RankParams,
+                                                    check_tensor_parallel)
+            check_tensor_parallel(cfg)
+            if not isinstance(params, RankParams):
+                params = sharding.take_params(params)
+            self.params, self.param_specs = dict(params), params.specs
+            self.tp = sharding.tp
+            self._locals = {}      # slot -> this rank's batch-1 cache
+            # every rank's parameter bytes and its card's peak allocation
+            # so far (its set-up when the caller reset the peak before
+            # placing its blocks; 0 on the CPU)
+            self.rank_param_bytes = sharding.gather_all(
+                cache_bytes(self.params))
+            self.rank_setup_peak = sharding.gather_all(
+                torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
         self.stats = collections.Counter()
         self._t0 = None
 
@@ -199,29 +247,117 @@ class ServeEngine:
                                      mem_len=self.mem_len)
 
     def _argmax(self, logits):
-        return logits[:, -1, : self.cfg.vocab_size].argmax(-1) \
-            .to(torch.int32)
+        last = logits[:, -1]
+        if self.tp is not None and last.shape[-1] != self.cfg.padded_vocab:
+            return self.tp.vocab_argmax(last, self.cfg.vocab_size) \
+                .to(torch.int32)
+        return last[:, : self.cfg.vocab_size].argmax(-1).to(torch.int32)
+
+    def _tp_kw(self):
+        return {} if self.tp is None else {"tp": self.tp}
 
     def _tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
             .to(self.device)
 
-    def _prefill(self, tokens, lengths, frames=None):
-        """One prefill; ``frames`` (S, D): an enc-dec request's memory."""
+    def _prefill(self, tokens, lengths, frames=None, slot=None):
+        """One prefill; ``frames`` (S, D): an enc-dec request's memory.
+        Sharded, it runs on the ranks that hold ``slot``, which keep its
+        cache: the lead gets a ``_Held`` handle."""
+        if self.sharding is not None:
+            tokens = np.asarray(tokens, np.int32)
+            nxt = self._post("prefill", slot, tokens.shape[1],
+                             int(lengths[0]), tokens)
+            return nxt, _Held(slot)
+        return self._prefill_here(tokens, lengths, frames)
+
+    def _prefill_here(self, tokens, lengths, frames=None):
         batch = {"tokens": self._tensor(tokens)}
         if frames is not None:
             batch["frames"] = torch.from_numpy(
                 np.asarray(frames, np.float32))[None].to(self.device)
         logits, cache = self.model.prefill(
             self.params, batch, self.max_len,
-            lengths=self._tensor(lengths) if self.ragged_ok else None)
+            lengths=self._tensor(lengths) if self.ragged_ok else None,
+            **self._tp_kw())
         return self._argmax(logits).cpu().numpy(), cache
 
     def _decode(self, tokens, cache):
-        """One decode step over ``cache`` (updated in place)."""
+        """One decode step over ``cache`` (updated in place); a ``_Held``
+        cache is a sharded admit's batch-1 walk step."""
+        if isinstance(cache, _Held):
+            return self._post("walk", cache.slot, int(tokens[0][0]))
+        return self._decode_here(tokens, cache)
+
+    def _decode_here(self, tokens, cache):
         logits, _ = self.model.decode_step(self.params, self._tensor(tokens),
-                                           cache)
+                                           cache, **self._tp_kw())
         return self._argmax(logits).cpu().numpy()
+
+    # -- sharded: the lead's posted device operations -----------------------
+
+    def _post(self, op: str, slot: int = -1, a: int = 0, b: int = 0,
+              payload=None):
+        """Lead: post a device operation to every rank, then run it here;
+        returns its tokens (prefill, walk, decode)."""
+        self.sharding.post(op, slot, a, b, payload)
+        return self._run_op(op, slot, a, b, payload)
+
+    def _run_op(self, op, slot, a, b, payload):
+        """One posted operation on this rank's blocks; every rank runs it,
+        the ranks that do not hold ``slot`` enter none of its collectives
+        but the control broadcast of its token."""
+        sc, sh = self.slotcache, self.sharding
+        if op in ("prefill", "walk"):
+            nxt = None
+            if sc.owns(slot):
+                if op == "prefill":
+                    nxt, self._locals[slot] = self._prefill_here(
+                        payload.reshape(1, a), [b])
+                else:
+                    nxt = self._decode_here([[a]], self._locals[slot])
+            return sh.from_group(nxt, sc.owner(slot))
+        if op == "decode":
+            lo, hi = sc.slot_range()
+            nxt = self._decode_here(payload[lo:hi, None], sc.cache)
+            return sh.gather_data(nxt, hi - lo) if sc.slot_split else nxt
+        if op == "install":
+            if sc.owns(slot):
+                sc.write_slot(self._locals.pop(slot), slot)
+        elif op == "reset_slot":
+            if sc.owns(slot):
+                sc.reset_slot(slot)
+            self._locals.pop(slot, None)
+        elif op == "reset":
+            sc.reset()
+            self._locals.clear()
+        return None
+
+    def follow(self):
+        """Every rank but the lead: run the lead's posted operations, in
+        order, until it calls ``stop``."""
+        while True:
+            op, slot, a, b, payload = self.sharding.receive()
+            if op == "stop":
+                return
+            self._run_op(op, slot, a, b, payload)
+
+    def stop(self):
+        """Lead: release the following ranks (their ``follow`` returns)."""
+        if self.sharding is not None and self.sharding.lead:
+            self.sharding.post("stop")
+
+    def _write_slot(self, local, slot: int):
+        if self.sharding is not None:
+            self._post("install", slot)
+        else:
+            self.slotcache.write_slot(local, slot)
+
+    def _reset_slot(self, slot: int):
+        if self.sharding is not None:
+            self._post("reset_slot", slot)
+        else:
+            self.slotcache.reset_slot(slot)
 
     # -- slot management ----------------------------------------------------
 
@@ -309,6 +445,8 @@ class ServeEngine:
                 raise ValueError(errors.msg(
                     "frames_mem_len_mismatch", rid=req.rid,
                     frames=fr.shape[0], mem_len=self.mem_len))
+        if prefix_cache is not None and self.sharding is not None:
+            raise NotImplementedError(_SHARDED_PREFIX)
         use_prefix = prefix_cache is not None and self.prefix_eligible()
         recurrent = self.contract == "recurrent"
         st = _Prefill(req=req,
@@ -363,7 +501,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             nxt, st.local = self._prefill(
                 toks, [L0],
-                req.frames if self.contract == "encdec" else None)
+                req.frames if self.contract == "encdec" else None, slot)
             self.stats["prefill_s"] += time.perf_counter() - t0
             self.stats[f"prefill_b{self._stat_bucket(L0)}"] += 1
             st.consumed = L0
@@ -404,7 +542,7 @@ class ServeEngine:
         s.remaining = st.req.gen - 1
         s.t_admit = s.t_first = now
         self.tokens[slot] = st.first
-        self.slotcache.write_slot(st.local, slot)
+        self._write_slot(st.local, slot)
         s.pending = None
 
     def admit(self, req: Request, slot: int, prefix_cache=None):
@@ -419,7 +557,10 @@ class ServeEngine:
     def decode_step(self):
         """One shared decode step over every slot; returns retired slots."""
         t0 = time.perf_counter()
-        nxt = self._decode(self.tokens[:, None], self.slotcache.cache)
+        if self.sharding is not None:
+            nxt = self._post("decode", payload=self.tokens)
+        else:
+            nxt = self._decode(self.tokens[:, None], self.slotcache.cache)
         self.stats["decode_s"] += time.perf_counter() - t0
         active = self.decoding_count()
         self.stats["decode_steps"] += 1
@@ -449,7 +590,7 @@ class ServeEngine:
             t_admit=s.t_admit, t_first=s.t_first, t_done=self._now())
         s.rid, s.req, s.remaining, s.pending = -1, None, 0, None
         if self.contract == "recurrent":
-            self.slotcache.reset_slot(slot)
+            self._reset_slot(slot)
         return comp
 
     def cancel(self, slot: int) -> List[int]:
@@ -465,7 +606,7 @@ class ServeEngine:
         partial = list(s.out)
         s.rid, s.req, s.remaining, s.pending = -1, None, 0, None
         if self.contract == "recurrent":
-            self.slotcache.reset_slot(slot)
+            self._reset_slot(slot)
         self.stats["cancels"] += 1
         return partial
 
@@ -528,6 +669,8 @@ class ServeEngine:
         Exact-length (recurrent) prefills warm one prompt per bucket of the
         table, not per length: eager PyTorch builds nothing per shape.
         Returns the warmup run's stats."""
+        if prefix and self.sharding is not None:
+            raise NotImplementedError(_SHARDED_PREFIX)
         if prefix and not self.prefix_eligible():
             raise ValueError(errors.msg("prefix_ineligible",
                                         name=self.cfg.name))
@@ -558,7 +701,10 @@ class ServeEngine:
         return stats
 
     def reset(self):
-        self.slotcache.reset()
+        if self.sharding is not None:
+            self._post("reset")
+        else:
+            self.slotcache.reset()
         self.tokens[:] = 0
         self.slots = [_Slot() for _ in range(self.n_slots)]
         self.stats = collections.Counter()
@@ -566,6 +712,12 @@ class ServeEngine:
     @property
     def cache_bytes(self) -> int:
         return self.slotcache.bytes
+
+    @property
+    def device_cache_bytes(self) -> int:
+        """The largest per-device slot-cache footprint: ``cache_bytes``
+        unsharded, the largest rank's under a ``sharding``."""
+        return self.slotcache.device_bytes
 
 
 # ---------------------------------------------------------------------------

@@ -746,3 +746,42 @@ def test_decode_launch_count_is_exact_under_two_threads(dev):
         t.join()
     torch.cuda.synchronize()
     assert decode_ops.launches == before + 2 * n
+
+
+# ---------------------------------------------------------------------------
+# the shapes a rank of sharded serving gives the kernels: Qwen2-1.5B's
+# 12/2 heads over a 2-way model axis are 6/1 a rank, RWKV6-3B's 40 heads
+# 20 (m = 2) or 10 (m = 4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T", [(1, 256), (1, 64), (2, 130)])
+def test_flash_kernel_at_a_tensor_parallel_rank(dev, B, T, dtype, tol):
+    _flash_case(dev, dtype, tol, B, T, T, 6, 1, 128, 128, True, None,
+                scale=128 ** -0.5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S", [(4, 1024), (8, 1024), (1, 300)])
+def test_decode_kernel_at_a_tensor_parallel_rank(dev, B, S, dtype, tol):
+    q, k, v, valid = _decode_inputs(dev, B, S, 6, 1, 128, 128, dtype)
+    before = decode_ops.launches
+    got = decode_ops.decode_attention(q, k, v, valid, scale=0.088)
+    want = decode_ref.decode_attention(q, k, v, valid, 0.088)
+    assert decode_ops.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [10, 20])
+@pytest.mark.parametrize("B,T,state", [(1, 248, False), (8, 1, True),
+                                       (1, 1, True)])
+def test_wkv6_kernel_at_a_tensor_parallel_rank(dev, B, T, H, state, dtype):
+    r, k, v, w, u, s0 = _wkv_inputs(dev, B, T, H, 64, dtype, seed=H + T,
+                                    state=state)
+    before = wkv_ops.launches
+    got = wkv_ops.wkv6(r, k, v, w, u, s0)
+    assert wkv_ops.launches == before + 1
+    _wkv_close(got, wkv_ref.wkv6(r, k, v, w, u, s0), dtype)

@@ -207,17 +207,33 @@ def test_serve_cli_fixed_batch_loop():
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
 
 
-@pytest.mark.parametrize("flag", [["--mesh-shape", "1x2"]])
+@pytest.mark.parametrize("flag", [["--serve-sharded", "--mesh-shape", "1x2",
+                                   "--trace", "2", "--prefix-cache", "2"]])
 def test_unported_serve_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="repro/"):
+    """A prefix cache beside --serve-sharded is not ported (ROADMAP Queue 1
+    item 2b-ii): refused by name before any rank starts."""
+    with pytest.raises(NotImplementedError, match="--prefix-cache"):
         pt_serve.main(["--arch", "qwen2-1.5b-reduced", "--device", "cpu",
                        *flag])
 
 
-def test_unported_engine_options_raise(lm):
-    with pytest.raises(NotImplementedError, match="sharding.py"):
-        ServeEngine(lm["model"], lm["params"], n_slots=2, max_len=MAX_LEN,
-                    sharding=object())
+def test_unported_engine_options_raise(lm, tmp_path):
+    """A sharded engine (here on a one-rank mesh) refuses a prefix cache by
+    name; an unsharded one takes it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.sharding import ServeSharding
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        sharded = ServeEngine(lm["model"], lm["params"], n_slots=2,
+                              max_len=MAX_LEN, sharding=ServeSharding(
+                                  make_mesh((1, 1), device_type="cpu")))
+        sharded.begin()
+        with pytest.raises(NotImplementedError, match="mesh-sharded engine"):
+            sharded.admit(lm["trace"][5], 0, prefix_cache=PrefixCache(cap=2))
+    finally:
+        dist.destroy_process_group()
     eng = _engine(lm)
     pc = PrefixCache(cap=2)
     eng.begin()

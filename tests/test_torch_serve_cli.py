@@ -131,6 +131,9 @@ def test_deadline_flags_parse_and_each_request_ends_once(ckpt):
 
 
 def test_mesh_flags_still_raise_by_name():
-    for flag in (["--mesh-shape", "1x2"], ["--serve-sharded"]):
+    """Beside --serve-sharded, the flags a sharded engine does not take
+    raise by name (ROADMAP Queue 1 item 2b-ii)."""
+    for flag in (["--prefix-cache", "2"], ["--replicas", "2"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
-            pt_serve.main(ARGV + flag)
+            pt_serve.main(ARGV + ["--serve-sharded", "--mesh-shape", "1x2",
+                                  "--dist-backend", "gloo"] + flag)
