@@ -2137,19 +2137,30 @@ GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
 
 
 # [serve sharded]: four gloo ranks share the card in one launch: Qwen2-1.5B
-# at full width and depth as 2 data x 2 model, then RWKV6-3B at full width
-# and depth as 1 x 4 (the model axis alone), fp32, 8 requests through the
+# at full width and depth as 2 data x 2 model, RWKV6-3B at full width and
+# depth as 1 x 4 (the model axis alone), seamless-m4t-large-v2 at full
+# width and depth as 2 x 2 (each request with 512 frames of its own, which
+# travel with its prefill to the data index that holds its slot), then
+# qwen3-moe-235b-a22b at full width and 1 of its 94 layers as 1 x 4 (32
+# experts and one kv head a rank; at 2 layers the single-device reference
+# beside the ranks would not fit the card), fp32, 8 requests through the
 # front-end each; ranks that share the card reduce through shared memory
 # (serve.sharding.shares_card; a gloo collective between them costs
 # 0.9-13 ms, PERF.md §5), and the first request's prefill is run once more
 # over the model group's gloo collectives. The serve CLI's --serve-sharded
 # beside them (bf16, short requests, its weights drawn on the host and
-# only each rank's blocks placed on the card)
+# only each rank's blocks placed on the card). A case may set its own
+# prompts, generations, max_len, mem_len and n_layers
 SERVE_SHARDED = dict(
     cases=(dict(tag="qwen2", arch="qwen2-1.5b", mesh=(2, 2),
                 kernels=("flash_attention", "flash_decode")),
            dict(tag="rwkv", arch="rwkv6-3b", mesh=(1, 4),
-                kernels=("wkv6",))),
+                kernels=("wkv6",)),
+           dict(tag="seamless", arch="seamless-m4t-large-v2", mesh=(2, 2),
+                kernels=("flash_attention", "flash_decode"), mem_len=512,
+                prompts=(4, 32), gens=(16, 32), max_len=64),
+           dict(tag="moe", arch="qwen3-moe-235b-a22b", mesh=(1, 4),
+                kernels=("flash_attention", "flash_decode"), n_layers=1)),
     requests=8, prompts=(64, 256), gens=(16, 32), slots=8, max_len=320,
     seed=5, tol=1e-4)
 SERVE_SHARDED_CLI = ["--arch", "qwen2-1.5b", "--trace", "4",
@@ -2176,6 +2187,31 @@ def spec_bytes(params, specs, sizes):
     return total
 
 
+def sharded_case_setup(case):
+    """A ``SERVE_SHARDED`` case's config (fp32, its depth), trace and
+    max_len."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.serve import synthetic_trace
+    S = SERVE_SHARDED
+    cfg = resolve_config(case["arch"]).replace(dtype="float32")
+    if "n_layers" in case:
+        cfg = cfg.replace(n_layers=case["n_layers"])
+    trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
+                            prompt_range=case.get("prompts", S["prompts"]),
+                            gen_range=case.get("gens", S["gens"]),
+                            mem_len=case.get("mem_len"), d_model=cfg.d_model)
+    return cfg, trace, case.get("max_len", S["max_len"])
+
+
+def first_batch(req, device):
+    """A request's prefill batch (its frames too, for an enc-dec)."""
+    import torch
+    batch = {"tokens": torch.from_numpy(req.tokens[None]).to(device)}
+    if req.frames is not None:
+        batch["frames"] = torch.from_numpy(req.frames[None]).to(device)
+    return batch
+
+
 def _drive(eng, sharding, fn):
     """Run ``fn`` on the lead, which posts its device operations, while
     the other ranks follow them; then release them."""
@@ -2192,20 +2228,18 @@ def serve_sharded_case(device, case):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import resolve_config
     from repro_torch.distrib.sharding import param_specs
     from repro_torch.interop import flatten
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.models.common import TensorParallel
-    from repro_torch.serve import (Request, ServeFrontend, cache_bytes,
-                                   synthetic_trace)
+    from repro_torch.serve import Request, ServeFrontend, cache_bytes
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.sharding import (ServeSharding,
                                             device_bytes_estimate)
     S = SERVE_SHARDED
     rank, world = dist.get_rank(), dist.get_world_size()
-    cfg = resolve_config(case["arch"]).replace(dtype="float32")
+    cfg, trace, max_len = sharded_case_setup(case)
     model = build_model(cfg)
     sh = ServeSharding(make_mesh(case["mesh"], device_type=device.type))
     t0 = time.time()
@@ -2224,12 +2258,13 @@ def serve_sharded_case(device, case):
             torch.cuda.empty_cache()
         dist.barrier(group=sh.control)
     rec = {"rank": rank, "coords": sh.coords, "draw_s": time.time() - t0,
-           "transport": sh.transport, "layers": cfg.n_layers}
+           "transport": sh.transport, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers}
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(model, blocks, n_slots=S["slots"],
-                      max_len=S["max_len"], sharding=sh)
+    eng = ServeEngine(model, blocks, n_slots=S["slots"], max_len=max_len,
+                      sharding=sh, mem_len=case.get("mem_len"))
     del blocks
     sc = eng.slotcache
     rec.update(param_bytes=cache_bytes(eng.params), want_params=want_params,
@@ -2240,18 +2275,22 @@ def serve_sharded_case(device, case):
                cache_peak=eng.rank_setup_peak[rank] - base,
                want_cache=device_bytes_estimate(sc._meta, sc.specs, sh),
                unsharded_cache=eng.cache_bytes)
-    trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
-                            prompt_range=S["prompts"], gen_range=S["gens"])
+    frames = None if trace[0].frames is None \
+        else np.zeros_like(trace[0].frames)
+
     def warm():     # one 9-token request: a prefill, a walk, a step
         eng.begin()
-        eng.admit(Request(rid=-1, tokens=np.zeros(9, np.int32), gen=2), 0)
+        eng.admit(Request(rid=-1, tokens=np.zeros(9, np.int32), gen=2,
+                          frames=frames), 0)
         eng.decode_step()
         eng.retire(0)
         eng.reset()
     _drive(eng, sh, warm)
     torch.cuda.synchronize()
     reset_launches()
-    eng.tp.timed = True         # the collectives' seconds, after a sync
+    colls = [tp for tp in (eng.tp, sh.rows) if tp is not None]
+    for tp in colls:            # the collectives' seconds, after a sync
+        tp.timed = True
     dist.barrier(group=sh.control)
 
     def serve():
@@ -2272,18 +2311,19 @@ def serve_sharded_case(device, case):
     _drive(eng, sh, serve)
     torch.cuda.synchronize()
     rec["launches"] = read_launches()
-    rec["coll_s"], rec["colls"] = eng.tp.coll_s, eng.tp.calls
-    eng.tp.timed = False
+    rec["coll_s"] = sum(tp.coll_s for tp in colls)
+    rec["colls"] = sum(tp.calls for tp in colls)
+    for tp in colls:
+        tp.timed = False
     # the first request's prefill logits, the rank's vocab blocks gathered:
     # through the shared memory the engine took, and through the model
     # group's gloo collectives (the transport of ranks on cards of their
     # own), on the card
-    toks = torch.from_numpy(trace[0].tokens[None]).to(device)
+    batch = first_batch(trace[0], device)
     group = TensorParallel(sh.model_group, sh.model_index, sh.model_size)
     for key, tp in (("logits", eng.tp), ("logits_group", group)):
         t1 = time.time()
-        logits, _ = model.prefill(eng.params, {"tokens": toks},
-                                  S["max_len"], tp=tp)
+        logits, _ = model.prefill(eng.params, batch, max_len, tp=tp)
         rec[key] = tp.all_gather(logits[:, -1], -1)[0].cpu()
         torch.cuda.synchronize()
         rec[key + "_s"] = time.time() - t1
@@ -2309,33 +2349,58 @@ def serve_sharded_rank(device, out_dir):
     torch.save(recs, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
 
 
+class RouteCounter:
+    """Routed MoE's groups and dropped (token, k) pairs by group size,
+    counted while installed (a wrapper of ``models.mlp._route``):
+    ``{tg: [groups, dropped]}``."""
+
+    def __init__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.route, self.by_size = mlp, mlp._route, {}
+
+    def __enter__(self):
+        def route(xg, router, cfg):
+            out = self.route(xg, router, cfg)
+            n = self.by_size.setdefault(int(xg.shape[1]), [0, 0])
+            n[0] += xg.shape[0]
+            n[1] += int((~out[3]).sum())
+            return out
+        self.mlp._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._route = self.route
+        return False
+
+
 def serve_sharded_reference(dev, case):
     """The single-device engine on the same seeded weights and trace:
-    its streams and the first request's prefill logits."""
+    its streams, the first request's prefill logits and, for routed MoE,
+    the groups and dropped pairs of the trace by group size."""
     import torch
     from repro_torch.configs import resolve_config
     from repro_torch.models import build_model
-    from repro_torch.serve import ServeFrontend, synthetic_trace
+    from repro_torch.serve import ServeFrontend
     from repro_torch.serve.engine import ServeEngine
     S = SERVE_SHARDED
-    cfg = resolve_config(case["arch"]).replace(dtype="float32")
+    cfg, trace, max_len = sharded_case_setup(case)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
-    trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
-                            prompt_range=S["prompts"], gen_range=S["gens"])
-    eng = ServeEngine(model, params, n_slots=S["slots"],
-                      max_len=S["max_len"])
+    eng = ServeEngine(model, params, n_slots=S["slots"], max_len=max_len,
+                      mem_len=case.get("mem_len"))
     eng.warmup(prompt_lens=[len(r.tokens) for r in trace])
     t0 = time.time()
-    handles = ServeFrontend(eng, queue_depth=len(trace)).run(trace)
+    with RouteCounter() as routed:
+        handles = ServeFrontend(eng, queue_depth=len(trace)).run(trace)
     wall = time.time() - t0
-    toks = torch.from_numpy(trace[0].tokens[None]).to(dev)
-    logits = model.prefill(params, {"tokens": toks}, S["max_len"])[0]
+    logits = model.prefill(params, first_batch(trace[0], dev), max_len)[0]
     out = {"streams": {h.rid: [int(t) for t in h.tokens] for h in handles},
            "logits": logits[0, -1].cpu(), "trace_s": wall,
            "step_ms": 1e3 * eng.stats["decode_s"]
-           / max(1, eng.stats["decode_steps"])}
+           / max(1, eng.stats["decode_steps"]), "routed": routed.by_size,
+           "depth": f"{cfg.n_layers} of "
+           f"{resolve_config(case['arch']).n_layers} decoder layers"}
     del eng, params, logits
     torch.cuda.empty_cache()
     return out
@@ -2345,7 +2410,11 @@ def serve_sharded_kernels(dev):
     """The three kernels of the path against their plain versions at the
     shapes a rank gives them: Qwen2's 6/1 heads a rank (a 256-token
     prefill, 8 slots of decode over 320 rows), RWKV's 10 heads a rank at
-    m = 4 and 20 at m = 2 (a 248-token prefill, 8 slots of decode)."""
+    m = 4 and 20 at m = 2 (a 248-token prefill, 8 slots of decode),
+    seamless's 8 heads of 64 a rank at 2 x 2 (the encoder over 512 frames,
+    a 32-row decoder prefill causal and against the memory, and 4 slots of
+    decode over 64 self rows and the 512 memory rows), qwen3-moe's 16/1
+    heads a rank at 1 x 4 (a 256-token prefill, 8 slots over 320 rows)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(25)
 
@@ -2365,6 +2434,28 @@ def serve_sharded_kernels(dev):
             w = 0.35 + 0.6 * torch.sigmoid(randn(B, T, H, 64))
             check_wkv6(r, kk, vv, w, 0.1 * randn(H, 64), state,
                        f"rank {H} heads T {T}")
+    mem = randn(1, 512, 8, 64), randn(1, 512, 8, 64)
+    check_attention(randn(1, 512, 8, 64), *mem, False, None, 0.125,
+                    "seamless enc 8 a rank")
+    q = randn(1, 32, 8, 64)
+    check_attention(q, randn(1, 32, 8, 64), randn(1, 32, 8, 64), True,
+                    None, 0.125, "seamless self 8 a rank")
+    check_attention(q, *mem, False, None, 0.125, "seamless cross 8")
+    lens = torch.tensor([5 + 15 * i for i in range(4)], device=dev)
+    valid = torch.arange(64, device=dev)[None] < lens[:, None]
+    check_decode(randn(4, 8, 64), randn(4, 64, 8, 64), randn(4, 64, 8, 64),
+                 valid, "seamless self 4 slots", 1e-4)
+    check_decode(randn(4, 8, 64), randn(4, 512, 8, 64),
+                 randn(4, 512, 8, 64),
+                 torch.ones(4, 512, dtype=torch.bool, device=dev),
+                 "seamless cross 4 slots", 1e-4)
+    check_attention(randn(1, 256, 16, 128), randn(1, 256, 1, 128),
+                    randn(1, 256, 1, 128), True, None, 128 ** -0.5,
+                    "moe rank 16/1 T 256")
+    lens = torch.tensor([64 + 30 * i for i in range(8)], device=dev)
+    valid = torch.arange(S, device=dev)[None] < lens[:, None]
+    check_decode(randn(8, 16, 128), randn(8, S, 1, 128),
+                 randn(8, S, 1, 128), valid, "moe rank 16/1 8 slots", 1e-4)
 
 
 def serve_sharded_phase(dev):
@@ -2384,9 +2475,13 @@ def serve_sharded_phase(dev):
     exact launches on each rank (layers times the prefills and walk steps
     of its data index' slots and the decode steps), the CLI's run done
     with its per-device line and each CLI rank's set-up peak on the card
-    within its blocks. Times are of four ranks on one card: they say
-    nothing of scaling. Returns the trace's launches, summed over the
-    ranks."""
+    within its blocks. The cases: Qwen2-1.5B 2 x 2, RWKV6-3B 1 x 4,
+    seamless-m4t-large-v2 2 x 2 (its frames posted with each prefill),
+    qwen3-moe-235b-a22b at 1 layer 1 x 4 (experts over the model axis; the
+    single device's capacity drops printed). Times are of four ranks on
+    one card: they say nothing of scaling. Returns each case's trace
+    launches, summed over the ranks, as ``{"serve_sharded_<tag>":
+    launches}``."""
     import shutil
     import torch
     from repro_torch.launch import serve as serve_cli
@@ -2444,8 +2539,9 @@ def serve_sharded_phase(dev):
         for case in S["cases"]:
             t2 = time.time()
             refs[case["tag"]] = serve_sharded_reference(dev, case)
-            print(f"[serve sharded] {case['arch']} single device, fp32 "
-                  f"(beside the ranks): trace "
+            print(f"[serve sharded] {case['arch']} single device, fp32, "
+                  f"{refs[case['tag']]['depth']} (run beside the ranks): "
+                  f"trace "
                   f"{refs[case['tag']]['trace_s']:.3f} s, "
                   f"{refs[case['tag']]['step_ms']:.2f} ms a decode step; "
                   f"reference wall {time.time() - t2:.3f} s")
@@ -2499,9 +2595,24 @@ def serve_sharded_phase(dev):
         if not err_g <= S["tol"]:
             fail(f"[serve sharded] {tag}: the gloo group's first-step "
                  f"logits {err_g:.3e} from the single device's")
+        steps = max(1, st["decode_steps"])
+        print(f"[serve sharded] {tag} collectives a decode step, by rank "
+              f"(calls, ms; prefills' and walks' included): " + ", ".join(
+                  f"{r}: {rec[tag]['colls'] / steps:.1f}, "
+                  f"{1e3 * rec[tag]['coll_s'] / steps:.2f}"
+                  for r, rec in enumerate(recs)))
+        if ref["routed"]:
+            # the single device's routing groups and dropped (token, k)
+            # pairs by group size: a prefill's group is its bucket
+            print(f"[serve sharded] {tag} single device, routed MoE groups "
+                  f"and dropped pairs by group size: " + ", ".join(
+                      f"{tg} tokens: {n} groups, {k} dropped" for tg, (n, k)
+                      in sorted(ref["routed"].items())))
         # each rank's exact launches: a layer's kernel in every prefill and
         # walk step of the slots its data index holds, and in every decode
-        # step
+        # step; an enc-dec prefill runs the encoder's layers and the
+        # decoder's self and cross attention, its decode step self and
+        # cross
         ops = collections.Counter(lead["posted"])
         for r, rec in enumerate(recs):
             rec = rec[tag]
@@ -2511,6 +2622,9 @@ def serve_sharded_phase(dev):
             want = {k: 0 for k in rec["launches"] if " " not in k}
             if "wkv6" in case["kernels"]:
                 want["wkv6"] = L * (pre + walk + dec)
+            elif rec["enc_layers"]:
+                want.update(flash_attention=(rec["enc_layers"] + 2 * L) * pre,
+                            flash_decode=2 * L * (walk + dec))
             else:
                 want.update(flash_attention=L * pre,
                             flash_decode=L * (walk + dec))
@@ -2538,8 +2652,9 @@ def serve_sharded_phase(dev):
             if got != want:
                 fail(f"[serve sharded] {tag} rank {r}: launches {got}, "
                      f"want {want}")
+            mine = launches.setdefault(f"serve_sharded_{tag}", {})
             for k, n in rec["launches"].items():
-                launches[k] = launches.get(k, 0) + n
+                mine[k] = mine.get(k, 0) + n
     print("\n".join("  " + ln for ln in done["out"].splitlines()))
     if cli.returncode != 0:
         print(done["err"][-4000:], file=sys.stderr)
@@ -5235,7 +5350,7 @@ def main() -> int:
     del served
     serve_reference_phase(SERVE_RWKV_REDUCED, "reference rwkv")
     t1 = time.time()
-    launches["serve_sharded"] = serve_sharded_phase(dev)
+    launches.update(serve_sharded_phase(dev))
     print(f"[serve sharded] phase wall {time.time() - t1:.3f} s")
     print(f"[serve] serve phases wall {time.time() - t0:.3f} s")
     t0 = time.time()

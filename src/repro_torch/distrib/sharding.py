@@ -365,20 +365,40 @@ _HEAD_DIM_LEAVES = frozenset({"bq", "bk", "bv", "rope_inv_q", "rope_inv_k",
 _RWKV_TIME_COLS = frozenset({"wr", "wk", "wv", "wg"})
 
 
+def _forward_dim(name: str, body, tree):
+    """The dim of a leaf's body (its shape past a scan axis) that the
+    tensor-parallel forward splits where JAX's rule may take another, or
+    None for JAX's rule."""
+    if len(body) != 2:
+        return None
+    if name in _HEAD_DIM_LEAVES:
+        return 0
+    if "w_lora_a" in tree and name in _RWKV_TIME_COLS \
+            and body[0] == body[1]:
+        return 1
+    if name in ("wg", "wu", "wd") and "wu" in tree and "wd" in tree:
+        # a dense MLP (the shared expert too): Megatron's columns of F in,
+        # rows of F out; JAX splits the wider dim, D where F < D
+        return 0 if name == "wd" else 1
+    if name == "bd_moe":
+        return 0        # (E, D): the experts' block; JAX splits the wider D
+    return None
+
+
 def forward_specs(params, mesh):
-    """``param_specs`` with the head-parallel forward's splits
+    """``param_specs`` with the tensor-parallel forward's splits
     (``models.common.TensorParallel``): the leaves of ``_HEAD_DIM_LEAVES``
-    on their head dim, and the RWKV time mix's square ``wr``, ``wk``,
-    ``wv``, ``wg`` on their output dim. Each such
-    leaf keeps the element count of JAX's block, since JAX splits its
-    other dim and both divide the model axis; a leaf whose dim does not
-    divide keeps JAX's spec."""
+    on their head dim, the RWKV time mix's square ``wr``, ``wk``, ``wv``,
+    ``wg`` on their output dim, a dense MLP's ``wg``, ``wu`` on their
+    columns and ``wd`` on its rows (the hidden dim F), and MoE's
+    ``bd_moe`` (E, D) on its experts. Each such leaf keeps the element
+    count of JAX's block, since JAX splits its other dim and both divide
+    the model axis; a leaf whose dim does not divide keeps JAX's spec."""
     sizes = _sizes(mesh)
     m = sizes.get("model", 1)
     specs = param_specs(params, sizes)
 
     def walk(tree, sp, path):
-        cols = _RWKV_TIME_COLS if "w_lora_a" in tree else frozenset()
         out = {}
         for k, v in tree.items():
             p = f"{path}/{k}" if path else k
@@ -388,9 +408,7 @@ def forward_specs(params, mesh):
             shape = _shape(v)
             off = 1 if _scanned(p) else 0
             body = shape[off:]
-            dim = 0 if k in _HEAD_DIM_LEAVES and len(body) == 2 else \
-                1 if k in cols and len(body) == 2 and body[0] == body[1] \
-                else None
+            dim = _forward_dim(k, body, tree)
             if m > 1 and dim is not None and _divisible(body[dim], m):
                 spec = [None] * len(shape)
                 spec[off + dim] = "model"

@@ -66,12 +66,15 @@ over the set-up:
         --prompt-range 4,10 --gen-range 2,6 --serve-sharded \
         --mesh-shape 2x2 --dist-backend gloo --device cpu
 
-A config whose slot cache does not split (``shard_ineligible``) is refused
-before any rank starts, and so is a family whose tensor-parallel forward
-is not ported (MLA, enc-dec, MoE, Mamba: ``NotImplementedError``), as are
-``--prefix-cache``, ``--replicas`` and ``--compare-static`` beside
-``--serve-sharded``, and ``--serve-sharded`` without ``--trace`` (the
-fixed-batch loop is not sharded).
+The enc-dec serves sharded with ``--mem-len`` (each request's frames go
+with its prefill to the ranks that hold its slot), and routed MoE with
+its experts over the model axis. A config whose slot cache does not split
+(``shard_ineligible``) is refused before any rank starts, and so is a
+family whose tensor-parallel forward is not ported (MLA, Mamba:
+``NotImplementedError``) and a MoE whose experts do not divide the model
+axis, as are ``--prefix-cache``, ``--replicas`` and ``--compare-static``
+beside ``--serve-sharded``, and ``--serve-sharded`` without ``--trace``
+(the fixed-batch loop is not sharded).
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
 prompts (the engine sends no patch embeddings). ``--arch
 deepseek-v3-671b`` serves MLA from its latent cache (``ckv`` and
@@ -441,7 +444,7 @@ def check_shardable(cfg, shape, *, slots: int, max_len: int,
     sizes = dict(zip(AXES[-len(shape):], shape))
     slot_specs(template(slots), _infer_batch_axes(template(1), template(2)),
                sizes, name=cfg.name)
-    check_tensor_parallel(cfg)
+    check_tensor_parallel(cfg, sizes["model"])
 
 
 def follow_trace(model, params, *, slots, max_len, mem_len=None,

@@ -4,16 +4,16 @@ branches of ``build_model``. ``Model`` bundles plain functions:
   init(gen, device=None)                      -> params
   apply(params, batch, taps=None)             -> logits (vit) |
                                                  (logits, aux) (lm, encdec)
-  prefill(params, batch, max_len, lengths=None[, tp]) -> (logits, cache)
-  decode_step(params, token, cache[, tp])     -> (logits, cache)
+  prefill(params, batch, max_len, lengths=None, tp=None) -> (logits, cache)
+  decode_step(params, token, cache, tp=None)  -> (logits, cache)
   init_cache(batch, max_len, device=None[, mem_len]) -> empty cache
 
 ``decode_step`` updates the cache in place. A VLM stub batch
 (``frontend="patch_stub"``) carries ``patch_embeds`` (B, P, D) beside its
-``tokens``; ``apply`` and ``prefill`` put them before the tokens. An LM's
-``prefill`` and ``decode_step`` take ``tp=``, a rank's tensor-parallel
-context (``models.common.TensorParallel``) over its blocks. An
-enc-dec batch carries the encoder's ``frames`` (B, S, D) beside the
+``tokens``; ``apply`` and ``prefill`` put them before the tokens. The
+``prefill`` and ``decode_step`` of an LM and of an enc-dec take ``tp=``, a
+rank's tensor-parallel context (``models.common.TensorParallel``) over
+its blocks. An enc-dec batch carries the encoder's ``frames`` (B, S, D) beside the
 decoder's ``tokens``, and its ``init_cache`` takes the memory length
 ``mem_len`` (S).
 """
@@ -94,11 +94,11 @@ def _encdec_model(cfg: ModelConfig, init) -> Model:
         cfg=cfg, init=init,
         apply=lambda params, batch, taps=None: encdec_mod.apply_encdec(
             params, batch["frames"], batch["tokens"], cfg, taps=taps),
-        prefill=lambda params, batch, max_len, lengths=None:
+        prefill=lambda params, batch, max_len, lengths=None, tp=None:
             encdec_mod.encdec_prefill(params, batch["frames"],
                                       batch["tokens"], cfg, max_len,
-                                      lengths=lengths),
-        decode_step=lambda params, token, cache:
-            encdec_mod.encdec_decode_step(params, token, cache, cfg),
+                                      lengths=lengths, tp=tp),
+        decode_step=lambda params, token, cache, tp=None:
+            encdec_mod.encdec_decode_step(params, token, cache, cfg, tp=tp),
         init_cache=init_cache,
     )

@@ -279,34 +279,40 @@ def _cross_q(p, x):
     return q
 
 
-def apply_cross_attn(p, x, mem, cfg, *, taps=None):
+def apply_cross_attn(p, x, mem, cfg, *, taps=None, tp=None):
     """x: (B, T, D) decoder states; mem: (B, S, D) encoder memory ->
     (B, T, D). Every decoder row sees every memory row (non-causal, T and
-    S independent)."""
+    S independent). Head-parallel under ``tp``, as ``apply_attn``: ``p``
+    holds the rank's cross heads and ``wo``'s rows of them, and one
+    ``all_reduce`` completes the output."""
     q = _cross_q(p, x)
     k, v = _project_mem(p, mem)
     tap(taps, "q", q)
     tap(taps, "k", k)
     o = flash_ops.attention(q, k, v, causal=False,
                             scale=1.0 / math.sqrt(cfg.qk_full))
-    return torch.einsum("bthv,hvd->btd", o, p["wo"])
+    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
+    return y if tp is None else tp.all_reduce(y)
 
 
 def precompute_cross_cache(p, mem, cfg):
-    """The memory's K/V a decode step attends: {"k_mem", "v_mem"}."""
+    """The memory's K/V a decode step attends: {"k_mem", "v_mem"} (B, S,
+    Hkv, d); of the rank's cross heads when ``p`` holds them."""
     k, v = _project_mem(p, mem)
     return {"k_mem": k, "v_mem": v}
 
 
-def decode_cross_attn(p, x, cross_cache, cfg):
+def decode_cross_attn(p, x, cross_cache, cfg, tp=None):
     """x: (B, 1, D) one decoder token against the precomputed memory K/V,
-    every key valid -> (B, 1, D)."""
+    every key valid -> (B, 1, D); under ``tp`` over the rank's cross heads
+    (``apply_cross_attn``)."""
     q = _cross_q(p, x)
     k = cross_cache["k_mem"]
     valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
     y = _decode_sdpa(q, k, cross_cache["v_mem"], valid,
                      1.0 / math.sqrt(cfg.qk_full))
-    return torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
+    o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
+    return o if tp is None else tp.all_reduce(o)
 
 
 # ---------------------------------------------------------------------------

@@ -75,9 +75,12 @@ def rwkv_block(p, x, cfg, state=None, taps=None, tp=None, prev=None):
 
 
 def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
-                positions=None, taps=None, mask_kind="causal", mem=None):
+                positions=None, taps=None, mask_kind="causal", mem=None,
+                tp=None):
     """Full-sequence block. Returns x after its residual sub-layers; a
-    decoder block attends the encoder memory ``mem`` (B, S, D)."""
+    decoder block attends the encoder memory ``mem`` (B, S, D). ``tp``:
+    the tensor-parallel context of an attention block (the enc-dec's
+    encoder and decoder stacks) or None."""
     _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
@@ -89,23 +92,23 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
         else:
             y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
                                        positions=positions, taps=t,
-                                       mask_kind=mask_kind)
+                                       mask_kind=mask_kind, tp=tp)
         x = x + y
         if "cross" in p and mem is not None:
-            x = x + cross_sublayer(p, x, mem, cfg, t)
+            x = x + cross_sublayer(p, x, mem, cfg, t, tp=tp)
         h = apply_norm(p["ln2"], x, cfg)
-        x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t)
+        x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t, tp=tp)
     if taps is not None:
         merge_taps(taps, t, "")
     return x
 
 
-def cross_sublayer(p, x, mem, cfg, taps=None):
+def cross_sublayer(p, x, mem, cfg, taps=None, tp=None):
     """ln_cross -> cross attention to ``mem``; its taps go into ``taps``
     as ``cross_q``/``cross_k``. Returns the residual update."""
     tc = {} if taps is not None else None
     h = apply_norm(p["ln_cross"], x, cfg)
-    y = attn_mod.apply_cross_attn(p["cross"], h, mem, cfg, taps=tc)
+    y = attn_mod.apply_cross_attn(p["cross"], h, mem, cfg, taps=tc, tp=tp)
     if taps is not None:
         taps.update({"cross_" + k: v for k, v in tc.items()})
     return y
@@ -139,6 +142,7 @@ def decode_block(p, x, cache, cfg, kind: str = "attn", is_moe: bool = False,
     x = x + y
     if "cross" in p and cross_cache is not None:
         h = apply_norm(p["ln_cross"], x, cfg)
-        x = x + attn_mod.decode_cross_attn(p["cross"], h, cross_cache, cfg)
+        x = x + attn_mod.decode_cross_attn(p["cross"], h, cross_cache, cfg,
+                                           tp=tp)
     h = apply_norm(p["ln2"], x, cfg)
     return x + ffn(p["mlp"], h, cfg, is_moe, tp=tp), cache

@@ -263,12 +263,20 @@ class TensorParallel:
 
     ``timed`` adds the host seconds of every collective to ``coll_s``
     (after a device sync, so that they hold the collective alone);
-    ``calls`` counts them.
+    ``calls`` counts them. A context of one rank (``size`` 1) runs no
+    collective.
+
+    ``rows``: during a sharded decode step whose slots are split over a
+    data axis, that axis' own ``TensorParallel`` (its ``all_gather`` along
+    dim 0 gives the whole step's rows, in slot order); else None. Routed
+    MoE reads it to route the whole step as one device does
+    (``mlp.apply_moe``).
     """
 
     def __init__(self, group, index: int, size: int, host=None):
         self.group, self.index, self.size = group, index, size
         self.host = host
+        self.rows = None
         self.timed = False
         self.coll_s = 0.0
         self.calls = 0
@@ -304,6 +312,8 @@ class TensorParallel:
     def all_reduce(self, x):
         """Sum of the ranks' partial ``x``, reduced in fp32, in x's
         dtype."""
+        if self.size == 1:
+            return x
         if self.host is not None:
             return self._run(self.host.all_reduce, x)
         import torch.distributed as dist
@@ -313,6 +323,8 @@ class TensorParallel:
 
     def all_gather(self, x, dim: int = -1):
         """The ranks' blocks of ``x`` concatenated along ``dim``."""
+        if self.size == 1:
+            return x
         if self.host is not None:
             return self._run(lambda t: self.host.all_gather(t, dim), x)
         import torch.distributed as dist

@@ -19,6 +19,14 @@ computed once at prefill. ``encdec_decode_step`` updates it in place.
 Two positional tables, as the reference makes them: the prefill's comes
 from numpy float64 cast to fp32 (``_sinusoid``), the decode step's row is
 computed in fp32 from ``pos``.
+
+``encode``, ``encdec_prefill`` and ``encdec_decode_step`` take ``tp``, a
+rank's ``common.TensorParallel`` with its blocks as params
+(``distrib.sharding.forward_specs``): the encoder's and the decoder's
+attention run over the rank's heads (the cross attention over its cross
+heads, whose memory K/V the cache holds), the MLPs over its hidden
+channels, one reduction a sub-layer; the embedding is vocab-parallel and
+the sinusoid is added to its whole rows.
 """
 from __future__ import annotations
 
@@ -59,14 +67,15 @@ def init_encdec(gen: torch.Generator, cfg):
     return params
 
 
-def _run_stack(stack, x, cfg, L: int, *, taps, mask_kind, mem, prefix):
+def _run_stack(stack, x, cfg, L: int, *, taps, mask_kind, mem, prefix,
+               tp=None):
     """The L stacked blocks ``stack["p0"]`` in order; each tap is written
     into one (L, ...) buffer under ``<prefix>/p0/<k>`` as the layers run."""
     layers = stack["p0"]
     for i in range(L):
         t = {} if taps is not None else None
         x = blk.apply_block(layer_slice(layers, i), x, cfg, "attn", False,
-                            taps=t, mask_kind=mask_kind, mem=mem)
+                            taps=t, mask_kind=mask_kind, mem=mem, tp=tp)
         for k, v in (t or {}).items():
             path = f"{prefix}/p0/{k}"
             if i == 0:
@@ -75,20 +84,22 @@ def _run_stack(stack, x, cfg, L: int, *, taps, mask_kind, mem, prefix):
     return x
 
 
-def encode(params, frames, cfg, *, taps=None):
+def encode(params, frames, cfg, *, taps=None, tp=None):
     """frames: (B, S, D) stub frontend embeddings -> encoder memory (B, S,
-    D). The frames are cast to the model dtype before the table is
-    added."""
+    D), whole on every rank of ``tp``. The frames are cast to the model
+    dtype before the table is added."""
     dt = dtype_of(cfg)
     S, D = frames.shape[1:]
     x = frames.to(dt) + _sinusoid(S, D, frames.device).to(dt)
     x = _run_stack(params["enc"], x, cfg, cfg.n_enc_layers, taps=taps,
-                   mask_kind="full", mem=None, prefix="enc")
+                   mask_kind="full", mem=None, prefix="enc", tp=tp)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
-def _embed(params, tokens, cfg):
-    x = params["embed"][tokens]
+def _embed(params, tokens, cfg, tp=None):
+    """The token embeddings (vocab-parallel under ``tp``, whole D rows) with
+    the sinusoid added."""
+    x = lm_mod._embed(params, tokens, None, cfg, tp)
     return x + _sinusoid(tokens.shape[1], cfg.d_model,
                          x.device).to(x.dtype)
 
@@ -124,17 +135,24 @@ def init_encdec_cache(cfg, batch: int, max_len: int, mem_len: int, device):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def encdec_prefill(params, frames, tokens, cfg, max_len: int, lengths=None):
+def encdec_prefill(params, frames, tokens, cfg, max_len: int, lengths=None,
+                   tp=None):
     """Encode, then the teacher-forced decoder prefill. Returns (last
     logits (B, 1, V), cache).
+
+    Under ``tp`` (``common.TensorParallel``, with the rank's blocks as
+    params) the encoder and decoder run head- and channel-parallel, the
+    embedding is vocab-parallel, the cache holds the rank's self and cross
+    heads, and the logits are the rank's column block of the vocab when
+    the head is split there (``lm._logits``).
 
     ``lengths`` (B,) allows ragged (right-padded) decoder prompts: causal
     self-attention keeps the cache rows < lengths exact, and the cross
     attention and MLP act per position, so only the logits' gather and
     the cache's ``pos`` take the true length. ``frames`` are unpadded: the
     memory is attended in full."""
-    mem = encode(params, frames, cfg)
-    x = _embed(params, tokens, cfg)
+    mem = encode(params, frames, cfg, tp=tp)
+    x = _embed(params, tokens, cfg, tp)
     B, T = tokens.shape
     positions = lm_mod._positions(B, T, x.device)
     layers = params["dec"]["p0"]
@@ -143,11 +161,12 @@ def encdec_prefill(params, frames, tokens, cfg, max_len: int, lengths=None):
         p = layer_slice(layers, i)
         h = apply_norm(p["ln1"], x, cfg)
         y, c = attn_mod.apply_attn(p["mixer"], h, cfg, "attn",
-                                   positions=positions, return_cache=True)
+                                   positions=positions, return_cache=True,
+                                   tp=tp)
         x = x + y
-        x = x + blk.cross_sublayer(p, x, mem, cfg)
+        x = x + blk.cross_sublayer(p, x, mem, cfg, tp=tp)
         h = apply_norm(p["ln2"], x, cfg)
-        x = x + mlp_mod.apply_mlp(p["mlp"], h, cfg)
+        x = x + mlp_mod.apply_mlp(p["mlp"], h, cfg, tp=tp)
         caches.append({"self": lm_mod._pad_cache(c, max_len),
                        "cross": attn_mod.precompute_cross_cache(
                            p["cross"], mem, cfg)})
@@ -163,13 +182,14 @@ def encdec_prefill(params, frames, tokens, cfg, max_len: int, lengths=None):
         cache = lm_mod.override_cache_pos(cache, lengths)
         pos = lengths.to(torch.int32).clone()
     x = apply_norm(params["final_norm"], x_last, cfg)
-    return x @ params["head"], {"dec": cache, "pos": pos}
+    return lm_mod._logits(params, x, cfg, tp), {"dec": cache, "pos": pos}
 
 
-def encdec_decode_step(params, token, cache, cfg):
+def encdec_decode_step(params, token, cache, cfg, tp=None):
     """token: (B, 1) int -> (logits (B, 1, V), cache); the cache is updated
-    in place (each layer's new self K/V row, every ``pos`` + 1)."""
-    x = params["embed"][token]
+    in place (each layer's new self K/V row, every ``pos`` + 1). Under
+    ``tp`` as ``encdec_prefill``."""
+    x = lm_mod._embed(params, token, None, cfg, tp)
     pos = cache["pos"]
     D = cfg.d_model
     i = torch.arange(D // 2, dtype=torch.float32, device=x.device)[None, :]
@@ -180,7 +200,8 @@ def encdec_decode_step(params, token, cache, cfg):
     for li in range(cfg.n_layers):
         c = layer_slice(dec, li)
         x, _ = blk.decode_block(layer_slice(layers, li), x, c["self"], cfg,
-                                "attn", False, cross_cache=c["cross"])
+                                "attn", False, cross_cache=c["cross"],
+                                tp=tp)
     pos.add_(1)
     x = apply_norm(params["final_norm"], x, cfg)
-    return x @ params["head"], cache
+    return lm_mod._logits(params, x, cfg, tp), cache

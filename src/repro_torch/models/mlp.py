@@ -7,6 +7,10 @@ CORP integration: the tap ``h`` is the activation entering the second
 linear map, so one hidden channel is one structured unit. For MoE the tap
 ``moe_h`` is per expert and capacity slot, with the dispatch mask
 ``moe_mask``, so the statistics are expert-conditional.
+
+Under a mesh's ``tp`` (the serving forward) the dense MLP is Megatron's
+split and the routed experts are split over the model axis
+(``_apply_moe_tp``); taps are single-device only.
 """
 from __future__ import annotations
 
@@ -15,8 +19,7 @@ import math
 import torch
 
 from repro_torch.models.common import (activation, dense_init, dtype_of,
-                                       expert_taps_on, no_tensor_parallel,
-                                       row_share_of, tap)
+                                       expert_taps_on, row_share_of, tap)
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
@@ -55,6 +58,17 @@ def apply_mlp(p, x, cfg, taps=None, tp=None):
     hidden channels give a partial sum that one ``all_reduce`` completes;
     the biases of F are taken at the rank's block, ``bd`` is added once,
     after the reduction."""
+    y = mlp_partial(p, x, cfg, taps, tp)
+    if tp is not None:
+        y = tp.all_reduce(y)
+    if "bd" in p:
+        y = y + p["bd"].to(x.dtype)
+    return y
+
+
+def mlp_partial(p, x, cfg, taps=None, tp=None):
+    """``apply_mlp`` up to its reduction: the rank's partial sum under
+    ``tp`` (the whole product without), ``bd`` not added."""
     act = activation(cfg.act)
     dt = x.dtype
     u = x @ p["wu"]
@@ -73,12 +87,7 @@ def apply_mlp(p, x, cfg, taps=None, tp=None):
     else:
         h = act(u)
     tap(taps, "h", h)
-    y = h @ p["wd"]
-    if tp is not None:
-        y = tp.all_reduce(y)
-    if "bd" in p:
-        y = y + p["bd"].to(dt)
-    return y
+    return h @ p["wd"]
 
 
 # ---------------------------------------------------------------------------
@@ -162,60 +171,92 @@ def capacity(tg: int, cfg) -> int:
     return min(tg, max(K, int(math.ceil(tg * K * m.capacity_factor / E))))
 
 
+def _route(xg, router, cfg):
+    """Routing of (G, tg, D) groups: an fp32 softmax of ``xg @ router``,
+    its top k (ties to the lower expert index, as ``jax.lax.top_k``)
+    renormalised; each (token, k) pair takes the next slot of its expert's
+    queue, in token-major, k-minor order, and a pair past the capacity C is
+    dropped. Returns (gate (G, tg, K), expert (G, tg K), queue position
+    (G, tg K), kept (G, tg K), C)."""
+    E, K = cfg.eff_num_experts, cfg.moe.top_k
+    G, tg, _ = xg.shape
+    C = capacity(tg, cfg)
+    probs = torch.softmax(xg.float() @ router, dim=-1)        # (G, tg, E)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = vals[..., :K], order[..., :K]                 # (G, tg, K)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = idx.reshape(G, tg * K)
+    onehot = torch.nn.functional.one_hot(flat, E)             # (G, tg K, E)
+    pos = (onehot.cumsum(1) - onehot).gather(2, flat[..., None])[..., 0]
+    return gate, flat, pos, pos < C, C
+
+
+def _experts(p, xe, cfg):
+    """The experts' GLU over their dispatched rows xe (E, N, D) -> (E, N,
+    F) hidden and (E, N, D) outputs, ``bd_moe`` (CORP's hidden-channel
+    compensation, per expert) added inside the output, before the combine:
+    dispatched tokens get it gate-weighted, empty capacity slots are never
+    gathered."""
+    act = activation(cfg.act)
+    h = act(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])  # (E, N, F)
+    ye = torch.bmm(h, p["wd"])                                # (E, N, D)
+    if "bd_moe" in p:
+        ye = ye + p["bd_moe"].to(ye.dtype)[:, None, :]
+    return h, ye
+
+
+def _dispatch(p, xg, routed, sel, e_lo, cfg, dt):
+    """The experts [e_lo, e_lo + n) that ``p`` holds over the pairs ``sel``
+    (G, tg K; kept pairs of those experts) of ``_route``'s ``routed``: each
+    pair's row scattered into its expert's queue slot, the experts run
+    (``_experts``), each pair's output gathered back and gate-weighted, the
+    gate rounded to ``dt`` as the reference rounds its combine tensor.
+    Returns (hidden (G, n, C, F), the dispatched (group, slot) indices,
+    each pair's contribution (G, tg K, D) fp32, zero outside ``sel``)."""
+    gate, flat, pos, _, C = routed
+    G, tg, D = xg.shape
+    K, n = gate.shape[-1], p["wg"].shape[0]
+    slot = ((flat - e_lo) * C + pos) * sel                    # (G, tg K)
+    g_i, f_i = sel.nonzero(as_tuple=True)
+    s_i = slot[g_i, f_i]
+    xe = xg.new_zeros(G, n * C, D)
+    xe[g_i, s_i] = xg[g_i, f_i // K]
+    xe = xe.reshape(G, n, C, D).transpose(0, 1).reshape(n, G * C, D)
+    h, ye = _experts(p, xe, cfg)
+    ye = ye.reshape(n, G, C, D).transpose(0, 1).reshape(G, n * C, D)
+    w = (gate.to(dt).float() * sel.reshape(G, tg, K)).reshape(G, tg * K)
+    got = ye.gather(1, slot[..., None].expand(G, tg * K, D))
+    return (h.reshape(n, G, C, -1).transpose(0, 1), (g_i, s_i),
+            w[..., None] * got.float())
+
+
 def apply_moe(p, x, cfg, taps=None, tp=None):
     """Top-k routed experts with capacity: x (B, T, D) -> (B, T, D).
 
-    Routing is an fp32 softmax of ``x @ router``, its top k (ties to the
-    lower expert index, as ``jax.lax.top_k``) renormalised. Each (token,
-    k) pair takes the next slot of its expert's queue, in token-major,
-    k-minor order; a pair past the capacity is dropped and contributes
-    nothing. Dispatch and combine are index scatters and gathers (the
-    reference's one-hot products select the same rows exactly); the gate
-    weights are rounded to the model dtype before they combine, as the
-    reference rounds its combine tensor. Shared experts add their dense
-    MLP of x; its ``h`` tap lands beside ``moe_h``."""
-    no_tensor_parallel(tp, "MoE (expert parallelism)")
-    m = cfg.moe
-    E, K = cfg.eff_num_experts, m.top_k
+    Routing is ``_route``'s. Dispatch and combine are index scatters and
+    gathers (``_dispatch``; the reference's one-hot products select the
+    same rows exactly). Shared experts add their dense MLP of x; its ``h``
+    tap lands beside ``moe_h``.
+
+    Under ``tp`` the rank holds its block of the experts
+    (``_apply_moe_tp``)."""
+    if tp is not None:
+        if taps is not None:
+            raise ValueError("MoE taps are recorded on one device only")
+        return _apply_moe_tp(p, x, cfg, tp)
+    E, K = cfg.eff_num_experts, cfg.moe.top_k
     B, T, D = x.shape
     dt = x.dtype
     xg = _group_tokens(x, cfg)
     G, tg, _ = xg.shape
-    C = capacity(tg, cfg)
-
-    probs = torch.softmax(xg.float() @ p["router"], dim=-1)   # (G, tg, E)
-    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = vals[..., :K], order[..., :K]                 # (G, tg, K)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    flat = idx.reshape(G, tg * K)
-    onehot = torch.nn.functional.one_hot(flat, E)             # (G, tg K, E)
-    pos = (onehot.cumsum(1) - onehot).gather(2, flat[..., None])[..., 0]
-    kept = pos < C
-    slot = flat * C + pos                                     # (G, tg K)
-    g_i, f_i = kept.nonzero(as_tuple=True)
-    s_i = slot[g_i, f_i]
-    xe = xg.new_zeros(G, E * C, D)
-    xe[g_i, s_i] = xg[g_i, f_i // K]
-    xe = xe.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-
-    act = activation(cfg.act)
-    h = act(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])  # (E, G C, F)
-    ye = torch.bmm(h, p["wd"])                                # (E, G C, D)
+    routed = _route(xg, p["router"], cfg)
+    h, (g_i, s_i), contrib = _dispatch(p, xg, routed, routed[3], 0, cfg, dt)
     if taps is not None:
-        tap(taps, "moe_h", h.reshape(E, G, C, -1).transpose(0, 1))
-        mask = torch.zeros(G, E * C, dtype=torch.float32, device=x.device)
+        tap(taps, "moe_h", h)
+        mask = torch.zeros(G, E * routed[4], dtype=torch.float32,
+                           device=x.device)
         mask[g_i, s_i] = 1.0
-        taps["moe_mask"] = mask.reshape(G, E, C)
-    if "bd_moe" in p:   # CORP hidden-channel compensation, per expert
-        # inside the expert output, before combine: dispatched tokens get
-        # it gate-weighted, empty capacity slots are never gathered
-        ye = ye + p["bd_moe"].to(ye.dtype)[:, None, :]
-    ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
-
-    w = (gate.to(dt).float() * kept.reshape(G, tg, K)).reshape(G, tg * K)
-    rows = ye.gather(1, (slot * kept)[..., None].expand(G, tg * K, D))
-    contrib = w[..., None] * rows.float()                     # (G, tg K, D)
+        taps["moe_mask"] = mask.reshape(G, E, routed[4])
     if taps is not None and expert_taps_on():
         # expert-removal regressors (repro.core.stats._p1_moe): the block
         # input and each expert's gate-weighted contribution to each token
@@ -223,7 +264,7 @@ def apply_moe(p, x, cfg, taps=None, tp=None):
         yc = contrib.new_zeros(G, tg, E, D)
         gi = torch.arange(G, device=x.device)[:, None].expand(G, tg * K)
         ti = torch.arange(tg * K, device=x.device)[None].expand(G, -1) // K
-        yc[gi, ti, flat] = contrib
+        yc[gi, ti, routed[1]] = contrib
         tap(taps, "moe_yc", yc.to(dt))
     y = contrib.reshape(G, tg, K, D).sum(2).to(dt)
     if "moe_resid" in p:   # CORP expert-removal compensation (input map)
@@ -234,3 +275,54 @@ def apply_moe(p, x, cfg, taps=None, tp=None):
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x, cfg, taps=taps)
     return y
+
+
+def _apply_moe_tp(p, x, cfg, tp):
+    """Expert parallelism over the model axis: ``wg``, ``wu``, ``wd`` and
+    ``bd_moe`` are the rank's block [e_lo, e_hi) of the experts, the router
+    is whole, ``moe_resid`` is the rank's block of its rows, the shared
+    expert its Megatron blocks (``apply_mlp``).
+
+    Every rank routes the same tokens with the whole router, so the top k,
+    the queue positions and the drops are one device's; a rank dispatches
+    only the kept pairs whose expert lies in its block, runs its experts
+    and combines its own rows, adds ``x[..., rows] @ moe_resid[rows]`` and
+    the shared expert's partial, and one fp32 ``all_reduce`` sums the
+    ranks' partials; ``moe_out_b`` and the shared ``bd`` follow it. The
+    sum over k becomes a sum a rank, then over the ranks: equal up to fp32
+    reassociation.
+
+    With ``tp.rows`` (a decode step whose slots are split over a data
+    axis) x holds the rank's slots only, while capacity is shared by a
+    routing group of the whole step: the rows are gathered over the data
+    axis, routed as one batch, and only the rank's own rows are dispatched
+    and returned, which is exact for any capacity factor."""
+    K = cfg.moe.top_k
+    B, T, D = x.shape
+    dt = x.dtype
+    rows = tp.rows
+    whole = x if rows is None else rows.all_gather(x, 0)
+    xg = _group_tokens(whole, cfg)
+    G, tg, _ = xg.shape
+    routed = _route(xg, p["router"], cfg)
+    flat, n = routed[1], p["wg"].shape[0]
+    e_lo = tp.index * n if n < cfg.eff_num_experts else 0
+    t_lo = 0 if rows is None else rows.index * B * T
+    token = torch.arange(G * tg * K, device=x.device).reshape(G, tg * K) // K
+    mine = routed[3] & (flat >= e_lo) & (flat < e_lo + n) \
+        & (token >= t_lo) & (token < t_lo + B * T)
+    contrib = _dispatch(p, xg, routed, mine, e_lo, cfg, dt)[2]
+    y = contrib.reshape(G * tg, K, D).sum(1)[t_lo:t_lo + B * T]
+    xs = x.reshape(B * T, D)
+    if "moe_resid" in p:
+        r = p["moe_resid"].shape[0]
+        lo = tp.index * r if r < D else 0
+        y = y + xs[:, lo:lo + r].float() @ p["moe_resid"]
+    if "shared" in p:
+        y = y + mlp_partial(p["shared"], xs, cfg, tp=tp).float()
+    y = tp.all_reduce(y).to(dt)
+    if "moe_out_b" in p:
+        y = y + p["moe_out_b"].to(dt)
+    if "shared" in p and "bd" in p["shared"]:
+        y = y + p["shared"]["bd"].to(dt)
+    return y.reshape(B, T, D)

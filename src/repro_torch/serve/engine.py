@@ -67,10 +67,15 @@ posted to every rank before it runs, and the other ranks run them in
 on the ranks of the data index that holds the slot, and their token comes
 to the lead from that index' first rank; a decode step runs on every rank
 over its slots, and the next tokens reach the lead with one gather over
-the data axis. Only the lead decides on admission and retirement. The
-dense-attention and RWKV-6 stacks are served; MLA, enc-dec, MoE and Mamba
-raise by name (``sharding.check_tensor_parallel``), and so does a prefix
-cache.
+the data axis. An enc-dec request's frames are posted with its prefill,
+and the ranks of the data index that holds its slot encode them. Routed
+MoE shares an expert's capacity across a routing group, so a decode step
+whose slots are split over the data axis hands the forward that axis'
+context (``TensorParallel.rows``): the MoE layers gather the step's rows,
+route them as one device does, and keep their own. Only the lead decides
+on admission and retirement. The dense-attention, RWKV-6, enc-dec and
+routed-MoE stacks are served; MLA and Mamba raise by name
+(``sharding.check_tensor_parallel``), and so does a prefix cache.
 """
 from __future__ import annotations
 
@@ -219,11 +224,15 @@ class ServeEngine:
         if sharding is not None:
             from repro_torch.serve.sharding import (RankParams,
                                                     check_tensor_parallel)
-            check_tensor_parallel(cfg)
+            check_tensor_parallel(cfg, sharding.model_size)
             if not isinstance(params, RankParams):
                 params = sharding.take_params(params)
             self.params, self.param_specs = dict(params), params.specs
             self.tp = sharding.tp
+            # the data axis' context of a decode step over split slots,
+            # which routed MoE takes to route the whole step (tp.rows)
+            self._rows = sharding.rows if cfg.moe is not None \
+                and self.slotcache.slot_split else None
             self._locals = {}      # slot -> this rank's batch-1 cache
             # every rank's parameter bytes and its card's peak allocation
             # so far (its set-up when the caller reset the peak before
@@ -265,9 +274,11 @@ class ServeEngine:
         Sharded, it runs on the ranks that hold ``slot``, which keep its
         cache: the lead gets a ``_Held`` handle."""
         if self.sharding is not None:
+            # the frames travel with the prefill: the ranks of the data
+            # index that holds the slot encode them
             tokens = np.asarray(tokens, np.int32)
             nxt = self._post("prefill", slot, tokens.shape[1],
-                             int(lengths[0]), tokens)
+                             int(lengths[0]), tokens, frames)
             return nxt, _Held(slot)
         return self._prefill_here(tokens, lengths, frames)
 
@@ -297,13 +308,13 @@ class ServeEngine:
     # -- sharded: the lead's posted device operations -----------------------
 
     def _post(self, op: str, slot: int = -1, a: int = 0, b: int = 0,
-              payload=None):
+              payload=None, floats=None):
         """Lead: post a device operation to every rank, then run it here;
         returns its tokens (prefill, walk, decode)."""
-        self.sharding.post(op, slot, a, b, payload)
-        return self._run_op(op, slot, a, b, payload)
+        self.sharding.post(op, slot, a, b, payload, floats)
+        return self._run_op(op, slot, a, b, payload, floats)
 
-    def _run_op(self, op, slot, a, b, payload):
+    def _run_op(self, op, slot, a, b, payload, floats=None):
         """One posted operation on this rank's blocks; every rank runs it,
         the ranks that do not hold ``slot`` enter none of its collectives
         but the control broadcast of its token."""
@@ -312,14 +323,23 @@ class ServeEngine:
             nxt = None
             if sc.owns(slot):
                 if op == "prefill":
+                    frames = None if floats is None \
+                        else floats.reshape(self.mem_len, -1)
                     nxt, self._locals[slot] = self._prefill_here(
-                        payload.reshape(1, a), [b])
+                        payload.reshape(1, a), [b], frames)
                 else:
                     nxt = self._decode_here([[a]], self._locals[slot])
             return sh.from_group(nxt, sc.owner(slot))
         if op == "decode":
             lo, hi = sc.slot_range()
-            nxt = self._decode_here(payload[lo:hi, None], sc.cache)
+            if self._rows is None:
+                nxt = self._decode_here(payload[lo:hi, None], sc.cache)
+            else:   # routed MoE routes the whole step over the data axis
+                self.tp.rows = self._rows
+                try:
+                    nxt = self._decode_here(payload[lo:hi, None], sc.cache)
+                finally:
+                    self.tp.rows = None
             return sh.gather_data(nxt, hi - lo) if sc.slot_split else nxt
         if op == "install":
             if sc.owns(slot):
@@ -337,10 +357,10 @@ class ServeEngine:
         """Every rank but the lead: run the lead's posted operations, in
         order, until it calls ``stop``."""
         while True:
-            op, slot, a, b, payload = self.sharding.receive()
+            op, slot, a, b, payload, floats = self.sharding.receive()
             if op == "stop":
                 return
-            self._run_op(op, slot, a, b, payload)
+            self._run_op(op, slot, a, b, payload, floats)
 
     def stop(self):
         """Lead: release the following ranks (their ``follow`` returns)."""

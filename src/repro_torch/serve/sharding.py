@@ -38,7 +38,9 @@ The forward's model-axis collectives go through the model group, unless
 the mesh's ranks share cards (``shares_card``: CUDA ranks of one host,
 more of them than its cards, as four ``gloo`` ranks on one card), where
 NCCL cannot run and a process-group collective costs milliseconds: then
-they go through shared memory (``distrib.hostcoll``).
+they go through shared memory (``distrib.hostcoll``). The data axis has a
+``TensorParallel`` of its own (``rows``), on the same transport: routed
+MoE gathers a decode step's rows over it (``models.mlp.apply_moe``).
 """
 from __future__ import annotations
 
@@ -180,20 +182,18 @@ def device_bytes_estimate(template, specs, mesh) -> int:
     return int(total)
 
 
-def check_tensor_parallel(cfg) -> None:
+def check_tensor_parallel(cfg, model_size: int = 1) -> None:
     """Raise ``NotImplementedError`` for a family whose tensor-parallel
     forward is not ported, naming the JAX layer it needs (ROADMAP Queue 1
-    item 2b-ii); the dense-attention and RWKV-6 stacks pass."""
+    item 2b-ii): dense attention with its MLP, RWKV-6, the enc-dec and
+    routed MoE pass; MLA and Mamba do not. A MoE config whose experts do
+    not divide the ``model_size``-way model axis raises ``ValueError``:
+    JAX's rule then keeps them whole on every rank, and the forward
+    splits experts, never their channels."""
     gaps = []
-    if cfg.family == "encdec":
-        gaps.append("the enc-dec cross memory (repro/models/encdec.py, "
-                    "k_mem/v_mem over cross heads)")
     if cfg.mla is not None:
         gaps.append("MLA (repro/models/attention.py _apply_mla/_decode_mla,"
                     " the latent ckv split on its rank dim)")
-    if cfg.moe is not None:
-        gaps.append("MoE expert parallelism (repro/models/mlp.py "
-                    "apply_moe, experts over the model axis)")
     if "mamba" in cfg.layer_kinds:
         gaps.append("the Mamba hybrid (repro/models/ssm.py apply_mamba, "
                     "d_inner over the model axis)")
@@ -201,7 +201,11 @@ def check_tensor_parallel(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: mesh-sharded serving of {'; '.join(gaps)} is not "
             f"ported; the port's tensor-parallel forward covers dense "
-            f"attention with its MLP and RWKV-6")
+            f"attention with its MLP, RWKV-6, the enc-dec and routed MoE")
+    if cfg.moe is not None and cfg.eff_num_experts % model_size:
+        raise ValueError(
+            f"{cfg.name}: {cfg.eff_num_experts} routed experts do not split "
+            f"over a {model_size}-way model axis")
 
 
 class RankParams(dict):
@@ -273,17 +277,31 @@ class ServeSharding:
         grid = mesh.mesh.reshape(self.data_size, self.model_size)
         # global rank of each data index' first model rank (its results)
         self.group_leaders = grid[:, 0].tolist()
-        self.transport = "host" if self.model_size > 1 \
-            and shares_card(mesh) else "group"
-        host = None
+        self.transport = "host" if len(ranks) > 1 and shares_card(mesh) \
+            else "group"
+        # the data axis' group for device tensors (the forward's gathers
+        # of a decode step's rows), of the default backend
+        rows_group = _axis_group(mesh, (data_axis,))[0] \
+            if self.data_size > 1 else None
+        host = rows_host = None
         if self.transport == "host":
             from repro_torch.distrib.hostcoll import HostCollectives
-            host = HostCollectives.for_group(
-                grid[self.data_index].tolist(), self.model_index,
-                self.control)
+            if self.model_size > 1:
+                host = HostCollectives.for_group(
+                    grid[self.data_index].tolist(), self.model_index,
+                    self.control)
+            if self.data_size > 1:
+                rows_host = HostCollectives.for_group(
+                    grid[:, self.model_index].tolist(), self.data_index,
+                    self.control)
         self.tp = TensorParallel(self.model_group, self.model_index,
                                  self.model_size, host) \
-            if self.model_size > 1 else None
+            if len(ranks) > 1 else None
+        # the data axis' context: ServeEngine hands it to the forward
+        # (``tp.rows``) for a decode step whose slots it splits
+        self.rows = TensorParallel(rows_group, self.data_index,
+                                   self.data_size, rows_host) \
+            if self.data_size > 1 else None
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -322,30 +340,37 @@ class ServeSharding:
     # -- the lead's control messages ------------------------------------------
 
     def post(self, op: str, slot: int = -1, a: int = 0, b: int = 0,
-             payload=None) -> None:
-        """Lead: send one device operation to every rank (a header of four
-        int64 and, when ``payload`` is given, its int32 values)."""
+             payload=None, floats=None) -> None:
+        """Lead: send one device operation to every rank (a header of six
+        int64 and, when given, the ``payload``'s int32 values and the
+        ``floats``' fp32 values, an enc-dec prefill's frames)."""
         n = 0 if payload is None else int(np.asarray(payload).size)
-        head = torch.tensor([OPS.index(op), slot, a, b, n],
+        nf = 0 if floats is None else int(np.asarray(floats).size)
+        head = torch.tensor([OPS.index(op), slot, a, b, n, nf],
                             dtype=torch.int64)
         dist.broadcast(head, self.lead_rank, group=self.control)
-        if n:
-            dist.broadcast(torch.from_numpy(np.ascontiguousarray(
-                payload, np.int32).reshape(-1)), self.lead_rank,
-                group=self.control)
+        for values, k, dt in ((payload, n, np.int32),
+                              (floats, nf, np.float32)):
+            if k:
+                dist.broadcast(torch.from_numpy(np.ascontiguousarray(
+                    values, dt).reshape(-1)), self.lead_rank,
+                    group=self.control)
 
     def receive(self):
         """Follower: the next operation -> (op, slot, a, b, payload or
-        None)."""
-        head = torch.empty(5, dtype=torch.int64)
+        None, floats or None), both flat."""
+        head = torch.empty(6, dtype=torch.int64)
         dist.broadcast(head, self.lead_rank, group=self.control)
-        op, slot, a, b, n = head.tolist()
-        payload = None
-        if n:
-            buf = torch.empty(n, dtype=torch.int32)
-            dist.broadcast(buf, self.lead_rank, group=self.control)
-            payload = buf.numpy()
-        return OPS[op], slot, a, b, payload
+        op, slot, a, b, n, nf = head.tolist()
+        out = []
+        for k, dt in ((n, torch.int32), (nf, torch.float32)):
+            buf = None
+            if k:
+                buf = torch.empty(k, dtype=dt)
+                dist.broadcast(buf, self.lead_rank, group=self.control)
+                buf = buf.numpy()
+            out.append(buf)
+        return (OPS[op], slot, a, b, *out)
 
     def from_group(self, values, data_index: int):
         """Every rank: the int32 ``values`` that data index ``data_index``'s

@@ -54,31 +54,52 @@ def _flat(tree):
                 tree, is_leaf=lambda s: isinstance(s, P))[0]}
 
 
-def reference(arch, d, trace=TRACE, seed=3):
-    """The carried weights (written for the ranks), JAX's single-device
-    engine's streams on them, the port's unsharded engine's, and JAX's
-    engine for its templates."""
-    jcfg = tiny_cfg(arch)
-    params = jax_params(jcfg, seed=seed)
-    write_job(d / "w.npz", params, [])
+def reference(arch, d, trace=TRACE, seed=3, *, slots=SLOTS, mem_len=None,
+              job="w", params=None):
+    """The carried weights (written for the ranks as ``<job>.npz``), JAX's
+    single-device engine's streams on them and its first request's
+    prefill logits, the port's unsharded engine's streams, and JAX's engine
+    for its templates. ``arch``: a reduced config's name or a JAX config;
+    ``mem_len``: an enc-dec's frames a request; ``params``: numpy weights
+    (default: drawn from ``seed``)."""
+    jcfg = tiny_cfg(arch) if isinstance(arch, str) else arch
+    if params is None:
+        params = jax_params(jcfg, seed=seed)
+    write_job(d / f"{job}.npz", params, [])
     n, s, pr, gr = trace
+    kw = {} if mem_len is None else {"mem_len": mem_len,
+                                     "d_model": jcfg.d_model}
     reqs = jax_trace(n, jcfg.vocab_size, seed=s, prompt_range=pr,
-                     gen_range=gr)
-    jeng = JaxEngine(jax_build(jcfg), jax.tree.map(jnp.asarray, params),
-                     n_slots=SLOTS, max_len=MAX_LEN)
+                     gen_range=gr, **kw)
+    jmodel = jax_build(jcfg)
+    jp = jax.tree.map(jnp.asarray, params)
+    jeng = JaxEngine(jmodel, jp, n_slots=slots, max_len=MAX_LEN,
+                     mem_len=mem_len)
     jax_streams = {c.rid: [int(t) for t in c.tokens] for c in jeng.run(reqs)}
     assert jeng.stats["refills"] > 0
+    batch = {"tokens": jnp.asarray(reqs[0].tokens[None])}
+    if mem_len is not None:
+        batch["frames"] = jnp.asarray(reqs[0].frames[None])
+    logits = np.asarray(jmodel.prefill(jp, batch, MAX_LEN)[0][0, -1])
     cfg = to_port_cfg(jcfg)
     pt = ServeEngine(build_model(cfg), interop.from_numpy(params, "cpu"),
-                     n_slots=SLOTS, max_len=MAX_LEN)
+                     n_slots=slots, max_len=MAX_LEN, mem_len=mem_len)
     port_streams = {c.rid: [int(t) for t in c.tokens] for c in pt.run(reqs)}
     return {"jcfg": jcfg, "cfg": cfg, "params": params, "jax": jax_streams,
-            "port": port_streams, "port_engine": pt, "jax_engine": jeng}
+            "port": port_streams, "port_engine": pt, "jax_engine": jeng,
+            "logits": logits, "requests": reqs}
 
 
 def streams(d, tag):
     with open(d / f"{tag}.json") as f:
         return {int(k): v for k, v in json.load(f)["streams"].items()}
+
+
+def first_logits(d, tag):
+    """The lead's gathered first-request prefill logits (a ``logits``
+    task)."""
+    with open(d / f"{tag}.json") as f:
+        return np.asarray(json.load(f)["logits"], np.float32)
 
 
 def ranks(d, tag, n):

@@ -4,8 +4,9 @@ error without ``--mesh-shape``, four spawned CPU ``gloo`` ranks end to end
 with the per-device cache line, and the refusals, each before any rank
 starts: a config whose slot cache does not split (JAX's
 ``shard_ineligible`` text), the families whose tensor-parallel forward is
-not ported, and the flags a sharded engine does not take; and the
-shared-memory transport's collectives on messages past a slot.
+not ported (MLA, Mamba), and the flags a sharded engine does not take; the
+enc-dec served with ``--mem-len``; and the shared-memory transport's
+collectives on messages past a slot.
 """
 from __future__ import annotations
 
@@ -81,7 +82,6 @@ def test_one_kv_head_is_refused_with_jax_s_text():
 
 
 @pytest.mark.parametrize("arch,extra,layer", [
-    ("seamless-m4t-large-v2-reduced", ["--mem-len", "8"], "enc-dec"),
     ("deepseek-v3-671b-reduced", [], "MLA"),
 ])
 def test_families_outside_the_slice_raise_by_name(arch, extra, layer):
@@ -90,6 +90,38 @@ def test_families_outside_the_slice_raise_by_name(arch, extra, layer):
     with pytest.raises(NotImplementedError, match=layer):
         serve_cli.main(["--arch", arch, "--serve-sharded", "--mesh-shape",
                         "2x2", *BASE, *extra])
+
+
+def test_mamba_hybrid_raises_by_name_and_only_for_mamba():
+    """jamba's reduced config has one kv head, so the CLI refuses it as
+    ``shard_ineligible`` first; its config names the Mamba hybrid alone
+    (its routed MoE layers are served)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.serve.sharding import check_tensor_parallel
+    cfg = resolve_config("jamba-1.5-large-398b-reduced")
+    with pytest.raises(NotImplementedError, match="Mamba") as e:
+        check_tensor_parallel(cfg, 2)
+    assert "MoE" not in str(e.value).split("; the port")[0]
+    with pytest.raises(ValueError, match="do not split"):
+        check_tensor_parallel(resolve_config(
+            "qwen3-moe-235b-a22b-reduced"), 8)
+
+
+def test_serve_sharded_seamless_on_four_gloo_ranks():
+    """The enc-dec at 2x2 with ``--mem-len``: each request's frames go
+    with its prefill to the ranks that hold its slot."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "seamless-m4t-large-v2-reduced", "--mem-len", "8",
+         "--serve-sharded", "--mesh-shape", "2x2", *BASE], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert re.search(r"\[serve\] per rank \(group collectives\): params "
+                     r"\[.*\] B, cache \[.*\] B$", r.stdout, re.M), r.stdout
+    row = [ln for ln in r.stdout.splitlines() if ln.startswith("| frontend")]
+    assert len(row) == 1 and row[0].split("|")[3].strip() == "6"   # done
 
 
 @pytest.mark.parametrize("flags", [["--prefix-cache", "4"],

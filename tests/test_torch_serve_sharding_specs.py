@@ -168,6 +168,83 @@ def test_shard_ineligible_message_is_jax_s():
                                             name=cfg.name, leaf="k", m=2)
 
 
+def _full_shapes(arch):
+    """JAX's shape tree of a full config (``jax.eval_shape``: no memory).
+    ``<arch>+pruned``: the config pruned at 0.5 of the hidden channels, the
+    qk dims and the experts, with the compensation leaves JAX's pruner
+    writes into a MoE layer (``bd_moe``, ``moe_resid``, ``moe_out_b``),
+    which its pruned template lacks (reference fault 2)."""
+    name, _, variant = arch.partition("+")
+    cfg = get_config(name)
+    if variant:
+        cfg = cfg.pruned(0.5, 0.5, expert_sparsity=0.5)
+    tree = jax.eval_shape(jax_build(cfg).init, jax.random.PRNGKey(0))
+    if variant:
+        moe = tree["seg0"]["p0"]["mlp"]
+        L, E, D = moe["wg"].shape[:3]
+        f32 = jnp.float32
+        moe.update(bd_moe=jax.ShapeDtypeStruct((L, E, D), f32),
+                   moe_resid=jax.ShapeDtypeStruct((L, D, D), f32),
+                   moe_out_b=jax.ShapeDtypeStruct((L, D), f32))
+    return tree
+
+
+FULL_SPEC_MESHES = {
+    "seamless-m4t-large-v2": [{"model": 2}, {"data": 2, "model": 2}],
+    "qwen3-moe-235b-a22b": [{"model": 2}, {"data": 2, "model": 2},
+                            {"model": 4}],
+}
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_SPEC_MESHES))
+def test_param_specs_equal_jax_on_the_full_config(arch):
+    """The enc-dec's and the routed MoE's full trees (JAX's shapes, no
+    memory): every leaf's spec is JAX's, the expert stacks on their expert
+    dim, the router whole, the vocab split: 256,206 and 151,936 padded to
+    multiples of 128, which 2 and 4 divide."""
+    tree = _full_shapes(arch)
+    cfg = get_config(arch)
+    assert cfg.padded_vocab % 4 == 0
+    shapes = {p: tuple(s.shape) for p, s in _jax_flat(tree).items()}
+    nested = jax.tree.map(lambda s: tuple(s.shape), tree)
+    for sizes in FULL_SPEC_MESHES[arch]:
+        want = _jax_flat(jax_param_specs(tree, DuckMesh(sizes)))
+        got = flatten(param_specs(nested, sizes))
+        assert set(got) == set(want)
+        for path, spec in want.items():
+            assert got[path] == _spec_tuple(spec, len(shapes[path])), \
+                (arch, sizes, path)
+    if cfg.moe is not None:
+        assert got["seg0/p0/mlp/wg"] == (None, "model", None, None)
+        assert got["seg0/p0/mlp/router"] == (None, None, None)
+
+
+def test_slot_specs_place_the_memory_on_cross_heads_as_jax():
+    """The full enc-dec's slot cache (8 slots, 1024 decoder rows, 512
+    memory rows): ``k_mem``/``v_mem`` (L, B, M, H, d) on the cross heads
+    and the slots, ``pos`` on the slots alone, by both packages' rules on
+    the same shapes."""
+    cfg = to_port_cfg(get_config("seamless-m4t-large-v2"))
+    pmodel = build_model(cfg)
+
+    def tmpl(batch):
+        return pmodel.init_cache(batch, 1024, torch.device("meta"),
+                                 mem_len=512)
+    t8 = tmpl(8)
+    axes = _infer_batch_axes(tmpl(1), tmpl(2))
+    for sizes in ({"model": 2}, {"data": 2, "model": 2}, {"model": 4},
+                  {"data": 2, "model": 4}):
+        got = flatten(slot_specs(t8, axes, sizes, name=cfg.name))
+        want = _jax_flat(jax_slot_specs(t8, axes, sizes, name=cfg.name))
+        assert set(got) == set(want)
+        for path, spec in want.items():
+            assert got[path] == _spec_tuple(spec, flatten(t8)[path].ndim)
+        d = "data" if "data" in sizes else None
+        assert got["dec/cross/k_mem"] == (None, d, None, "model", None)
+        assert got["dec/cross/v_mem"] == (None, d, None, "model", None)
+        assert got["pos"] == (d,)
+
+
 # the leaves whose split the head-parallel forward takes on another dim
 # than JAX's rule: (config, mesh) -> the differing paths' last two keys
 DIFFERENCES = {
@@ -179,19 +256,28 @@ DIFFERENCES = {
                               "mixer/wv", "mixer/wg"},
     ("rwkv6-3b", "model=4"): {"mixer/u", "mixer/wr", "mixer/wk",
                               "mixer/wv", "mixer/wg"},
+    ("seamless-m4t-large-v2", "model=2"): set(),
+    ("seamless-m4t-large-v2", "model=4"): set(),
+    ("qwen3-moe-235b-a22b", "model=2"): {"mixer/rope_inv_k"},
+    ("qwen3-moe-235b-a22b", "model=4"): {"mixer/rope_inv_k"},
+    # the pruned MoE: bd_moe (E, D) on its experts, where JAX splits D
+    ("qwen3-moe-235b-a22b+pruned", "model=2"): {
+        "mixer/rope_inv_k", "mlp/bd_moe"},
+    ("qwen3-moe-235b-a22b+pruned", "model=4"): {
+        "mixer/rope_inv_k", "mlp/bd_moe"},
 }
 
 
 @pytest.mark.parametrize("arch,mesh", sorted(DIFFERENCES))
 def test_forward_specs_keep_jax_element_counts(arch, mesh):
     """At full width: the forward's split equals JAX's rule but for the
-    listed leaves (ROADMAP Queue 3's deliberate differences), and every
-    leaf's block holds JAX's element count; a rank's blocks cut by
-    ``shard_params`` have those shapes."""
+    listed leaves (ROADMAP Queue 3's deliberate differences; the pruned
+    MoE's ``bd_moe`` among them), and every leaf's block holds JAX's
+    element count; a rank's blocks cut by ``shard_params`` have those
+    shapes."""
     m = int(mesh.split("=")[1])
     sizes = {"data": 2, "model": m}
-    cfg = get_config(arch)
-    tree = jax.eval_shape(jax_build(cfg).init, jax.random.PRNGKey(0))
+    tree = _full_shapes(arch)
     shapes = {p: tuple(s.shape) for p, s in _jax_flat(tree).items()}
     want = {p: _spec_tuple(s, len(shapes[p])) for p, s in _jax_flat(
         jax_param_specs(tree, DuckMesh(sizes))).items()}

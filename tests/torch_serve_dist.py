@@ -46,13 +46,19 @@ def _numpy(tree):
             for k, v in flatten(tree).items()}
 
 
-def _serve(eng, task):
-    """The lead's run of ``task["trace"]`` ((n, seed, prompt_range,
-    gen_range)): through ``run`` or, with ``prefill_chunk``, through the
-    front-end. Returns {rid: tokens}."""
+def trace_of(cfg, task):
+    """``task["trace"]`` ((n, seed, prompt_range, gen_range)) drawn, with
+    frames of ``task["mem_len"]`` rows a request when given."""
     n, seed, pr, gr = task["trace"]
-    trace = synthetic_trace(n, eng.cfg.vocab_size, seed=seed,
-                            prompt_range=tuple(pr), gen_range=tuple(gr))
+    return synthetic_trace(n, cfg.vocab_size, seed=seed,
+                           prompt_range=tuple(pr), gen_range=tuple(gr),
+                           mem_len=task.get("mem_len"), d_model=cfg.d_model)
+
+
+def _serve(eng, task):
+    """The lead's run of the task's trace: through ``run`` or, with
+    ``prefill_chunk``, through the front-end. Returns {rid: tokens}."""
+    trace = trace_of(eng.cfg, task)
     if task.get("prefill_chunk") is None:
         comps = eng.run(trace)
         return {c.rid: [int(t) for t in c.tokens] for c in comps}
@@ -107,19 +113,64 @@ def _retire_check(eng, lead):
     return out
 
 
+def _first_logits(eng, task):
+    """Every rank: the trace's first request's prefill logits through the
+    rank's blocks, the vocab blocks gathered -> (V,) numpy."""
+    req = trace_of(eng.cfg, task)[0]
+    batch = {"tokens": torch.from_numpy(req.tokens[None].astype(np.int64))}
+    if req.frames is not None:
+        batch["frames"] = torch.from_numpy(req.frames[None])
+    logits, _ = eng.model.prefill(eng.params, batch, task["max_len"],
+                                  tp=eng.tp)
+    last = logits[:, -1]
+    if eng.tp is not None and last.shape[-1] != eng.cfg.padded_vocab:
+        last = eng.tp.all_gather(last, -1)
+    return last[0].numpy()
+
+
+class DropCounter:
+    """Counts, while installed, the routing groups of routed MoE and the
+    (token, k) pairs they drop, by group size (a decode step's groups are
+    its slots, or a rank's share of them when it routes them alone), by
+    wrapping ``mlp._route``: ``{tg: [groups, drops]}``."""
+
+    def __init__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.by_size = mlp, {}
+        self.route = mlp._route
+
+    def __enter__(self):
+        def route(xg, router, cfg):
+            out = self.route(xg, router, cfg)
+            n = self.by_size.setdefault(int(xg.shape[1]), [0, 0])
+            n[0] += xg.shape[0]
+            n[1] += int((~out[3]).sum())
+            return out
+        self.mlp._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp._route = self.route
+        return False
+
+
 def serve_ranks(device, job_dir, tasks):
     """Sharded engines on meshes. Each task: ``job`` (the ``.npz`` name),
     ``cfg`` (the port's config), ``tag``, ``shape``, ``slots``,
     ``max_len``, and ``trace`` (n, seed, prompt range, gen range) served
     through ``run``, or through the front-end with ``prefill_chunk``;
     ``transport`` is the forward's (``"host"``: as where the ranks share a
-    card; default ``"group"``), ``retire`` runs ``_retire_check`` after it,
-    ``save_cache`` has every
+    card; default ``"group"``), ``mem_len`` gives an enc-dec's requests
+    frames of that many rows, ``route_local`` has a MoE decode step route
+    each rank's slots alone (no gather over the data axis), ``logits``
+    gathers the first request's prefill logits, ``retire`` runs
+    ``_retire_check`` after it, ``save_cache`` has every
     rank write its cache blocks to ``<tag>_cache_rank<r>.npz``. The lead
     writes
-    ``<tag>.json`` (the streams, the cache bytes); every rank writes
+    ``<tag>.json`` (the streams, the logits); every rank writes
     ``<tag>_rank<r>.json`` (its cache and parameter leaves' shapes, the
-    cache specs, the sizes, its coordinates, the retire check)."""
+    cache specs, the sizes, its coordinates, the retire check, the pairs
+    its MoE layers routed and dropped, by group size)."""
     torch.set_num_threads(1)
     rank = dist.get_rank()
     for task in tasks:
@@ -128,13 +179,29 @@ def serve_ranks(device, job_dir, tasks):
         sharding = _sharding(task["shape"], device,
                              task.get("transport", "group"))
         eng = ServeEngine(model, params, n_slots=task["slots"],
-                          max_len=task["max_len"], sharding=sharding)
+                          max_len=task["max_len"], sharding=sharding,
+                          mem_len=task.get("mem_len"))
+        if task.get("route_local"):
+            eng._rows = None
+        prefill_frames = []
+        if task.get("frames"):
+            run_op = eng._run_op
+
+            def recording(op, slot, a, b, payload, floats=None):
+                # the sum of the frames of each prefill this rank runs
+                if op == "prefill" and eng.slotcache.owns(slot):
+                    prefill_frames.append(None if floats is None else float(
+                        floats.astype(np.float64).sum()))
+                return run_op(op, slot, a, b, payload, floats)
+            eng._run_op = recording
         streams = None
-        if sharding.lead:
-            streams = _serve(eng, task)
-            eng.stop()
-        else:
-            eng.follow()
+        with DropCounter() as drops:
+            if sharding.lead:
+                streams = _serve(eng, task)
+                eng.stop()
+            else:
+                eng.follow()
+        logits = _first_logits(eng, task) if task.get("logits") else None
         retire = _retire_check(eng, sharding.lead) if task.get("retire") \
             else None
         tag = os.path.join(job_dir, task["tag"])
@@ -162,10 +229,13 @@ def serve_ranks(device, job_dir, tasks):
                 "rank_bytes": sc.rank_bytes,
                 "device_bytes": eng.device_cache_bytes,
                 "cache_bytes": eng.cache_bytes,
+                "routed": drops.by_size,
+                "prefill_frames": prefill_frames,
                 "retire": retire}, f)
         if sharding.lead:
             with open(tag + ".json", "w") as f:
-                json.dump({"streams": streams}, f)
+                json.dump({"streams": streams, "logits": None if logits
+                           is None else logits.tolist()}, f)
 
 
 def host_collective_ranks(device, out_dir):
