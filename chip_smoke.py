@@ -70,7 +70,9 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      the path against their plain versions at a rank's shapes (6/1 heads;
      wkv6 at 10 and 20 heads), and one launch of four ``gloo`` ranks
      sharing the card: Qwen2-1.5B in fp32 at full width and depth as a
-     2 data x 2 model mesh, then RWKV6-3B likewise as 1 x 4, 8 requests
+     2 data x 2 model mesh, then RWKV6-3B at 8 layers as 1 x 4,
+     seamless-m4t-large-v2, qwen3-moe-235b-a22b, deepseek-v3-671b (MLA)
+     and jamba-1.5-large-398b (Mamba) (``SERVE_SHARDED``), 8 requests
      each through the front-end with the model axis' collectives through
      shared memory, gated on streams token-identical to the single-device
      engine's on the same seeded weights, first-step logits within 1e-4,
@@ -2138,13 +2140,20 @@ GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
 
 # [serve sharded]: four gloo ranks share the card in one launch: Qwen2-1.5B
 # at full width and depth as 2 data x 2 model, RWKV6-3B at full width and
-# depth as 1 x 4 (the model axis alone), seamless-m4t-large-v2 at full
-# width and depth as 2 x 2 (each request with 512 frames of its own, which
-# travel with its prefill to the data index that holds its slot), then
+# 8 of its 32 layers as 1 x 4 (the model axis alone; its gates hold at any
+# depth, and 32 layers took 390-450 ms a step), seamless-m4t-large-v2 at
+# full width and depth as 2 x 2 (each request with 512 frames of its own,
+# which travel with its prefill to the data index that holds its slot),
 # qwen3-moe-235b-a22b at full width and 1 of its 94 layers as 1 x 4 (32
 # experts and one kv head a rank; at 2 layers the single-device reference
-# beside the ranks would not fit the card), fp32, 8 requests through the
-# front-end each; ranks that share the card reduce through shared memory
+# beside the ranks would not fit the card), deepseek-v3-671b at full width
+# and 1 of its 61 layers as 2 x 2 (layer 0, dense: MLA over 64 of its 128
+# heads a rank with its latent cache split on its dims, and the 18432-wide
+# MLP; an MoE layer is 45 GB in fp32), and jamba-1.5-large-398b at full
+# width and 1 of its 72 layers as 1 x 4 (layer 0: the Mamba mixer at 4096
+# of its 16384 inner channels a rank, and the dense 24576-wide MLP; layer 1
+# would be a 38.7 GB MoE layer), fp32, 8 requests through the front-end
+# each; ranks that share the card reduce through shared memory
 # (serve.sharding.shares_card; a gloo collective between them costs
 # 0.9-13 ms, PERF.md §5), and the first request's prefill is run once more
 # over the model group's gloo collectives. The serve CLI's --serve-sharded
@@ -2154,13 +2163,17 @@ GEMMA_PRUNED_SERVE = GEMMA_SERVE[:2] + ["--sparsity", "0.5", "--trace",
 SERVE_SHARDED = dict(
     cases=(dict(tag="qwen2", arch="qwen2-1.5b", mesh=(2, 2),
                 kernels=("flash_attention", "flash_decode")),
-           dict(tag="rwkv", arch="rwkv6-3b", mesh=(1, 4),
+           dict(tag="rwkv", arch="rwkv6-3b", mesh=(1, 4), n_layers=8,
                 kernels=("wkv6",)),
            dict(tag="seamless", arch="seamless-m4t-large-v2", mesh=(2, 2),
                 kernels=("flash_attention", "flash_decode"), mem_len=512,
                 prompts=(4, 32), gens=(16, 32), max_len=64),
            dict(tag="moe", arch="qwen3-moe-235b-a22b", mesh=(1, 4),
-                kernels=("flash_attention", "flash_decode"), n_layers=1)),
+                kernels=("flash_attention", "flash_decode"), n_layers=1),
+           dict(tag="mla", arch="deepseek-v3-671b", mesh=(2, 2), n_layers=1,
+                kernels=("flash_attention",)),
+           dict(tag="mamba", arch="jamba-1.5-large-398b", mesh=(1, 4),
+                n_layers=1, kernels=())),
     requests=8, prompts=(64, 256), gens=(16, 32), slots=8, max_len=320,
     seed=5, tol=1e-4)
 SERVE_SHARDED_CLI = ["--arch", "qwen2-1.5b", "--trace", "4",
@@ -2195,7 +2208,10 @@ def sharded_case_setup(case):
     S = SERVE_SHARDED
     cfg = resolve_config(case["arch"]).replace(dtype="float32")
     if "n_layers" in case:
-        cfg = cfg.replace(n_layers=case["n_layers"])
+        # the layout unrolls every first_k_dense layer whatever n_layers
+        # says: a cut below them keeps as many
+        cfg = cfg.replace(n_layers=case["n_layers"], first_k_dense=min(
+            cfg.first_k_dense, case["n_layers"]))
     trace = synthetic_trace(S["requests"], cfg.vocab_size, seed=S["seed"],
                             prompt_range=case.get("prompts", S["prompts"]),
                             gen_range=case.get("gens", S["gens"]),
@@ -2238,6 +2254,7 @@ def serve_sharded_case(device, case):
     from repro_torch.serve.sharding import (ServeSharding,
                                             device_bytes_estimate)
     S = SERVE_SHARDED
+    t_case = time.time()
     rank, world = dist.get_rank(), dist.get_world_size()
     cfg, trace, max_len = sharded_case_setup(case)
     model = build_model(cfg)
@@ -2329,6 +2346,7 @@ def serve_sharded_case(device, case):
         rec[key + "_s"] = time.time() - t1
     del eng
     torch.cuda.empty_cache()
+    rec["case_s"] = time.time() - t_case
     return rec
 
 
@@ -2414,7 +2432,10 @@ def serve_sharded_kernels(dev):
     seamless's 8 heads of 64 a rank at 2 x 2 (the encoder over 512 frames,
     a 32-row decoder prefill causal and against the memory, and 4 slots of
     decode over 64 self rows and the 512 memory rows), qwen3-moe's 16/1
-    heads a rank at 1 x 4 (a 256-token prefill, 8 slots over 320 rows)."""
+    heads a rank at 1 x 4 (a 256-token prefill, 8 slots over 320 rows),
+    deepseek-v3's MLA prefill over 64 of its 128 heads a rank at 2 x 2
+    (a 256-token prefill, q/k 192 = nope 128 + rope 64 against v 128,
+    scale 1/sqrt(192)); jamba's Mamba layer runs no kernel."""
     import torch
     g = torch.Generator(device=dev).manual_seed(25)
 
@@ -2456,6 +2477,9 @@ def serve_sharded_kernels(dev):
     valid = torch.arange(S, device=dev)[None] < lens[:, None]
     check_decode(randn(8, 16, 128), randn(8, S, 1, 128),
                  randn(8, S, 1, 128), valid, "moe rank 16/1 8 slots", 1e-4)
+    check_attention(randn(1, 256, 64, 192), randn(1, 256, 64, 192),
+                    randn(1, 256, 64, 128), True, None, 192 ** -0.5,
+                    "mla rank 64 T 256")
 
 
 def serve_sharded_phase(dev):
@@ -2475,10 +2499,13 @@ def serve_sharded_phase(dev):
     exact launches on each rank (layers times the prefills and walk steps
     of its data index' slots and the decode steps), the CLI's run done
     with its per-device line and each CLI rank's set-up peak on the card
-    within its blocks. The cases: Qwen2-1.5B 2 x 2, RWKV6-3B 1 x 4,
-    seamless-m4t-large-v2 2 x 2 (its frames posted with each prefill),
-    qwen3-moe-235b-a22b at 1 layer 1 x 4 (experts over the model axis; the
-    single device's capacity drops printed). Times are of four ranks on
+    within its blocks. The cases: Qwen2-1.5B 2 x 2, RWKV6-3B at 8 layers
+    1 x 4, seamless-m4t-large-v2 2 x 2 (its frames posted with each
+    prefill), qwen3-moe-235b-a22b at 1 layer 1 x 4 (experts over the model
+    axis; the single device's capacity drops printed), deepseek-v3-671b
+    at 1 layer 2 x 2 (MLA over heads, its latent cache split on its dims)
+    and jamba-1.5-large-398b at 1 layer 1 x 4 (the Mamba mixer over its
+    inner channels, no kernel). Times are of four ranks on
     one card: they say nothing of scaling. Returns each case's trace
     launches, summed over the ranks, as ``{"serve_sharded_<tag>":
     launches}``."""
@@ -2620,14 +2647,17 @@ def serve_sharded_phase(dev):
             pre, walk = ops[("prefill", d)], ops[("walk", d)]
             dec = sum(n for (op, _), n in ops.items() if op == "decode")
             want = {k: 0 for k in rec["launches"] if " " not in k}
-            if "wkv6" in case["kernels"]:
+            kernels = case["kernels"]
+            if "wkv6" in kernels:
                 want["wkv6"] = L * (pre + walk + dec)
             elif rec["enc_layers"]:
                 want.update(flash_attention=(rec["enc_layers"] + 2 * L) * pre,
                             flash_decode=2 * L * (walk + dec))
-            else:
-                want.update(flash_attention=L * pre,
-                            flash_decode=L * (walk + dec))
+            else:   # MLA decodes plain from its latent; Mamba runs no kernel
+                if "flash_attention" in kernels:
+                    want["flash_attention"] = L * pre
+                if "flash_decode" in kernels:
+                    want["flash_decode"] = L * (walk + dec)
             got = {k: rec["launches"][k] for k in want}
             print(f"[serve sharded] {tag} rank {r} {rec['coords']} "
                   f"({rec['transport']} collectives): params "
@@ -2637,7 +2667,8 @@ def serve_sharded_phase(dev):
                   f"{rec['unsharded_cache']}), the cache's set-up peak "
                   f"{rec['cache_peak']} B (blocks and one empty slot "
                   f"{rec['cache_bytes'] + rec['blank_bytes']}), draw and "
-                  f"cut {rec['draw_s']:.3f} s, launches {got} ({pre} "
+                  f"cut {rec['draw_s']:.3f} s, case {rec['case_s']:.3f} s, "
+                  f"launches {got} ({pre} "
                   f"prefills, {walk} walk steps, {dec} decode steps)")
             if rec["param_bytes"] != rec["want_params"] \
                     or rec["cache_bytes"] != rec["want_cache"]:

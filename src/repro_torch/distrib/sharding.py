@@ -363,6 +363,15 @@ _HEAD_DIM_LEAVES = frozenset({"bq", "bk", "bv", "rope_inv_q", "rope_inv_k",
 # r, k, v, g, which the forward splits on their output dim (columns: its
 # heads' channels); JAX splits the input dim
 _RWKV_TIME_COLS = frozenset({"wr", "wk", "wv", "wg"})
+# the Mamba mixer's 2-D leaves (a dict with ``in_proj`` and ``out_proj``):
+# the dim of its inner channels, which the forward splits; JAX splits the
+# wider dim, D in a pruned mixer whose kept channels are few enough
+_MAMBA_CHANNEL_DIM = {"in_proj": 1, "conv_w": 1, "dt_proj": 1, "a_log": 0,
+                      "x_proj": 0, "out_proj": 0}
+# leaves whose last dim holds two equal halves, each indexed by the same
+# channels: Mamba's in_proj (D, 2 d_inner) = (x | z). A split of that dim
+# takes the same block of each half (``block_of(paired=True)``)
+PAIRED_LEAVES = frozenset({"in_proj"})
 
 
 def _forward_dim(name: str, body, tree):
@@ -382,6 +391,9 @@ def _forward_dim(name: str, body, tree):
         return 0 if name == "wd" else 1
     if name == "bd_moe":
         return 0        # (E, D): the experts' block; JAX splits the wider D
+    if name in _MAMBA_CHANNEL_DIM and "in_proj" in tree \
+            and "out_proj" in tree:
+        return _MAMBA_CHANNEL_DIM[name]
     return None
 
 
@@ -390,10 +402,12 @@ def forward_specs(params, mesh):
     (``models.common.TensorParallel``): the leaves of ``_HEAD_DIM_LEAVES``
     on their head dim, the RWKV time mix's square ``wr``, ``wk``, ``wv``,
     ``wg`` on their output dim, a dense MLP's ``wg``, ``wu`` on their
-    columns and ``wd`` on its rows (the hidden dim F), and MoE's
-    ``bd_moe`` (E, D) on its experts. Each such leaf keeps the element
-    count of JAX's block, since JAX splits its other dim and both divide
-    the model axis; a leaf whose dim does not divide keeps JAX's spec."""
+    columns and ``wd`` on its rows (the hidden dim F), MoE's ``bd_moe``
+    (E, D) on its experts, and the Mamba mixer's 2-D leaves on their inner
+    channels (``in_proj``'s in paired halves, ``shard_params``). Each such
+    leaf keeps the element count of JAX's block, since JAX splits its
+    other dim and both divide the model axis; a leaf whose dim does not
+    divide keeps JAX's spec."""
     sizes = _sizes(mesh)
     m = sizes.get("model", 1)
     specs = param_specs(params, sizes)
@@ -451,12 +465,16 @@ def coordinates(mesh, rank: int) -> Dict[str, int]:
     return {a: int(i) for a, i in zip(mesh.mesh_dim_names, pos[0].tolist())}
 
 
-def block_of(leaf, spec, sizes: Dict[str, int], coords: Dict[str, int]):
+def block_of(leaf, spec, sizes: Dict[str, int], coords: Dict[str, int],
+             paired: bool = False):
     """A rank's block of one leaf (a tensor or numpy array) by its spec: on
     each sharded dim the ``1/n`` slice at the rank's linear index over the
     dim's axes (row-major in the spec's order). A view; a spec of
-    ``None`` entries returns the leaf itself."""
-    index = []
+    ``None`` entries returns the leaf itself. ``paired`` (a leaf of
+    ``PAIRED_LEAVES``): a split last dim is two halves, and the block is
+    the rank's slice of the first half followed by the same slice of the
+    second (a new array, of the element count of a plain split)."""
+    index, halves = [], None
     for d, entry in enumerate(spec):
         if entry is None:
             index.append(slice(None))
@@ -465,27 +483,43 @@ def block_of(leaf, spec, sizes: Dict[str, int], coords: Dict[str, int]):
         n, i = 1, 0
         for a in axes:
             n, i = n * sizes.get(a, 1), i * sizes.get(a, 1) + coords.get(a, 0)
+        if paired and d == len(spec) - 1:
+            half = leaf.shape[d] // 2
+            step = half // n
+            halves = (i * step, half + i * step, step)
+            index.append(slice(None))
+            continue
         step = leaf.shape[d] // n
         index.append(slice(i * step, (i + 1) * step))
-    return leaf[tuple(index)] if any(e is not None for e in spec) else leaf
+    if not any(e is not None for e in spec):
+        return leaf
+    out = leaf[tuple(index)]
+    if halves is None:
+        return out
+    a, b, step = halves
+    parts = (out[..., a:a + step], out[..., b:b + step])
+    return torch.cat(parts, dim=-1) if isinstance(out, torch.Tensor) \
+        else np.concatenate(parts, axis=-1)
 
 
 def shard_params(params, specs, mesh, rank: int):
     """Rank ``rank``'s blocks of a parameter tree by ``specs``
     (``param_specs`` or ``forward_specs``): a sharded leaf becomes a
-    contiguous copy of its block, a replicated one stays the same object.
+    contiguous copy of its block, a replicated one stays the same object;
+    a leaf of ``PAIRED_LEAVES`` is cut in paired halves (``block_of``).
     ``mesh``: a ``DeviceMesh``, a sharding object or an ``{axis: size}``
     dict."""
     sizes, coords = _sizes(mesh), coordinates(mesh, rank)
 
-    def one(leaf, spec):
-        out = block_of(leaf, spec, sizes, coords)
+    def one(name, leaf, spec):
+        out = block_of(leaf, spec, sizes, coords,
+                       paired=name in PAIRED_LEAVES)
         if out is leaf:
             return leaf
         return out.contiguous() if isinstance(out, torch.Tensor) \
             else np.ascontiguousarray(out)
 
     def walk(tree, sp):
-        return {k: walk(v, sp[k]) if isinstance(v, dict) else one(v, sp[k])
-                for k, v in tree.items()}
+        return {k: walk(v, sp[k]) if isinstance(v, dict)
+                else one(k, v, sp[k]) for k, v in tree.items()}
     return walk(params, specs)

@@ -66,13 +66,14 @@ over the set-up:
         --prompt-range 4,10 --gen-range 2,6 --serve-sharded \
         --mesh-shape 2x2 --dist-backend gloo --device cpu
 
-The enc-dec serves sharded with ``--mem-len`` (each request's frames go
-with its prefill to the ranks that hold its slot), and routed MoE with
-its experts over the model axis. A config whose slot cache does not split
-(``shard_ineligible``) is refused before any rank starts, and so is a
-family whose tensor-parallel forward is not ported (MLA, Mamba:
-``NotImplementedError``) and a MoE whose experts do not divide the model
-axis, as are ``--prefix-cache``, ``--replicas`` and ``--compare-static``
+Every config serves sharded: the enc-dec with ``--mem-len`` (each
+request's frames go with its prefill to the ranks that hold its slot),
+routed MoE with its experts over the model axis, MLA (deepseek-v3) over
+heads with its latent cache split on its dims, the Mamba hybrid (jamba)
+over the inner channels. A config whose slot cache does not split
+(``shard_ineligible``) is refused before any rank starts, and so is a MoE
+whose experts do not divide the model axis, as are ``--prefix-cache``,
+``--replicas`` and ``--compare-static``
 beside ``--serve-sharded``, and ``--serve-sharded`` without ``--trace``
 (the fixed-batch loop is not sharded).
 ``--arch internvl2-26b`` serves the VLM's language backbone on token
@@ -430,8 +431,8 @@ def check_shardable(cfg, shape, *, slots: int, max_len: int,
                     mem_len=None) -> None:
     """Refuse, before any rank loads its weights, a config that a
     ``shape`` mesh cannot serve: its slot cache by ``slot_specs``
-    (``shard_ineligible``, as the JAX engine), then a family whose
-    tensor-parallel forward is not ported (``check_tensor_parallel``)."""
+    (``shard_ineligible``, as the JAX engine), then a MoE whose experts
+    do not divide the model axis (``check_tensor_parallel``)."""
     model = build_model(cfg)
     meta = torch.device("meta")
     if cache_contract(cfg) == "encdec" and mem_len is None:

@@ -32,6 +32,19 @@ The cache holds the latent ``ckv`` (B, S, kv_lora_rank) and the roped
 query and ``w_uv`` after the softmax, in fp32 logits over the latent
 cache (plain torch ops, as the reference's jnp).
 
+MLA under ``tp`` (``common.TensorParallel``) follows JAX's
+``param_specs``: the up-projections ``w_uq_nope``, ``w_uq_rope``,
+``w_uk_nope``, ``w_uv`` and ``wo`` hold the rank's heads, and the
+down-projections ``w_dq``, ``w_dkv``, ``w_k_rope`` the rank's input rows
+of D, whose three partial sums one fused fp32 ``all_reduce`` completes
+before the norms. So every rank holds the whole latent of the new rows
+and runs its heads; ``wo``'s partial sum ends the sub-layer with one
+more ``all_reduce``. The cache holds the rank's block of ``ckv`` on the
+latent rank and of ``k_rope`` on its dim (``serve.sharding.slot_specs``):
+a decode step writes its blocks of the new row, then one ``all_gather``
+rebuilds the layer's whole latent cache for the absorbed product, which
+it drops after the layer. Three collectives an MLA layer a decode step.
+
 Cross attention (the enc-dec decoder, no rope): the query comes from the
 decoder states and the keys and values from the encoder memory, with
 taps ``q`` (B, T, H, dq) and ``k`` (B, S, Hkv, dq), which the block
@@ -50,8 +63,7 @@ import torch
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
-                                       no_tensor_parallel, rms_head_norm,
-                                       rope_freqs, tap)
+                                       rms_head_norm, rope_freqs, tap)
 
 
 def _uses_rope(cfg) -> bool:
@@ -120,30 +132,64 @@ def _mla_scale(cfg) -> float:
     return 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
 
 
-def _mla_latents(p, x, cfg, positions):
+_MLA_DOWN = ("w_dq", "w_dkv", "w_k_rope")
+
+
+def _mla_down(p, x, tp):
+    """x through the three down-projections -> (cq, ckv, k_rope) before
+    their norms and rope; under ``tp`` each holds the rank's rows of D,
+    and one fp32 ``all_reduce`` of the three partial sums side by side
+    completes them."""
+    if tp is None:
+        return [torch.einsum("btd,dr->btr", x, p[n]) for n in _MLA_DOWN]
+    lo, hi = tp.block(x.shape[-1])
+    xs = x[..., lo:hi]
+    whole = tp.all_reduce(torch.cat(
+        [torch.einsum("btd,dr->btr", xs, p[n]) for n in _MLA_DOWN], dim=-1))
+    return whole.split([p[n].shape[-1] for n in _MLA_DOWN], dim=-1)
+
+
+def _mla_latents(p, x, cfg, positions, tp=None):
     """The per-token MLA projections (``_apply_mla``, ``_decode_mla``): the
-    normed query latent's nope and roped blocks (B, T, H, nope|rope), the
-    normed kv latent (B, T, kv_lora_rank) and the roped shared key (B, T,
-    rope)."""
-    cq = rms_head_norm(torch.einsum("btd,dr->btr", x, p["w_dq"]),
-                       p["q_norm_scale"], cfg.norm_eps)
+    normed query latent's nope and roped blocks (B, T, H, nope|rope; the
+    rank's heads under ``tp``), the normed kv latent (B, T, kv_lora_rank)
+    and the roped shared key (B, T, rope), both whole."""
+    cq, ckv, k_rope = _mla_down(p, x, tp)
+    cq = rms_head_norm(cq, p["q_norm_scale"], cfg.norm_eps)
     q_nope = torch.einsum("btr,rhq->bthq", cq, p["w_uq_nope"])
     q_rope = apply_rope(torch.einsum("btr,rhq->bthq", cq, p["w_uq_rope"]),
                         positions, cfg.rope_theta)
-    ckv = rms_head_norm(torch.einsum("btd,dr->btr", x, p["w_dkv"]),
-                        p["kv_norm_scale"], cfg.norm_eps)
-    k_rope = apply_rope(torch.einsum("btd,dq->btq", x, p["w_k_rope"])
-                        [:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    ckv = rms_head_norm(ckv, p["kv_norm_scale"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, ckv, k_rope
 
 
-def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False):
+def _latent_blocks(tp, ckv, k_rope):
+    """The rank's blocks of whole latent rows (its ``slot_specs`` blocks),
+    as tensors of their own."""
+    return (tp.local(ckv, ckv.shape[-1] // tp.size).contiguous(),
+            tp.local(k_rope, k_rope.shape[-1] // tp.size).contiguous())
+
+
+def _gather_latent(tp, ckv, k_rope):
+    """The ranks' blocks of a latent cache -> the whole ``ckv`` and
+    ``k_rope`` (B, S, r | r_rope), with one ``all_gather``."""
+    B, S, w = ckv.shape
+    both = tp.all_gather(torch.cat([ckv, k_rope], dim=-1)[:, :, None], dim=2)
+    return (both[..., :w].reshape(B, S, -1),
+            both[..., w:].reshape(B, S, -1))
+
+
+def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False,
+               tp=None):
     """Full-sequence MLA (``repro.models.attention._apply_mla``): the
     attention kernel on q = (q_nope | q_rope) and k = (k_nope | k_rope
-    shared by the heads), v from the latent, causal."""
+    shared by the heads), v from the latent, causal; under ``tp`` over the
+    rank's heads (module docstring)."""
     B, T, _ = x.shape
-    H, rope = cfg.n_heads, cfg.mla.qk_rope_dim
-    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, positions)
+    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, positions, tp)
+    H, rope = q_nope.shape[2], k_rope.shape[-1]
     k_nope = torch.einsum("btr,rhq->bthq", ckv, p["w_uk_nope"])
     v = torch.einsum("btr,rhv->bthv", ckv, p["w_uv"])
     tap(taps, "q", q_nope)
@@ -154,6 +200,10 @@ def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False):
     o = flash_ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg))
     y = torch.einsum("bthv,hvd->btd", o, p["wo"])
     cache = None
+    if tp is not None:
+        y = tp.all_reduce(y)
+        if return_cache:
+            ckv, k_rope = _latent_blocks(tp, ckv, k_rope)
     if return_cache:
         cache = {"ckv": ckv, "k_rope": k_rope,
                  "pos": torch.full((B,), T, dtype=torch.int32,
@@ -161,18 +211,25 @@ def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False):
     return y, cache
 
 
-def _decode_mla(p, x, cache, cfg):
+def _decode_mla(p, x, cache, cfg, tp=None):
     """One-token MLA decode with the absorbed products
     (``repro.models.attention._decode_mla``): the new ``ckv`` and
     ``k_rope`` rows are written at ``pos`` in place, q_eff = q_nope .
     w_uk_nope scores the latent cache directly, in fp32 logits, and the
     softmax-weighted latent goes through ``w_uv``; ``pos`` advances in
-    place. Returns (y (B, 1, D), cache)."""
+    place. Under ``tp`` the rank writes its blocks of the new rows and
+    scores the gathered whole cache over its heads (module docstring).
+    Returns (y (B, 1, D), cache)."""
     pos = cache["pos"]
-    q_nope, q_rope, ckv_new, kr_new = _mla_latents(p, x, cfg, pos[:, None])
+    q_nope, q_rope, ckv_new, kr_new = _mla_latents(p, x, cfg, pos[:, None],
+                                                   tp)
     ckv, krope = cache["ckv"], cache["k_rope"]
+    if tp is not None:
+        ckv_new, kr_new = _latent_blocks(tp, ckv_new, kr_new)
     _scatter_time(ckv, ckv_new[:, 0], pos)
     _scatter_time(krope, kr_new[:, 0], pos)
+    if tp is not None:
+        ckv, krope = _gather_latent(tp, ckv, krope)
     q_eff = torch.einsum("bhq,rhq->bhr", q_nope[:, 0], p["w_uk_nope"])
     ckv32 = ckv.float()
     logits = (torch.einsum("bhr,bsr->bhs", q_eff.float(), ckv32)
@@ -185,6 +242,8 @@ def _decode_mla(p, x, cache, cfg):
                          ckv32)
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), p["w_uv"])
     y = torch.einsum("bhv,hvd->bd", o, p["wo"])[:, None, :]
+    if tp is not None:
+        y = tp.all_reduce(y)
     pos.add_(1)
     return y, cache
 
@@ -236,11 +295,10 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
     the rank's heads (``wq``, ``wk``, ``wv`` and the per-head biases and
     rope tables split on H, ``wo`` on its H rows), so q, k, v, the kernel
     and the cache are the rank's heads, and ``wo`` gives a partial sum
-    that one ``all_reduce`` completes."""
+    that one ``all_reduce`` completes (MLA: module docstring)."""
     if cfg.mla is not None:
-        no_tensor_parallel(tp, "MLA")
         return _apply_mla(p, x, cfg, positions=positions, taps=taps,
-                          return_cache=return_cache)
+                          return_cache=return_cache, tp=tp)
     q, k, v = _project_qkv(p, x, cfg, positions, taps)
     window = cfg.sliding_window if (kind == "swa" and mask_kind != "full") \
         else None
@@ -350,10 +408,10 @@ def decode_attn(p, x, cache, cfg, kind="attn", tp=None):
     """x: (B, 1, D) one new token. Writes its K/V row at ``pos`` (a
     ``swa`` ring: at ``pos mod S``, with ``abs_pos``) and advances ``pos``
     in place; returns (y, cache). An MLA layer runs ``_decode_mla``.
-    Under ``tp`` the cache holds the rank's kv heads (``apply_attn``)."""
+    Under ``tp`` the cache holds the rank's kv heads (``apply_attn``; an
+    MLA layer's: its latent blocks)."""
     if cfg.mla is not None:
-        no_tensor_parallel(tp, "MLA")
-        return _decode_mla(p, x, cache, cfg)
+        return _decode_mla(p, x, cache, cfg, tp)
     pos = cache["pos"]                          # (B,) current length
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None], None)
     k, v = cache["k"], cache["v"]

@@ -79,8 +79,7 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
                 tp=None):
     """Full-sequence block. Returns x after its residual sub-layers; a
     decoder block attends the encoder memory ``mem`` (B, S, D). ``tp``:
-    the tensor-parallel context of an attention block (the enc-dec's
-    encoder and decoder stacks) or None."""
+    the tensor-parallel context (``common.TensorParallel``) or None."""
     _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
@@ -88,7 +87,7 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
     else:
         h = apply_norm(p["ln1"], x, cfg)
         if kind == "mamba":
-            y, _ = ssm_mod.apply_mamba(p["mixer"], h, cfg, taps=t)
+            y, _ = ssm_mod.apply_mamba(p["mixer"], h, cfg, taps=t, tp=tp)
         else:
             y, _ = attn_mod.apply_attn(p["mixer"], h, cfg, kind,
                                        positions=positions, taps=t,

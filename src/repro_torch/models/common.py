@@ -241,13 +241,6 @@ def merge_taps(dst: dict | None, src: dict, prefix: str):
 # tensor parallelism (the serving forward over a mesh's model axis)
 # ---------------------------------------------------------------------------
 
-def no_tensor_parallel(tp, layer: str) -> None:
-    """Raise for a layer whose tensor-parallel forward is not ported."""
-    if tp is not None:
-        raise NotImplementedError(f"the tensor-parallel forward of {layer} "
-                                  f"is not ported")
-
-
 class TensorParallel:
     """A rank's share of the model axis: its process group, its index and
     the axis' size. The serving forward takes it as ``tp=`` (None when

@@ -15,6 +15,17 @@ whole sequence. One deliberate difference: the reference takes the largest
 divisor of T that is at most 256 as its chunk (1 for a prime T); the port
 takes fixed chunks of ``_SCAN_CHUNK`` = 256 and a shorter last one, the same
 result up to fp32 reassociation.
+
+The Mamba mixer under ``tp`` (``common.TensorParallel``) runs the rank's
+block of the inner channels: ``in_proj`` holds the same block of x's and
+of z's columns side by side (``distrib.sharding``'s paired halves),
+``conv_w``, ``dt_proj``, ``a_log`` the block's channels, ``x_proj`` and
+``out_proj`` its rows; the vectors ``conv_b``, ``dt_bias``, ``d_skip`` and
+``out_b`` stay whole and the forward takes the block's channels of the
+first three. ``x_proj``'s partial (dt_in | B | C) is reduced once for the
+whole sequence before the scan, ``out_proj``'s once after it (``out_b``
+added after): two collectives a Mamba layer. The state holds the block's
+channels of ``conv`` and ``ssm``.
 """
 from __future__ import annotations
 
@@ -24,8 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv6 import ops as wkv_ops
-from repro_torch.models.common import (dense_init, dtype_of,
-                                       no_tensor_parallel, tap)
+from repro_torch.models.common import dense_init, dtype_of, tap
 
 _SCAN_CHUNK = 256   # tokens a scan chunk (module docstring)
 
@@ -276,25 +286,30 @@ def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
     fp32} or None. Returns (y, state): the given state updated in place
     (decode), or a new one. Taps ``mamba_y``, the gated input of
     ``out_proj``; adds ``out_b`` when present (CORP's compensation
-    bias)."""
-    no_tensor_parallel(tp, "the Mamba mixer")
+    bias). Channel-parallel under ``tp`` (module docstring)."""
     B, T, _ = x.shape
-    di = p["d_skip"].shape[-1]
+    di = p["conv_w"].shape[-1]
     ns = cfg.mamba.d_state
     dr = _dt_rank(cfg)
+    conv_b, dt_bias, d_skip = (p[n] if tp is None else tp.local(p[n], di)
+                               for n in ("conv_b", "dt_bias", "d_skip"))
     xz = x @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]
-    xc, conv_new = _causal_conv(xi, p["conv_w"], p["conv_b"],
+    xc, conv_new = _causal_conv(xi, p["conv_w"], conv_b,
                                 None if state is None else state["conv"])
     xc = F.silu(xc)
     A = -torch.exp(p["a_log"])                                # (di, ns)
+    # under tp, x_proj's partial sums of the whole sequence, reduced once
+    xdb_all = None if tp is None else tp.all_reduce(xc @ p["x_proj"])
 
-    def discretize(xc_blk):
-        """(B, L, di) -> the chunk's dA, dBx (B, L, di, ns) and C."""
-        xdb = xc_blk @ p["x_proj"]
+    def discretize(xc_blk, t0=0):
+        """(B, L, di) from row t0 -> the chunk's dA, dBx (B, L, di, ns)
+        and C."""
+        xdb = xc_blk @ p["x_proj"] if xdb_all is None \
+            else xdb_all[:, t0:t0 + xc_blk.shape[1]]
         dt_in, Bs, Cs = (xdb[..., :dr], xdb[..., dr:dr + ns],
                          xdb[..., dr + ns:])
-        dts = F.softplus(dt_in.float() @ p["dt_proj"] + p["dt_bias"])
+        dts = F.softplus(dt_in.float() @ p["dt_proj"] + dt_bias)
         dA = torch.exp(dts[..., None] * A)
         dBx = (dts * xc_blk.float())[..., None] * Bs.float()[..., None, :]
         return dA, dBx, Cs
@@ -308,7 +323,7 @@ def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
     else:
         ys = []
         for t0 in range(0, T, _SCAN_CHUNK):
-            a, b, Cs = discretize(xc[:, t0:t0 + _SCAN_CHUNK])
+            a, b, Cs = discretize(xc[:, t0:t0 + _SCAN_CHUNK], t0)
             hs, bc = _inclusive_scan(a, b)
             del a, b
             hs.mul_(h[:, None]).add_(bc)                      # (B, L, di, ns)
@@ -317,10 +332,12 @@ def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
             h = hs[:, -1].clone()
             del hs
         y = torch.cat(ys, dim=1)
-    y = y + p["d_skip"] * xc.float()
+    y = y + d_skip * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     tap(taps, "mamba_y", y)
     out = y @ p["out_proj"]
+    if tp is not None:
+        out = tp.all_reduce(out)
     if "out_b" in p:   # CORP compensation bias (added by pruning)
         out = out + p["out_b"].to(out.dtype)
     if state is None:

@@ -73,9 +73,10 @@ MoE shares an expert's capacity across a routing group, so a decode step
 whose slots are split over the data axis hands the forward that axis'
 context (``TensorParallel.rows``): the MoE layers gather the step's rows,
 route them as one device does, and keep their own. Only the lead decides
-on admission and retirement. The dense-attention, RWKV-6, enc-dec and
-routed-MoE stacks are served; MLA and Mamba raise by name
-(``sharding.check_tensor_parallel``), and so does a prefix cache.
+on admission and retirement. Every family is served (MLA from its latent
+blocks, the Mamba hybrid over its inner channels); a MoE whose experts do
+not divide the model axis is refused (``sharding.check_tensor_parallel``),
+and so is a prefix cache.
 """
 from __future__ import annotations
 

@@ -9,10 +9,11 @@ contract parallelises:
   contract    leaf                  model-sharded dim
   ---------   -------------------   ------------------------------
   kv          k / v                 kv heads        (..., S, Hkv, d)
-  kv (MLA)    ckv / k_rope          latent rank     (..., T, r)
+  kv (MLA)    ckv / k_rope          latent dims     (..., T, r)
   recurrent   wkv                   rwkv heads      (..., H, N, N)
   recurrent   ssm                   ssm channels    (..., d_inner, N)
   recurrent   conv / shift          conv channels   (..., K, d_inner)
+  (hybrid)    k / v beside them     kv heads        (..., S, Hkv, d)
   encdec      k_mem / v_mem         cross heads     (..., M, H, d)
   (all)       pos / abs_pos         replicated bookkeeping
 
@@ -183,25 +184,12 @@ def device_bytes_estimate(template, specs, mesh) -> int:
 
 
 def check_tensor_parallel(cfg, model_size: int = 1) -> None:
-    """Raise ``NotImplementedError`` for a family whose tensor-parallel
-    forward is not ported, naming the JAX layer it needs (ROADMAP Queue 1
-    item 2b-ii): dense attention with its MLP, RWKV-6, the enc-dec and
-    routed MoE pass; MLA and Mamba do not. A MoE config whose experts do
-    not divide the ``model_size``-way model axis raises ``ValueError``:
-    JAX's rule then keeps them whole on every rank, and the forward
-    splits experts, never their channels."""
-    gaps = []
-    if cfg.mla is not None:
-        gaps.append("MLA (repro/models/attention.py _apply_mla/_decode_mla,"
-                    " the latent ckv split on its rank dim)")
-    if "mamba" in cfg.layer_kinds:
-        gaps.append("the Mamba hybrid (repro/models/ssm.py apply_mamba, "
-                    "d_inner over the model axis)")
-    if gaps:
-        raise NotImplementedError(
-            f"{cfg.name}: mesh-sharded serving of {'; '.join(gaps)} is not "
-            f"ported; the port's tensor-parallel forward covers dense "
-            f"attention with its MLP, RWKV-6, the enc-dec and routed MoE")
+    """Refuse a config that the tensor-parallel forward cannot split over
+    a ``model_size``-way model axis, which covers every family (dense
+    attention and MLA with their MLPs, RWKV-6, the Mamba hybrid, the
+    enc-dec, routed MoE): a MoE config whose experts do not divide the
+    axis raises ``ValueError``, since JAX's rule then keeps them whole on
+    every rank and the forward splits experts, never their channels."""
     if cfg.moe is not None and cfg.eff_num_experts % model_size:
         raise ValueError(
             f"{cfg.name}: {cfg.eff_num_experts} routed experts do not split "

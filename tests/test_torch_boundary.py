@@ -122,8 +122,8 @@ def test_unported_paths_raise():
     ``seamless-m4t-large-v2`` resolves in both packages, full and
     reduced, to equal configs (as deepseek-v3-671b and
     jamba-1.5-large-398b do); the TPU autotuner's ``--gram-tiles`` and
-    mesh-sharded serving of a family whose tensor-parallel forward is not
-    ported (MLA) still refuse by name."""
+    a prefix cache on a mesh-sharded engine still refuse by name, while
+    mesh-sharded serving of MLA (deepseek-v3) passes the CLI's checks."""
     arch = "seamless-m4t-large-v2"
     for name in (arch, arch + "-reduced"):
         got = pt_configs.resolve_config(name)
@@ -139,10 +139,13 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="--gram-tiles"):
         pt_prune.main(["--arch", "deit-base-reduced", "--device", "cpu",
                        "--gram-tiles", "128,512"])
-    with pytest.raises(NotImplementedError, match="MLA"):
+    pt_serve.check_shardable(pt_configs.resolve_config(
+        "deepseek-v3-671b-reduced"), (1, 2), slots=4, max_len=128)
+    with pytest.raises(NotImplementedError, match="--prefix-cache"):
         pt_serve.main(["--arch", "deepseek-v3-671b-reduced", "--device",
                        "cpu", "--trace", "2", "--serve-sharded",
-                       "--mesh-shape", "1x2", "--dist-backend", "gloo"])
+                       "--mesh-shape", "1x2", "--dist-backend", "gloo",
+                       "--prefix-cache", "4"])
 
 
 def test_cli_checkpoint_restores_into_jax(tmp_path):

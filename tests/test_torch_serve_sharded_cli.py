@@ -3,10 +3,11 @@ tests/test_serve_sharded.py::test_serve_cli_sharded_end_to_end): a usage
 error without ``--mesh-shape``, four spawned CPU ``gloo`` ranks end to end
 with the per-device cache line, and the refusals, each before any rank
 starts: a config whose slot cache does not split (JAX's
-``shard_ineligible`` text), the families whose tensor-parallel forward is
-not ported (MLA, Mamba), and the flags a sharded engine does not take; the
-enc-dec served with ``--mem-len``; and the shared-memory transport's
-collectives on messages past a slot.
+``shard_ineligible`` text), a MoE whose experts do not divide the model
+axis, and the flags a sharded engine does not take; the enc-dec served
+with ``--mem-len``; MLA (deepseek-v3) served with the unsharded CLI's
+streams; and the shared-memory transport's collectives on messages past a
+slot.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ torch = pytest.importorskip("torch")
 from repro.serve import errors as jax_errors  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import launch  # noqa: E402
-from torch_serve_dist import host_collective_ranks  # noqa: E402
+from torch_serve_dist import cli_ranks, host_collective_ranks  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 BASE = ["--trace", "6", "--slots", "2", "--max-len", "48",
@@ -84,27 +85,43 @@ def test_one_kv_head_is_refused_with_jax_s_text():
 @pytest.mark.parametrize("arch,extra,layer", [
     ("deepseek-v3-671b-reduced", [], "MLA"),
 ])
-def test_families_outside_the_slice_raise_by_name(arch, extra, layer):
-    """Their slot caches split (JAX serves them sharded); the port's
-    tensor-parallel forward does not cover them yet."""
-    with pytest.raises(NotImplementedError, match=layer):
-        serve_cli.main(["--arch", arch, "--serve-sharded", "--mesh-shape",
-                        "2x2", *BASE, *extra])
+def test_families_outside_the_slice_raise_by_name(tmp_path, arch, extra,
+                                                   layer):
+    """Once refused by name, MLA (with routed MoE) now serves sharded:
+    the CLI's own rank body on four spawned ranks as 2x2 serves the trace
+    with the streams of the unsharded CLI."""
+    argv = ["--arch", arch, *BASE, *extra]
+    want = {c.rid: [int(t) for t in c.tokens]
+            for c in serve_cli.main(argv)["completions"]}
+    out = tmp_path / "streams.json"
+    launch(cli_ranks, 4, backend="gloo", device="cpu",
+           init_method=f"file://{tmp_path}/rdzv",
+           args=(argv + ["--serve-sharded", "--mesh-shape", "2x2"],
+                 str(out)))
+    got = {int(k): v for k, v in json.loads(out.read_text()).items()}
+    assert len(want) == 6 and got == want, layer
 
 
 def test_mamba_hybrid_raises_by_name_and_only_for_mamba():
-    """jamba's reduced config has one kv head, so the CLI refuses it as
-    ``shard_ineligible`` first; its config names the Mamba hybrid alone
-    (its routed MoE layers are served)."""
+    """``check_tensor_parallel`` passes the Mamba hybrid and MLA at full
+    width (jamba-1.5-large-398b, deepseek-v3-671b, at their expert counts'
+    divisors) and still refuses a MoE whose experts do not divide the
+    model axis; jamba's reduced config is still refused, as
+    ``shard_ineligible``, for its one kv head."""
     from repro_torch.configs import resolve_config
     from repro_torch.serve.sharding import check_tensor_parallel
-    cfg = resolve_config("jamba-1.5-large-398b-reduced")
-    with pytest.raises(NotImplementedError, match="Mamba") as e:
-        check_tensor_parallel(cfg, 2)
-    assert "MoE" not in str(e.value).split("; the port")[0]
+    for arch in ("jamba-1.5-large-398b", "deepseek-v3-671b"):
+        for m in (2, 4, 8):
+            check_tensor_parallel(resolve_config(arch), m)
     with pytest.raises(ValueError, match="do not split"):
         check_tensor_parallel(resolve_config(
             "qwen3-moe-235b-a22b-reduced"), 8)
+    with pytest.raises(ValueError) as e:
+        serve_cli.main(["--arch", "jamba-1.5-large-398b-reduced",
+                        "--serve-sharded", "--mesh-shape", "2x2", *BASE])
+    assert str(e.value) == jax_errors.msg(
+        "shard_ineligible", name="jamba-1.5-large-398b-reduced", leaf="k",
+        m=2)
 
 
 def test_serve_sharded_seamless_on_four_gloo_ranks():

@@ -171,21 +171,29 @@ def test_shard_ineligible_message_is_jax_s():
 def _full_shapes(arch):
     """JAX's shape tree of a full config (``jax.eval_shape``: no memory).
     ``<arch>+pruned``: the config pruned at 0.5 of the hidden channels, the
-    qk dims and the experts, with the compensation leaves JAX's pruner
-    writes into a MoE layer (``bd_moe``, ``moe_resid``, ``moe_out_b``),
-    which its pruned template lacks (reference fault 2)."""
+    qk dims and the experts (``+pruned75``: at 0.75 of the hidden and the
+    Mamba inner channels), with the compensation leaves JAX's pruner
+    writes into a MoE layer (``bd_moe``, ``moe_resid``, ``moe_out_b``) and
+    a Mamba mixer (``out_b``), which its pruned template lacks (reference
+    fault 2)."""
     name, _, variant = arch.partition("+")
     cfg = get_config(name)
     if variant:
-        cfg = cfg.pruned(0.5, 0.5, expert_sparsity=0.5)
+        cfg = cfg.pruned(0.75 if variant == "pruned75" else 0.5, 0.5,
+                         expert_sparsity=0.5)
     tree = jax.eval_shape(jax_build(cfg).init, jax.random.PRNGKey(0))
     if variant:
-        moe = tree["seg0"]["p0"]["mlp"]
-        L, E, D = moe["wg"].shape[:3]
         f32 = jnp.float32
-        moe.update(bd_moe=jax.ShapeDtypeStruct((L, E, D), f32),
-                   moe_resid=jax.ShapeDtypeStruct((L, D, D), f32),
-                   moe_out_b=jax.ShapeDtypeStruct((L, D), f32))
+        for layer in tree["seg0"].values():
+            moe, mixer = layer["mlp"], layer["mixer"]
+            if "router" in moe:
+                L, E, D = moe["wg"].shape[:3]
+                moe.update(bd_moe=jax.ShapeDtypeStruct((L, E, D), f32),
+                           moe_resid=jax.ShapeDtypeStruct((L, D, D), f32),
+                           moe_out_b=jax.ShapeDtypeStruct((L, D), f32))
+            if "in_proj" in mixer:
+                L, D = mixer["in_proj"].shape[:2]
+                mixer["out_b"] = jax.ShapeDtypeStruct((L, D), f32)
     return tree
 
 
@@ -265,6 +273,24 @@ DIFFERENCES = {
         "mixer/rope_inv_k", "mlp/bd_moe"},
     ("qwen3-moe-235b-a22b+pruned", "model=4"): {
         "mixer/rope_inv_k", "mlp/bd_moe"},
+    # MLA follows JAX's rule (heads, and D's rows of the down-projections);
+    # the shared expert's F = 2048 < D on its columns and rows
+    ("deepseek-v3-671b", "model=2"): {"shared/wg", "shared/wu",
+                                      "shared/wd"},
+    ("deepseek-v3-671b", "model=4"): {"shared/wg", "shared/wu",
+                                      "shared/wd"},
+    # the Mamba mixer at d_inner 16384 >= D follows JAX's rule
+    ("jamba-1.5-large-398b", "model=2"): {"mixer/rope_inv_k"},
+    ("jamba-1.5-large-398b", "model=4"): {"mixer/rope_inv_k"},
+    # kept d_inner 4096 < D = 8192: in_proj (D, 8192) on its (paired)
+    # columns and out_proj (4096, D) on its rows, where JAX splits D; the
+    # dense MLP's F = 6144 < D likewise, and the MoE layers' bd_moe
+    ("jamba-1.5-large-398b+pruned75", "model=2"): {
+        "mixer/rope_inv_k", "mixer/in_proj", "mixer/out_proj", "mlp/wg",
+        "mlp/wu", "mlp/wd", "mlp/bd_moe"},
+    ("jamba-1.5-large-398b+pruned75", "model=4"): {
+        "mixer/rope_inv_k", "mixer/in_proj", "mixer/out_proj", "mlp/wg",
+        "mlp/wu", "mlp/wd", "mlp/bd_moe"},
 }
 
 
@@ -272,7 +298,8 @@ DIFFERENCES = {
 def test_forward_specs_keep_jax_element_counts(arch, mesh):
     """At full width: the forward's split equals JAX's rule but for the
     listed leaves (ROADMAP Queue 3's deliberate differences; the pruned
-    MoE's ``bd_moe`` among them), and every leaf's block holds JAX's
+    MoE's ``bd_moe`` and the pruned Mamba mixer's ``in_proj`` and
+    ``out_proj`` among them), and every leaf's block holds JAX's
     element count; a rank's blocks cut by ``shard_params`` have those
     shapes."""
     m = int(mesh.split("=")[1])
@@ -296,6 +323,132 @@ def test_forward_specs_keep_jax_element_counts(arch, mesh):
     for path, spec in want.items():
         assert blocks[path].numel() == _numel_block(shapes[path], spec,
                                                     sizes), path
+
+
+def test_paired_in_proj_block_is_x_then_z_channels():
+    """A rank's block of Mamba's ``in_proj`` (D, 2 d_inner) = (x | z) is
+    its block of x's columns followed by the same block of z's, with
+    JAX's element count, cut alike from numpy (``interop.rank_blocks``)
+    and from tensors; ``out_proj`` takes the same channels' rows."""
+    from repro_torch.interop import rank_blocks
+    D, di, sizes = 8, 16, {"data": 1, "model": 4}
+    tree = {"mixer": {
+        "in_proj": np.arange(3 * D * 2 * di, dtype=np.float32)
+        .reshape(3, D, 2 * di),
+        "out_proj": np.arange(3 * di * D, dtype=np.float32)
+        .reshape(3, di, D),
+        "conv_w": np.zeros((3, 4, di), np.float32)}}
+    seg = {"seg0": {"p0": tree}}
+    specs = forward_specs(seg, sizes)
+    assert specs["seg0"]["p0"]["mixer"]["in_proj"] == (None, None, "model")
+    jax_spec = _jax_flat(jax_param_specs(seg, DuckMesh(sizes)))
+    x, z = tree["mixer"]["in_proj"][..., :di], tree["mixer"]["in_proj"][
+        ..., di:]
+    for rank in range(4):
+        lo, hi = rank * di // 4, (rank + 1) * di // 4
+        got = shard_params(seg, specs, sizes, rank)["seg0"]["p0"]["mixer"]
+        np.testing.assert_array_equal(
+            got["in_proj"], np.concatenate([x[..., lo:hi], z[..., lo:hi]],
+                                           -1))
+        np.testing.assert_array_equal(got["out_proj"],
+                                      tree["mixer"]["out_proj"][:, lo:hi])
+        assert got["in_proj"].size == _numel_block(
+            (3, D, 2 * di), jax_spec["seg0/p0/mixer/in_proj"], sizes)
+        cut = rank_blocks(seg, specs, sizes, rank, "cpu")["seg0"]["p0"]
+        assert torch.equal(cut["mixer"]["in_proj"],
+                           torch.from_numpy(got["in_proj"]))
+
+
+class _ThreadHost:
+    """What ``TensorParallel`` reads of a host transport, for ranks that
+    are threads of one process: each posts its tensor, waits for the
+    others, reads them all, and waits again before the next exchange."""
+
+    def __init__(self, board, barrier, index):
+        self.board, self.barrier, self.index = board, barrier, index
+
+    def _swap(self, x):
+        self.board[self.index] = x.clone()
+        self.barrier.wait()
+        parts = list(self.board)
+        self.barrier.wait()
+        return parts
+
+    def all_reduce(self, x):
+        parts = self._swap(x)
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.float()
+        return acc.to(x.dtype)
+
+    def all_gather(self, x, dim):
+        return torch.cat(self._swap(x), dim)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+def test_mla_latent_blocks_and_gathered_cache_equal_one_device(model):
+    """MLA under ``tp`` on ``model`` thread ranks: a prefill's cache is each
+    rank's ``slot_specs`` block of one device's ``ckv``/``k_rope`` (on
+    their last dim), a decode step writes the rank's blocks of the new row
+    and the gathered latent then equals one device's cache, the outputs
+    equal one device's, and a decode step makes three collectives (the
+    fused input reduction, the gather, the output reduction)."""
+    import threading
+    from repro_torch.distrib.sharding import block_of
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import TensorParallel
+    from repro_torch.models.lm import _pad_cache
+    cfg = to_port_cfg(reduced(get_config("deepseek-v3-671b")))
+    layer = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                  device="cpu")["seg0"]["l0"]["mixer"]
+    g = torch.Generator().manual_seed(1)
+    B, T, S = 2, 5, 8
+    x = torch.randn(B, T, cfg.d_model, generator=g)
+    x1 = torch.randn(B, 1, cfg.d_model, generator=g)
+    pos = torch.arange(T)[None].expand(B, T)
+    y_ref, c_ref = attn._apply_mla(layer, x, cfg, positions=pos,
+                                   return_cache=True)
+    c_ref = _pad_cache(c_ref, S)
+    prefill_ref = {k: c_ref[k].clone() for k in ("ckv", "k_rope")}
+    y1_ref, _ = attn._decode_mla(layer, x1, c_ref, cfg)
+    sizes = {"model": model}
+    specs = forward_specs({"mixer": layer}, sizes)["mixer"]
+    tmpl = {k: c_ref[k] for k in ("ckv", "k_rope", "pos")}
+    cspec = slot_specs(tmpl, {"ckv": 0, "k_rope": 0, "pos": 0}, sizes)
+    board, barrier, out = [None] * model, threading.Barrier(model), {}
+
+    def rank(r):
+        tp = TensorParallel(None, r, model,
+                            host=_ThreadHost(board, barrier, r))
+        p = shard_params(layer, specs, sizes, r)
+        y, c = attn._apply_mla(p, x, cfg, positions=pos, return_cache=True,
+                               tp=tp)
+        c = _pad_cache(c, S)
+        blocks = {k: c[k].clone() for k in ("ckv", "k_rope")}
+        y1, c = attn._decode_mla(p, x1, c, cfg, tp)
+        calls = tp.calls
+        whole = attn._gather_latent(tp, c["ckv"], c["k_rope"])
+        out[r] = (y, y1, blocks, c, whole, calls)
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(model)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sorted(out) == list(range(model))
+    for r, (y, y1, blocks, c, whole, calls) in out.items():
+        assert calls == 2 + 3       # prefill 2, one decode step 3
+        torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y1, y1_ref, rtol=1e-5, atol=1e-5)
+        for i, k in enumerate(("ckv", "k_rope")):
+            assert cspec[k] == (None, None, "model")
+            want = block_of(prefill_ref[k], cspec[k], sizes, {"model": r})
+            assert blocks[k].shape == want.shape
+            torch.testing.assert_close(blocks[k], want, rtol=1e-5,
+                                       atol=1e-5)
+            torch.testing.assert_close(whole[i], c_ref[k], rtol=1e-5,
+                                       atol=1e-5)
+        assert torch.equal(c["pos"], c_ref["pos"])
 
 
 def test_rank_blocks_of_a_jax_tree_equal_the_tensor_tree_s():

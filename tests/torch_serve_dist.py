@@ -238,6 +238,20 @@ def serve_ranks(device, job_dir, tasks):
                            is None else logits.tolist()}, f)
 
 
+def cli_ranks(device, argv, out_path):
+    """A rank of the serve CLI's ``--serve-sharded`` (its own rank body,
+    ``launch.serve._serve_rank``, on the parsed ``argv``); the lead writes
+    the streams it served to ``out_path`` as ``{rid: tokens}``."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import parse_shape
+    args = serve_cli.parse_args(argv)
+    out = serve_cli._serve_rank(device, args, parse_shape(args.mesh_shape))
+    if out is not None:
+        with open(out_path, "w") as f:
+            json.dump({h.rid: [int(t) for t in h.tokens]
+                       for h in out["handles"]}, f)
+
+
 def host_collective_ranks(device, out_dir):
     """Each rank: the shared-memory collectives of a 2 x 2 mesh's model
     groups (the shared-memory transport) on messages past a slot
