@@ -18,6 +18,20 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      L2-cold (rotating over a stack of per-layer slices as large as the
      path's), with the host's launch, and flash_decode at the serve step's
      mask;
+ 2b. training (``[kernels train]``, ``[train]``): the attention backward
+     kernel against its plain version and against autograd through the
+     plain forward at DeiT-Base, Qwen2-1.5B, gemma3-1b (window 512, d
+     256), MLA (q/k 192, v 128) and cross-attention shapes (fp32 <= 1e-4,
+     bf16 <= 2e-2 of max |grad|), timed beside the plain version, SDPA's
+     backward and its bound; DeiT-Base at full width and depth in fp32
+     through ``python -m repro_torch.launch.train`` (8 steps of 32 images,
+     a checkpoint every 4), resumed from step 4 in another directory
+     (losses 5-8 within 1e-6), launches gated exactly (24 forward and 12
+     backward attention launches a step, no other kernel), the host's
+     batch against the step on the card, one step on the card against
+     the CPU (loss 1e-4, gnorm and each leaf 1e-3); Qwen2-1.5B at 4 of 28
+     layers in bf16 on Zipf tokens (3 steps, launches gated); ``wkv6``
+     refusing a gradient on the card;
   3. prune path: runs CORP pruning of DeiT-Base at full width end to end
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
@@ -195,6 +209,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -237,12 +252,14 @@ def fail(msg: str):
 
 def kernel_modules():
     """Each kernel's wrapper module (its ``launches`` count), by name."""
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"gram": gram_ops, "flash_attention": flash_ops,
-            "flash_decode": decode_ops, "wkv6": wkv_ops}
+            "flash_attention_bwd": flash_bwd, "flash_decode": decode_ops,
+            "wkv6": wkv_ops}
 
 
 def reset_launches():
@@ -5288,6 +5305,357 @@ def seamless_phases(dev, rows, launches):
     print(f"[reference seamless] phase wall {time.time() - t0:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# training: the attention backward kernel and the train path
+# ---------------------------------------------------------------------------
+
+# the backward kernel at the shapes the train path and the other families
+# give it: B, T, S, H, Hkv, dq, dv, causal, window, dtype
+TRAIN_KERNEL_CASES = [
+    ("DeiT-Base", (32, 197, 197, 12, 12, 64, 64, False, None, "float32")),
+    ("Qwen2-1.5B", (4, 512, 512, 12, 2, 128, 128, True, None, "bfloat16")),
+    ("gemma3-1b", (4, 1024, 1024, 4, 1, 256, 256, True, 512, "bfloat16")),
+    ("MLA", (1, 512, 512, 128, 128, 192, 128, True, None, "bfloat16")),
+    ("cross", (8, 32, 512, 16, 16, 64, 64, False, None, "float32")),
+]
+# DeiT-Base through the train CLI; Qwen2-1.5B at 4 of its 28 layers, full
+# width, bf16, on Zipf tokens (the CLI's Markov table is V x V)
+TRAIN = dict(arch="deit-base", steps=8, batch=32, save_every=4,
+             cpu_batch=8, lm_arch="qwen2-1.5b", lm_layers=4, lm_batch=4,
+             lm_seq=512, lm_steps=3)
+
+
+def train_kernel_phase(dev, rows):
+    """``[kernels train]``: the attention backward kernel against its plain
+    version (``ref.attention_bwd`` on the plain logsumexp) and against
+    autograd through ``ref.attention``, at each case of
+    ``TRAIN_KERNEL_CASES``, with its time beside the plain version's,
+    SDPA's backward and the bound; appends the ``flash_attention_bwd``
+    row (numbers of the DeiT-Base case, the others under ``cases``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import backward as flash_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    print("[kernels train] flash_attention backward against its plain "
+          "version and autograd through the plain forward")
+    cases = []
+    for tag, (B, T, S, H, Hkv, dq, dv, causal, window, dt) in \
+            TRAIN_KERNEL_CASES:
+        dtype = getattr(torch, dt)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        q, k, v, do = rand(B, T, H, dq), rand(B, S, Hkv, dq), \
+            rand(B, S, Hkv, dv), rand(B, T, H, dv)
+        scale = dq ** -0.5
+        kw = dict(causal=causal, window=window, scale=scale)
+        o, lse = flash_ops._forward(q, k, v, causal, window, scale,
+                                    with_lse=True)
+        lse_ref = flash_ref.logsumexp(q, k, **kw)
+        lse_err = float((lse - lse_ref).abs().max())
+        got = flash_bwd.attention_bwd(q, k, v, o, lse, do, **kw)
+        want = flash_ref.attention_bwd(
+            q, k, v, flash_ref.attention(q, k, v, **kw), lse_ref, do, **kw)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(flash_ref.attention(*leaves, **kw),
+                                   leaves, do)
+        errs, rels = [], []
+        for a, b, c in zip(got, want, auto):
+            for ref_g in (b, c):
+                e = float((a.float() - ref_g.float()).abs().max())
+                errs.append(e)
+                rels.append(e / float(ref_g.float().abs().max()))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        ok = finite and max(rels) <= tol and lse_err <= 1e-3
+        print(f"  flash_attention_bwd {tag:<11} B={B} T={T} S={S} H={H}/"
+              f"{Hkv} dq={dq} dv={dv} causal={causal} window={window} {dt}:"
+              f" dq/dk/dv max rel err {max(rels):.3e} (vs plain "
+              f"{max(rels[0::2]):.3e}, vs autograd {max(rels[1::2]):.3e}; "
+              f"tol {tol:g} of max |grad|), lse err {lse_err:.2e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_attention_bwd {tag} disagrees with its plain "
+                 f"version")
+        del leaves, auto, want
+        # timing: the kernel, the plain version, SDPA's backward (kv heads
+        # repeated to H, a mask for the window)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  .detach().requires_grad_() for a in (k, v))
+        mask = flash_ref._mask(T, S, causal, window, dev)
+        if not causal and window is None:
+            sdpa_kw = {}
+        elif window is None and T == S:
+            sdpa_kw = dict(is_causal=True)
+        else:
+            sdpa_kw = dict(attn_mask=mask)
+        out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                             **sdpa_kw)
+        dot = do.transpose(1, 2)
+        reps = 10
+        row = {"case": tag, "shape": [B, T, S, H, Hkv, dq, dv],
+               "causal": causal, "window": window, "dtype": dt,
+               "max_abs_err": max(errs[0::2]), "max_rel_err": max(rels),
+               "ms": time_ms(lambda: flash_bwd.attention_bwd(
+                   q, k, v, o, lse, do, **kw), reps=reps),
+               "plain_ms": time_ms(lambda: flash_ref.attention_bwd(
+                   q, k, v, o, lse, do, **kw), reps=3, warmup=1),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   out, (qt, kt, vt), dot, retain_graph=True), reps=reps),
+               "fwd_ms": time_ms(lambda: flash_ops._forward(
+                   q, k, v, causal, window, scale), reps=reps)}
+        pairs = float(mask.sum()) * B * H
+        es = q.element_size()
+        nbytes = es * (2 * B * T * H * dq + 2 * B * S * Hkv * dq
+                       + 2 * B * S * Hkv * dv + 2 * B * T * H * dv) \
+            + 4.0 * B * H * T
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * pairs * (3 * dq + 2 * dv), nbytes,
+            PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        print(f"    device time: kernel {row['ms']:.3f} ms (forward "
+              f"{row['fwd_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms, "
+              f"SDPA backward {row['library_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        cases.append(row)
+        del q, k, v, do, o, lse, lse_ref, got, qt, kt, vt, out, dot, mask
+    torch.cuda.empty_cache()
+    main = cases[0]
+    rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                           "flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:73",
+                 "note": "the gradient of that kernel, which has no Pallas "
+                         "backward (JAX differentiates its jnp paths)",
+                 "launches": None, "max_abs_err": main["max_abs_err"],
+                 "ms": main["ms"], "plain_ms": main["plain_ms"],
+                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                 "library_ms": main["library_ms"], "cases": cases})
+
+
+def _grads_close(tag, want, got, tol):
+    """Each leaf's gradient within ``tol`` of its max |g| (``want``'s);
+    a leaf whose ``want`` is below 1e-6 of the largest gradient (an
+    analytically zero one, the key bias) must be so in ``got`` too.
+    Returns the worst relative error."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        a = got[k].float().cpu()
+        m = float(w.abs().max())
+        if m < 1e-6 * top:
+            if float(a.abs().max()) >= 1e-6 * top:
+                fail(f"{tag}: {k} gradient {float(a.abs().max())} is not "
+                     f"as small as the reference's {m}")
+            continue
+        e = float((a - w.float()).abs().max()) / m
+        worst = max(worst, e)
+        if e > tol:
+            fail(f"{tag}: {k} gradient differs by {e:.3e} of its max |g|")
+    return worst
+
+
+def train_phase(dev):
+    """``[train]``: DeiT-Base at full width and depth in fp32 through
+    ``python -m repro_torch.launch.train`` in process (8 steps of 32
+    images, a checkpoint every 4), resumed from its step-4 checkpoint in
+    another directory to step 8 (losses 5-8 within 1e-6 relative); the
+    launches of run A gated exactly (24 forward and 12 backward attention
+    launches a step, none of gram, flash_decode, wkv6); one step of batch
+    8 on the card against the CPU from the same weights and batch;
+    Qwen2-1.5B at 4 of 28 layers, full width, bf16, 3 steps of B 4 x T
+    512 Zipf tokens; RWKV's wkv6 refusing a gradient on the card. Returns
+    run A's launches."""
+    import shutil
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.interop import flatten, map_tree
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+
+    t = TRAIN
+    base = os.path.join(OUT, "train")
+    shutil.rmtree(base, ignore_errors=True)
+    a_dir, b_dir = os.path.join(base, "a"), os.path.join(base, "b")
+    args = ["--arch", t["arch"], "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--save-every", str(t["save_every"])]
+    print(f"[train] python -m repro_torch.launch.train {' '.join(args)} "
+          f"--ckpt A")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.time()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        params_a, _, losses_a = train_mod.main(
+            args + ["--ckpt", a_dir, "--log-every", "1"])
+    torch.cuda.synchronize()
+    wall_a = time.time() - t0
+    launches = read_launches()
+    print("\n".join("  " + ln for ln in log.getvalue().splitlines()))
+    step_ms = [float(m) for m in re.findall(r"(\d+) ms/step", log.getvalue())]
+    # the steps but the first (warm-up) and the one after a checkpoint's
+    # snapshot (5: a log line's time runs to the next one)
+    steady = sorted(ms for i, ms in enumerate(step_ms, 1)
+                    if (i - 1) % t["save_every"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    n = t["steps"]
+    layers = resolve_config(t["arch"]).n_layers
+    want = {"flash_attention": 2 * layers * n,
+            "flash_attention_bwd": layers * n, "gram": 0, "gram_cross": 0,
+            "flash_decode": 0, "wkv6": 0}
+    got = {k: launches.get(k, 0) for k in want}
+    print(f"[train] run A: {n} steps in {wall_a:.3f} s with the init, "
+          f"the data's prototypes and two checkpoints of (params, "
+          f"opt_state); ms a step (the CLI's log, a float(loss) sync a "
+          f"step) {step_ms}, median of the steps without a checkpoint or "
+          f"warm-up {steady[len(steady) // 2]:.0f}; peak "
+          f"max_memory_allocated {peak} B; losses "
+          f"{[round(x, 5) for x in losses_a]}; launches {got} (want {want})")
+    if got != want:
+        fail(f"[train] launches {got} != {want}")
+    if not all(math.isfinite(x) for x in losses_a):
+        fail("[train] non-finite loss")
+    os.makedirs(b_dir)
+    shutil.copytree(os.path.join(a_dir, "step_00000004"),
+                    os.path.join(b_dir, "step_00000004"))
+    reset_launches()
+    t0 = time.time()
+    _, _, losses_b = train_mod.main(args + ["--ckpt", b_dir])
+    torch.cuda.synchronize()
+    wall_b = time.time() - t0
+    tail = losses_a[t["save_every"]:]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses_b, tail))
+    bitwise = losses_b == tail
+    print(f"[train] run B resumed from A's step 4: losses 5-8 "
+          f"{[round(x, 5) for x in losses_b]}, max rel diff to A's "
+          f"{rel:.3e} (tol 1e-6), bitwise equal: {bitwise}; "
+          f"{wall_b:.3f} s; launches {read_launches()['flash_attention']} "
+          f"forward, {read_launches()['flash_attention_bwd']} backward")
+    if len(losses_b) != len(tail) or rel > 1e-6:
+        fail("[train] the resumed run's losses differ from run A's")
+    shutil.rmtree(base, ignore_errors=True)
+
+    # where a step's time goes: the host's batch against the step on the
+    # card (from run A's weights, a fresh optimizer state)
+    cfg = resolve_config(t["arch"])
+    model = build_model(cfg)
+    ocfg = AdamWConfig()
+    t0 = time.time()
+    batch = train_mod.data_for(cfg, n, batch=t["batch"], seq=64,
+                               device=dev)
+    torch.cuda.synchronize()
+    data_ms = 1e3 * (time.time() - t0)
+    step = train_mod.make_train_step(model, ocfg, peak_lr=3e-4,
+                                     total_steps=n)
+    opt = adamw_init(params_a, ocfg)
+    device_step = []
+    for _ in range(3):
+        t0 = time.time()
+        out = step(params_a, opt, batch)
+        torch.cuda.synchronize()
+        device_step.append(1e3 * (time.time() - t0))
+    del out, opt, batch
+    print(f"[train] a DeiT-Base step of {t['batch']} images: the host's "
+          f"batch (numpy, to the card) {data_ms:.1f} ms; the train step "
+          f"on the card (forward, remat, backward, AdamW; host clock, "
+          f"synchronised) {[round(x, 1) for x in device_step]} ms")
+
+    # one step on the card against the CPU, same weights (run A's) and
+    # batch
+    p_gpu = params_a
+    p_cpu = map_tree(lambda x: x.cpu(), p_gpu)
+    out = {}
+    for name, params, device in (("gpu", p_gpu, dev), ("cpu", p_cpu, "cpu")):
+        batch = train_mod.data_for(cfg, 0, batch=t["cpu_batch"], seq=64,
+                                   device=device)
+        t0 = time.time()
+        loss, grads = train_mod.value_and_grad(
+            lambda p: model.loss(p, batch), params)
+        if name == "gpu":
+            torch.cuda.synchronize()
+        out[name] = (float(loss), float(global_norm(grads)),
+                     {k: v.float().cpu() for k, v in flatten(grads).items()},
+                     time.time() - t0)
+    (lg, gg, grads_g, tg), (lc, gc, grads_c, tc) = out["gpu"], out["cpu"]
+    loss_rel, gn_rel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
+    worst = _grads_close("[train] GPU vs CPU", grads_c, grads_g, 1e-3)
+    print(f"[train] GPU vs CPU, one step of {t['cpu_batch']} images from "
+          f"the same weights: loss {lg:.6f} vs {lc:.6f} (rel {loss_rel:.2e}"
+          f", tol 1e-4), gnorm {gg:.6f} vs {gc:.6f} (rel {gn_rel:.2e}, tol "
+          f"1e-3), worst leaf {worst:.2e} of its max |g| (tol 1e-3); "
+          f"value_and_grad {tg:.3f} s on the card, {tc:.3f} s on the CPU")
+    if loss_rel > 1e-4 or gn_rel > 1e-3:
+        fail("[train] GPU and CPU steps disagree")
+    del p_cpu, p_gpu, grads_g, grads_c, out
+
+    # Qwen2-1.5B at 4 layers, bf16, Zipf tokens
+    lcfg = resolve_config(t["lm_arch"]).replace(n_layers=t["lm_layers"])
+    lm = build_model(lcfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw_init(params, ocfg)
+    step = train_mod.make_train_step(lm, ocfg, peak_lr=3e-4,
+                                     total_steps=t["lm_steps"])
+    toks = zipf_tokens(lcfg.vocab_size, t["lm_batch"] * t["lm_steps"],
+                       t["lm_seq"] + 1, 21, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, times = [], []
+    for i in range(t["lm_steps"]):
+        rows_i = toks[i * t["lm_batch"]:(i + 1) * t["lm_batch"]]
+        batch = {"tokens": rows_i[:, :-1], "labels": rows_i[:, 1:]}
+        t0 = time.time()
+        params, opt, loss, gn = step(params, opt, batch)
+        losses.append(float(loss))
+        times.append(time.time() - t0)
+    lm_launches = read_launches()
+    lm_peak = torch.cuda.max_memory_allocated(dev)
+    n_lm = t["lm_steps"] * t["lm_layers"]
+    lm_got = (lm_launches["flash_attention"],
+              lm_launches["flash_attention_bwd"])
+    print(f"[train] {t['lm_arch']} at {t['lm_layers']} of 28 layers, bf16, "
+          f"B {t['lm_batch']} x T {t['lm_seq']}: losses "
+          f"{[round(x, 4) for x in losses]}, step ms "
+          f"{[round(1e3 * x, 1) for x in times]} (the first with the "
+          f"allocator's warm-up), peak max_memory_allocated {lm_peak} B; "
+          f"attention launches forward/backward {lm_got} (want "
+          f"{(2 * n_lm, n_lm)})")
+    if not all(math.isfinite(x) for x in losses):
+        fail("[train] Qwen2 loss not finite")
+    if lm_got != (2 * n_lm, n_lm):
+        fail(f"[train] Qwen2 launches {lm_got}")
+    del params, opt, toks
+
+    # RWKV-6: the wkv6 kernel has no backward yet and refuses a gradient
+    gw = torch.Generator(device=dev).manual_seed(0)
+    r, k, v = (torch.randn((1, 8, 2, 64), generator=gw, device=dev)
+               .requires_grad_() for _ in range(3))
+    w = torch.rand((1, 8, 2, 64), generator=gw, device=dev) * 0.5 + 0.4
+    u = torch.zeros((2, 64), device=dev)
+    try:
+        wkv_ops.wkv6(r, k, v, w, u)
+    except NotImplementedError as e:
+        print(f"[train] wkv6 on CUDA inputs that require grad raises "
+              f"NotImplementedError: {str(e)[:90]}...")
+    else:
+        fail("[train] wkv6 accepted inputs that require grad")
+    torch.cuda.empty_cache()
+    return launches, {"deit_base": {
+        "ms_per_step": step_ms, "steady_median_ms": steady[len(steady) // 2],
+        "run_a_wall_s": wall_a, "peak_bytes": peak, "host_batch_ms": data_ms,
+        "device_step_ms": device_step,
+        "losses": losses_a, "resumed_bitwise": bitwise},
+        "qwen2_4_layers": {"ms_per_step": [1e3 * x for x in times],
+                           "peak_bytes": lm_peak, "losses": losses}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5332,7 +5700,13 @@ def main() -> int:
     t0 = time.time()
     gemma_kernel_phase(dev, rows)
     print(f"[kernels gemma] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    train_kernel_phase(dev, rows)
+    print(f"[kernels train] phase wall {time.time() - t0:.3f} s")
     launches = {}
+    t0 = time.time()
+    launches["train"], rows[-1]["train_path"] = train_phase(dev)
+    print(f"[train] phase wall {time.time() - t0:.3f} s")
     launches["prune"], held, ref, kept = main_path_phase(dev)
     t0 = time.time()
     launches["prune_bf16"], ref_bf16 = bf16_phase(held, ref)

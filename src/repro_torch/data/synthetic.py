@@ -59,9 +59,38 @@ def lm_batch(step: int, *, batch: int, seq: int, vocab: int, seed: int = 0,
             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
+
+def lm_stream(*, batch, seq, vocab, seed=0, start_step=0, shard=0,
+              nshards=1, device=None):
+    """Endless ``(step, lm_batch(step))`` from ``start_step``."""
+    step = start_step
+    while True:
+        yield step, lm_batch(step, batch=batch, seq=seq, vocab=vocab,
+                             seed=seed, shard=shard, nshards=nshards,
+                             device=device)
+        step += 1
+
 # ---------------------------------------------------------------------------
 # vision: prototype classes + low-rank structured noise
 # ---------------------------------------------------------------------------
+
+def _smooth(p):
+    """0.25 (roll(p, 1, 1) + roll(p, -1, 1) + roll(p, 1, 2) + roll(p, -1,
+    2)), summed in that order as the reference does, bit for bit, but into
+    one buffer by slices (no rolled copies: 1000 prototypes at 224 are
+    0.6 GB)."""
+    o = np.empty_like(p)
+    o[:, 1:] = p[:, :-1]
+    o[:, 0] = p[:, -1]
+    o[:, :-1] += p[:, 1:]
+    o[:, -1] += p[:, 0]
+    o[:, :, 1:] += p[:, :, :-1]
+    o[:, :, 0] += p[:, :, -1]
+    o[:, :, :-1] += p[:, :, 1:]
+    o[:, :, -1] += p[:, :, 0]
+    o *= 0.25
+    return o
+
 
 @functools.lru_cache(maxsize=8)
 def _prototypes(n_classes: int, img: int, seed: int):
@@ -69,8 +98,7 @@ def _prototypes(n_classes: int, img: int, seed: int):
     protos = rng.randn(n_classes, img, img, 3).astype(np.float32)
     # smooth the prototypes (low-frequency structure)
     for _ in range(2):
-        protos = 0.25 * (np.roll(protos, 1, 1) + np.roll(protos, -1, 1)
-                         + np.roll(protos, 1, 2) + np.roll(protos, -1, 2))
+        protos = _smooth(protos)
     basis = rng.randn(8, img, img, 3).astype(np.float32) * 0.5
     return protos, basis
 
@@ -91,6 +119,17 @@ def vit_batch(step: int, *, batch: int, img: int, n_classes: int,
     return {"images": torch.from_numpy(x).to(dev),
             "labels": torch.from_numpy(labels).to(dev)}
 
+
+
+def vit_stream(*, batch, img, n_classes, seed=0, start_step=0, shard=0,
+               nshards=1, device=None):
+    """Endless ``(step, vit_batch(step))`` from ``start_step``."""
+    step = start_step
+    while True:
+        yield step, vit_batch(step, batch=batch, img=img,
+                              n_classes=n_classes, seed=seed, shard=shard,
+                              nshards=nshards, device=device)
+        step += 1
 
 def calib_stream(cfg, *, n_samples: int, batch: int, seq: int = 64,
                  seed: int = 1234, device=None):

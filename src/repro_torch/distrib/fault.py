@@ -14,8 +14,10 @@ reads it and keeps its own blocks. The format does not depend on the mesh,
 but the engine's fingerprint does, so a checkpoint written under another
 mesh is ignored. ``remesh`` builds the largest mesh the live ranks allow.
 
-``run_with_restarts`` and ``TolerantAccumulator`` of the JAX module serve
-no path of the port (ROADMAP Queue 1 item 3).
+``run_with_restarts`` is the generic restartable loop (a step that
+raises restarts from the newest checkpoint) and ``TolerantAccumulator``
+sums linear statistics over batches, dropping a batch whose computation
+raises and counting the survivors.
 """
 from __future__ import annotations
 
@@ -23,8 +25,12 @@ import json
 import logging
 import math
 import os
+from typing import Callable, Iterable, Optional
 
-from repro_torch.checkpoint import AsyncCheckpointer, latest_step, load_arrays
+from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                    load_arrays, restore_checkpoint,
+                                    save_checkpoint)
+from repro_torch.interop import map_tree
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -91,6 +97,76 @@ class CalibrationCheckpointer:
     def finish(self):
         """Block until the save in flight is on disk; re-raises its error."""
         self._async.wait()
+
+
+def run_with_restarts(make_state, step_fn, *, ckpt_dir: str,
+                      total_steps: int, save_every: int,
+                      max_restarts: int = 10, save_fn=None):
+    """Generic restartable loop (``repro.distrib.fault.run_with_restarts``).
+
+    ``make_state()`` -> a fresh state (a nested dict of tensors);
+    ``step_fn(state, step)`` -> state; ``save_fn(state, step)`` defaults to
+    ``save_checkpoint`` into ``ckpt_dir``. A step that raises restarts the
+    loop from the newest valid checkpoint, at most ``max_restarts`` times;
+    the next failure is raised."""
+    save_fn = save_fn or (lambda st, s: save_checkpoint(ckpt_dir, s, st))
+    restarts = 0
+    while True:
+        state = make_state()
+        start = 0
+        last = latest_step(ckpt_dir)
+        if last is not None:
+            state, _ = restore_checkpoint(ckpt_dir, last, state)
+            start = last
+            log.info("restored step %d", last)
+        try:
+            for step in range(start, total_steps):
+                state = step_fn(state, step)
+                if (step + 1) % save_every == 0 or step + 1 == total_steps:
+                    save_fn(state, step + 1)
+            return state
+        except Exception as e:           # noqa: BLE001 -- restart anything
+            restarts += 1
+            log.warning("step failed (%s); restart %d/%d", e, restarts,
+                        max_restarts)
+            if restarts > max_restarts:
+                raise
+
+
+class TolerantAccumulator:
+    """Bounded-staleness accumulation of linear statistics
+    (``repro.distrib.fault.TolerantAccumulator``).
+
+    ``run`` sums ``step_fn(params, batch)`` over the batches; a batch whose
+    computation raises (a lost host, simulated by ``fail_hook(i)``) is
+    dropped and counted in ``n_failed``, so the caller reweights by the
+    surviving sample count (calibration batches are i.i.d.). Returns the
+    sums on the host."""
+
+    def __init__(self, step_fn: Callable, params,
+                 fail_hook: Optional[Callable[[int], None]] = None):
+        self.step_fn = step_fn
+        self.params = params
+        self.fail_hook = fail_hook
+        self.total = None
+        self.n_ok = 0
+        self.n_failed = 0
+
+    def run(self, batches: Iterable):
+        from repro_torch.core.stats import tree_add
+        for i, batch in enumerate(batches):
+            try:
+                if self.fail_hook is not None:
+                    self.fail_hook(i)     # may raise to simulate failure
+                out = self.step_fn(self.params, batch)
+            except Exception:             # noqa: BLE001
+                self.n_failed += 1
+                continue
+            self.total = tree_add(self.total, out)
+            self.n_ok += 1
+        if self.total is None:
+            raise RuntimeError("every calibration batch failed")
+        return map_tree(lambda t: t.detach().cpu(), self.total)
 
 
 def remesh(shape_hint=None, axis_names=("data", "model"), *,

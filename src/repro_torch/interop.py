@@ -30,6 +30,14 @@ def flatten(tree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+def unflatten_like(tree, flat: dict, prefix: str = "") -> dict:
+    """The nesting of ``tree`` with the leaves of ``flat`` ({key path:
+    leaf}, as ``flatten`` gives)."""
+    return {k: unflatten_like(v, flat, f"{prefix}{k}/")
+            if isinstance(v, dict) else flat[f"{prefix}{k}"]
+            for k, v in tree.items()}
+
+
 def map_tree(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict."""
     return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v)

@@ -129,6 +129,19 @@ def kernel(name: str, argtypes):
     return fn
 
 
+def refuse_grad(what: str, tensors, why: str):
+    """Raise ``NotImplementedError`` when autograd would record a kernel
+    that has no backward (grad mode on, an input requiring grad): the
+    kernel's output would carry no gradient, and a loss's backward would
+    silently miss it. ``why`` says what is missing."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(f"{what}: an input requires grad, but the "
+                                  f"CUDA kernel has no backward ({why}); "
+                                  f"run it under torch.no_grad()")
+
+
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "

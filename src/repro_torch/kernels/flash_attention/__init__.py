@@ -1,1 +1,2 @@
-"""Forward flash attention (``repro.kernels.flash_attention``)."""
+"""Flash attention, forward and backward
+(``repro.kernels.flash_attention``)."""

@@ -13,6 +13,10 @@
 // ragged end of S get zero weight, and query rows past T are not written.
 // Both kernels compute the softmax in base 2, with scale * log2(e) folded
 // into the logits.
+// Given an lse buffer (training: the autograd Function of ops.py), each
+// kernel also writes every query row's natural-log logsumexp, (m +
+// log2 l) ln 2, which the backward (flash_attention_bwd.cu) recomputes P
+// from; a null buffer leaves inference as it was.
 //
 // Bounds on an H100 at 700 W, at the shapes the port's paths give it:
 //   DeiT-Base, B = 16, T = S = 197, H = 12, d = 64, fp32: 2 B H T S (dq + dv)
@@ -88,6 +92,7 @@ constexpr int DMAX = 256;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   int64_t qb, qt, qh, qd, kb, kt, kh, kd, vb, vt, vh, vd, ob, ot, oh, od;
@@ -98,6 +103,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, H, T) natural-log logsumexp of each row, or null
   int t_len, s_len, n_heads, n_kv, dq, dv;
   float scale_log2;
   int causal, use_window, window, vec;
@@ -455,6 +461,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
     c0[r] = exp2f(m_r[r] - m);
     c1[r] = exp2f(m1 - m);
     l_r[r] = l_r[r] * c0[r] + xchg[(DV / 2 + 2 + r) * XS] * c1[r];
+    m_r[r] = m;
   }
 #pragma unroll
   for (int n = 0; n < DV / 8; ++n)
@@ -470,6 +477,9 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
     const int row = w0 + g + 8 * r;
     if (row >= t_len) continue;
     const float denom = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && tq == 0)
+      p.lse[(static_cast<int64_t>(b) * p.n_heads + h) * t_len + row] =
+          (m_r[r] + log2f(denom)) * LN2;
     bf16* op = static_cast<bf16*>(p.o) + b * st.ob + row * st.ot + h * st.oh;
 #pragma unroll
     for (int n = 0; n < DV / 8; ++n) {
@@ -683,6 +693,9 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Params p) {
     const int row = w0 + 4 * ry + i;
     if (row >= t_len) continue;
     const float denom = fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && cx == 0)
+      p.lse[(static_cast<int64_t>(b) * p.n_heads + h) * t_len + row] =
+          (m_r[i] + log2f(denom)) * LN2;
     float* op = static_cast<float*>(p.o) + b * st.ob + row * st.ot +
                 h * st.oh;
 #pragma unroll
@@ -727,7 +740,10 @@ int launch_dq(int dtype, int b, const Params& p, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
-// q, k, v and o alike. strides: 16 int64 element strides, (b, t, h, d) of q,
+// q, k, v and o alike. lse: null, or (B, H, T) fp32 that receives each
+// query row's natural-log logsumexp of its scaled, masked logits (the
+// backward kernel's input; a row with no key gets a finite value below
+// -1e29). strides: 16 int64 element strides, (b, t, h, d) of q,
 // k, v, o in that order. vec: bit 0, 1, 2 set when q, k, v may be copied 16
 // bytes at a time (last stride 1, other strides and the base 16-byte
 // aligned); others are loaded element by element. Requires 1 <= dq, dv <=
@@ -736,7 +752,8 @@ int launch_dq(int dtype, int b, const Params& p, cudaStream_t s) {
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
                                          const void* k, const void* v,
-                                         void* o, int b, int t_len, int s_len,
+                                         void* o, float* lse, int b,
+                                         int t_len, int s_len,
                                          int n_heads, int n_kv, int dq, int dv,
                                          float scale, int causal,
                                          int use_window, int window, int vec,
@@ -745,7 +762,7 @@ extern "C" int repro_flash_attention_fwd(int dtype, const void* q,
       n_heads % n_kv != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* s = static_cast<const int64_t*>(strides);
-  const Params p{q, k, v, o, t_len, s_len, n_heads, n_kv, dq, dv,
+  const Params p{q, k, v, o, lse, t_len, s_len, n_heads, n_kv, dq, dv,
                  scale * LOG2E, causal, use_window, window, vec,
                  Strides{s[0], s[1], s[2],  s[3],  s[4],  s[5],  s[6],  s[7],
                          s[8], s[9], s[10], s[11], s[12], s[13], s[14],

@@ -79,6 +79,8 @@ def decode_attention(q, k, v, valid, *, scale=None, bs=None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if all(t.device.type == "cpu" for t in (q, k, v, valid)):
         return _ref.decode_attention(q, k, v, valid, scale)
+    _build.refuse_grad("decode_attention", (q, k, v),
+                       "decoding is not trained through")
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, valid)):
         raise ValueError(f"decode_attention: q, k, v, valid on {q.device}, "

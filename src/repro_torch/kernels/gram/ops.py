@@ -69,6 +69,8 @@ def gram_cross(x: torch.Tensor, y: torch.Tensor) -> dict:
 
 
 def _launch(x: torch.Tensor, y: torch.Tensor, sym: bool) -> dict:
+    _build.refuse_grad("gram" if sym else "gram_cross", (x, y),
+                       "calibration statistics are not trained through")
     if x.device.type != "cuda" or y.device != x.device:
         raise ValueError(f"gram_cross: tensors on {x.device} and {y.device}; "
                          f"need both on one CUDA device (or both on the CPU)")

@@ -86,6 +86,9 @@ def wkv6(r, k, v, w, u, state=None, *, out_state=None):
         if out_state is None:
             return y, s
         return y, out_state.copy_(s)
+    _build.refuse_grad("wkv6", (r, k, v, w, u, *extra),
+                       "the wkv6 backward kernel is not written yet, "
+                       "ROADMAP Queue 1 item 1: RWKV-6 trains on the CPU")
     dev = r.device
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (k, v, w, u, *extra)):

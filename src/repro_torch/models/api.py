@@ -2,8 +2,9 @@
 branches of ``build_model``. ``Model`` bundles plain functions:
 
   init(gen, device=None)                      -> params
-  apply(params, batch, taps=None)             -> logits (vit) |
+  apply(params, batch, taps=None, train=False) -> logits (vit) |
                                                  (logits, aux) (lm, encdec)
+  loss(params, batch, train=True)             -> fp32 0-d training loss
   prefill(params, batch, max_len, lengths=None, tp=None) -> (logits, cache)
   decode_step(params, token, cache, tp=None)  -> (logits, cache)
   init_cache(batch, max_len, device=None[, mem_len]) -> empty cache
@@ -37,6 +38,7 @@ class Model:
     cfg: ModelConfig
     init: Callable
     apply: Callable
+    loss: Callable
     prefill: Optional[Callable] = None
     decode_step: Optional[Callable] = None
     init_cache: Optional[Callable] = None
@@ -53,18 +55,22 @@ def build_model(cfg: ModelConfig) -> Model:
         return map_tree(lambda a: a.to(dev), init_fn(gen, cfg))
 
     if cfg.family == "vit":
-        def apply(params, batch, taps=None):
+        def apply(params, batch, taps=None, train=False):
             inputs = batch["images"] if "images" in batch else batch["embeds"]
-            return vit_mod.apply_vit(params, inputs, cfg, taps=taps)
+            return vit_mod.apply_vit(params, inputs, cfg, taps=taps,
+                                     train=train)
 
-        return Model(cfg=cfg, init=init, apply=apply)
+        return Model(cfg=cfg, init=init, apply=apply,
+                     loss=lambda params, batch, train=True:
+                         vit_mod.vit_loss(params, batch, cfg, train=train))
 
     if cfg.family == "encdec":
         return _encdec_model(cfg, init)
 
-    def lm_apply(params, batch, taps=None):
+    def lm_apply(params, batch, taps=None, train=False):
         return lm_mod.apply_lm(params, batch["tokens"], cfg, taps=taps,
-                               patch_embeds=batch.get("patch_embeds"))
+                               patch_embeds=batch.get("patch_embeds"),
+                               train=train)
 
     def init_cache(batch, max_len, device=None):
         dev = resolve_device(None) if device is None else torch.device(device)
@@ -72,6 +78,8 @@ def build_model(cfg: ModelConfig) -> Model:
 
     return Model(
         cfg=cfg, init=init, apply=lm_apply,
+        loss=lambda params, batch, train=True:
+            lm_mod.lm_loss(params, batch, cfg, train=train),
         prefill=lambda params, batch, max_len, lengths=None, tp=None:
             lm_mod.lm_prefill(params, batch["tokens"], cfg, max_len,
                               lengths=lengths,
@@ -92,8 +100,11 @@ def _encdec_model(cfg: ModelConfig, init) -> Model:
 
     return Model(
         cfg=cfg, init=init,
-        apply=lambda params, batch, taps=None: encdec_mod.apply_encdec(
-            params, batch["frames"], batch["tokens"], cfg, taps=taps),
+        apply=lambda params, batch, taps=None, train=False:
+            encdec_mod.apply_encdec(params, batch["frames"], batch["tokens"],
+                                    cfg, taps=taps, train=train),
+        loss=lambda params, batch, train=True:
+            encdec_mod.encdec_loss(params, batch, cfg, train=train),
         prefill=lambda params, batch, max_len, lengths=None, tp=None:
             encdec_mod.encdec_prefill(params, batch["frames"],
                                       batch["tokens"], cfg, max_len,

@@ -22,11 +22,12 @@ def _check(kind: str):
         raise ValueError(f"unknown block kind {kind!r}")
 
 
-def ffn(p, h, cfg, is_moe: bool, taps=None, tp=None):
+def ffn(p, h, cfg, is_moe: bool, taps=None, tp=None, aux=None):
     """The block's MLP: routed experts or a dense MLP; ``tp``: the
-    tensor-parallel context (``common.TensorParallel``) or None."""
+    tensor-parallel context (``common.TensorParallel``) or None; ``aux``:
+    a list a MoE MLP appends its load-balancing loss to."""
     if is_moe:
-        return mlp_mod.apply_moe(p, h, cfg, taps=taps, tp=tp)
+        return mlp_mod.apply_moe(p, h, cfg, taps=taps, tp=tp, aux=aux)
     return mlp_mod.apply_mlp(p, h, cfg, taps=taps, tp=tp)
 
 
@@ -76,10 +77,12 @@ def rwkv_block(p, x, cfg, state=None, taps=None, tp=None, prev=None):
 
 def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
                 positions=None, taps=None, mask_kind="causal", mem=None,
-                tp=None):
+                tp=None, aux=None):
     """Full-sequence block. Returns x after its residual sub-layers; a
     decoder block attends the encoder memory ``mem`` (B, S, D). ``tp``:
-    the tensor-parallel context (``common.TensorParallel``) or None."""
+    the tensor-parallel context (``common.TensorParallel``) or None;
+    ``aux``: a list a MoE block appends its load-balancing loss to (the
+    reference's second return value)."""
     _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
@@ -96,7 +99,7 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
         if "cross" in p and mem is not None:
             x = x + cross_sublayer(p, x, mem, cfg, t, tp=tp)
         h = apply_norm(p["ln2"], x, cfg)
-        x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t, tp=tp)
+        x = x + ffn(p["mlp"], h, cfg, is_moe, taps=t, tp=tp, aux=aux)
     if taps is not None:
         merge_taps(taps, t, "")
     return x

@@ -9,6 +9,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.interop import flatten, map_tree
 
@@ -356,3 +357,12 @@ class TensorParallel:
         both = self.all_gather(packed[None], dim=0)      # (m, 2, ...)
         rank = both[:, 0].argmax(0)                      # first max: lowest
         return both[:, 1].gather(0, rank[None])[0].long()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing: nothing of it is kept
+    for the backward, which runs it again (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``). ``fn`` draws no random
+    numbers, so no RNG state is saved."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)

@@ -40,7 +40,7 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, init_stacked, layer_slice,
-                                       stack_layers)
+                                       remat as _remat, stack_layers)
 
 
 def _sinusoid(T: int, D: int, device):
@@ -68,14 +68,21 @@ def init_encdec(gen: torch.Generator, cfg):
 
 
 def _run_stack(stack, x, cfg, L: int, *, taps, mask_kind, mem, prefix,
-               tp=None):
+               tp=None, remat=False):
     """The L stacked blocks ``stack["p0"]`` in order; each tap is written
-    into one (L, ...) buffer under ``<prefix>/p0/<k>`` as the layers run."""
+    into one (L, ...) buffer under ``<prefix>/p0/<k>`` as the layers run.
+    ``remat`` recomputes each layer in the backward (the reference's
+    checkpointed scan body), unless taps are recorded."""
     layers = stack["p0"]
     for i in range(L):
         t = {} if taps is not None else None
-        x = blk.apply_block(layer_slice(layers, i), x, cfg, "attn", False,
-                            taps=t, mask_kind=mask_kind, mem=mem, tp=tp)
+
+        def body(x, mem, i=i, t=t):
+            return blk.apply_block(layer_slice(layers, i), x, cfg, "attn",
+                                   False, taps=t, mask_kind=mask_kind,
+                                   mem=mem, tp=tp)
+        x = _remat(body, x, mem) if remat and taps is None \
+            else body(x, mem)
         for k, v in (t or {}).items():
             path = f"{prefix}/p0/{k}"
             if i == 0:
@@ -84,7 +91,7 @@ def _run_stack(stack, x, cfg, L: int, *, taps, mask_kind, mem, prefix,
     return x
 
 
-def encode(params, frames, cfg, *, taps=None, tp=None):
+def encode(params, frames, cfg, *, taps=None, tp=None, remat=False):
     """frames: (B, S, D) stub frontend embeddings -> encoder memory (B, S,
     D), whole on every rank of ``tp``. The frames are cast to the model
     dtype before the table is added."""
@@ -92,7 +99,8 @@ def encode(params, frames, cfg, *, taps=None, tp=None):
     S, D = frames.shape[1:]
     x = frames.to(dt) + _sinusoid(S, D, frames.device).to(dt)
     x = _run_stack(params["enc"], x, cfg, cfg.n_enc_layers, taps=taps,
-                   mask_kind="full", mem=None, prefix="enc", tp=tp)
+                   mask_kind="full", mem=None, prefix="enc", tp=tp,
+                   remat=remat)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
@@ -104,14 +112,27 @@ def _embed(params, tokens, cfg, tp=None):
                          x.device).to(x.dtype)
 
 
-def apply_encdec(params, frames, tokens, cfg, *, taps=None):
-    """Returns (logits (B, T, padded_vocab), aux loss 0)."""
-    mem = encode(params, frames, cfg, taps=taps)
+def apply_encdec(params, frames, tokens, cfg, *, taps=None, train=False,
+                 remat=None):
+    """Returns (logits (B, T, padded_vocab), aux loss 0). ``remat``
+    (default: ``train``) recomputes each encoder and decoder layer in the
+    backward."""
+    remat = train if remat is None else remat
+    mem = encode(params, frames, cfg, taps=taps, remat=remat)
     x = _run_stack(params["dec"], _embed(params, tokens, cfg), cfg,
                    cfg.n_layers, taps=taps, mask_kind="causal", mem=mem,
-                   prefix="dec")
+                   prefix="dec", remat=remat)
     x = apply_norm(params["final_norm"], x, cfg)
     return x @ params["head"], torch.zeros((), device=x.device)
+
+
+def encdec_loss(params, batch, cfg, *, train=True, remat=None):
+    """batch: {'frames': (B, S, D), 'tokens': (B, T), 'labels': (B, T)} ->
+    the mean cross entropy over labels >= 0, fp32 0-d (no padded-vocab
+    mask, as the reference)."""
+    logits, _ = apply_encdec(params, batch["frames"], batch["tokens"], cfg,
+                             train=train, remat=remat)
+    return lm_mod.masked_nll(logits.float(), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

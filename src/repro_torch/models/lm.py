@@ -32,7 +32,10 @@ channel-parallel, and the logits are the rank's column block of the
 vocab when the head is split there (``TensorParallel.vocab_argmax`` reads
 them; ``all_gather`` gives the whole row).
 
-Not ported yet: ``lm_loss``.
+``lm_loss`` is the training objective; ``apply_lm(train=True)``
+recomputes each repetition of a scanned segment in the backward, as the
+reference's scan body is checkpointed, and returns the MoE blocks' summed
+load-balancing loss as aux.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, dtype_of, embed_init,
                                        init_norm, init_stacked, layer_slice,
-                                       stack_layers)
+                                       remat as _remat, stack_layers)
 
 
 def _seg_name(si: int) -> str:
@@ -128,36 +131,94 @@ def _embed(params, tokens, patch_embeds, cfg=None, tp=None):
     return torch.cat([patch_embeds.to(x.dtype), x], dim=1)
 
 
-def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None):
+def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None, train=False,
+             remat=None):
     """tokens: (B, T) int; patch_embeds: (B, P, D) or None -> (logits (B,
-    P + T, padded_vocab), aux loss 0).
+    P + T, padded_vocab), aux loss: the sum of every MoE block's
+    load-balancing loss, fp32 0-d).
 
     ``taps`` (a dict) collects each block's activation taps under the JAX
     package's keys (``_run_segments``): ``seg<i>/l<j>/<k>`` for an unrolled
     layer, ``seg<i>/p<j>/<k>`` stacked ``(reps, ...)`` for a scanned one.
     A stacked tap is written into one buffer as the layers run, so it is
-    never held twice."""
+    never held twice.
+
+    ``remat`` (default: ``train``) recomputes each repetition of a scanned
+    segment in the backward, as the reference checkpoints its scan body;
+    unrolled layers, and any forward that records taps, keep their
+    activations."""
+    remat = train if remat is None else remat
     x = _embed(params, tokens, patch_embeds)
     B, T = x.shape[:2]
     positions = _positions(B, T, x.device)
-    reps_of = {_seg_name(si): seg[1] for si, seg in enumerate(cfg.layout())
-               if seg[0] == "scan"}
-    for name, key, rep, kind, moe in _each_layer(cfg):
-        t = {} if taps is not None else None
-        x = blk.apply_block(_at(params, name, key, rep), x, cfg, kind, moe,
-                            positions=positions, taps=t)
-        if taps is None:
+    aux = torch.zeros((), device=x.device)
+
+    def block(p, x, kind, moe, t=None):
+        a = []
+        x = blk.apply_block(p, x, cfg, kind, moe, positions=positions,
+                            taps=t, aux=a)
+        return x, sum(a, torch.zeros((), device=x.device))
+
+    for si, seg in enumerate(cfg.layout()):
+        name = _seg_name(si)
+        if seg[0] == "unroll":
+            for j, li in enumerate(seg[1]):
+                t = {} if taps is not None else None
+                x, a = block(params[name][f"l{j}"], x, *cfg.layer_spec(li),
+                             t)
+                aux = aux + a
+                for k, v in (t or {}).items():
+                    taps[f"{name}/l{j}/{k}"] = v
             continue
-        for k, v in t.items():
-            path = f"{name}/{key}/{k}"
-            if rep is None:
-                taps[path] = v
-                continue
-            if rep == 0:
-                taps[path] = v.new_empty((reps_of[name],) + tuple(v.shape))
-            taps[path][rep].copy_(v)
+        _, reps, idxs = seg
+        specs = [cfg.layer_spec(li) for li in idxs]
+        for r in range(reps):
+            def body(x, r=r):
+                a_g = torch.zeros((), device=x.device)
+                for j, (kind, moe) in enumerate(specs):
+                    t = {} if taps is not None else None
+                    x, a = block(layer_slice(params[name][f"p{j}"], r), x,
+                                 kind, moe, t)
+                    a_g = a_g + a
+                    for k, v in (t or {}).items():
+                        path = f"{name}/p{j}/{k}"
+                        if r == 0:
+                            taps[path] = v.new_empty((reps,) + tuple(v.shape))
+                        taps[path][r].copy_(v)
+                return x, a_g
+
+            x, a = _remat(body, x) if remat and taps is None else body(x)
+            aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return x @ _head(params), torch.zeros((), device=x.device)
+    return x @ _head(params), aux
+
+
+def lm_loss(params, batch, cfg, *, train=True, remat=None):
+    """batch: {'tokens': (B, T), 'labels': (B, T)[, 'patch_embeds']} ->
+    fp32 0-d: the mean next-token cross entropy over labels >= 0 (padded
+    vocab entries at -1e30, patch positions dropped) + 0.01 aux."""
+    logits, aux = apply_lm(params, batch["tokens"], cfg,
+                           patch_embeds=batch.get("patch_embeds"),
+                           train=train, remat=remat)
+    labels = batch["labels"]
+    if "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    lf = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        lf = torch.cat([lf[..., :cfg.vocab_size],
+                        lf.new_full(lf.shape[:-1] + (cfg.padded_vocab
+                                                     - cfg.vocab_size,),
+                                    -1e30)], dim=-1)
+    return masked_nll(lf, labels) + 0.01 * aux
+
+
+def masked_nll(lf, labels):
+    """Mean of logsumexp - gold over the positions whose label is >= 0.
+    lf: (..., V) fp32, labels: (...) int."""
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

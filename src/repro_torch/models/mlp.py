@@ -177,7 +177,8 @@ def _route(xg, router, cfg):
     renormalised; each (token, k) pair takes the next slot of its expert's
     queue, in token-major, k-minor order, and a pair past the capacity C is
     dropped. Returns (gate (G, tg, K), expert (G, tg K), queue position
-    (G, tg K), kept (G, tg K), C)."""
+    (G, tg K), kept (G, tg K), C, the (token, k) picks of each expert
+    before capacity (E,), probs (G, tg, E))."""
     E, K = cfg.eff_num_experts, cfg.moe.top_k
     G, tg, _ = xg.shape
     C = capacity(tg, cfg)
@@ -188,7 +189,7 @@ def _route(xg, router, cfg):
     flat = idx.reshape(G, tg * K)
     onehot = torch.nn.functional.one_hot(flat, E)             # (G, tg K, E)
     pos = (onehot.cumsum(1) - onehot).gather(2, flat[..., None])[..., 0]
-    return gate, flat, pos, pos < C, C
+    return gate, flat, pos, pos < C, C, onehot.sum((0, 1)), probs
 
 
 def _experts(p, xe, cfg):
@@ -213,7 +214,7 @@ def _dispatch(p, xg, routed, sel, e_lo, cfg, dt):
     gate rounded to ``dt`` as the reference rounds its combine tensor.
     Returns (hidden (G, n, C, F), the dispatched (group, slot) indices,
     each pair's contribution (G, tg K, D) fp32, zero outside ``sel``)."""
-    gate, flat, pos, _, C = routed
+    gate, flat, pos, _, C = routed[:5]
     G, tg, D = xg.shape
     K, n = gate.shape[-1], p["wg"].shape[0]
     slot = ((flat - e_lo) * C + pos) * sel                    # (G, tg K)
@@ -230,7 +231,18 @@ def _dispatch(p, xg, routed, sel, e_lo, cfg, dt):
             w[..., None] * got.float())
 
 
-def apply_moe(p, x, cfg, taps=None, tp=None):
+def load_balance(routed, E: int) -> torch.Tensor:
+    """The Switch-style load-balancing loss of ``_route``'s ``routed``: E
+    sum_e (fraction of the (token, k) picks of expert e before capacity,
+    per token) (mean router probability of e), fp32."""
+    picks, probs = routed[5], routed[6]
+    G, tg = probs.shape[:2]
+    frac_tokens = picks.float() / (G * tg)
+    frac_probs = probs.mean((0, 1))
+    return E * torch.sum(frac_tokens * frac_probs)
+
+
+def apply_moe(p, x, cfg, taps=None, tp=None, aux=None):
     """Top-k routed experts with capacity: x (B, T, D) -> (B, T, D).
 
     Routing is ``_route``'s. Dispatch and combine are index scatters and
@@ -238,9 +250,15 @@ def apply_moe(p, x, cfg, taps=None, tp=None):
     same rows exactly). Shared experts add their dense MLP of x; its ``h``
     tap lands beside ``moe_h``.
 
+    ``aux``: a list the block's load-balancing loss (``load_balance``) is
+    appended to, as the reference returns it beside y (training).
+
     Under ``tp`` the rank holds its block of the experts
     (``_apply_moe_tp``)."""
     if tp is not None:
+        if aux is not None:
+            raise ValueError("the MoE aux loss is computed on one device "
+                             "only")
         if taps is not None:
             raise ValueError("MoE taps are recorded on one device only")
         return _apply_moe_tp(p, x, cfg, tp)
@@ -250,6 +268,8 @@ def apply_moe(p, x, cfg, taps=None, tp=None):
     xg = _group_tokens(x, cfg)
     G, tg, _ = xg.shape
     routed = _route(xg, p["router"], cfg)
+    if aux is not None:
+        aux.append(load_balance(routed, E))
     h, (g_i, s_i), contrib = _dispatch(p, xg, routed, routed[3], 0, cfg, dt)
     if taps is not None:
         tap(taps, "moe_h", h)

@@ -264,8 +264,19 @@ def _inclusive_scan(a, b):
     combiner (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2): ceil(log2 L)
     out-of-place steps (Hillis-Steele), each writing into the buffers of
     the step before last. Products only: a cumulative-log form overflows
-    fp32 at L = 256."""
+    fp32 at L = 256. When autograd records (grad mode on and an input
+    requiring grad) each step makes new tensors instead, since it cannot
+    record ``out=``; the same products in the same order give the same
+    numbers."""
     L = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        s = 1
+        while s < L:
+            a, b = (torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], 1),
+                    torch.cat([b[:, :s], b[:, :-s] * a[:, s:] + b[:, s:]],
+                              1))
+            s *= 2
+        return a, b
     spare = None
     s = 1
     while s < L:

@@ -5,7 +5,8 @@ token, learned positional embeddings, bidirectional attention blocks, a
 classification head. The blocks are stored stacked under ``seg0/p0`` with
 the layer axis first, as the JAX pytree keeps them for ``lax.scan``; the
 forward loops over that axis and returns taps stacked the same way
-(``seg0/p0/{h,q,k}``, layer axis first).
+(``seg0/p0/{h,q,k}``, layer axis first). ``vit_loss`` is the training
+objective.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
                                        embed_init, init_norm, layer_slice,
-                                       stack_layers)
+                                       remat as _remat, stack_layers)
 
 
 def num_patches(cfg) -> int:
@@ -52,9 +53,15 @@ def patchify(images, cfg):
                                                 p * p * C)
 
 
-def apply_vit(params, inputs, cfg, *, taps=None):
+def apply_vit(params, inputs, cfg, *, taps=None, train=False, remat=None):
     """inputs: images (B,H,W,3) if frontend='patch_conv', else patch
-    embeddings (B, N, D). Returns fp32 logits (B, n_classes)."""
+    embeddings (B, N, D). Returns fp32 logits (B, n_classes).
+
+    ``remat`` (default: ``train``) recomputes each layer in the backward,
+    as the reference checkpoints its scan body (one layer) with
+    ``nothing_saveable``; a forward that records taps keeps its
+    activations."""
+    remat = train if remat is None else remat
     dt = dtype_of(cfg)
     if cfg.frontend == "patch_conv":
         x = patchify(inputs.to(dt), cfg) @ params["patch_w"] \
@@ -68,8 +75,11 @@ def apply_vit(params, inputs, cfg, *, taps=None):
     per_layer = []
     for i in range(cfg.n_layers):
         t = {} if taps is not None else None
-        x = blk.apply_block(layer_slice(layers, i), x, cfg, "attn", False,
-                            taps=t, mask_kind="full")
+
+        def body(x, i=i, t=t):
+            return blk.apply_block(layer_slice(layers, i), x, cfg, "attn",
+                                   False, taps=t, mask_kind="full")
+        x = _remat(body, x) if remat and taps is None else body(x)
         per_layer.append(t)
     if taps is not None:
         for k in per_layer[0]:
@@ -78,3 +88,13 @@ def apply_vit(params, inputs, cfg, *, taps=None):
     pooled = x[:, 0] if cfg.pool == "cls" else x.mean(dim=1)
     logits = pooled @ params["class_head"] + params["head_bias"].to(dt)
     return logits.float()
+
+
+def vit_loss(params, batch, cfg, *, train=True, remat=None):
+    """batch: {'images' | 'embeds', 'labels' (B,)} -> the mean cross
+    entropy, fp32 0-d."""
+    inputs = batch["images"] if "images" in batch else batch["embeds"]
+    logits = apply_vit(params, inputs, cfg, train=train, remat=remat)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, batch["labels"][:, None].long())[:, 0]
+    return torch.mean(logz - gold)

@@ -59,6 +59,12 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_repro():
     files = list(_port_files())
     assert len(files) > 20 and os.path.exists(files[-1])
+    # the training slice's modules are among those checked
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "optim/adamw", "optim/schedule", "optim/compress", "optim/__init__",
+        "launch/train", "kernels/flash_attention/backward",
+        "distrib/fault", "data/synthetic")} <= rel
     for path in files:
         roots = set(_imported_roots(path))
         bad = roots & {"jax", "jaxlib", "repro"}

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    backward as flash_bwd)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
@@ -785,3 +787,108 @@ def test_wkv6_kernel_at_a_tensor_parallel_rank(dev, B, T, H, state, dtype):
     got = wkv_ops.wkv6(r, k, v, w, u, s0)
     assert wkv_ops.launches == before + 1
     _wkv_close(got, wkv_ref.wkv6(r, k, v, w, u, s0), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the attention backward kernel (training)
+# ---------------------------------------------------------------------------
+
+_BWD_CASES = [
+    # B, T, S, H, Hkv, dq, dv, causal, window
+    (2, 70, 70, 4, 4, 64, 64, False, None),      # full
+    (2, 90, 90, 4, 2, 64, 64, True, None),       # causal, GQA
+    (1, 100, 100, 6, 1, 128, 128, True, 30),     # causal window, MQA
+    (1, 40, 100, 4, 2, 64, 64, True, None),      # T < S, right-aligned
+    (1, 33, 80, 4, 4, 64, 64, False, None),      # cross, T != S
+    (1, 70, 70, 4, 4, 96, 40, True, None),       # dq != dv, ragged dims
+    (1, 64, 64, 2, 2, 192, 128, True, None),     # MLA's 192/128
+    (1, 80, 80, 2, 1, 256, 256, True, 24),       # gemma's 256, window
+    (1, 50, 20, 2, 1, 32, 32, True, None),       # rows with no valid key
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", _BWD_CASES)
+def test_flash_backward_kernel_matches_plain(dev, case, dtype, tol):
+    """The backward kernel (given the forward kernel's o and logsumexp)
+    against ``ref.attention_bwd`` on the plain logsumexp: each gradient
+    within ``tol`` of its max |g|; the forward's logsumexp within 1e-3 of
+    the plain one; all finite (a row without keys: zero gradients)."""
+    B, T, S, H, Hkv, dq, dv, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(T + dq)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k, v, do = r(B, T, H, dq), r(B, S, Hkv, dq), r(B, S, Hkv, dv), \
+        r(B, T, H, dv)
+    scale = dq ** -0.5
+    o, lse = flash_ops._forward(q, k, v, causal, window, scale,
+                                with_lse=True)
+    lse_ref = flash_ref.logsumexp(q, k, causal=causal, window=window,
+                                  scale=scale)
+    seen = lse_ref > -1e29
+    assert torch.allclose(lse[seen], lse_ref[seen], rtol=0, atol=1e-3)
+    before = flash_bwd.launches
+    got = flash_bwd.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window, scale=scale)
+    assert flash_bwd.launches == before + 1
+    want = flash_ref.attention_bwd(q, k, v, o, lse_ref, do, causal=causal,
+                                   window=window, scale=scale)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        m = b.float().abs().max().clamp_min(1e-30)
+        assert float((a.float() - b.float()).abs().max()) <= tol * m
+    if not bool(seen.all()):     # rows without keys: zero query gradient
+        empty = ~seen.permute(0, 2, 1)[..., None].expand_as(got[0])
+        assert not bool(got[0][empty].any())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_under_grad_launches_the_backward(dev, dtype, tol):
+    """Autograd through ``ops.attention`` on the card: one forward launch
+    (with lse), one backward launch, gradients against autograd through
+    the plain version in fp32."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+               .requires_grad_() for s in ((2, 80, 8, 64), (2, 80, 2, 64),
+                                           (2, 80, 2, 64)))
+    do = torch.randn((2, 80, 8, 64), generator=g, device=dev).to(dtype)
+    fwd, bwd = flash_ops.launches, flash_bwd.launches
+    o = flash_ops.attention(q, k, v, causal=True, window=20)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert (flash_ops.launches, flash_bwd.launches) == (fwd + 1, bwd + 1)
+    ref_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        flash_ref.attention(*ref_in, causal=True, window=20), ref_in,
+        do.float())
+    for a, b in zip(got, want):
+        m = b.abs().max()
+        assert float((a.float() - b).abs().max()) <= tol * m
+    with torch.no_grad():      # inference: no lse, no Function
+        flash_ops.attention(q, k, v, causal=True)
+    assert flash_bwd.launches == bwd + 1
+
+
+def test_kernels_without_backward_refuse_gradients(dev):
+    """gram, flash_decode and wkv6 have no backward: under grad mode an
+    input that requires grad raises instead of dropping its gradient;
+    under no_grad they run."""
+    x = torch.randn(64, 32, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gram"):
+        gram_ops.gram(x)
+    with pytest.raises(NotImplementedError, match="gram_cross"):
+        gram_ops.gram_cross(x, x.detach())
+    q, k, v, valid = _decode_inputs(dev, 2, 64, 4, 2, 64, 64, torch.float32)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        decode_ops.decode_attention(q.requires_grad_(), k, v, valid)
+    r, kk, vv, w, u, s0 = _wkv_inputs(dev, 1, 8, 2, 64, torch.float32,
+                                      seed=1, state=False)
+    with pytest.raises(NotImplementedError, match="wkv6 backward"):
+        wkv_ops.wkv6(r.requires_grad_(), kk, vv, w, u, s0)
+    with torch.no_grad():
+        gram_ops.gram(x)
+        decode_ops.decode_attention(q, k, v, valid)
+        wkv_ops.wkv6(r, kk, vv, w, u, s0)
+

@@ -129,3 +129,93 @@ def lm_logits(model, params, batch):
 def rel(a, b):
     return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
                  / np.linalg.norm(np.asarray(b)))
+
+
+def train_grad_case(arch, batch=2, seq=16, seed=0):
+    """One training batch of ``arch``-reduced (fp32) through both
+    packages on the same numpy weights: JAX's ``value_and_grad`` of
+    ``Model.loss`` (with the forward's aux, one jit) and the port's
+    ``launch.train.value_and_grad``. The batch is each package's
+    ``data_for(cfg, 0)``, asserted equal. Returns a dict of both sides'
+    loss, aux (0 for a ViT), gnorm and flat gradients, and the port's
+    model, params, batch and config for further checks."""
+    import jax.numpy as jnp
+    from repro.launch.train import data_for as jax_data_for
+    from repro.optim.adamw import global_norm as jax_global_norm
+    from repro_torch import interop
+    from repro_torch.launch.train import data_for, value_and_grad
+    from repro_torch.models import build_model as pt_build
+    from repro_torch.optim import global_norm
+    jcfg = reduced(get_config(arch))
+    pcfg = pt_configs.resolve_config(arch + "-reduced")
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(pcfg)
+    params = jax_params(jcfg, seed=seed)
+    jm, pm = jax_build(jcfg), pt_build(pcfg)
+    jb = jax_data_for(jcfg, 0, batch=batch, seq=seq)
+    pb = data_for(pcfg, 0, batch=batch, seq=seq, device="cpu")
+    assert set(jb) == set(pb)
+    for k in jb:
+        np.testing.assert_array_equal(pb[k].numpy(), np.asarray(jb[k]))
+
+    def jax_step(p):
+        loss, g = jax.value_and_grad(lambda q: jm.loss(q, jb))(p)
+        aux = jnp.zeros(()) if jcfg.family == "vit" \
+            else jm.apply(p, jb, train=False)[1]
+        return loss, g, aux, jax_global_norm(g)
+
+    jl, jg, jaux, jgn = jax.jit(jax_step)(jax.tree.map(jnp.asarray, params))
+    pp = interop.from_numpy(params, device="cpu")
+    pl, pg = value_and_grad(lambda q: pm.loss(q, pb), pp)
+    paux = torch.zeros(()) if pcfg.family == "vit" else pm.apply(pp, pb)[1]
+    flat_j = {"/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(v)
+              for kp, v in jax.tree_util.tree_flatten_with_path(jg)[0]}
+    return {"jax": (float(jl), float(jaux), float(jgn), flat_j),
+            "port": (float(pl), float(paux), float(global_norm(pg)),
+                     {k: v.numpy() for k, v in interop.flatten(pg).items()}),
+            "model": pm, "params": pp, "batch": pb, "cfg": pcfg}
+
+
+def assert_grads_close(want: dict, got: dict, tol=1e-4):
+    """Every leaf's gradient within ``tol`` of that leaf's max |g| (JAX's).
+    A leaf whose JAX gradient is exactly zero must be zero in the port; one
+    whose JAX gradient is rounding noise below 1e-6 of the tree's largest
+    gradient (an analytically zero gradient, such as a key bias under
+    softmax's shift invariance) must be such noise in the port too."""
+    assert set(want) == set(got)
+    top = max(float(np.abs(v).max()) for v in want.values())
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape, k
+        m = float(np.abs(w).max())
+        if m == 0.0:
+            assert not np.any(g), k
+        elif m < 1e-6 * top:
+            assert float(np.abs(g).max()) < 1e-6 * top, k
+        else:
+            err = float(np.abs(g - w).max())
+            assert err <= tol * m, (k, err, m)
+
+
+def check_train_grads(arch, remat_check=True):
+    """``train_grad_case`` gated: loss and gnorm within 1e-5 relative,
+    every leaf within 1e-4 of its max |g| (``assert_grads_close``), the
+    aux term within 1e-5 relative (a MoE config's; 0 elsewhere), and the
+    port's gradients with remat on equal to those with it off."""
+    from repro_torch import interop
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import encdec, lm, vit
+    case = train_grad_case(arch)
+    (jl, jaux, jgn, jg), (pl, paux, pgn, pg) = case["jax"], case["port"]
+    assert abs(pl - jl) <= 1e-5 * abs(jl)
+    assert abs(pgn - jgn) <= 1e-5 * jgn
+    assert abs(paux - jaux) <= 1e-5 * max(abs(jaux), 1e-30)
+    assert_grads_close(jg, pg)
+    if remat_check:
+        cfg, batch = case["cfg"], case["batch"]
+        loss = {"vit": vit.vit_loss, "lm": lm.lm_loss,
+                "encdec": encdec.encdec_loss}[cfg.family]
+        _, g_off = value_and_grad(
+            lambda q: loss(q, batch, cfg, remat=False), case["params"])
+        for k, v in interop.flatten(g_off).items():
+            assert np.array_equal(v.numpy(), pg[k]), k
+    return case
