@@ -18,20 +18,30 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      L2-cold (rotating over a stack of per-layer slices as large as the
      path's), with the host's launch, and flash_decode at the serve step's
      mask;
- 2b. training (``[kernels train]``, ``[train]``): the attention backward
-     kernel against its plain version and against autograd through the
-     plain forward at DeiT-Base, Qwen2-1.5B, gemma3-1b (window 512, d
-     256), MLA (q/k 192, v 128) and cross-attention shapes (fp32 <= 1e-4,
-     bf16 <= 2e-2 of max |grad|), timed beside the plain version, SDPA's
-     backward and its bound; DeiT-Base at full width and depth in fp32
-     through ``python -m repro_torch.launch.train`` (8 steps of 32 images,
-     a checkpoint every 4), resumed from step 4 in another directory
+ 2b. training (``[kernels train]``, ``[train]``, ``[train zoo]``): the
+     attention backward kernel against its plain version and against
+     autograd through the plain forward at DeiT-Base, Qwen2-1.5B,
+     gemma3-1b (window 512, d 256), MLA (q/k 192, v 128) and
+     cross-attention shapes (fp32 <= 1e-4, bf16 <= 2e-2 of max |grad|),
+     timed beside the plain version, SDPA's backward and its bound;
+     DeiT-Base at full width and depth in fp32 through ``python -m
+     repro_torch.launch.train`` (8 steps of 32 images, a checkpoint every
+     4), resumed from step 4 in another directory
      (losses 5-8 within 1e-6), launches gated exactly (24 forward and 12
      backward attention launches a step, no other kernel), the host's
      batch against the step on the card, one step on the card against
-     the CPU (loss 1e-4, gnorm and each leaf 1e-3); Qwen2-1.5B at 4 of 28
-     layers in bf16 on Zipf tokens (3 steps, launches gated); ``wkv6``
-     refusing a gradient on the card;
+     the CPU (loss 1e-4, gnorm and each leaf 1e-3); Qwen2-1.5B and
+     RWKV6-3B at 4 of their 28 and 32 layers in bf16 on Zipf tokens (3
+     steps each, launches gated exactly); the ``wkv6`` backward kernel
+     against its plain version and autograd through the plain scan at
+     RWKV6-3B's train shape (B 4, T 512, H 40, bf16), a ragged T with a
+     state and a final state's gradient, T = 1, 63, 64, 65 and a small
+     decay in (1e-4, 0.95) (fp32 <= 1e-4, bf16 <= 2e-2 of max |grad|), two
+     calls bitwise equal, timed beside the forward, the plain version and
+     its bound; ``[train zoo]``: one step of each family's reduced config
+     (RWKV-6, routed MoE, MLA, the Mamba hybrid, the enc-dec) on the card
+     against the CPU (loss 1e-4, gnorm and each leaf 1e-3), RWKV's
+     launches gated;
   3. prune path: runs CORP pruning of DeiT-Base at full width end to end
      through ``repro_torch.launch.prune`` (seeded random weights, synthetic
      calibration images), counting each kernel's launches in that run, and
@@ -256,10 +266,11 @@ def kernel_modules():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.wkv6 import backward as wkv_bwd
     from repro_torch.kernels.wkv6 import ops as wkv_ops
     return {"gram": gram_ops, "flash_attention": flash_ops,
             "flash_attention_bwd": flash_bwd, "flash_decode": decode_ops,
-            "wkv6": wkv_ops}
+            "wkv6": wkv_ops, "wkv6_bwd": wkv_bwd}
 
 
 def reset_launches():
@@ -5322,7 +5333,21 @@ TRAIN_KERNEL_CASES = [
 # width, bf16, on Zipf tokens (the CLI's Markov table is V x V)
 TRAIN = dict(arch="deit-base", steps=8, batch=32, save_every=4,
              cpu_batch=8, lm_arch="qwen2-1.5b", lm_layers=4, lm_batch=4,
-             lm_seq=512, lm_steps=3)
+             lm_seq=512, lm_steps=3, rwkv_arch="rwkv6-3b", rwkv_layers=4)
+# the wkv6 backward kernel: B, T, H, N, dtype, an initial state (and a
+# final state's gradient), w's lower end; (a) is RWKV6-3B's train shape
+WKV6_BWD_CASES = [
+    ("(a) RWKV6-3B train", (4, 512, 40, 64, "bfloat16", False, 0.35)),
+    ("(b) ragged, state", (2, 200, 8, 64, "float32", True, 0.35)),
+    ("(c) T=1", (2, 1, 8, 64, "float32", True, 0.35)),
+    ("(c) T=63", (2, 63, 8, 64, "float32", True, 0.35)),
+    ("(c) T=64", (2, 64, 8, 64, "float32", True, 0.35)),
+    ("(c) T=65", (2, 65, 8, 64, "float32", True, 0.35)),
+    ("(d) small decay", (2, 130, 8, 64, "float32", True, 1e-4)),
+]
+# one value_and_grad step of each family's reduced config, card against CPU
+TRAIN_ZOO = ["rwkv6-3b", "qwen3-moe-235b-a22b", "deepseek-v3-671b",
+             "jamba-1.5-large-398b", "seamless-m4t-large-v2"]
 
 
 def train_kernel_phase(dev, rows):
@@ -5435,6 +5460,138 @@ def train_kernel_phase(dev, rows):
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
                  "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                  "library_ms": main["library_ms"], "cases": cases})
+    rows.append(wkv6_bwd_kernel_phase(dev))
+
+
+def wkv6_bwd_flops(B, T, H, N):
+    """fp32 operations the gradient needs, by its plain reverse recurrence:
+    per token and head, the forward's state recomputed (3 N^2: diag(w) S +
+    k v^T), dr = S dy, dk = dS v, dv = dS^T k, dw = rowsum(dS * S) (2 N^2
+    each), dS' = diag(w) dS + r dy^T (3 N^2); the O(N) terms v . dy (2 N),
+    the bonus sum u r k (3 N), its dr, dk, dv terms (3 N, 3 N, 2 N) and du
+    (3 N): 14 N^2 + 16 N in all."""
+    return float((14 * N * N + 16 * N) * B * T * H)
+
+
+def wkv6_bwd_bytes(B, T, H, N, itemsize, state):
+    """r, k, v, w, dy read and dr, dk, dv, dw written once in their dtype,
+    u read and du written in fp32; with a state, it and the final state's
+    gradient read and the initial state's gradient written in fp32."""
+    return (9 * B * T * H * N * itemsize + 8 * H * N
+            + (12 * B * H * N * N if state else 0))
+
+
+def wkv6_bwd_kernel_phase(dev):
+    """``[kernels train]``: the wkv6 backward kernel against its plain
+    version (``ref.wkv6_bwd``) and against autograd through ``ref.wkv6``
+    at each case of ``WKV6_BWD_CASES`` (fp32 <= 1e-4, bf16 <= 2e-2 of each
+    gradient's max |g|), two calls bitwise equal at (a), and (a) timed
+    beside the forward, the plain version and the bound; returns the
+    ``wkv6_bwd`` row (numbers of case (a), the others under ``cases``)."""
+    import torch
+    from repro_torch.kernels.wkv6 import backward as wkv_bwd
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    print("[kernels train] wkv6 backward against its plain version and "
+          "autograd through the plain forward")
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    cases = []
+    for tag, (B, T, H, N, dt, state, w_lo) in WKV6_BWD_CASES:
+        dtype = getattr(torch, dt)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        r, k, v, dy = (randn(B, T, H, N).to(dtype) for _ in range(4))
+        w = (w_lo + (0.95 - w_lo) * torch.rand((B, T, H, N), generator=g,
+                                               device=dev)).to(dtype)
+        u = 0.1 * randn(H, N)
+        s0, ds = (randn(B, H, N, N), randn(B, H, N, N)) if state \
+            else (None, None)
+        _, _, starts = wkv_ops._forward(r, k, v, w, u, s0, None)
+        got = wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds, starts=starts)
+        want = wkv_ref.wkv6_bwd(r, k, v, w, u, s0, dy, ds)
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (r, k, v, w, u, s0) if t is not None]
+        yy, ss = wkv_ref.wkv6(*leaves) if state \
+            else wkv_ref.wkv6(*leaves, None)
+        auto = torch.autograd.grad((yy, ss) if state else yy, leaves,
+                                   (dy, ds) if state else dy)
+        del yy, ss, leaves
+        errs, rels = {}, []
+        for name, a, b, c in zip(names, got, want, auto):
+            m = float(b.float().abs().max())
+            e_plain = float((a.float() - b.float()).abs().max())
+            e_auto = float((a.float() - c.float()).abs().max())
+            errs[name] = e_plain
+            rels.append((e_plain / m, e_auto / m))
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in got if a is not None)
+        dtypes = [a.dtype for a in got if a is not None] \
+            == [dtype] * 4 + [torch.float32] * (2 if state else 1)
+        worst = max(max(x) for x in rels)
+        ok = finite and dtypes and worst <= tol
+        print(f"  wkv6_bwd {tag:<20} B={B} T={T} H={H} N={N} {dt} "
+              f"state={state} w in ({w_lo:g}, 0.95): max rel err "
+              f"{worst:.3e} (vs plain {max(x[0] for x in rels):.3e}, vs "
+              f"autograd {max(x[1] for x in rels):.3e}; tol {tol:g} of "
+              f"max |grad|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"wkv6_bwd {tag} disagrees with its plain version")
+        row = {"case": tag, "shape": [B, T, H, N], "dtype": dt,
+               "state": state, "w_lo": w_lo, "max_abs_err": max(
+                   errs.values()), "max_abs_err_by_grad": errs,
+               "max_rel_err": worst}
+        if tag.startswith("(a)"):
+            again = wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds,
+                                     starts=starts)
+            same = all(bool(torch.equal(a, b))
+                       for a, b in zip(got, again) if a is not None)
+            print(f"  wkv6_bwd {tag}: two calls bitwise equal: "
+                  f"{'ok' if same else 'FAIL'}")
+            if not same:
+                fail("wkv6_bwd is not deterministic")
+            del again
+            row["ms"] = time_ms(lambda: wkv_bwd.wkv6_bwd(
+                r, k, v, w, u, s0, dy, ds, starts=starts), reps=10)
+            row["fwd_ms"] = time_ms(lambda: wkv_ops._forward(
+                r, k, v, w, u, s0, None), reps=10)
+            row["plain_ms"] = time_ms(lambda: wkv_ref.wkv6_bwd(
+                r, k, v, w, u, s0, dy, ds), reps=2, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                wkv6_bwd_flops(B, T, H, N),
+                wkv6_bwd_bytes(B, T, H, N, r.element_size(), state))
+            row["blocks"] = wkv_bwd.Plan(B, T, H, N).blocks
+            print(f"    device time: kernel {row['ms']:.4f} ms (forward "
+                  f"keeping its starts {row['fwd_ms']:.4f} ms), plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+                  f"ms ({row['bound_by']}); no single PyTorch call "
+                  f"computes it")
+        cases.append(row)
+        del r, k, v, w, dy, u, s0, ds, starts, got, want, auto
+    torch.cuda.empty_cache()
+    main = cases[0]
+    return {"name": "wkv6_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
+            "replaces": "src/repro/kernels/wkv6/wkv6.py:76",
+            "note": "the gradient of that kernel, which has no Pallas "
+                    "backward (JAX differentiates its jnp paths, "
+                    "src/repro/kernels/wkv6/ops.py:33-42)",
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "fwd_ms": main["fwd_ms"],
+            "shape": main["shape"], "cases": cases}
+
+
+def recomputed_calls(cfg):
+    """A train step's calls of a layer's mixer kernel: a layer of a scanned
+    segment runs twice (the forward, and its remat recompute in the
+    backward), an unrolled one once."""
+    return sum(2 * seg[1] * len(seg[2]) if seg[0] == "scan" else len(seg[1])
+               for seg in cfg.layout())
 
 
 def _grads_close(tag, want, got, tol):
@@ -5467,14 +5624,15 @@ def train_phase(dev):
     launches of run A gated exactly (24 forward and 12 backward attention
     launches a step, none of gram, flash_decode, wkv6); one step of batch
     8 on the card against the CPU from the same weights and batch;
-    Qwen2-1.5B at 4 of 28 layers, full width, bf16, 3 steps of B 4 x T
-    512 Zipf tokens; RWKV's wkv6 refusing a gradient on the card. Returns
-    run A's launches."""
+    Qwen2-1.5B and RWKV6-3B at 4 layers (of 28, of 32), full width, bf16,
+    3 steps each of B 4 x T 512 Zipf tokens, launches gated exactly (RWKV:
+    wkv6 in a layer's forward and remat recompute, wkv6_bwd once a layer,
+    no other kernel). Returns run A's launches, the path's numbers and the
+    RWKV steps' launches."""
     import shutil
     import torch
     from repro_torch.configs import resolve_config
     from repro_torch.interop import flatten, map_tree
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.launch import train as train_mod
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init, global_norm
@@ -5509,7 +5667,7 @@ def train_phase(dev):
     layers = resolve_config(t["arch"]).n_layers
     want = {"flash_attention": 2 * layers * n,
             "flash_attention_bwd": layers * n, "gram": 0, "gram_cross": 0,
-            "flash_decode": 0, "wkv6": 0}
+            "flash_decode": 0, "wkv6": 0, "wkv6_bwd": 0}
     got = {k: launches.get(k, 0) for k in want}
     print(f"[train] run A: {n} steps in {wall_a:.3f} s with the init, "
           f"the data's prototypes and two checkpoints of (params, "
@@ -5633,19 +5791,45 @@ def train_phase(dev):
         fail(f"[train] Qwen2 launches {lm_got}")
     del params, opt, toks
 
-    # RWKV-6: the wkv6 kernel has no backward yet and refuses a gradient
-    gw = torch.Generator(device=dev).manual_seed(0)
-    r, k, v = (torch.randn((1, 8, 2, 64), generator=gw, device=dev)
-               .requires_grad_() for _ in range(3))
-    w = torch.rand((1, 8, 2, 64), generator=gw, device=dev) * 0.5 + 0.4
-    u = torch.zeros((2, 64), device=dev)
-    try:
-        wkv_ops.wkv6(r, k, v, w, u)
-    except NotImplementedError as e:
-        print(f"[train] wkv6 on CUDA inputs that require grad raises "
-              f"NotImplementedError: {str(e)[:90]}...")
-    else:
-        fail("[train] wkv6 accepted inputs that require grad")
+    # RWKV6-3B at 4 layers, bf16, Zipf tokens: wkv6 forward (and its
+    # remat recompute) and backward
+    rcfg = resolve_config(t["rwkv_arch"]).replace(n_layers=t["rwkv_layers"])
+    rm = build_model(rcfg)
+    params = rm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw_init(params, ocfg)
+    step = train_mod.make_train_step(rm, ocfg, peak_lr=3e-4,
+                                     total_steps=t["lm_steps"])
+    toks = zipf_tokens(rcfg.vocab_size, t["lm_batch"] * t["lm_steps"],
+                       t["lm_seq"] + 1, 22, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    r_losses, r_times = [], []
+    for i in range(t["lm_steps"]):
+        rows_i = toks[i * t["lm_batch"]:(i + 1) * t["lm_batch"]]
+        batch = {"tokens": rows_i[:, :-1], "labels": rows_i[:, 1:]}
+        t0 = time.time()
+        params, opt, loss, gn = step(params, opt, batch)
+        r_losses.append(float(loss))
+        r_times.append(time.time() - t0)
+    rwkv_launches = read_launches()
+    r_peak = torch.cuda.max_memory_allocated(dev)
+    r_want = {k: 0 for k in rwkv_launches if " " not in k}
+    r_want.update(wkv6=recomputed_calls(rcfg) * t["lm_steps"],
+                  wkv6_bwd=rcfg.n_layers * t["lm_steps"])
+    r_got = {k: rwkv_launches[k] for k in r_want}
+    print(f"[train] {t['rwkv_arch']} at {t['rwkv_layers']} of 32 layers, "
+          f"bf16, B {t['lm_batch']} x T {t['lm_seq']}: losses "
+          f"{[round(x, 4) for x in r_losses]}, step ms "
+          f"{[round(1e3 * x, 1) for x in r_times]} (the first with the "
+          f"allocator's warm-up), peak max_memory_allocated {r_peak} B; "
+          f"launches {r_got} (want {r_want}: wkv6 a layer forward and in "
+          f"the remat recompute, wkv6_bwd a layer, a step)")
+    if not all(math.isfinite(x) for x in r_losses):
+        fail("[train] RWKV6-3B loss not finite")
+    if r_got != r_want:
+        fail(f"[train] RWKV6-3B launches {r_got} != {r_want}")
+    del params, opt, toks
     torch.cuda.empty_cache()
     return launches, {"deit_base": {
         "ms_per_step": step_ms, "steady_median_ms": steady[len(steady) // 2],
@@ -5653,7 +5837,72 @@ def train_phase(dev):
         "device_step_ms": device_step,
         "losses": losses_a, "resumed_bitwise": bitwise},
         "qwen2_4_layers": {"ms_per_step": [1e3 * x for x in times],
-                           "peak_bytes": lm_peak, "losses": losses}}
+                           "peak_bytes": lm_peak, "losses": losses},
+        "rwkv6_3b_4_layers": {"ms_per_step": [1e3 * x for x in r_times],
+                              "peak_bytes": r_peak, "losses": r_losses}}, \
+        rwkv_launches
+
+
+def train_zoo_phase(dev):
+    """``[train zoo]``: one ``value_and_grad`` step of each family's reduced
+    config (``TRAIN_ZOO``, fp32, remat on) on the card against the CPU,
+    from the same weights (drawn on the CPU and copied) and batch (the
+    CLI's ``data_for``): loss within 1e-4 relative, gnorm 1e-3, each leaf
+    within 1e-3 of its max |g| (``_grads_close``). Each family's kernel
+    launches are counted and printed; RWKV's are gated exactly (wkv6 a
+    layer in the forward and the recompute, wkv6_bwd a layer, no other
+    kernel). Returns the launches summed over the families."""
+    import torch
+    from repro_torch.configs import resolve_config
+    from repro_torch.interop import flatten, map_tree
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+
+    total = collections.Counter()
+    for arch in TRAIN_ZOO:
+        cfg = resolve_config(arch + "-reduced")
+        model = build_model(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+        p_gpu = map_tree(lambda x: x.to(dev), p_cpu)
+        out = {}
+        for name, params, device in (("gpu", p_gpu, dev),
+                                     ("cpu", p_cpu, "cpu")):
+            batch = train_mod.data_for(cfg, 0, batch=2, seq=32,
+                                       device=device)
+            reset_launches()
+            t0 = time.time()
+            loss, grads = train_mod.value_and_grad(
+                lambda p: model.loss(p, batch), params)
+            if name == "gpu":
+                torch.cuda.synchronize()
+                launches = {k: n for k, n in read_launches().items()
+                            if " " not in k}
+            out[name] = (float(loss), float(global_norm(grads)),
+                         {k: v.float().cpu()
+                          for k, v in flatten(grads).items()},
+                         time.time() - t0)
+        (lg, gg, grads_g, tg), (lc, gc, grads_c, tc) = out["gpu"], out["cpu"]
+        loss_rel, gn_rel = abs(lg - lc) / abs(lc), abs(gg - gc) / gc
+        worst = _grads_close(f"[train zoo] {arch}", grads_c, grads_g, 1e-3)
+        ran = {k: n for k, n in launches.items() if n}
+        print(f"[train zoo] {arch}-reduced ({cfg.n_layers} layers, "
+              f"{len(grads_c)} leaves): loss {lg:.6f} vs CPU {lc:.6f} (rel "
+              f"{loss_rel:.2e}, tol 1e-4), gnorm {gg:.6f} vs {gc:.6f} (rel "
+              f"{gn_rel:.2e}, tol 1e-3), worst leaf {worst:.2e} of its max "
+              f"|g| (tol 1e-3); card {tg:.3f} s, CPU {tc:.3f} s; launches "
+              f"{ran}")
+        if loss_rel > 1e-4 or gn_rel > 1e-3:
+            fail(f"[train zoo] {arch}: card and CPU steps disagree")
+        if arch.startswith("rwkv"):
+            want = {k: 0 for k in launches}
+            want.update(wkv6=recomputed_calls(cfg), wkv6_bwd=cfg.n_layers)
+            if launches != want:
+                fail(f"[train zoo] {arch} launches {launches} != {want}")
+        total.update(launches)
+        del p_gpu, grads_g, out
+    torch.cuda.empty_cache()
+    return dict(total)
 
 
 def main() -> int:
@@ -5705,8 +5954,13 @@ def main() -> int:
     print(f"[kernels train] phase wall {time.time() - t0:.3f} s")
     launches = {}
     t0 = time.time()
-    launches["train"], rows[-1]["train_path"] = train_phase(dev)
+    launches["train"], train_path, launches["train_rwkv"] = train_phase(dev)
+    next(row for row in rows if row["name"] == "flash_attention_bwd")[
+        "train_path"] = train_path
     print(f"[train] phase wall {time.time() - t0:.3f} s")
+    t0 = time.time()
+    launches["train_zoo"] = train_zoo_phase(dev)
+    print(f"[train zoo] phase wall {time.time() - t0:.3f} s")
     launches["prune"], held, ref, kept = main_path_phase(dev)
     t0 = time.time()
     launches["prune_bf16"], ref_bf16 = bf16_phase(held, ref)

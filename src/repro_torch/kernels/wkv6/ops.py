@@ -1,4 +1,4 @@
-"""RWKV-6 recurrence op.
+"""RWKV-6 recurrence op, and its gradient.
 
 Replaces ``repro.kernels.wkv6.ops.wkv6`` (Pallas TPU kernel ``wkv6``,
 ``wkv6.py:76``). On a CUDA tensor the wrapper launches the hand-written
@@ -10,6 +10,15 @@ the model's (B, T, H, N) layout through strides, and write the final state
 into ``out_state`` when one is given, which may be the initial state
 itself: a decode step updates one layer's slice of the stacked cache in
 place. ``launches`` counts wrapper calls that launched, one each.
+
+Training: on CUDA tensors, with grad mode on and any of r, k, v, w, u or
+``state`` requiring grad, ``wkv6`` goes through ``_WKV6``, an autograd
+Function whose forward is the same kernel keeping each chunk's start state
+(the prefill's scratch after its walk) and whose backward is the
+hand-written kernel of ``backward.py`` (``csrc/wkv6_bwd.cu``). An in-place
+state update cannot be differentiated, so ``out_state`` under grad raises
+``ValueError``. CPU tensors keep the plain scan, which autograd
+differentiates. So RWKV-6 trains on the card.
 """
 from __future__ import annotations
 
@@ -86,9 +95,47 @@ def wkv6(r, k, v, w, u, state=None, *, out_state=None):
         if out_state is None:
             return y, s
         return y, out_state.copy_(s)
-    _build.refuse_grad("wkv6", (r, k, v, w, u, *extra),
-                       "the wkv6 backward kernel is not written yet, "
-                       "ROADMAP Queue 1 item 1: RWKV-6 trains on the CPU")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, w, u,
+                                                        state)):
+        if out_state is not None:
+            raise ValueError("wkv6: out_state under grad: an in-place state "
+                             "update cannot be differentiated; take the "
+                             "returned state instead")
+        return _WKV6.apply(r, k, v, w, u, state)
+    y, s, _ = _forward(r, k, v, w, u, state, out_state)
+    return y, s
+
+
+class _WKV6(torch.autograd.Function):
+    """The kernel's forward, keeping each chunk's start state, and the
+    backward kernel; saves r, k, v, w, u, the state and the starts. The
+    final state's gradient may be None (not used): the backward takes
+    zeros."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        y, s, starts = _forward(r, k, v, w, u, state, None)
+        ctx.save_for_backward(r, k, v, w, u, state, starts)
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        from repro_torch.kernels.wkv6 import backward as _backward
+        r, k, v, w, u, state, starts = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.to(r.dtype)
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        return _backward.wkv6_bwd(r, k, v, w, u, state, dy, dstate,
+                                  starts=starts)
+
+
+def _forward(r, k, v, w, u, state, out_state):
+    """The forward kernel on CUDA tensors -> (y, final state, starts):
+    each chunk's start state (B, H, chunks, N, N) fp32, the prefill's
+    scratch after its walk (T = 1: ``state`` itself, None for zeros)."""
+    extra = [t for t in (state, out_state) if t is not None]
     dev = r.device
     if dev.type != "cuda" or any(t.device != dev
                                  for t in (k, v, w, u, *extra)):
@@ -145,4 +192,4 @@ def wkv6(r, k, v, w, u, state=None, *, out_state=None):
              ctypes.addressof(strides), stream)
     _build.check(err, "wkv6")
     _build.count(sys.modules[__name__])
-    return y, out_state
+    return y, out_state, ds if pl.chunks else state

@@ -13,8 +13,8 @@ scanned segments are recomputed in the backward (remat) as the
 reference's are. The parameters start from ``--seed`` (no pretrained
 weights are in the repository); the batches are the synthetic stream,
 deterministic by step (``data_for``). On the card the attention kernel
-runs forward and backward; RWKV-6's ``wkv6`` kernel has no backward yet and
-refuses a gradient there (it trains on the CPU).
+and RWKV-6's ``wkv6`` kernel run forward and backward (each backward a
+hand-written kernel), so every family trains there.
 
 Checkpoints hold ``(params, opt_state)`` under the reference's key paths
 (``0/...``, ``1/m/...``, ``1/v/...``, ``1/step``), so each package resumes

@@ -4,7 +4,9 @@ mix and channel mix, and the Mamba selective SSM.
 The time mix runs its recurrence through ``kernels.wkv6`` (the CUDA kernel
 on the card). When a ``state`` is given (decode), it is updated in place:
 the wkv kernel writes the new state over the old one, and the token-shift
-rows are copied over; without one (prefill) a fresh state is returned.
+rows are copied over; without one (prefill, training) a fresh state is
+returned, and under grad the kernel's autograd Function carries the
+gradient through the recurrence (the hand-written ``wkv6`` backward).
 
 Mamba's scan is jnp in the reference (no Pallas kernel), so it is plain
 torch here: sequential over chunks of at most 256 tokens, associative

@@ -3,7 +3,9 @@ checked here without a card.
 
 ``flash_decode.ops.plan`` deals a row's 64-key tiles round-robin to at most
 8 splits (the blocks of one cluster); ``wkv6.ops.Plan`` cuts a prefill into
-64-token chunks and sizes the fp32 scratch passed between its launches.
+64-token chunks and sizes the fp32 scratch passed between its launches;
+``wkv6.backward.Plan`` does the same for the gradient, over the forward's
+chunks.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.wkv6 import backward as wkv_bwd  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 
 
@@ -89,3 +92,30 @@ def test_plans_need_no_card():
     x = torch.rand(1, 70, 2, 8)
     wkv_ops.wkv6(x, x, x, x, torch.zeros(2, 8))
     assert (decode_ops.launches, wkv_ops.launches) == before
+
+
+@pytest.mark.parametrize("T,chunks", [
+    (1, 1), (2, 1), (63, 1), (64, 1), (65, 2), (200, 4), (512, 8)])
+def test_wkv6_backward_plan_chunks_and_scratch(T, chunks):
+    """The forward's chunks of 64 tokens (T = 1 is one chunk), a gradient
+    delta, a decay and a partial du per chunk; the start states it takes
+    are the forward's scratch after its walk."""
+    pl = wkv_bwd.Plan(2, T, 40, 64)
+    assert pl.chunks == chunks
+    assert (chunks - 1) * wkv_ops.CHUNK < T <= chunks * wkv_ops.CHUNK
+    assert pl.grad_shape == pl.starts_shape == (2, 40, chunks, 64, 64)
+    assert pl.decay_shape == (2, 40, chunks, 64)
+    assert pl.blocks == chunks * 40 * 2
+    if T > 1:
+        assert pl.starts_shape == wkv_ops.Plan(2, T, 40, 64).state_shape
+
+
+def test_wkv6_backward_plan_at_the_train_shape():
+    """RWKV6-3B training (B 4, T 512, H 40, N 64): 1280 blocks a per-chunk
+    launch; the start states the forward keeps for it are 21 MB a layer,
+    and its own scratch as much again plus two vectors a chunk."""
+    pl = wkv_bwd.Plan(4, 512, 40, 64)
+    assert pl.blocks == 1280
+    assert 4 * math.prod(pl.starts_shape) == 20_971_520
+    scratch = 4 * (math.prod(pl.grad_shape) + 2 * math.prod(pl.decay_shape))
+    assert scratch == 4 * 4 * 40 * 8 * (64 * 64 + 2 * 64)

@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_decode import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ref as decode_ref  # noqa: E402
 from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
 from repro_torch.kernels.gram import ref as gram_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import backward as wkv_bwd  # noqa: E402
 from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6 import ref as wkv_ref  # noqa: E402
 
@@ -872,9 +873,10 @@ def test_attention_under_grad_launches_the_backward(dev, dtype, tol):
 
 
 def test_kernels_without_backward_refuse_gradients(dev):
-    """gram, flash_decode and wkv6 have no backward: under grad mode an
-    input that requires grad raises instead of dropping its gradient;
-    under no_grad they run."""
+    """gram and flash_decode have no backward: under grad mode an input
+    that requires grad raises instead of dropping its gradient; under
+    no_grad they run. (wkv6 has its backward kernel:
+    ``test_wkv6_under_grad_launches_the_backward``.)"""
     x = torch.randn(64, 32, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="gram"):
         gram_ops.gram(x)
@@ -883,12 +885,107 @@ def test_kernels_without_backward_refuse_gradients(dev):
     q, k, v, valid = _decode_inputs(dev, 2, 64, 4, 2, 64, 64, torch.float32)
     with pytest.raises(NotImplementedError, match="decode_attention"):
         decode_ops.decode_attention(q.requires_grad_(), k, v, valid)
-    r, kk, vv, w, u, s0 = _wkv_inputs(dev, 1, 8, 2, 64, torch.float32,
-                                      seed=1, state=False)
-    with pytest.raises(NotImplementedError, match="wkv6 backward"):
-        wkv_ops.wkv6(r.requires_grad_(), kk, vv, w, u, s0)
     with torch.no_grad():
         gram_ops.gram(x)
         decode_ops.decode_attention(q, k, v, valid)
-        wkv_ops.wkv6(r, kk, vv, w, u, s0)
+
+
+def _wkv_grads_close(got, want, tol):
+    """Each gradient within ``tol`` of its max |g| (fp32 1e-4, bf16 2e-2),
+    finite, in the input's dtype (du and the state's in fp32)."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert a.dtype == b.dtype and bool(torch.isfinite(a).all())
+        m = b.float().abs().max().clamp_min(1e-30)
+        assert float((a.float() - b.float()).abs().max()) <= tol * m
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 7, 8, 9, 63, 64, 65, 128, 200])
+def test_wkv6_backward_kernel_matches_plain(dev, T, state, dtype, tol):
+    """The backward kernel against ``ref.wkv6_bwd`` at the chunk (64) and
+    sub-chunk (8) edges, with and without an initial state and a final
+    state's gradient; one launch a call."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 2, T, 3, 64, dtype, seed=T,
+                                    state=state)
+    g = torch.Generator(device=dev).manual_seed(T + 1)
+    dy = torch.randn((2, T, 3, 64), generator=g, device=dev).to(dtype)
+    ds = torch.randn((2, 3, 64, 64), generator=g, device=dev) \
+        if state else None
+    before = wkv_bwd.launches
+    got = wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds)
+    assert wkv_bwd.launches == before + 1
+    _wkv_grads_close(got, wkv_ref.wkv6_bwd(r, k, v, w, u, s0, dy, ds), tol)
+
+
+@pytest.mark.parametrize("B,T,H,N", [(2, 77, 4, 16), (1, 130, 2, 40)])
+def test_wkv6_backward_kernel_narrow_heads_and_small_decay(dev, B, T, H, N):
+    """Head dims below 64 (the reduced model's 16, a ragged 40), and w
+    drawn in (1e-4, 0.95): the direct-form dw holds the fp32 bound."""
+    r, k, v, _, u, s0 = _wkv_inputs(dev, B, T, H, N, torch.float32, seed=N,
+                                    state=True)
+    g = torch.Generator(device=dev).manual_seed(N)
+    w = 1e-4 + (0.95 - 1e-4) * torch.rand((B, T, H, N), generator=g,
+                                          device=dev)
+    dy = torch.randn((B, T, H, N), generator=g, device=dev)
+    ds = torch.randn((B, H, N, N), generator=g, device=dev)
+    _wkv_grads_close(wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds),
+                     wkv_ref.wkv6_bwd(r, k, v, w, u, s0, dy, ds), 1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T", [1, 150])
+def test_wkv6_under_grad_launches_the_backward(dev, T, dtype, tol):
+    """Autograd through ``ops.wkv6`` on the card: one forward and one
+    backward launch, gradients of r, k, v, w, u and the state against
+    autograd through the plain scan in fp32; under no_grad no Function."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 2, T, 4, 64, dtype, seed=T,
+                                    state=True)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, w, u, s0)]
+    dy = torch.randn((2, T, 4, 64), device=dev).to(dtype)
+    fwd, bwd = wkv_ops.launches, wkv_bwd.launches
+    y, _ = wkv_ops.wkv6(*leaves)
+    y.backward(dy)
+    assert (wkv_ops.launches, wkv_bwd.launches) == (fwd + 1, bwd + 1)
+    ref_in = [t.detach().float().requires_grad_() for t in leaves]
+    # T = 1: y does not reach w (it decays the state after the token)
+    want = torch.autograd.grad(wkv_ref.wkv6(*ref_in)[0], ref_in, dy.float(),
+                               allow_unused=True)
+    want = [torch.zeros_like(x) if b is None else b
+            for x, b in zip(ref_in, want)]
+    for a, b in zip((t.grad for t in leaves), want):
+        m = b.abs().max()
+        assert float((a.float() - b).abs().max()) <= tol * m
+    with torch.no_grad():
+        wkv_ops.wkv6(*leaves)
+    assert wkv_bwd.launches == bwd + 1
+
+
+@pytest.mark.parametrize("T", [1, 300])
+def test_wkv6_backward_kernel_is_deterministic(dev, T):
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 3, T, 4, 64, torch.bfloat16,
+                                    seed=T, state=True)
+    dy = torch.randn((3, T, 4, 64), device=dev).to(torch.bfloat16)
+    ds = torch.randn((3, 4, 64, 64), device=dev)
+    a = wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds)
+    b = wkv_bwd.wkv6_bwd(r, k, v, w, u, s0, dy, ds)
+    assert all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def test_wkv6_refuses_out_state_under_grad(dev):
+    """An in-place state update cannot be differentiated: ``out_state``
+    under grad raises by name; under no_grad it runs."""
+    r, k, v, w, u, s0 = _wkv_inputs(dev, 1, 8, 2, 64, torch.float32,
+                                    seed=1, state=True)
+    with pytest.raises(ValueError, match="out_state"):
+        wkv_ops.wkv6(r.requires_grad_(), k, v, w, u, s0, out_state=s0)
+    with torch.no_grad():
+        _, s = wkv_ops.wkv6(r, k, v, w, u, s0, out_state=s0)
+    assert s is s0
 
