@@ -54,15 +54,24 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      interrupted and resumed calibration pass and two CLI runs on one
      ``--calib-ckpt`` (bit-identical), and ``corp_prune_streamed`` one unit
      a group (2 groups, 3 traversals, <= 1e-4); sharded calibration
-     (``[calib sharded]``: four ``gloo`` ranks share the card as a 2 data x
-     2 model mesh, each launching ``gram_cross`` on its rows and its
-     1536-column block of every batch's MLP tap, none ``gram`` or a plain
-     version; each rank's s2 blocks F/2 wide and its accumulator at most
-     half the unsharded one plus the replicated leaves; the gathered pass-1
-     and pass-2 statistics within 1e-4 of the single-device engine's; then
-     ``launch.prune --mesh 2x2 --calib-sharded --dist-backend gloo`` as a
-     subprocess: the main path's kept sizes, held-out logits within 1e-4
-     of its prune's, equal parameter checksums on the four ranks); on a
+     (``[calib sharded]``: ``gram_cross`` and ``flash_attention`` at a
+     rank's shapes against their plain versions; four ``gloo`` ranks share
+     the card as a 2 data x 2 model mesh, each placing only its
+     ``forward_specs`` blocks of DeiT-Base from a tree in host memory
+     (its bytes on the card within 1.01x of the blocks') and forwarding
+     tensor-parallel, each launching ``gram_cross`` on its rows and its
+     1536-column block of every batch's MLP tap and ``flash_attention``
+     over its heads exactly, none ``gram`` or a plain version; each rank's
+     s2 blocks F/2 wide, its accumulator at most half the unsharded one
+     plus the replicated leaves, its pass peak <= 0.75x one device's; the
+     gathered pass-1 and pass-2 statistics within 1e-4 of the single-device
+     engine's; then qwen3-moe-235b-a22b at 1 layer, full width, fp32,
+     experts over the model axis and rows over the data axis: pass 1 on 32
+     Zipf sequences of 512, the same gates; beside them ``launch.prune
+     --mesh 2x2 --calib-sharded --dist-backend gloo`` as a subprocess: the
+     main path's kept sizes, held-out logits within 1e-4 of its prune's,
+     equal parameter checksums and each rank's parameter bytes its
+     blocks'); on a
      reduced DeiT the same pruned output on the GPU as on the CPU's plain
      path; then profiles one prune;
   4. serve path: serves a ragged trace of 16 requests with Qwen2-1.5B at
@@ -1237,33 +1246,102 @@ def streamed_phase(dev, batch, ref):
     return launches
 
 
-# [calib sharded]: four gloo ranks on one card, a 2 data x 2 model mesh;
-# the engine-level checks stream 32 of the main path's 128 images (cut: the
-# single-device reference runs beside them), the CLI all 128. A rank's
-# pass peak (the memory it allocates above what it held when the pass
-# began, up to the gather) is gated at `peak` x the single-device pass's:
-# its rows and its statistics' columns both halve, so it is near half
-SHARDED = dict(mesh=(2, 2), images=32, tol=1e-4, peak=0.75)
+# [calib sharded]: four gloo ranks on one card, a 2 data x 2 model mesh,
+# each holding only its forward_specs blocks of the parameters (placed from
+# a tree in host memory) and forwarding tensor-parallel; the engine-level
+# checks stream 32 of the main path's 128 images (cut: the single-device
+# reference runs beside them), the CLI all 128. A rank's pass peak (the
+# memory it allocates above what it held when the pass began, up to the
+# gather, less its placed blocks, as the single-device pass's parameters
+# are held before it begins) is gated at `peak` x the single-device pass's:
+# its rows and its statistics' columns both halve, so it is near half; its
+# whole footprint (blocks and peak) against the single-device parameters'
+# and peak likewise. A rank's placed bytes on the card are gated at
+# `placed` x the bytes of its forward_specs blocks
+SHARDED = dict(mesh=(2, 2), images=32, tol=1e-4, peak=0.75, placed=1.01)
+# then qwen3-moe at 1 of its 94 layers, full width (experts over the model
+# axis, rows over the data axis): pass 1 over 32 port-only Zipf sequences
+# of 512 in batches of 16, against the single-device engine on rank 0. In
+# fp32 (14.9 GB whole): in bf16 the tensor-parallel attention output
+# rounds otherwise than one device's in a few elements, and at random
+# init that moves a few dozen of the 78k (token, expert) picks to other
+# experts (tools/moe_tp_routing_probe.py: 29, s2 4.9e-3 from one device,
+# where one device at another batch size moves none and is within
+# 2.3e-7), so no bf16 split meets 1e-4. The tokens are drawn on the host
+# (zipf_tokens)
+SHARDED_MOE = dict(arch="qwen3-moe-235b-a22b", layers=1, dtype="float32",
+                   seqs=32, seq=512, batch=16, seed=23)
+
+
+def measure_place(shard, device):
+    """Wrap ``shard.place`` so that each placement appends the bytes
+    ``torch.cuda.memory_allocated`` grew by across it to the returned
+    list."""
+    import torch
+    placed, place = [], shard.place
+
+    def measured(params):
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        blocks = place(params)
+        torch.cuda.synchronize(device)
+        placed.append(torch.cuda.memory_allocated(device) - before)
+        return blocks
+    shard.place = measured
+    return placed
+
+
+def forward_block_bytes(params, shard):
+    """The bytes of this rank's ``forward_specs`` blocks of ``params``, cut
+    from meta tensors (shapes only) by ``shard_params``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distrib.sharding import forward_specs, shard_params
+    from repro_torch.interop import flatten, map_tree
+    meta = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), params)
+    blocks = shard_params(meta, forward_specs(meta, shard.sizes), shard.mesh,
+                          dist.get_rank())
+    return sum(t.numel() * t.element_size() for t in flatten(blocks).values())
+
+
+def tree_bytes(tree):
+    from repro_torch.interop import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def check_placed(tag, rank, eng, placed, want):
+    """A pass's placement gates: the engine's ``param_bytes`` equal to the
+    rank's ``forward_specs`` blocks' bytes ``want``, and the card's
+    allocation across the placement at most ``SHARDED['placed']`` x
+    them."""
+    if eng.param_bytes != want or not placed[-1] <= SHARDED["placed"] * want:
+        fail(f"[{tag}] rank {rank}: placed {placed[-1]} B on the card, "
+             f"engine param_bytes {eng.param_bytes} B, its forward_specs "
+             f"blocks {want} B (gate {SHARDED['placed']:g}x)")
 
 
 def calib_sharded_rank(device, out_dir):
     """One rank of ``[calib sharded]``: pass 1 and pass 2 of DeiT-Base on
-    the main path's weights and stream, sharded over the 2 x 2 mesh, each
-    gated on its launches (``gram_cross`` once a batch, no ``gram``, no
+    the main path's weights (in host memory) and stream, sharded over the
+    2 x 2 mesh, each gated on its placed parameter bytes (its
+    ``forward_specs`` blocks), launches (``gram_cross`` once a batch and
+    MLP unit, ``flash_attention`` once a batch and layer, no ``gram``, no
     plain-version call) and footprint (every dense s2 block F/m wide, the
     accumulator at most half the unsharded one plus its replicated leaves);
     the mesh's first rank also holds the gathered statistics against the
     single-device engine's on the card (relative Frobenius error a leaf),
     and each rank's peak of a pass, up to the gather that returns the full
-    statistics, against that engine's. Writes ``rank<r>.json``; a failed
-    gate raises, which fails the launch."""
+    statistics, against that engine's. Then pass 1 of qwen3-moe at one
+    layer (``moe_rank``). Writes ``rank<r>.json``; a failed gate raises,
+    which fails the launch."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import resolve_config
     from repro_torch.core import CalibrationEngine, discover_units, ranking
     from repro_torch.data import calib_stream
     from repro_torch.distrib import CalibSharding, stats_specs
-    from repro_torch.interop import flatten
+    from repro_torch.interop import flatten, map_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1271,7 +1349,7 @@ def calib_sharded_rank(device, out_dir):
     rank = dist.get_rank()
     cfg = resolve_config(MAIN["arch"])
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device=device)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
     B = MAIN["calib_batch"]
     stream = calib_stream(cfg, n_samples=SHARDED["images"], batch=B,
                           device=device)
@@ -1279,6 +1357,9 @@ def calib_sharded_rank(device, out_dir):
     units = discover_units(cfg)
     dense = [u.name for u in units if u.kind == "mlp"]
     shard = CalibSharding(make_mesh(SHARDED["mesh"], device_type="cuda"))
+    placed = measure_place(shard, device)
+    blocks_bytes, whole_bytes = forward_block_bytes(params, shard), \
+        tree_bytes(params)
     plain = [0]
     for mod in kernel_modules().values():       # count plain-version calls
         for name in [n for n in dir(mod._ref) if not n.startswith("_")]:
@@ -1295,7 +1376,9 @@ def calib_sharded_rank(device, out_dir):
         torch.cuda.reset_peak_memory_stats(device)
         return torch.cuda.memory_allocated(device)
 
-    out, plan = {"rank": rank}, None
+    out = {"rank": rank, "param_bytes_whole": whole_bytes,
+           "param_bytes_blocks": blocks_bytes}
+    plan, on_card = None, None
     for phase in (1, 2):
         kw = dict(phase=phase, plan=plan)
         start = held()
@@ -1316,6 +1399,7 @@ def calib_sharded_rank(device, out_dir):
         torch.cuda.synchronize(device)
         wall = time.time() - t0
         launches, calls = read_launches(), plain[0]
+        check_placed("calib sharded", rank, eng, placed, blocks_bytes)
         specs = flatten(stats_specs(got, shard))
         full = flatten(got)
         total = sum(t.numel() * t.element_size() for t in full.values())
@@ -1324,21 +1408,23 @@ def calib_sharded_rank(device, out_dir):
         rec = {"wall_s": wall, "launches": launches, "plain_calls": calls,
                "local_bytes": eng.local_bytes, "unsharded_bytes": total,
                "replicated_bytes": replicated,
+               "param_bytes": eng.param_bytes, "placed_bytes": placed[-1],
                "max_memory_allocated": torch.cuda.max_memory_allocated(
                    device),
-               "peak_bytes": at_gather[0] - start,
+               "footprint_bytes": at_gather[0] - start,
+               "peak_bytes": at_gather[0] - start - placed[-1],
                "s2_blocks": {u: eng.local_shapes.get(f"{u}/s2")
                              for u in dense} if phase == 1 else {}}
         out[f"pass{phase}"] = rec
         want_cross = n_batches * len(dense) if phase == 1 else 0
+        want_attn = n_batches * cfg.n_layers
         if launches["gram_cross"] != want_cross or launches["gram"] \
-                or calls:
+                or calls or launches["flash_attention"] != want_attn:
             fail(f"[calib sharded] rank {rank} pass {phase}: gram_cross "
                  f"{launches['gram_cross']} launches (want {want_cross}), "
-                 f"gram {launches['gram']}, plain-version calls {calls}")
-        if not launches["flash_attention"]:
-            fail(f"[calib sharded] rank {rank} pass {phase}: no "
-                 f"flash_attention launch")
+                 f"flash_attention {launches['flash_attention']} (want "
+                 f"{want_attn}), gram {launches['gram']}, plain-version "
+                 f"calls {calls}")
         for u, shape in rec["s2_blocks"].items():
             F = full[f"{u}/s2"].shape[-1]
             if shape is None or shape[-1] != F // shard.model_size:
@@ -1349,8 +1435,11 @@ def calib_sharded_rank(device, out_dir):
                  f"{eng.local_bytes} B > half of {total} B + {replicated} "
                  f"B replicated")
         if rank == 0:
+            if on_card is None:
+                on_card = map_tree(lambda t: t.to(device), params)
             start = held()
-            ref = CalibrationEngine(model, units, **kw).run(params, stream())
+            ref = CalibrationEngine(model, units, **kw).run(on_card,
+                                                            stream())
             torch.cuda.synchronize(device)
             rec["unsharded_peak_bytes"] = \
                 torch.cuda.max_memory_allocated(device) - start
@@ -1374,37 +1463,184 @@ def calib_sharded_rank(device, out_dir):
                         st, int(round(st["rank"].shape[-1]
                                       * (1 - MAIN["sparsity"]))))
         del got, full
+    del on_card, params
+    torch.cuda.empty_cache()
+    out["moe"] = moe_rank(device, shard, placed, held)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def sharded_gram_timing(dev, row):
-    """gram_cross at a [calib sharded] rank's launch: its 8 of 16 images'
-    MLP tap (12, 1576, 3072) against its 1536-column block, a strided view
-    of the tap (``gram_ops.gram_sharded``), fp32, event-timed beside its
-    plain version and ``torch.matmul``; added to ``row`` (the JSON line's
-    gram_cross). The bound reads the tap once (the block is part of it)."""
+def moe_rank(device, shard, placed, held):
+    """qwen3-moe at ``SHARDED_MOE['layers']`` layer, full width, on the
+    rank: the ranks in turns draw the whole model on the card from a
+    seeded generator (the same weights on every rank), place their blocks
+    from it (``CalibSharding.place``: its experts and heads, a vocab block
+    of the embedding and head) and drop it before the next rank draws
+    (four whole fp32 trees, 59.7 GB, would not fit in host memory beside
+    the rest, and a tree moved there costs seconds a rank: the DeiT-Base
+    case places from the host); then pass 1 of the engine over the Zipf
+    stream on the placed blocks, gated on the placed bytes, launches
+    (``gram_cross`` and ``flash_attention`` once a batch, no ``gram``)
+    and, on rank 0, the gathered statistics within ``SHARDED['tol']`` of
+    the single-device engine's on the same weights, drawn again. Returns
+    the rank's record."""
     import torch
+    import torch.distributed as dist
+    from repro_torch.configs import resolve_config
+    from repro_torch.core import CalibrationEngine, discover_units
+    from repro_torch.interop import flatten
+    from repro_torch.models import build_model
+    rank = dist.get_rank()
+    c = SHARDED_MOE
+    cfg = resolve_config(c["arch"]).replace(n_layers=c["layers"],
+                                            dtype=c["dtype"])
+    model = build_model(cfg)
+    def draw():
+        return model.init(torch.Generator(device=device).manual_seed(0),
+                          device=device)
+    t0 = time.time()
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            params = draw()
+            rec = {"arch": cfg.name, "layers": cfg.n_layers,
+                   "dtype": cfg.dtype,
+                   "param_bytes_whole": tree_bytes(params),
+                   "param_bytes_blocks": forward_block_bytes(params, shard)}
+            blocks = shard.place(params)
+            rec["placed_bytes"] = placed[-1]
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    rec["init_s"] = time.time() - t0
+    tokens = zipf_tokens(cfg.vocab_size, c["seqs"], c["seq"], c["seed"],
+                         torch.device("cpu")).to(device)
+    batches = [{"tokens": tokens[i:i + c["batch"]]}
+               for i in range(0, c["seqs"], c["batch"])]
+    units = discover_units(cfg)
+    start = held()
+    reset_launches()
+    t0 = time.time()
+    eng = CalibrationEngine(model, units, phase=1, mesh=shard)
+    got = eng.run(blocks, batches)
+    torch.cuda.synchronize(device)
+    del blocks
+    rec.update(wall_s=time.time() - t0, launches=read_launches(),
+               param_bytes=eng.param_bytes, local_bytes=eng.local_bytes,
+               footprint_bytes=torch.cuda.max_memory_allocated(device)
+               - start)
+    check_placed("calib sharded moe", rank, eng, [rec["placed_bytes"]],
+                 rec["param_bytes_blocks"])
+    n = len(batches)
+    la = rec["launches"]
+    if la["gram_cross"] != n or la["gram"] or la["flash_attention"] != n:
+        fail(f"[calib sharded moe] rank {rank}: gram_cross "
+             f"{la['gram_cross']}, flash_attention {la['flash_attention']} "
+             f"launches (want {n} each), gram {la['gram']}")
+    if rank == 0:
+        full = flatten(got)
+        del got
+        torch.cuda.empty_cache()
+        on_card = draw()
+        start = held()
+        ref = flatten(CalibrationEngine(model, units, phase=1).run(
+            on_card, batches))
+        torch.cuda.synchronize(device)
+        rec["unsharded_peak_bytes"] = \
+            torch.cuda.max_memory_allocated(device) - start
+        errs = {k: rel_err(full[k].double(), t.double())
+                for k, t in ref.items()}
+        rec["max_rel_err"] = max(errs.values())
+        rec["worst_leaf"] = max(errs, key=errs.get)
+        rec["errs"] = errs
+        if full.keys() != errs.keys() \
+                or not rec["max_rel_err"] <= SHARDED["tol"]:
+            fail(f"[calib sharded moe] gathered statistics "
+                 f"{rec['max_rel_err']:.3e} from the single-device "
+                 f"engine's at {rec['worst_leaf']} (tol {SHARDED['tol']:g})")
+        del ref, on_card, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_kernel_phase(dev, by_name):
+    """The kernels of ``[calib sharded]`` at a rank's shapes, each against
+    its plain version and event-timed beside it, the one-call PyTorch
+    equivalent and its bound; added to the JSON line's rows:
+    ``gram_cross`` at a DeiT-Base rank's MLP block (its 8 of 16 images'
+    tap (12, 1576, 3072) against its 1536-column block, a strided view of
+    the tap: ``gram_ops.gram_sharded``) and at a qwen3-moe rank's expert
+    moments (128 expert queues of its 2 routing groups' 160 slots, (128,
+    320, 1536) against 768 columns), fp32; ``flash_attention`` over a
+    DeiT-Base rank's 6 of 12 heads (B 8, T 197, d 64, fp32, full) and a
+    qwen3-moe rank's 32 of 64 query and 2 of 4 kv heads (B 8, T 512, d
+    128, causal, in ``SHARDED_MOE``'s dtype, fp32: the kernel instance
+    that case launches). The gram bound reads the tap once (the block is
+    part of it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.gram import ops, ref
-    x = torch.randn(12, 1576, 3072, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(9))
-    y = x[..., 1536:]
-    L, N, F = x.shape
-    Fb = y.shape[-1]
-    r = {"shape": [L, N, F, Fb],
-         "max_abs_err": check_gram(x, y, label="a sharded rank's block"),
-         "ms": time_ms(lambda: ops.gram_cross(x, y), reps=5, warmup=1),
-         "plain_ms": time_ms(lambda: ref.gram_cross(x, y), reps=5, warmup=1),
-         "library_ms": time_ms(lambda: torch.matmul(x.mT, y), reps=5,
-                               warmup=1)}
-    r["bound_ms"], r["bound_by"] = bound_ms(
-        2.0 * L * N * F * Fb + L * N * Fb, 4.0 * (L * N * F + L * F * Fb
-                                               + L * Fb))
-    print(f"  gram_cross at a sharded rank's block X {tuple(x.shape)} Y "
-          f"{tuple(y.shape)} (strided) fp32: kernel {r['ms']:.3f} ms, plain "
-          f"{r['plain_ms']:.3f} ms, torch.matmul {r['library_ms']:.3f} ms, "
-          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    row["calib_sharded_rank"] = r
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    for key, shape, Fb in (("calib_sharded_rank", (12, 1576, 3072), 1536),
+                           ("calib_sharded_moe", (128, 320, 1536), 768)):
+        x = rand(*shape)
+        y = x[..., -Fb:]
+        L, N, Fx = x.shape
+        r = {"shape": [L, N, Fx, Fb],
+             "max_abs_err": check_gram(x, y, label=f"{key} block"),
+             "ms": time_ms(lambda: ops.gram_cross(x, y), reps=5, warmup=1),
+             "plain_ms": time_ms(lambda: ref.gram_cross(x, y), reps=5,
+                                 warmup=1),
+             "library_ms": time_ms(lambda: torch.matmul(x.mT, y), reps=5,
+                                   warmup=1)}
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * L * N * Fx * Fb + L * N * Fb,
+            4.0 * (L * N * Fx + L * Fx * Fb + L * Fb))
+        print(f"  gram_cross at {key}'s block X {tuple(x.shape)} Y "
+              f"{tuple(y.shape)} (strided) fp32: kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, torch.matmul "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})")
+        by_name["gram_cross"][key] = r
+        del x, y
+    for key, (B, T, H, Hkv, d), dt, causal in (
+            ("calib_sharded_rank", (8, 197, 6, 6, 64), torch.float32, False),
+            ("calib_sharded_moe", (8, 512, 32, 2, 128),
+             getattr(torch, SHARDED_MOE["dtype"]), True)):
+        q, k, v = rand(B, T, H, d, dtype=dt), rand(B, T, Hkv, d, dtype=dt), \
+            rand(B, T, Hkv, d, dtype=dt)
+        scale = 1.0 / math.sqrt(d)
+        err = check_attention(q, k, v, causal, None, scale, key,
+                              tol=1e-4 if dt == torch.float32 else 2e-2)
+        qt = q.transpose(1, 2)
+        kt, vt = (a.transpose(1, 2).repeat_interleave(H // Hkv, dim=1)
+                  for a in (k, v))
+        calls = {"ms": lambda: fa_ops.attention(q, k, v, causal=causal,
+                                                scale=scale),
+                 "plain_ms": lambda: fa_ref.attention(q, k, v, causal=causal,
+                                                      scale=scale),
+                 "library_ms": lambda: F.scaled_dot_product_attention(
+                     qt, kt, vt, is_causal=causal, scale=scale)}
+        r = {"shape": [B, T, H, Hkv, d], "dtype": str(dt)[6:],
+             "causal": causal, "max_abs_err": err,
+             **{name: device_ms(fn) for name, fn in calls.items()}}
+        pairs = T * (T + 1) / 2 if causal else T * T
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2.0 * B * H * pairs * 2 * d,
+            q.element_size() * B * T * (2 * H + 2 * Hkv) * d,
+            PEAK_FP32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS)
+        print(f"  flash_attention at {key}'s heads B={B} T={T} H={H} "
+              f"Hkv={Hkv} d={d} {r['dtype']}{' causal' if causal else ''}, "
+              f"device time: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        by_name["flash_attention"][key] = r
+        del q, k, v, qt, kt, vt
 
 
 def calib_sharded_phase(dev, batch, ref, kept):
@@ -1414,10 +1650,12 @@ def calib_sharded_phase(dev, batch, ref, kept):
     time, the prune CLI with ``--mesh 2x2 --calib-sharded --dist-backend
     gloo`` as a subprocess: its checkpoint holds the main path's kept
     sizes, its held-out logits are within 1e-4 of the single-device
-    prune's (``ref``), and the four ranks' parameter checksums are equal.
-    Each rank's pass peaks are gated against the single-device engine's. Times here are of
-    four ranks on one card: they say nothing of scaling. Returns the
-    engine-level passes' launches, summed over the ranks."""
+    prune's (``ref``), the four ranks' parameter checksums are equal and
+    its ranks' parameter bytes on the card are their blocks'. Each rank's
+    pass peaks are gated against the single-device engine's. Times here
+    are of four ranks on one card: they say nothing of scaling. Returns
+    the DeiT-Base passes' launches and qwen3-moe's, each summed over the
+    ranks."""
     import shutil
     import numpy as np
     import torch
@@ -1467,27 +1705,58 @@ def calib_sharded_phase(dev, batch, ref, kept):
           f"CLI's)")
     for r in recs:      # a JSON line a rank: walls of ranks sharing a card
         print(json.dumps({"calib_sharded_rank": r}))
+        print(f"[calib sharded] rank {r['rank']} DeiT-Base parameters on "
+              f"the card: {r['pass1']['placed_bytes']} B placed a pass "
+              f"(its forward_specs blocks {r['param_bytes_blocks']} B, gate "
+              f"{SHARDED['placed']:g}x) of the whole tree's "
+              f"{r['param_bytes_whole']} B in host memory")
         for phase in ("pass1", "pass2"):
             p = r[phase]
             single = recs[0][phase]["unsharded_peak_bytes"]
+            whole = single + r["param_bytes_whole"]
             print(f"[calib sharded] rank {r['rank']} {phase}: accumulator "
                   f"{p['local_bytes']} B of {p['unsharded_bytes']} B "
                   f"unsharded ({p['replicated_bytes']} B replicated), "
                   f"max_memory_allocated {p['max_memory_allocated']} B; "
-                  f"peak above the pass's start, to the gather, "
-                  f"{p['peak_bytes']} B against the single-device pass's "
-                  f"{single} B ({p['peak_bytes'] / single:.3f}, gate "
+                  f"peak above the pass's start and its blocks, to the "
+                  f"gather, {p['peak_bytes']} B against the single-device "
+                  f"pass's {single} B ({p['peak_bytes'] / single:.3f}, "
+                  f"gate {SHARDED['peak']:g}); with the blocks "
+                  f"{p['footprint_bytes']} B against the single-device "
+                  f"parameters and peak {whole} B "
+                  f"({p['footprint_bytes'] / whole:.3f}, gate "
                   f"{SHARDED['peak']:g})"
                   + (f", s2 blocks {p['s2_blocks']}" if p["s2_blocks"]
                      else "")
                   + (f"; gathered vs single-device max relative error "
                      f"{p['max_rel_err']:.3e} at {p['worst_leaf']} (tol "
                      f"{SHARDED['tol']:g})" if "max_rel_err" in p else ""))
-            if not p["peak_bytes"] <= SHARDED["peak"] * single:
+            if not (p["peak_bytes"] <= SHARDED["peak"] * single
+                    and p["footprint_bytes"] <= SHARDED["peak"] * whole):
                 fail(f"[calib sharded] rank {r['rank']} {phase}: peak "
-                     f"{p['peak_bytes']} B above the pass's start > "
-                     f"{SHARDED['peak']:g} x the single-device pass's "
-                     f"{single} B")
+                     f"{p['peak_bytes']} B (with its blocks "
+                     f"{p['footprint_bytes']} B) > {SHARDED['peak']:g} x the "
+                     f"single-device pass's {single} B ({whole} B)")
+    for r in recs:
+        m = r["moe"]
+        print(f"[calib sharded moe] rank {r['rank']} {m['arch']} at "
+              f"{m['layers']} layer {m['dtype']}, {SHARDED_MOE['seqs']} Zipf "
+              f"sequences of {SHARDED_MOE['seq']}: parameters on the card "
+              f"{m['placed_bytes']} B placed (its forward_specs blocks "
+              f"{m['param_bytes_blocks']} B, gate {SHARDED['placed']:g}x) "
+              f"of the whole model's {m['param_bytes_whole']} B "
+              f"({m['param_bytes_whole'] * world} B replicated on "
+              f"{world} ranks); pass 1 wall {m['wall_s']:.3f} s (the "
+              f"ranks' draws and placements {m['init_s']:.3f} s), "
+              f"footprint {m['footprint_bytes']} B, "
+              f"accumulator {m['local_bytes']} B; launches "
+              f"gram_cross {m['launches']['gram_cross']}, flash_attention "
+              f"{m['launches']['flash_attention']}"
+              + (f"; gathered vs single-device max relative error "
+                 f"{m['max_rel_err']:.3e} at {m['worst_leaf']} (tol "
+                 f"{SHARDED['tol']:g}; the single-device pass's peak "
+                 f"{m['unsharded_peak_bytes']} B)" if "max_rel_err" in m
+                 else ""))
     cli_wall = done["wall"]
     print("\n".join("  " + ln for ln in done["out"].splitlines()))
     if cli.returncode != 0:
@@ -1510,15 +1779,24 @@ def calib_sharded_phase(dev, batch, ref, kept):
     like = model.init(torch.Generator().manual_seed(0), device=dev)
     params, _ = restore_checkpoint(out, 0, like)
     err = rel_err(model.apply(params, batch), ref)
-    launches = {}
+    launches, moe_launches = {}, {}
     for r in recs:
         for phase in ("pass1", "pass2"):
             for k, n in r[phase]["launches"].items():
                 launches[k] = launches.get(k, 0) + n
+        for k, n in r["moe"]["launches"].items():
+            moe_launches[k] = moe_launches.get(k, 0) + n
+    line = [ln for ln in done["out"].splitlines() if "parameter bytes" in ln]
+    cli_bytes = json.loads(line[0].split(": ", 1)[1].split(" of ")[0]) \
+        if line else []
     print(json.dumps({"calib_sharded_cli": {
         "wall_s": cli_wall, "kept": list(wrote),
-        "checksums": sums, "held_out_rel_err": err, "tol": SHARDED["tol"],
-        "engine_launches": launches}}))
+        "checksums": sums, "param_bytes": cli_bytes,
+        "held_out_rel_err": err, "tol": SHARDED["tol"],
+        "engine_launches": launches, "moe_launches": moe_launches}}))
+    if sorted(cli_bytes) != sorted(r["param_bytes_blocks"] for r in recs):
+        fail(f"[calib sharded] the CLI's ranks placed {cli_bytes} B of "
+             f"parameters, not their forward_specs blocks")
     print(f"[calib sharded] CLI wall {cli_wall:.3f} s (its ranks beside the "
           f"engine's on one card); kept d_ff {wrote[0]}, qk {wrote[1]}; rank "
           f"checksums equal; held-out |sharded - single-device| / "
@@ -1528,7 +1806,7 @@ def calib_sharded_phase(dev, batch, ref, kept):
         fail("[calib sharded] the sharded prune is more than 1e-4 from the "
              "single-device one")
     shutil.rmtree(out_dir, ignore_errors=True)
-    return launches
+    return launches, moe_launches
 
 
 def reference_phase(dev):
@@ -2754,10 +3032,13 @@ def serve_sharded_phase(dev):
 def zipf_tokens(vocab, n_seqs, seq, seed, dev):
     """The full-vocabulary LM phases' calibration tokens: drawn iid from a
     Zipf-like unigram, p(v) proportional to 1 / (v + 1), by a seeded
-    torch.Generator on the card. This stream is the port's own and is not
+    torch.Generator on ``dev``. This stream is the port's own and is not
     held to the JAX package: the reference's generator needs a V x V
     Markov table (92 GB at Qwen2-1.5B's V = 151936), so it runs only on
-    reduced vocabularies (the CPU parity tests)."""
+    reduced vocabularies (the CPU parity tests). On the card the draw is
+    not the same in another process from the same seed
+    (``tools/moe_tp_routing_probe.py``: four ranks, four streams), so
+    ranks that must share a stream draw it on the host."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     p = 1.0 / torch.arange(1, vocab + 1, dtype=torch.float32, device=dev)
@@ -2977,11 +3258,14 @@ def lm_prune_run(tag, model, params, calib, held, dense, pc,
 
 
 def lm_model(arch, dev):
+    """A full-width LM with seeded weights drawn on the card (a CPU
+    generator takes tens of seconds for RWKV6-3B's 3.1 G values)."""
     import torch
     from repro_torch.configs import resolve_config
     from repro_torch.models import build_model
     model = build_model(resolve_config(arch))
-    return model, model.init(torch.Generator().manual_seed(0), device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
 
 
 def prune_qwen2_phase(dev):
@@ -5976,8 +6260,9 @@ def main() -> int:
     launches["prune_streamed"] = streamed_phase(dev, held, ref)
     print(f"[streamed] phase wall {time.time() - t0:.3f} s")
     t0 = time.time()
-    sharded_gram_timing(dev, by_name["gram_cross"])
-    launches["calib_sharded"] = calib_sharded_phase(dev, held, ref, kept)
+    sharded_kernel_phase(dev, by_name)
+    launches["calib_sharded"], launches["calib_sharded_moe"] = \
+        calib_sharded_phase(dev, held, ref, kept)
     print(f"[calib sharded] phase wall {time.time() - t0:.3f} s")
     del held, ref, ref_bf16
     reference_phase(dev)

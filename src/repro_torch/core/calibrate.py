@@ -16,21 +16,27 @@ stays fp32). ``run(checkpointer=)`` makes a pass resumable
 (``repro_torch.distrib.fault.CalibrationCheckpointer``).
 
 ``mesh=`` (a ``DeviceMesh`` of ``launch.mesh.make_mesh``, or a
-``distrib.sharding.CalibSharding``) shards the pass, every rank running
-the engine: a rank forwards its share of each batch's rows (routed MoE
-routes the whole batch's groups: ``models.mlp._group_tokens``) and adds
-their statistics into its blocks of the accumulator, column-sharded over the
-model axis by ``stats_specs`` (a dense unit's s2 is F x F/m on each rank,
-through ``gram_ops.gram_sharded``). The blocks are summed over the batch
-axes once a pass and before each checkpoint save, after which only the
-ranks at batch index 0 keep the sums and the others start again from
-zeros; ``run`` returns on every rank the statistics gathered over the
-model axis, what the engine without a mesh returns. Parameters stay
-replicated on every rank.
+``distrib.sharding.CalibSharding``) shards the pass, every rank running the
+engine. At the start of a pass each rank places its blocks of the
+parameters on its device (``CalibSharding.place``: ``forward_specs``
+blocks, JAX's ``param_specs`` element counts, the tree a sharded serving
+rank holds), from a whole tree the caller may keep on the host, and drops
+them at the pass's end; a caller that placed them itself (a
+``distrib.sharding.RankParams``) keeps them. A rank forwards its share of
+each batch's rows tensor-parallel over its blocks
+(``models.common.TensorParallel``; routed MoE gathers the batch's rows over
+the batch axes and routes them as one device: ``models.mlp._apply_moe_tp``)
+and adds their statistics, reduced from its rank-local taps
+(``core.stats``), into its blocks of the accumulator, column-sharded over
+the model axis by ``stats_specs`` (a dense unit's s2 is F x F/m on each
+rank, through ``gram_ops.gram_sharded``). The blocks are summed over the
+batch axes once a pass and before each checkpoint save, after which only
+the ranks at batch index 0 keep the sums and the others start again from
+zeros; ``run`` returns on every rank the statistics gathered over the model
+axis, what the engine without a mesh returns.
 """
 from __future__ import annotations
 
-import contextlib
 import hashlib
 import itertools
 from typing import Callable, Dict, Iterable, List, Optional
@@ -41,7 +47,7 @@ import torch.distributed as dist
 
 from repro_torch.core import stats as stats_mod
 from repro_torch.core.units import Unit
-from repro_torch.distrib.sharding import as_sharding
+from repro_torch.distrib.sharding import as_sharding, check_forward_split
 from repro_torch.interop import flatten
 from repro_torch.models import common as model_common
 
@@ -68,9 +74,11 @@ class CalibrationEngine:
       expert_moments: also reduce the MoE expert-removal moments (``yn``,
         ``ys1``, ``ys2``; ((E+1) D)^2 a layer), which only whole-expert
         pruning reads. Off, the forward does not even record their taps.
-      mesh: a ``DeviceMesh`` (its "model" axis splits the columns) or a
-        ``CalibSharding``: the pass runs sharded on its ranks (module
-        docstring).
+      mesh: a ``DeviceMesh`` (its "model" axis splits the columns and the
+        forward) or a ``CalibSharding``: the pass runs sharded on its ranks
+        (module docstring); a config whose heads or channels do not split
+        over the model axis raises ``ValueError``
+        (``distrib.sharding.check_forward_split``).
 
     Attributes:
       fingerprint: hash of what this engine accumulates (phase, streaming
@@ -81,6 +89,9 @@ class CalibrationEngine:
       local_shapes: sharded, after ``run``: ``{key path: shape}`` of this
         rank's accumulator blocks before the gather, and ``local_bytes``
         their bytes.
+      param_shapes: sharded, after ``run``: ``{key path: shape}`` of the
+        parameter blocks the pass placed on this rank's device, and
+        ``param_bytes`` their bytes.
     """
 
     def __init__(self, model, units: List[Unit], *, phase=1,
@@ -109,10 +120,13 @@ class CalibrationEngine:
         self.spec_plan = None if spec_plan is None else {
             k: np.asarray(v, np.int32) for k, v in spec_plan.items()}
         self.shard = as_sharding(mesh)
+        if self.shard is not None:
+            check_forward_split(model.cfg, self.shard.model_size)
         self._device_plans = None
         self._acc = None            # the running sums of ``run``
         self._specs = {}            # sharded: the placements of their leaves
         self.local_shapes, self.local_bytes = None, None
+        self.param_shapes, self.param_bytes = None, None
         self.fingerprint = self._fingerprint()
 
     def _fingerprint(self) -> str:
@@ -167,15 +181,16 @@ class CalibrationEngine:
         """One batch's statistics of this pass, from one forward. Inside
         ``run``, pass 2 adds its class-1 G, and pass 1 every unit's sums,
         into the running accumulator in place and leaves them out of the
-        result (``stats._p2_attn``, ``stats.pass1_reduce``)."""
-        taps, share = {}, contextlib.nullcontext()
-        if self.shard is not None and self.shard.batch_size > 1:
-            n = len(next(iter(batch.values())))
-            share = model_common.row_share(*self.shard.row_range(n), n)
+        result (``stats._p2_attn``, ``stats.pass1_reduce``). Sharded,
+        ``params`` are this rank's blocks (``CalibSharding.place``) and the
+        forward of its rows runs tensor-parallel over them."""
+        taps, tp = {}, None
+        if self.shard is not None:
+            tp = self.shard.tensor_parallel(len(next(iter(batch.values()))))
             batch = self.shard.rows(batch)
         with model_common.tap_dtype(self.stats_dtype), \
-                model_common.expert_taps(self.expert_moments), share:
-            self.model.apply(params, batch, taps=taps)
+                model_common.expert_taps(self.expert_moments):
+            self.model.apply(params, batch, taps=taps, tp=tp)
         sh, specs = self.shard, self._specs
         if self.phase == 1:
             return stats_mod.pass1_reduce(taps, self.units, self._acc,
@@ -196,7 +211,9 @@ class CalibrationEngine:
     def run(self, params, batches: Iterable, *, checkpointer=None,
             fail_hook: Optional[Callable[[int], None]] = None) -> Dict:
         """Stream ``batches`` through the model; returns the summed
-        statistics ``{unit.name: {stat: tensor}}`` on the params' device.
+        statistics ``{unit.name: {stat: tensor}}`` on the params' device
+        (sharded: on the rank's, where its blocks are placed for the pass
+        and dropped at its end).
 
         Args:
           checkpointer: optional ``CalibrationCheckpointer``. The newest
@@ -219,8 +236,17 @@ class CalibrationEngine:
             raise ValueError("empty calibration stream") from None
         acc, start = None, 0
         self._specs = {}
-        if checkpointer is not None:
+        if self.shard is None:
             device = next(iter(flatten(params).values())).device
+        else:
+            params = self.shard.place(params)
+            blocks = flatten(params)
+            self.param_shapes = {k: tuple(t.shape) for k, t in blocks.items()}
+            self.param_bytes = sum(t.numel() * t.element_size()
+                                   for t in blocks.values())
+            device = self.shard.device
+            del blocks
+        if checkpointer is not None:
             flat, start = checkpointer.restore(self.fingerprint, device)
             if flat is not None:
                 acc = self._unflatten(flat)
@@ -243,6 +269,7 @@ class CalibrationEngine:
                     self._save(checkpointer, acc, i + 1)
         finally:
             self._acc = None
+            del params          # sharded: the rank's blocks, dropped here
         if acc is None:
             raise ValueError("every calibration batch failed")
         if checkpointer is not None:

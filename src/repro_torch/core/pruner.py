@@ -26,9 +26,17 @@ checkpoints (``ckpt_dir``) and the memory-bounded ``corp_prune_streamed``;
 the enc-dec's encoder and decoder units, its cross-attention units
 class 1 on ``cross/{wq,wk}`` (a decoder query against memory keys).
 ``mesh=`` shards every calibration pass over its ranks
-(``calibrate.CalibrationEngine(mesh=)``); each rank ranks, solves and
-folds from the gathered statistics, and the ranks' pruned parameters are
-checked equal.
+(``calibrate.CalibrationEngine(mesh=)``): a pass places the rank's
+``forward_specs`` blocks of the parameters on its card and runs the
+forward tensor-parallel over them. Each rank ranks, solves and folds from
+the gathered statistics, and the ranks' pruned parameters are checked
+equal. The design that keeps a rank's card at its blocks during the
+passes: the caller's dense tree stays where the caller holds it, in host
+memory as JAX's caller-held tree is (``launch.prune --calib-sharded``
+builds it there); the ranking reads its second matrices a chunk of rows
+at a time on the card, and the fold takes one unit's whole block to the
+card at a time and returns the folded block to the tree's device, where
+the pruned tree is built.
 
 Memory at full width (deepseek-v3 at 4 layers: 30 GB of bf16 weights,
 8.6 GB of class-1 G a layer): pass 2 adds its G in place
@@ -533,8 +541,9 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
 
     An MLP unit's ranking reads the diagonal of s2, the counts and the
     second matrix's column norms (``wv`` of a channel mix, ``out_proj``
-    of a Mamba unit): only those leave the device, in fp32 (the norms in
-    float64), not the (L, F, F) moments. A MoE unit ranks each expert's
+    of a Mamba unit), taken on the statistics' device a chunk of rows at a
+    time: only those leave the device, in fp32 (the norms in float64), not
+    the (L, F, F) moments. A MoE unit ranks each expert's
     channels alike, on its ``wd`` (L, E, F, D) and its per-expert moments:
     keep / prune (L, E, n). Mamba units are ranked only with
     ``pc.include_mamba``."""
@@ -552,7 +561,8 @@ def _rank(units, p1, params, pc: PruneConfig) -> Dict:
             # 128 x 1536 x 4096, 48 GB in float64, jamba's expert 1.6 GB
             rows = w2.reshape(-1, w2.shape[-1])
             col = torch.cat([
-                torch.linalg.vector_norm(r.double(), dim=-1) for r in
+                torch.linalg.vector_norm(r.to(st["s2"].device).double(),
+                                         dim=-1) for r in
                 rows.split(max(1, stats_mod._TEMP_BYTES // 8
                                   // rows.shape[-1]))]) \
                 .reshape(w2.shape[:-1])
@@ -615,10 +625,11 @@ def _prune_units(model, units, params, new_params, calib_batches,
                  one_traversal, spec_margin, ckpt_dir=None,
                  ckpt_every: int = 8, shard=None):
     """Calibrate, rank, compensate and fold ``units``: statistics from
-    ``params``, blocks folded from ``new_params``. Returns ``({(seg, layer
-    key, param key): folded block}, plan)``; adds the stage times (each
-    ending with a device synchronise), the units' diagnostics and, when it
-    speculated, its hits and misses to ``report``."""
+    ``params``, blocks folded from ``new_params`` on ``device`` (where the
+    statistics are), each returned to the tree's device. Returns
+    ``({(seg, layer key, param key): folded block}, plan)``; adds the stage
+    times (each ending with a device synchronise), the units' diagnostics
+    and, when it speculated, its hits and misses to ``report``."""
     speculate = (one_traversal and pc.attn_sparsity > 0
                  and any(u.kind in _ATTN_KINDS for u in units))
     # the expert-removal moments are reduced only when experts go
@@ -679,11 +690,12 @@ def _prune_units(model, units, params, new_params, calib_batches,
     # attention units first, each statistic dropped once folded; a MoE
     # block's experts, expert removal and shared expert fold in turn
     blocks = {}
+    home = next(iter(flatten(params).values())).device
     for u in sorted(units, key=lambda u: u.kind not in _ATTN_KINDS):
         if u.name not in plan and u.name not in e_plan:
             continue
         key = (u.seg, u.layer_key, u.param_key)
-        block = blocks.get(key, get_block(new_params, u))
+        block = _to(blocks.get(key, get_block(new_params, u)), device)
         attn = u.kind in _ATTN_KINDS
         st = p2.pop(u.name) if attn else p1.pop(u.name)
         if u.name in plan:
@@ -696,7 +708,8 @@ def _prune_units(model, units, params, new_params, calib_batches,
             block = _fold_as_stack(_fold_moe_experts, block, st, u, pc,
                                    *e_plan[u.name], report["units"])
         del st
-        blocks[key] = block
+        blocks[key] = _to(block, home)
+        del block
     _sync(device)
     _tick(report, "fold", t0)
     plan.update({k + "/experts": v for k, v in e_plan.items()})
@@ -748,6 +761,13 @@ def _pruned_cfg(cfg, pc: PruneConfig):
     return new
 
 
+def _device(params, shard):
+    """Where the statistics are reduced and the units folded: the rank's
+    device under a mesh, else the params'."""
+    return shard.device if shard is not None \
+        else next(iter(flatten(params).values())).device
+
+
 def _checksum(params) -> int:
     """A 63-bit hash of every leaf's bytes, in key-path order."""
     h = hashlib.sha256()
@@ -759,19 +779,20 @@ def _checksum(params) -> int:
 
 
 def _check_replicas(params, shard, report):
-    """Gather every rank's checksum of ``params`` (over the model axis,
-    then the batch axes) into ``report["checksums"]``; raises unless they
-    are all equal."""
-    device = next(iter(flatten(params).values())).device
-    sums = torch.tensor([_checksum(params)], dtype=torch.int64,
-                        device=device)
+    """Gather every rank's checksum of ``params`` and the bytes of its
+    last placed parameter blocks (over the model axis, then the batch
+    axes) into ``report["checksums"]`` and ``report["param_bytes"]``, in
+    one rank order; raises unless the checksums are all equal."""
+    vals = torch.tensor([[_checksum(params), shard.param_bytes or 0]],
+                        dtype=torch.int64, device=shard.device)
     for group, size in ((shard.model_group, shard.model_size),
                         (shard.batch_group, shard.batch_size)):
         if size > 1:
-            parts = [torch.empty_like(sums) for _ in range(size)]
-            dist.all_gather(parts, sums, group=group)
-            sums = torch.cat(parts)
-    report["checksums"] = sums.tolist()
+            parts = [torch.empty_like(vals) for _ in range(size)]
+            dist.all_gather(parts, vals, group=group)
+            vals = torch.cat(parts)
+    report["checksums"] = vals[:, 0].tolist()
+    report["param_bytes"] = vals[:, 1].tolist()
     if len(set(report["checksums"])) != 1:
         raise RuntimeError(f"the ranks' pruned parameters differ: checksums "
                            f"{report['checksums']}")
@@ -795,11 +816,14 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
         are not modified. The pruned tree shares the leaves that pruning
         leaves as they were (embeddings, norms, routers of kept experts
         ...) with ``params``, so a model near the card's memory (qwen3-moe
-        at 42 GB) is not held twice.
+        at 42 GB) is not held twice. With ``mesh`` they may stay in host
+        memory: each pass places the rank's blocks on its card, each fold
+        takes one unit's block there, and the pruned tree is built on the
+        params' device (module docstring).
       calib_batches: zero-arg callable returning a fresh iterator of
-        batches on the params' device (traversed twice: the ranking pass
-        and the attention compensation pass; once with ``one_traversal`` on
-        the speculative hit path).
+        batches on the params' device, with ``mesh`` on the rank's
+        (traversed twice: the ranking pass and the attention compensation
+        pass; once with ``one_traversal`` on the speculative hit path).
       pc: sparsities, ridge and ranking policy (``PruneConfig``);
         ``expert_sparsity`` removes whole routed experts (MoE), after the
         hidden-channel fold.
@@ -810,7 +834,9 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
         valid one.
       mesh: a ``DeviceMesh`` or ``CalibSharding``: the calibration passes
         run sharded on its ranks, each of which calls ``corp_prune`` alike
-        (module docstring); the checksums land in ``report["checksums"]``.
+        (module docstring); the checksums land in ``report["checksums"]``
+        and each rank's parameter-block bytes on its card in
+        ``report["param_bytes"]``.
       stats_dtype: streaming dtype of the taps in every pass, "float32" or
         "bfloat16" (statistics accumulate in fp32 either way).
       one_traversal: fuse the two passes into one traversal (module
@@ -828,7 +854,7 @@ def corp_prune(model, params, calib_batches: Callable[[], Iterable],
     shard = as_sharding(mesh)
     cfg = model.cfg
     units = discover_units(cfg)
-    device = next(iter(flatten(params).values())).device
+    device = _device(params, shard)
     calib, calls = _counted(calib_batches)
     report = {"timing": {}, "units": {}}
     new_params = map_tree(lambda t: t, params)
@@ -873,7 +899,7 @@ def corp_prune_streamed(model, params, calib_batches: Callable[[], Iterable],
     cfg = model.cfg
     all_units = discover_units(cfg)
     say = progress or (lambda s: None)
-    device = next(iter(flatten(params).values())).device
+    device = _device(params, shard)
     calib, calls = _counted(calib_batches)
     report = {"timing": {}, "units": {}, "groups": 0}
     new_params = map_tree(lambda t: t, params)

@@ -65,15 +65,22 @@ the decoder's and the key rows the memory's, T and S taken as they come.
 
 Sharded (``shard=``, a ``distrib.sharding.CalibSharding``; the engine's
 ``mesh=``), every reduction is of this rank's rows, and each unit's sums
-are this rank's column blocks by ``stats_specs``. The products are
-reduced for the block alone: the dense and MoE moments (s1, s2, na; ys1,
-ys2), one gram_cross against the block's columns (``_sharded_moments``,
-``gram_ops.gram_sharded``); pass 2's class-1 G, added in place into the
-rank's block from the j rows of A that reach it (``_add_kron``); the
-class-1 speculative Gc and Hfull, from the block's columns of K^T K_C.
-The rest, small beside them (the attention energies, pass 2's h and a
-rope unit's G, the rope units' speculative sums), is reduced at full width
-and cut (``_local``).
+are this rank's column blocks by ``stats_specs``. The taps are the
+tensor-parallel forward's, rank-local: the rank's heads of ``q`` and
+``k``, its hidden channels of ``h`` and ``mamba_y``, its experts of the
+MoE queues (``_TAP_SPLIT``). A statistic whose block needs other columns
+than the tap holds gathers the tap over the model axis first, as GSPMD
+reshards (``_whole``): the moments' X^T X[:, lo:hi] needs every row of X,
+pass 2's and the speculative products every head. The attention energies
+are per kv group, so each rank reduces its own groups and only the small
+result is gathered. The products are reduced for the block alone: the
+dense and MoE moments (s1, s2, na; ys1, ys2), one gram_cross against the
+block's columns (``_sharded_moments``, ``gram_ops.gram_sharded``); pass
+2's class-1 G, added in place into the rank's block from the j rows of A
+that reach it (``_add_kron``); the class-1 speculative Gc and Hfull, from
+the block's columns of K^T K_C. The rest, small beside them (the
+attention energies, pass 2's h and a rope unit's G, the rope units'
+speculative sums), is reduced at full width and cut (``_local``).
 """
 from __future__ import annotations
 
@@ -100,6 +107,24 @@ _MOE_WHOLE = 16 << 30
 _MOE_CHUNK = 4 << 30
 _TEMP_BYTES = 1 << 30
 _KRON_CHUNK = _TEMP_BYTES // 4
+
+
+# the dim of each tap that the tensor-parallel forward splits over the model
+# axis, from the end: heads of q and k (a cross unit's too), hidden channels
+# of h and mamba_y, experts of the MoE queues and contributions
+_TAP_SPLIT = {"q": -2, "k": -2, "h": -1, "mamba_y": -1, "moe_h": -3,
+              "moe_mask": -2, "moe_yc": -2}
+
+
+def _whole(taps, key, shard=None):
+    """Tap ``key`` as one device records it: under a model axis of more
+    than one rank, whose forward is tensor-parallel, the ranks' blocks
+    gathered over it (``_TAP_SPLIT``); else as it is."""
+    t = taps[key]
+    if shard is None or shard.model_size == 1:
+        return t
+    name = key.rsplit("/", 1)[-1].removeprefix("cross_")
+    return shard.tensor_parallel().all_gather(t, _TAP_SPLIT[name])
 
 
 def _moments(x):
@@ -153,11 +178,13 @@ def _to_complex_pairs(q):
     return torch.complex(q[..., 0::2], q[..., 1::2])
 
 
-def _qk_taps(taps, unit: Unit):
+def _qk_taps(taps, unit: Unit, shard=None):
     """An attention unit's query and key taps, with the layer axis: ``q``
-    and ``k``, a cross unit's ``cross_q`` and ``cross_k``."""
+    and ``k``, a cross unit's ``cross_q`` and ``cross_k``; whole with
+    ``shard`` (``_whole``), else as recorded."""
     pre = f"{unit.tap_prefix}/{'cross_' if unit.kind == 'cross' else ''}"
-    return _stacked(unit, taps[pre + "q"]), _stacked(unit, taps[pre + "k"])
+    return (_stacked(unit, _whole(taps, pre + "q", shard)),
+            _stacked(unit, _whole(taps, pre + "k", shard)))
 
 
 def _stacked(unit: Unit, x):
@@ -209,7 +236,7 @@ def _p1_mlp(taps, unit: Unit, shard=None):
     already: with ``shard``, s1, s2 and na where the width divides the
     model axis)."""
     key = "mamba_y" if unit.kind == "mamba" else "h"
-    h = _stacked(unit, taps[f"{unit.tap_prefix}/{key}"])  # (L, B, T, F)
+    h = _stacked(unit, _whole(taps, f"{unit.tap_prefix}/{key}", shard))
     x = h.reshape(h.shape[0], -1, h.shape[-1])
     st = None if shard is None else _sharded_moments(x, shard)
     if st is None:
@@ -272,8 +299,8 @@ def _p1_moe(taps, unit: Unit, acc=None, shard=None):
     and ys2, are reduced for the block alone where their width divides the
     model axis."""
     pre = unit.tap_prefix
-    h = _stacked(unit, taps[f"{pre}/moe_h"])
-    mask = _stacked(unit, taps[f"{pre}/moe_mask"])
+    h = _stacked(unit, _whole(taps, f"{pre}/moe_h", shard))
+    mask = _stacked(unit, _whole(taps, f"{pre}/moe_mask", shard))
     L, G, E, C, F = h.shape
     hshard = shard if shard is not None and shard.splits(F) else None
     out = _expert_moments(h.transpose(1, 2).reshape(L * E, G * C, F),
@@ -282,8 +309,8 @@ def _p1_moe(taps, unit: Unit, acc=None, shard=None):
     blocks = () if hshard is None else ("s1", "s2", "na")
     out = {k: v.reshape((L, E) + v.shape[1:]) for k, v in out.items()}
     if f"{pre}/moe_yc" in taps:
-        yc = _stacked(unit, taps[f"{pre}/moe_yc"])     # (L, G, tg, E, D)
-        x = _stacked(unit, taps[f"{pre}/moe_x"])       # (L, G, tg, D)
+        yc = _stacked(unit, _whole(taps, f"{pre}/moe_yc", shard))
+        x = _stacked(unit, taps[f"{pre}/moe_x"])   # (L, ..., D) a token
         D = yc.shape[-1]
         z = torch.cat([x.reshape(L, -1, D), yc.reshape(L, -1, E * D)],
                       dim=-1)
@@ -297,10 +324,14 @@ def _p1_moe(taps, unit: Unit, acc=None, shard=None):
     return _unstack(unit, out), blocks
 
 
-def _p1_attn(taps, unit: Unit):
+def _p1_attn(taps, unit: Unit, shard=None):
+    """The logit energies of an attention unit's kv groups, from its taps
+    as recorded: with ``shard``, of the rank's heads, whose groups' sums
+    are complete, gathered over the model axis once reduced."""
     q, k = _qk_taps(taps, unit)                       # (L, B, T|S, H, d)
     q, k = q.float(), k.float()
-    qg = _group_q(q, unit.n_groups)                   # (L, B, G, TQ, d)
+    m = 1 if shard is None else shard.model_size
+    qg = _group_q(q, unit.n_groups // m)              # (L, B, G, TQ, d)
     kg = k.permute(0, 1, 3, 2, 4)                     # (L, B, G, T, d)
     if unit.attn_class == 1:
         eq = qg.square().sum(dim=3)                   # (L, B, G, d)
@@ -309,7 +340,10 @@ def _p1_attn(taps, unit: Unit):
         eq = _to_complex_pairs(qg).abs().square().sum(dim=3)
         ek = _to_complex_pairs(kg).abs().square().sum(dim=3)
     L, B = q.shape[0], q.shape[1]
-    return _unstack(unit, {"rank": (eq * ek).sum(dim=1),
+    rank = (eq * ek).sum(dim=1)                       # (L, G, d)
+    if m > 1:
+        rank = shard.tensor_parallel().all_gather(rank, -2)
+    return _unstack(unit, {"rank": rank,
                            "n": torch.full((L,), float(B),
                                            dtype=torch.float32,
                                            device=q.device)})
@@ -404,7 +438,7 @@ def _p2_attn(taps, unit: Unit, keep, prune, acc=None, shard=None):
     ``tree_add``); without it a zero G is made and returned. ``shard``: a
     class-1 G is this rank's column block (``acc["G"]`` is the rank's).
     Returns (stats, the leaves that are this rank's blocks already)."""
-    q, k = _qk_taps(taps, unit)
+    q, k = _qk_taps(taps, unit, shard)
     q, k = q.float(), k.float()
     keep, prune = _stacked(unit, keep), _stacked(unit, prune)
     qg = _group_q(q, unit.n_groups)
@@ -508,7 +542,7 @@ def _p2spec_attn(taps, unit: Unit, cand, shard=None):
     ``shard``: a class-1 unit's Gc and Hfull are this rank's column blocks
     (of k and u: the block's columns of K^T K_C enter the products).
     Returns (stats, the leaves that are this rank's blocks already)."""
-    q, k = _qk_taps(taps, unit)
+    q, k = _qk_taps(taps, unit, shard)
     cand = _stacked(unit, cand)
     if unit.attn_class != 1:
         return _unstack(unit, _p2spec_complex(q, k, unit, cand)), ()
@@ -644,7 +678,7 @@ def pass1_reduce(taps: Dict, units: List[Unit],
             st, blocks = _p1_moe(taps, u, None if acc is None
                                  else acc[u.name], shard)
         elif u.kind in ("attn", "mla", "cross"):
-            st = _p1_attn(taps, u)
+            st = _p1_attn(taps, u, shard)
         else:
             raise ValueError(f"unit {u.name}: unknown kind {u.kind!r}")
         if shard is not None:

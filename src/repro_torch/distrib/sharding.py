@@ -8,8 +8,9 @@ A calibration pass on a mesh splits two ways:
     Every statistic is a sum over samples, so an uneven split is exact and
     nothing is padded; the true counts come out of the sum. The one layer
     whose output for a row depends on the other rows, routed MoE (an
-    expert's capacity is shared by a routing group), routes the whole
-    batch's groups or raises (``models.mlp._group_tokens``).
+    expert's capacity is shared by a routing group), gathers the batch's
+    rows over the batch axes, routes them as one device does and keeps
+    its own (``models.mlp._apply_moe_tp``), so any split is exact.
   * columns: each model rank keeps the block of every statistic leaf's
     trailing dim that ``stats_specs`` shards: no rank holds a full F x F
     second moment.
@@ -17,7 +18,13 @@ A calibration pass on a mesh splits two ways:
 A rank adds its rows' statistics into its own blocks; ``reduce`` sums them
 over the batch axes (once a pass, and before each checkpoint save) and
 ``gather`` concatenates the model axis' blocks into the full leaves.
-Calibration keeps the parameters replicated on every rank.
+
+The forward of a pass holds only the rank's blocks of the parameters
+(``place``: ``forward_specs`` blocks, the tree a sharded serving rank
+holds) and runs tensor-parallel over the model axis
+(``tensor_parallel``), so its taps are the rank's heads and channels; the
+statistics gather them where their blocks need other columns
+(``core.stats``).
 
 Parameters have their own rule (``param_specs``, JAX's leaf for leaf) and
 the serving forward its variant (``forward_specs``: the head-parallel
@@ -37,6 +44,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.interop import map_tree
 
 # Stat leaves that stay replicated: bookkeeping whose size never grows with
 # the unit width (sample counts, pruned-tail energies, the one-traversal
@@ -121,7 +130,8 @@ class CalibSharding:
     model_axis: the axis whose ranks split every statistic's columns.
     batch_axes: the axes whose ranks split every batch's rows.
 
-    Beyond JAX's fields it holds this rank's coordinates and the process
+    Beyond JAX's fields it holds this rank's coordinates, its device (the
+    current CUDA device for a CUDA mesh, else the CPU) and the process
     groups of the model axis and of the batch axes together. Building it is
     a collective call of every rank of the default group; a rank outside
     the mesh then raises.
@@ -141,6 +151,10 @@ class CalibSharding:
         if mesh.get_coordinate() is None:
             raise ValueError(f"rank {dist.get_rank()} lies outside the "
                              f"{self.shape} mesh")
+        self.device = torch.device("cuda", torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+        self._tp = None
+        self.param_bytes = None
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -189,6 +203,53 @@ class CalibSharding:
         lo, hi = self.row_range(len(next(iter(batch.values()))))
         return {k: v[lo:hi] for k, v in batch.items()}
 
+    def tensor_parallel(self, n_rows: int | None = None):
+        """This rank's ``models.common.TensorParallel`` over the model
+        group, made once, whose ``rows`` is the batch group's (None with
+        one batch rank); given ``n_rows``, the ranks' shares of a batch of
+        that many rows go into its ``counts``. The forward of a pass runs
+        on it."""
+        from repro_torch.models.common import TensorParallel
+        if self._tp is None:
+            self._tp = TensorParallel(self.model_group, self.model_index,
+                                      self.model_size)
+            if self.batch_size > 1:
+                self._tp.rows = TensorParallel(
+                    self.batch_group, self.batch_index, self.batch_size)
+        if n_rows is not None and self._tp.rows is not None:
+            q, r = divmod(n_rows, self.batch_size)
+            self._tp.rows.counts = [q + (i < r)
+                                    for i in range(self.batch_size)]
+        return self._tp
+
+    def place(self, params):
+        """This rank's blocks of a whole parameter tree (on the host or the
+        card) by ``forward_specs``, on this rank's device, as
+        ``RankParams``: the blocks a sharded serving rank holds
+        (``shard_params``), each copied from its view of the whole leaf
+        into one buffer there, each leaf a view of it at a 256-byte aligned
+        offset, so that a pass allocates its parameters once and frees them
+        at once, and the host holds no copy of the blocks beside the tree.
+        Their bytes go into ``param_bytes``. ``RankParams`` are returned as
+        they are."""
+        if isinstance(params, RankParams):
+            return params
+        specs = forward_specs(params, self.sizes)
+        blocks = shard_params(params, specs, self.mesh, dist.get_rank(),
+                              copy=False)
+        leaves = list(_leaves(blocks))
+        nbytes = [t.numel() * t.element_size() for t in leaves]
+        buf = torch.empty(sum(-(-n // 256) * 256 for n in nbytes),
+                          dtype=torch.uint8, device=self.device)
+        views, at = [], 0
+        for t, n in zip(leaves, nbytes):
+            views.append(buf[at:at + n].view(t.dtype).view(t.shape))
+            views[-1].copy_(t)
+            at += -(-n // 256) * 256
+        self.param_bytes = sum(nbytes)
+        views = iter(views)     # map_tree walks the tree as _leaves does
+        return RankParams(map_tree(lambda t: next(views), blocks), specs)
+
     def specs(self, stats):
         return stats_specs(stats, self.sizes, model_axis=self.model_axis)
 
@@ -204,11 +265,16 @@ class CalibSharding:
                 else one(v, specs[k]) for k, v in stats.items()}
 
     def reduce(self, stats) -> None:
-        """Sum every leaf over the batch axes, in place, on every rank."""
+        """Sum every leaf over the batch axes, in place, on every rank. A
+        collective reads a tensor's storage as contiguous, so a strided
+        leaf is reduced in a contiguous copy and copied back."""
         if self.batch_size == 1:
             return
         for t in _leaves(stats):
-            dist.all_reduce(t, group=self.batch_group)
+            buf = t.contiguous()
+            dist.all_reduce(buf, group=self.batch_group)
+            if buf is not t:
+                t.copy_(buf)
 
     def gather(self, stats, specs):
         """This rank's blocks -> the full leaves, gathered over the model
@@ -218,11 +284,25 @@ class CalibSharding:
         def one(t, spec):
             if spec is None or m == 1:
                 return t
+            t = t.contiguous()
             parts = [torch.empty_like(t) for _ in range(m)]
             dist.all_gather(parts, t, group=self.model_group)
             return torch.cat(parts, dim=-1)
         return {k: self.gather(v, specs[k]) if isinstance(v, dict)
                 else one(v, specs[k]) for k, v in stats.items()}
+
+
+class RankParams(dict):
+    """A rank's blocks of a parameter tree (``CalibSharding.place``,
+    ``serve.sharding.ServeSharding.take_params``), with their ``specs``
+    (``forward_specs`` of the whole tree), which a sharded calibration
+    engine and a sharded serving engine take as they are: a caller that
+    cannot hold every rank's whole tree at once cuts its blocks one rank at
+    a time."""
+
+    def __init__(self, blocks, specs):
+        super().__init__(blocks)
+        self.specs = specs
 
 
 def as_sharding(mesh):
@@ -434,6 +514,52 @@ def forward_specs(params, mesh):
     return walk(params, specs, "")
 
 
+def check_forward_split(cfg, model_size: int) -> None:
+    """Refuse a config whose heads or channels the tensor-parallel forward
+    (sharded calibration and sharded serving) cannot split over a
+    ``model_size``-way model axis: each split dim must divide it, or
+    ``forward_specs`` keeps JAX's spec on another dim and the rank's blocks
+    do not fit the forward (routed experts that do not divide are kept
+    whole by JAX's rule, while the forward splits experts, never their
+    channels). Raises ``ValueError`` naming every such dim, except where
+    the only one is fewer kv heads than ranks (e.g. a reduced config's one
+    kv head on a 2-way axis): the ranks sharing a kv head would each need
+    a copy of it (kv-head replication, Megatron's rule), which the port
+    does not do yet, so that raises ``NotImplementedError``."""
+    if model_size <= 1:
+        return
+    dims = {}
+    kinds = set(cfg.layer_kinds)
+    if cfg.family != "lm" or kinds & {"attn", "swa"}:
+        dims["n_heads"] = cfg.n_heads
+        if cfg.mla is None:
+            dims["n_kv_heads"] = cfg.n_kv_heads
+    if "rwkv" in kinds:
+        dims["rwkv heads"] = cfg.d_model // cfg.rwkv.head_dim
+        dims["d_ff"] = cfg.eff_d_ff
+    if "mamba" in kinds:
+        dims["d_inner"] = cfg.eff_d_inner
+    moe = [cfg.layer_is_moe(i) for i in range(cfg.n_layers)] \
+        if cfg.family == "lm" else [False]
+    if not all(moe) and "rwkv" not in kinds:
+        dims["d_ff"] = cfg.eff_dense_d_ff or cfg.eff_d_ff
+    if any(moe):
+        dims["experts"] = cfg.eff_num_experts
+        if cfg.moe.num_shared:
+            dims["shared d_ff"] = cfg.moe.num_shared * cfg.eff_d_expert
+    bad = {k: v for k, v in dims.items() if v % model_size}
+    if list(bad) == ["n_kv_heads"] and model_size % bad["n_kv_heads"] == 0:
+        raise NotImplementedError(
+            f"{cfg.name}: {bad['n_kv_heads']} kv heads over a "
+            f"{model_size}-way model axis need kv-head replication, which "
+            f"the tensor-parallel forward does not do yet")
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: {', '.join(f'{k} {v}' for k, v in bad.items())} "
+            f"do not split over a {model_size}-way model axis; the "
+            f"tensor-parallel forward splits them")
+
+
 def batch_specs(batch, mesh):
     """The leading (batch) dim of every leaf over ("pod", "data") where
     their size divides it; otherwise replicated, never padded."""
@@ -502,20 +628,20 @@ def block_of(leaf, spec, sizes: Dict[str, int], coords: Dict[str, int],
         else np.concatenate(parts, axis=-1)
 
 
-def shard_params(params, specs, mesh, rank: int):
+def shard_params(params, specs, mesh, rank: int, copy: bool = True):
     """Rank ``rank``'s blocks of a parameter tree by ``specs``
     (``param_specs`` or ``forward_specs``): a sharded leaf becomes a
-    contiguous copy of its block, a replicated one stays the same object;
-    a leaf of ``PAIRED_LEAVES`` is cut in paired halves (``block_of``).
-    ``mesh``: a ``DeviceMesh``, a sharding object or an ``{axis: size}``
-    dict."""
+    contiguous copy of its block (with ``copy=False`` a view of it), a
+    replicated one stays the same object; a leaf of ``PAIRED_LEAVES`` is
+    cut in paired halves (``block_of``). ``mesh``: a ``DeviceMesh``, a
+    sharding object or an ``{axis: size}`` dict."""
     sizes, coords = _sizes(mesh), coordinates(mesh, rank)
 
     def one(name, leaf, spec):
         out = block_of(leaf, spec, sizes, coords,
                        paired=name in PAIRED_LEAVES)
-        if out is leaf:
-            return leaf
+        if out is leaf or not copy:
+            return out
         return out.contiguous() if isinstance(out, torch.Tensor) \
             else np.ascontiguousarray(out)
 

@@ -31,14 +31,17 @@ resumable statistics checkpoints (``--calib-ckpt``) are ported.
 
 ``--mesh DxM`` (or ``PxDxM``) runs the pipeline on prod(shape) ranks
 (``launch.mesh.launch``: spawned, or joined under torchrun), each with the
-same parameters and stream; alone it gives the unsharded result, as the
-JAX CLI's mesh context does. ``--calib-sharded`` shards the calibration
-statistics over the mesh (``corp_prune(mesh=)``) and checks that every
-rank folds bitwise the same parameters. The mesh's first rank prints and
-writes. ``--dist-backend`` defaults to nccl for CUDA ranks (one card a
-rank) and gloo for CPU ranks; ``--dist-backend gloo --device cuda`` puts
-several ranks on one card. ``--gram-tiles`` (the TPU autotuner's tiles)
-parses and raises ``NotImplementedError`` naming it.
+same parameters and stream; alone it gives the unsharded result, as the JAX
+CLI's mesh context does. ``--calib-sharded`` shards calibration over the
+mesh (``corp_prune(mesh=)``): each rank builds the dense tree in host
+memory, and each pass places only the rank's blocks of it on its card and
+runs the forward tensor-parallel; the statistics are sharded, and every
+rank is checked to fold bitwise the same parameters. The mesh's first rank
+prints and writes, and prints each rank's parameter bytes on its card
+against the whole tree's. ``--dist-backend`` defaults to nccl for CUDA
+ranks (one card a rank) and gloo for CPU ranks; ``--dist-backend gloo
+--device cuda`` puts several ranks on one card. ``--gram-tiles`` (the TPU
+autotuner's tiles) parses and raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from repro_torch.configs import resolve_config
 from repro_torch.core import PruneConfig, corp_prune
 from repro_torch.data import calib_stream
 from repro_torch.distrib.sharding import CalibSharding
+from repro_torch.interop import flatten
 from repro_torch.launch.mesh import (check_backend, default_backend,
                                      host_ranks, joined, launch, make_mesh,
                                      parse_shape)
@@ -140,9 +144,11 @@ def parse_args(argv=None):
                     help="mesh shape 'DxM' (data x model) or 'PxDxM': the "
                          "pipeline runs on that many ranks")
     ap.add_argument("--calib-sharded", action="store_true",
-                    help="shard the calibration statistics over --mesh: "
-                         "column blocks over the model axis, batch rows "
-                         "over the data axes (requires --mesh)")
+                    help="shard calibration over --mesh: each rank's card "
+                         "holds its blocks of the parameters, the forward "
+                         "runs tensor-parallel over the model axis, batch "
+                         "rows split over the data axes, the statistics "
+                         "in column blocks (requires --mesh)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="torch.distributed backend of the --mesh ranks "
                          "(default nccl for cuda, one card a rank; gloo for "
@@ -193,7 +199,9 @@ def _run(args, device, shard=None, first=True) -> dict:
     say = print if first else (lambda *a, **k: None)
     cfg = resolve_config(args.arch)
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device=device)
+    # sharded calibration places each rank's blocks on its card
+    params = model.init(torch.Generator().manual_seed(0),
+                        device="cpu" if shard is not None else device)
     if args.ckpt_in:
         last = latest_step(args.ckpt_in)
         if last is None:
@@ -224,9 +232,14 @@ def _run(args, device, shard=None, first=True) -> dict:
     dt = time.time() - t0
     timing = ", ".join(f"{k} {v:.3f}s" for k, v in report["timing"].items())
     if shard is not None:
+        whole = sum(t.numel() * t.element_size()
+                    for t in flatten(params).values())
         say(f"[prune] mesh {args.mesh} {shard.axis_names}, statistics "
             f"sharded over {math.prod(shard.shape)} ranks; parameter "
             f"checksums: {json.dumps(report['checksums'])}")
+        say(f"[prune] parameter bytes on each rank's {device.type}: "
+            f"{json.dumps(report['param_bytes'])} of the whole tree's "
+            f"{whole} (on the host)")
     say(f"[prune] done in {dt:.1f}s on {device} ({timing}); "
           f"d_ff {cfg.d_ff} -> {new_cfg.eff_d_ff}, "
           + (f"dense d_ff {cfg.dense_d_ff} -> {new_cfg.eff_dense_d_ff}, "

@@ -103,6 +103,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import latest_step, restore_checkpoint
 from repro_torch.configs import resolve_config
+from repro_torch.distrib.sharding import check_forward_split
 from repro_torch.launch.mesh import (AXES, check_backend, default_backend,
                                      host_ranks, joined, launch, make_mesh,
                                      parse_shape)
@@ -115,8 +116,7 @@ from repro_torch.serve.cache import _infer_batch_axes, cache_contract
 from repro_torch.serve.engine import format_table
 from repro_torch.serve.errors import msg
 from repro_torch.serve.router import ROUTES
-from repro_torch.serve.sharding import (ServeSharding, check_tensor_parallel,
-                                        slot_specs)
+from repro_torch.serve.sharding import ServeSharding, slot_specs
 
 
 # leaves CORP pruning adds: a pruned template holds them (zeros), and a
@@ -431,8 +431,9 @@ def check_shardable(cfg, shape, *, slots: int, max_len: int,
                     mem_len=None) -> None:
     """Refuse, before any rank loads its weights, a config that a
     ``shape`` mesh cannot serve: its slot cache by ``slot_specs``
-    (``shard_ineligible``, as the JAX engine), then a MoE whose experts
-    do not divide the model axis (``check_tensor_parallel``)."""
+    (``shard_ineligible``, as the JAX engine), then heads, channels or
+    experts that do not divide the model axis
+    (``distrib.sharding.check_forward_split``)."""
     model = build_model(cfg)
     meta = torch.device("meta")
     if cache_contract(cfg) == "encdec" and mem_len is None:
@@ -445,7 +446,7 @@ def check_shardable(cfg, shape, *, slots: int, max_len: int,
     sizes = dict(zip(AXES[-len(shape):], shape))
     slot_specs(template(slots), _infer_batch_axes(template(1), template(2)),
                sizes, name=cfg.name)
-    check_tensor_parallel(cfg, sizes["model"])
+    check_forward_split(cfg, sizes["model"])
 
 
 def follow_trace(model, params, *, slots, max_len, mem_len=None,

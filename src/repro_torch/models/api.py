@@ -2,7 +2,7 @@
 branches of ``build_model``. ``Model`` bundles plain functions:
 
   init(gen, device=None)                      -> params
-  apply(params, batch, taps=None, train=False) -> logits (vit) |
+  apply(params, batch, taps=None, train=False, tp=None) -> logits (vit) |
                                                  (logits, aux) (lm, encdec)
   loss(params, batch, train=True)             -> fp32 0-d training loss
   prefill(params, batch, max_len, lengths=None, tp=None) -> (logits, cache)
@@ -11,12 +11,15 @@ branches of ``build_model``. ``Model`` bundles plain functions:
 
 ``decode_step`` updates the cache in place. A VLM stub batch
 (``frontend="patch_stub"``) carries ``patch_embeds`` (B, P, D) beside its
-``tokens``; ``apply`` and ``prefill`` put them before the tokens. The
-``prefill`` and ``decode_step`` of an LM and of an enc-dec take ``tp=``, a
-rank's tensor-parallel context (``models.common.TensorParallel``) over
-its blocks. An enc-dec batch carries the encoder's ``frames`` (B, S, D) beside the
-decoder's ``tokens``, and its ``init_cache`` takes the memory length
-``mem_len`` (S).
+``tokens``; ``apply`` and ``prefill`` put them before the tokens. ``apply``
+of every family, and the ``prefill`` and ``decode_step`` of an LM and of an
+enc-dec, take ``tp=``, a rank's tensor-parallel context
+(``models.common.TensorParallel``) over its blocks
+(``distrib.sharding.forward_specs``); ``apply`` then records the rank's
+taps (the sharded calibration forward), and returns whole ViT logits and an
+LM's or enc-dec's vocab block where the head is split there. An enc-dec
+batch carries the encoder's ``frames`` (B, S, D) beside the decoder's
+``tokens``, and its ``init_cache`` takes the memory length ``mem_len`` (S).
 """
 from __future__ import annotations
 
@@ -55,10 +58,10 @@ def build_model(cfg: ModelConfig) -> Model:
         return map_tree(lambda a: a.to(dev), init_fn(gen, cfg))
 
     if cfg.family == "vit":
-        def apply(params, batch, taps=None, train=False):
+        def apply(params, batch, taps=None, train=False, tp=None):
             inputs = batch["images"] if "images" in batch else batch["embeds"]
             return vit_mod.apply_vit(params, inputs, cfg, taps=taps,
-                                     train=train)
+                                     train=train, tp=tp)
 
         return Model(cfg=cfg, init=init, apply=apply,
                      loss=lambda params, batch, train=True:
@@ -67,10 +70,10 @@ def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
         return _encdec_model(cfg, init)
 
-    def lm_apply(params, batch, taps=None, train=False):
+    def lm_apply(params, batch, taps=None, train=False, tp=None):
         return lm_mod.apply_lm(params, batch["tokens"], cfg, taps=taps,
                                patch_embeds=batch.get("patch_embeds"),
-                               train=train)
+                               train=train, tp=tp)
 
     def init_cache(batch, max_len, device=None):
         dev = resolve_device(None) if device is None else torch.device(device)
@@ -100,9 +103,9 @@ def _encdec_model(cfg: ModelConfig, init) -> Model:
 
     return Model(
         cfg=cfg, init=init,
-        apply=lambda params, batch, taps=None, train=False:
+        apply=lambda params, batch, taps=None, train=False, tp=None:
             encdec_mod.apply_encdec(params, batch["frames"], batch["tokens"],
-                                    cfg, taps=taps, train=train),
+                                    cfg, taps=taps, train=train, tp=tp),
         loss=lambda params, batch, train=True:
             encdec_mod.encdec_loss(params, batch, cfg, train=train),
         prefill=lambda params, batch, max_len, lengths=None, tp=None:

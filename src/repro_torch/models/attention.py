@@ -143,9 +143,9 @@ def _mla_down(p, x, tp):
     if tp is None:
         return [torch.einsum("btd,dr->btr", x, p[n]) for n in _MLA_DOWN]
     lo, hi = tp.block(x.shape[-1])
-    xs = x[..., lo:hi]
-    whole = tp.all_reduce(torch.cat(
-        [torch.einsum("btd,dr->btr", xs, p[n]) for n in _MLA_DOWN], dim=-1))
+    whole = tp.reduce_product(
+        x[..., lo:hi], torch.cat([p[n] for n in _MLA_DOWN], dim=-1),
+        "btd,dr->btr")
     return whole.split([p[n].shape[-1] for n in _MLA_DOWN], dim=-1)
 
 
@@ -198,10 +198,9 @@ def _apply_mla(p, x, cfg, *, positions, taps=None, return_cache=False,
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, rope)],
                   dim=-1)
     o = flash_ops.attention(q, k, v, causal=True, scale=_mla_scale(cfg))
-    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
+    y = _out(o, p["wo"], tp, "bthv,hvd->btd")
     cache = None
     if tp is not None:
-        y = tp.all_reduce(y)
         if return_cache:
             ckv, k_rope = _latent_blocks(tp, ckv, k_rope)
     if return_cache:
@@ -241,11 +240,16 @@ def _decode_mla(p, x, cache, cfg, tp=None):
     o_lat = torch.einsum("bhs,bsr->bhr", torch.softmax(logits, dim=-1),
                          ckv32)
     o = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), p["w_uv"])
-    y = torch.einsum("bhv,hvd->bd", o, p["wo"])[:, None, :]
-    if tp is not None:
-        y = tp.all_reduce(y)
+    y = _out(o, p["wo"], tp, "bhv,hvd->bd")[:, None, :]
     pos.add_(1)
     return y, cache
+
+
+def _out(o, wo, tp, eq):
+    """The output projection of the heads ``o``; under ``tp`` the rank's
+    heads' partial sum, completed over the ranks (``reduce_product``)."""
+    return torch.einsum(eq, o, wo) if tp is None \
+        else tp.reduce_product(o, wo, eq)
 
 
 def _rope_gathered(x, positions, inv):
@@ -305,9 +309,7 @@ def apply_attn(p, x, cfg, kind="attn", *, positions=None, taps=None,
     scale = 1.0 / math.sqrt(cfg.qk_full)
     o = flash_ops.attention(q, k, v, causal=(mask_kind != "full"),
                             window=window, scale=scale)
-    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
-    if tp is not None:
-        y = tp.all_reduce(y)
+    y = _out(o, p["wo"], tp, "bthv,hvd->btd")
     cache = None
     if return_cache:
         cache = {"k": k, "v": v,
@@ -349,8 +351,7 @@ def apply_cross_attn(p, x, mem, cfg, *, taps=None, tp=None):
     tap(taps, "k", k)
     o = flash_ops.attention(q, k, v, causal=False,
                             scale=1.0 / math.sqrt(cfg.qk_full))
-    y = torch.einsum("bthv,hvd->btd", o, p["wo"])
-    return y if tp is None else tp.all_reduce(y)
+    return _out(o, p["wo"], tp, "bthv,hvd->btd")
 
 
 def precompute_cross_cache(p, mem, cfg):
@@ -369,8 +370,7 @@ def decode_cross_attn(p, x, cross_cache, cfg, tp=None):
     valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
     y = _decode_sdpa(q, k, cross_cache["v_mem"], valid,
                      1.0 / math.sqrt(cfg.qk_full))
-    o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
-    return o if tp is None else tp.all_reduce(o)
+    return _out(y, p["wo"], tp, "bhv,hvd->bd")[:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -427,9 +427,7 @@ def decode_attn(p, x, cache, cfg, kind="attn", tp=None):
         valid = torch.arange(S, device=pos.device)[None, :] <= pos[:, None]
     scale = 1.0 / math.sqrt(cfg.qk_full)
     y = _decode_sdpa(q, k, v, valid, scale)
-    o = torch.einsum("bhv,hvd->bd", y, p["wo"])[:, None, :]
-    if tp is not None:
-        o = tp.all_reduce(o)
+    o = _out(y, p["wo"], tp, "bhv,hvd->bd")[:, None, :]
     pos.add_(1)
     return o, cache
 

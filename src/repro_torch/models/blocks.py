@@ -86,7 +86,7 @@ def apply_block(p, x, cfg, kind: str = "attn", is_moe: bool = False, *,
     _check(kind)
     t = {} if taps is not None else None
     if kind == "rwkv":
-        x, _ = rwkv_block(p, x, cfg, taps=t)
+        x, _ = rwkv_block(p, x, cfg, taps=t, tp=tp)
     else:
         h = apply_norm(p["ln1"], x, cfg)
         if kind == "mamba":

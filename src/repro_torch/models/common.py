@@ -204,28 +204,6 @@ def expert_taps_on() -> bool:
     return _EXPERT_TAPS
 
 
-_ROW_SHARE = None
-
-
-@contextlib.contextmanager
-def row_share(lo: int, hi: int, total: int):
-    """The forward inside runs rows [lo, hi) of a batch of ``total`` rows:
-    a rank's share under sharded calibration. A layer whose result for a
-    row depends on the other rows, routed MoE's capacity, reads it
-    (``row_share_of``) to route as the whole batch would, or to raise."""
-    global _ROW_SHARE
-    prev, _ROW_SHARE = _ROW_SHARE, (lo, hi, total)
-    try:
-        yield
-    finally:
-        _ROW_SHARE = prev
-
-
-def row_share_of():
-    """``(lo, hi, total)`` inside ``row_share``, else None."""
-    return _ROW_SHARE
-
-
 def tap(taps: dict | None, name: str, value):
     """Record an intermediate activation; ``taps`` is None when not taping."""
     if taps is not None:
@@ -260,17 +238,20 @@ class TensorParallel:
     ``calls`` counts them. A context of one rank (``size`` 1) runs no
     collective.
 
-    ``rows``: during a sharded decode step whose slots are split over a
-    data axis, that axis' own ``TensorParallel`` (its ``all_gather`` along
-    dim 0 gives the whole step's rows, in slot order); else None. Routed
-    MoE reads it to route the whole step as one device does
-    (``mlp.apply_moe``).
+    ``rows``: where a step's rows are split over a data axis (a sharded
+    decode step's slots, a sharded calibration pass's batch), that axis'
+    own ``TensorParallel`` (``gather_rows`` gives the whole step's rows,
+    in order); else None. Routed MoE reads it to route the whole step as
+    one device does (``mlp.apply_moe``). A row context's ``counts`` holds
+    each rank's row count where the shares differ (a calibration batch's
+    ``tensor_split``); None means equal shares.
     """
 
     def __init__(self, group, index: int, size: int, host=None):
         self.group, self.index, self.size = group, index, size
         self.host = host
         self.rows = None
+        self.counts = None
         self.timed = False
         self.coll_s = 0.0
         self.calls = 0
@@ -315,6 +296,13 @@ class TensorParallel:
         self._run(lambda t: dist.all_reduce(t, group=self.group), y)
         return y.to(x.dtype)
 
+    def reduce_product(self, a, b, eq: str | None = None):
+        """``a @ b`` (or ``einsum(eq, a, b)``) of the rank's blocks,
+        completed over the ranks (``all_reduce``): the partial in a's
+        dtype, summed in fp32, the sum in a's dtype."""
+        return self.all_reduce(a @ b if eq is None
+                               else torch.einsum(eq, a, b))
+
     def all_gather(self, x, dim: int = -1):
         """The ranks' blocks of ``x`` concatenated along ``dim``."""
         if self.size == 1:
@@ -326,6 +314,24 @@ class TensorParallel:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._run(lambda t: dist.all_gather(parts, t, group=self.group), x)
         return torch.cat(parts, dim=dim)
+
+    def gather_rows(self, x):
+        """The ranks' rows of ``x`` concatenated along dim 0, and the index
+        of this rank's first row in them. Shares of unequal ``counts`` are
+        padded to the longest for the ``all_gather`` and cut after it."""
+        n = x.shape[0]
+        counts = self.counts or [n] * self.size
+        if counts[self.index] != n:
+            raise ValueError(f"rank {self.index} holds {n} rows, its share "
+                             f"of {counts} is {counts[self.index]}")
+        top = max(counts)
+        if n < top:
+            x = torch.cat([x, x.new_zeros((top - n,) + x.shape[1:])])
+        whole = self.all_gather(x, 0)
+        if top * self.size != sum(counts):
+            whole = torch.cat([whole[i * top:i * top + c]
+                               for i, c in enumerate(counts)])
+        return whole, sum(counts[:self.index])
 
     def embed(self, table, ids, rows: int, cols: int):
         """Embedding lookup of ``ids`` in the rank's block of a ``rows`` x

@@ -113,17 +113,21 @@ def _embed(params, tokens, cfg, tp=None):
 
 
 def apply_encdec(params, frames, tokens, cfg, *, taps=None, train=False,
-                 remat=None):
+                 remat=None, tp=None):
     """Returns (logits (B, T, padded_vocab), aux loss 0). ``remat``
     (default: ``train``) recomputes each encoder and decoder layer in the
-    backward."""
+    backward. Under ``tp`` (the sharded calibration forward) the encoder,
+    the decoder and its cross sub-layers run over the rank's heads and
+    channels, as ``encdec_prefill``'s, the taps are the rank's, and the
+    logits the rank's vocab block where the head is split there."""
     remat = train if remat is None else remat
-    mem = encode(params, frames, cfg, taps=taps, remat=remat)
-    x = _run_stack(params["dec"], _embed(params, tokens, cfg), cfg,
+    mem = encode(params, frames, cfg, taps=taps, tp=tp, remat=remat)
+    x = _run_stack(params["dec"], _embed(params, tokens, cfg, tp), cfg,
                    cfg.n_layers, taps=taps, mask_kind="causal", mem=mem,
-                   prefix="dec", remat=remat)
+                   prefix="dec", tp=tp, remat=remat)
     x = apply_norm(params["final_norm"], x, cfg)
-    return x @ params["head"], torch.zeros((), device=x.device)
+    return lm_mod._logits(params, x, cfg, tp), \
+        torch.zeros((), device=x.device)
 
 
 def encdec_loss(params, batch, cfg, *, train=True, remat=None):

@@ -24,13 +24,15 @@ precomputed ``patch_embeds`` (B, P, D), which ``apply_lm`` and
 ``lm_prefill`` put before the token embeddings; positions then run over
 P + T. Blocks take a dense or a routed-MoE MLP (``blocks.ffn``).
 
-``lm_prefill`` and ``lm_decode_step`` take ``tp``, a rank's
+``apply_lm``, ``lm_prefill`` and ``lm_decode_step`` take ``tp``, a rank's
 ``common.TensorParallel`` (None: unsharded), with its blocks as params
 (``distrib.sharding.forward_specs``): the embedding lookup is
 vocab-parallel (``TensorParallel.embed``), the blocks head- and
 channel-parallel, and the logits are the rank's column block of the
 vocab when the head is split there (``TensorParallel.vocab_argmax`` reads
-them; ``all_gather`` gives the whole row).
+them; ``all_gather`` gives the whole row). Under ``tp`` the taps of
+``apply_lm`` (the sharded calibration forward) are the rank's heads and
+channels, under the same keys.
 
 ``lm_loss`` is the training objective; ``apply_lm(train=True)``
 recomputes each repetition of a scanned segment in the backward, as the
@@ -84,10 +86,10 @@ def _logits(params, x, cfg, tp=None):
     """x @ head; under ``tp`` a head split on D gives partial sums, which
     are reduced, and one split on the vocab the rank's column block."""
     head = _head(params)
-    out = x @ head
     if tp is not None and head.shape[0] != cfg.d_model:
-        out = tp.all_reduce(out)
-    return out
+        lo, hi = tp.block(cfg.d_model)
+        return tp.reduce_product(x[..., lo:hi], head)
+    return x @ head
 
 
 def init_lm(gen: torch.Generator, cfg):
@@ -132,10 +134,11 @@ def _embed(params, tokens, patch_embeds, cfg=None, tp=None):
 
 
 def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None, train=False,
-             remat=None):
+             remat=None, tp=None):
     """tokens: (B, T) int; patch_embeds: (B, P, D) or None -> (logits (B,
     P + T, padded_vocab), aux loss: the sum of every MoE block's
-    load-balancing loss, fp32 0-d).
+    load-balancing loss, fp32 0-d). Under ``tp`` (module docstring) the
+    logits are the rank's vocab block where the head is split there.
 
     ``taps`` (a dict) collects each block's activation taps under the JAX
     package's keys (``_run_segments``): ``seg<i>/l<j>/<k>`` for an unrolled
@@ -148,7 +151,7 @@ def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None, train=False,
     unrolled layers, and any forward that records taps, keep their
     activations."""
     remat = train if remat is None else remat
-    x = _embed(params, tokens, patch_embeds)
+    x = _embed(params, tokens, patch_embeds, cfg, tp)
     B, T = x.shape[:2]
     positions = _positions(B, T, x.device)
     aux = torch.zeros((), device=x.device)
@@ -156,7 +159,7 @@ def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None, train=False,
     def block(p, x, kind, moe, t=None):
         a = []
         x = blk.apply_block(p, x, cfg, kind, moe, positions=positions,
-                            taps=t, aux=a)
+                            taps=t, tp=tp, aux=a)
         return x, sum(a, torch.zeros((), device=x.device))
 
     for si, seg in enumerate(cfg.layout()):
@@ -190,7 +193,7 @@ def apply_lm(params, tokens, cfg, taps=None, patch_embeds=None, train=False,
             x, a = _remat(body, x) if remat and taps is None else body(x)
             aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return x @ _head(params), aux
+    return _logits(params, x, cfg, tp), aux
 
 
 def lm_loss(params, batch, cfg, *, train=True, remat=None):

@@ -8,9 +8,10 @@ linear map, so one hidden channel is one structured unit. For MoE the tap
 ``moe_h`` is per expert and capacity slot, with the dispatch mask
 ``moe_mask``, so the statistics are expert-conditional.
 
-Under a mesh's ``tp`` (the serving forward) the dense MLP is Megatron's
-split and the routed experts are split over the model axis
-(``_apply_moe_tp``); taps are single-device only.
+Under a mesh's ``tp`` (the serving and the sharded calibration forward)
+the dense MLP is Megatron's split and the routed experts are split over
+the model axis (``_apply_moe_tp``); the taps are then the rank's: the
+hidden channels of its block, its experts' queues over its own rows.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import math
 import torch
 
 from repro_torch.models.common import (activation, dense_init, dtype_of,
-                                       expert_taps_on, row_share_of, tap)
+                                       expert_taps_on, tap)
 
 
 def init_mlp(gen: torch.Generator, cfg, d_ff=None, bias=None):
@@ -134,33 +135,9 @@ def _group_size(n: int, target: int = 2048) -> int:
 
 
 def _group_tokens(x, cfg):
-    """(B, T, D) -> (G, tg, D) routing groups, tg <= 2048 dividing B*T.
-
-    Inside ``common.row_share`` (x holds rows [lo, hi) of a batch of
-    ``total``: a rank's share under sharded calibration) the groups are the
-    whole batch's, so that every (token, k) pair takes its slot, or is
-    dropped, as in the whole batch; the share must then be whole groups of
-    it. A share that is not is routed on its own groups only where no
-    expert can overflow at either size (the capacity holds a whole group),
-    which gives every token what the whole batch gives it; else it raises
-    before routing."""
+    """(B, T, D) -> (G, tg, D) routing groups, tg <= 2048 dividing B*T."""
     B, T, D = x.shape
     tg = _group_size(B * T)
-    share = row_share_of()
-    if share is not None:
-        lo, hi, total = share
-        whole = _group_size(total * T)
-        if (lo * T) % whole == 0 and (hi * T) % whole == 0:
-            tg = whole
-        elif capacity(whole, cfg) < whole or capacity(tg, cfg) < tg:
-            rows = whole // math.gcd(whole, T)
-            raise ValueError(
-                f"routed MoE under a row split: rows [{lo}, {hi}) of a "
-                f"{total}-row batch ({T} tokens a row) cut its routing "
-                f"groups of {whole} tokens, and an expert's "
-                f"{capacity(whole, cfg)} slots a group can overflow, so "
-                f"the share would drop other tokens than the whole batch; "
-                f"give each batch rank a multiple of {rows} rows")
     return x.reshape(B * T // tg, tg, D)
 
 
@@ -256,12 +233,7 @@ def apply_moe(p, x, cfg, taps=None, tp=None, aux=None):
     Under ``tp`` the rank holds its block of the experts
     (``_apply_moe_tp``)."""
     if tp is not None:
-        if aux is not None:
-            raise ValueError("the MoE aux loss is computed on one device "
-                             "only")
-        if taps is not None:
-            raise ValueError("MoE taps are recorded on one device only")
-        return _apply_moe_tp(p, x, cfg, tp)
+        return _apply_moe_tp(p, x, cfg, tp, taps, aux)
     E, K = cfg.eff_num_experts, cfg.moe.top_k
     B, T, D = x.shape
     dt = x.dtype
@@ -297,7 +269,7 @@ def apply_moe(p, x, cfg, taps=None, tp=None, aux=None):
     return y
 
 
-def _apply_moe_tp(p, x, cfg, tp):
+def _apply_moe_tp(p, x, cfg, tp, taps=None, aux=None):
     """Expert parallelism over the model axis: ``wg``, ``wu``, ``wd`` and
     ``bd_moe`` are the rank's block [e_lo, e_hi) of the experts, the router
     is whole, ``moe_resid`` is the rank's block of its rows, the shared
@@ -312,34 +284,59 @@ def _apply_moe_tp(p, x, cfg, tp):
     sum over k becomes a sum a rank, then over the ranks: equal up to fp32
     reassociation.
 
-    With ``tp.rows`` (a decode step whose slots are split over a data
-    axis) x holds the rank's slots only, while capacity is shared by a
-    routing group of the whole step: the rows are gathered over the data
-    axis, routed as one batch, and only the rank's own rows are dispatched
-    and returned, which is exact for any capacity factor."""
+    With ``tp.rows`` (rows split over a data axis: a sharded decode step's
+    slots, a sharded calibration batch's share) x holds the rank's rows
+    only, while capacity is shared by a routing group of the whole step:
+    the rows are gathered over the data axis (``gather_rows``), routed as
+    one batch, and only the rank's own rows are dispatched and returned,
+    which is exact for any capacity factor and any split.
+
+    The taps are the rank's: ``moe_h`` and ``moe_mask`` its experts'
+    queues of the routing groups its rows fall in, filled by its own rows
+    only; ``moe_x`` (N, D) and ``moe_yc`` (N, n, D) of its N own tokens
+    and its n experts; the shared expert's ``h`` its hidden block. Summed
+    over the ranks of the data axis and gathered over the model axis they
+    give one device's statistics (``core.stats``). ``aux`` gets the
+    load-balancing loss of the routed tokens: the whole step's."""
     K = cfg.moe.top_k
     B, T, D = x.shape
     dt = x.dtype
     rows = tp.rows
-    whole = x if rows is None else rows.all_gather(x, 0)
+    whole, r_lo = (x, 0) if rows is None else rows.gather_rows(x)
     xg = _group_tokens(whole, cfg)
     G, tg, _ = xg.shape
     routed = _route(xg, p["router"], cfg)
+    if aux is not None:
+        aux.append(load_balance(routed, cfg.eff_num_experts))
     flat, n = routed[1], p["wg"].shape[0]
     e_lo = tp.index * n if n < cfg.eff_num_experts else 0
-    t_lo = 0 if rows is None else rows.index * B * T
+    t_lo, t_hi = r_lo * T, (r_lo + B) * T
     token = torch.arange(G * tg * K, device=x.device).reshape(G, tg * K) // K
     mine = routed[3] & (flat >= e_lo) & (flat < e_lo + n) \
-        & (token >= t_lo) & (token < t_lo + B * T)
-    contrib = _dispatch(p, xg, routed, mine, e_lo, cfg, dt)[2]
-    y = contrib.reshape(G * tg, K, D).sum(1)[t_lo:t_lo + B * T]
+        & (token >= t_lo) & (token < t_hi)
+    h, (g_i, s_i), contrib = _dispatch(p, xg, routed, mine, e_lo, cfg, dt)
+    if taps is not None:
+        g0, g1 = t_lo // tg, -(-t_hi // tg)
+        C = routed[4]
+        tap(taps, "moe_h", h[g0:g1])
+        mask = torch.zeros(G, n * C, dtype=torch.float32, device=x.device)
+        mask[g_i, s_i] = 1.0
+        taps["moe_mask"] = mask.reshape(G, n, C)[g0:g1]
+    if taps is not None and expert_taps_on():
+        gi, fi = mine.nonzero(as_tuple=True)
+        yc = contrib.new_zeros(G * tg, n, D)
+        yc[gi * tg + fi // K, flat[gi, fi] - e_lo] = contrib[gi, fi]
+        tap(taps, "moe_x", x.reshape(B * T, D))
+        tap(taps, "moe_yc", yc[t_lo:t_hi].to(dt))
+    y = contrib.reshape(G * tg, K, D).sum(1)[t_lo:t_hi]
     xs = x.reshape(B * T, D)
     if "moe_resid" in p:
         r = p["moe_resid"].shape[0]
         lo = tp.index * r if r < D else 0
         y = y + xs[:, lo:lo + r].float() @ p["moe_resid"]
     if "shared" in p:
-        y = y + mlp_partial(p["shared"], xs, cfg, tp=tp).float()
+        y = y + mlp_partial(p["shared"], x, cfg, taps, tp) \
+            .reshape(B * T, D).float()
     y = tp.all_reduce(y).to(dt)
     if "moe_out_b" in p:
         y = y + p["moe_out_b"].to(dt)

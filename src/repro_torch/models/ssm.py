@@ -152,9 +152,8 @@ def apply_rwkv_time(p, x, cfg, taps=None, state=None, tp=None, prev=None):
     var = yh.var(dim=-1, keepdim=True, correction=0)
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
     y = yh.reshape(B, T, H * N) * ln_scale + ln_bias
-    y = (y.to(x.dtype) * F.silu(g)) @ p["wo"]
-    if tp is not None:
-        y = tp.all_reduce(y)
+    y = y.to(x.dtype) * F.silu(g)
+    y = y @ p["wo"] if tp is None else tp.reduce_product(y, p["wo"])
     if state is None:
         st = _keep_shift(x, None, tp)
         st["wkv"] = s_new
@@ -194,16 +193,15 @@ def apply_rwkv_channel(p, x, cfg, taps=None, state=None, tp=None,
     xs = _shift(x, _prev(state, tp, prev))
     h = F.relu(_mix(x, xs, p["mu_k"]) @ p["wk"]).square()
     tap(taps, "h", h)
-    kv = h @ p["wv"]
     xr = _mix(x, xs, p["mu_r"])
     if tp is None:
-        r = xr @ p["wr"]
+        kv, r = h @ p["wv"], xr @ p["wr"]
     else:
         if p["wr"].shape[0] != D:       # the rank's input rows
             lo, hi = tp.block(D)
             xr = xr[..., lo:hi]
-        kv, r = tp.all_reduce(torch.cat([kv, xr @ p["wr"]], dim=-1)) \
-            .split(D, dim=-1)
+        kv, r = tp.all_reduce(torch.cat([h @ p["wv"], xr @ p["wr"]],
+                                        dim=-1)).split(D, dim=-1)
     if "bv_comp" in p:   # CORP compensation bias (added by pruning)
         kv = kv + p["bv_comp"].to(kv.dtype)
     y = torch.sigmoid(r) * kv
@@ -313,7 +311,7 @@ def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
     xc = F.silu(xc)
     A = -torch.exp(p["a_log"])                                # (di, ns)
     # under tp, x_proj's partial sums of the whole sequence, reduced once
-    xdb_all = None if tp is None else tp.all_reduce(xc @ p["x_proj"])
+    xdb_all = None if tp is None else tp.reduce_product(xc, p["x_proj"])
 
     def discretize(xc_blk, t0=0):
         """(B, L, di) from row t0 -> the chunk's dA, dBx (B, L, di, ns)
@@ -348,9 +346,8 @@ def apply_mamba(p, x, cfg, taps=None, state=None, tp=None):
     y = y + d_skip * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     tap(taps, "mamba_y", y)
-    out = y @ p["out_proj"]
-    if tp is not None:
-        out = tp.all_reduce(out)
+    out = y @ p["out_proj"] if tp is None \
+        else tp.reduce_product(y, p["out_proj"])
     if "out_b" in p:   # CORP compensation bias (added by pruning)
         out = out + p["out_b"].to(out.dtype)
     if state is None:

@@ -7,6 +7,17 @@ the layer axis first, as the JAX pytree keeps them for ``lax.scan``; the
 forward loops over that axis and returns taps stacked the same way
 (``seg0/p0/{h,q,k}``, layer axis first). ``vit_loss`` is the training
 objective.
+
+``apply_vit`` takes ``tp``, a rank's ``common.TensorParallel`` (None:
+unsharded), with its blocks as params (``distrib.sharding.forward_specs``,
+the sharded calibration forward): attention runs over the rank's heads
+and the MLP over its hidden channels, one fp32 ``all_reduce`` a sub-layer
+(``blocks.apply_block``), so the taps are the rank's heads and channels.
+The leaves outside the blocks follow their specs: ``patch_w`` split on
+its input rows gives partial sums, reduced once (on its columns, the
+columns are gathered); ``class_head`` split on its classes gives the
+rank's block of the logits, gathered (on D, partial sums, reduced);
+``pos``, ``cls``, the norms and the biases are whole.
 """
 from __future__ import annotations
 
@@ -53,18 +64,43 @@ def patchify(images, cfg):
                                                 p * p * C)
 
 
-def apply_vit(params, inputs, cfg, *, taps=None, train=False, remat=None):
+def _patch_embed(params, patches, tp):
+    """patches (B, N, p*p*3) @ ``patch_w``, whole or the rank's block."""
+    w = params["patch_w"]
+    if tp is None:
+        return patches @ w
+    if w.shape[0] != patches.shape[-1]:       # the rank's input rows
+        lo, hi = tp.block(patches.shape[-1])
+        return tp.reduce_product(patches[..., lo:hi], w)
+    return tp.all_gather(patches @ w, -1)
+
+
+def _classify(params, pooled, cfg, tp):
+    """pooled (B, D) @ ``class_head``: whole, or from the rank's block of
+    its classes (gathered) or of D (reduced)."""
+    head = params["class_head"]
+    if tp is None:
+        return pooled @ head
+    if head.shape[0] != cfg.d_model:            # the rank's rows of D
+        lo, hi = tp.block(cfg.d_model)
+        return tp.reduce_product(pooled[..., lo:hi], head)
+    return tp.all_gather(pooled @ head, -1)
+
+
+def apply_vit(params, inputs, cfg, *, taps=None, train=False, remat=None,
+              tp=None):
     """inputs: images (B,H,W,3) if frontend='patch_conv', else patch
     embeddings (B, N, D). Returns fp32 logits (B, n_classes).
 
     ``remat`` (default: ``train``) recomputes each layer in the backward,
     as the reference checkpoints its scan body (one layer) with
     ``nothing_saveable``; a forward that records taps keeps its
-    activations."""
+    activations. ``tp``: tensor-parallel over the rank's blocks (module
+    docstring)."""
     remat = train if remat is None else remat
     dt = dtype_of(cfg)
     if cfg.frontend == "patch_conv":
-        x = patchify(inputs.to(dt), cfg) @ params["patch_w"] \
+        x = _patch_embed(params, patchify(inputs.to(dt), cfg), tp) \
             + params["patch_b"].to(dt)
     else:
         x = inputs.to(dt)
@@ -78,7 +114,7 @@ def apply_vit(params, inputs, cfg, *, taps=None, train=False, remat=None):
 
         def body(x, i=i, t=t):
             return blk.apply_block(layer_slice(layers, i), x, cfg, "attn",
-                                   False, taps=t, mask_kind="full")
+                                   False, taps=t, mask_kind="full", tp=tp)
         x = _remat(body, x) if remat and taps is None else body(x)
         per_layer.append(t)
     if taps is not None:
@@ -86,7 +122,7 @@ def apply_vit(params, inputs, cfg, *, taps=None, train=False, remat=None):
             taps[f"seg0/p0/{k}"] = torch.stack([t[k] for t in per_layer])
     x = apply_norm(params["final_norm"], x, cfg)
     pooled = x[:, 0] if cfg.pool == "cls" else x.mean(dim=1)
-    logits = pooled @ params["class_head"] + params["head_bias"].to(dt)
+    logits = _classify(params, pooled, cfg, tp) + params["head_bias"].to(dt)
     return logits.float()
 
 

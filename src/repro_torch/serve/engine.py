@@ -74,9 +74,9 @@ whose slots are split over the data axis hands the forward that axis'
 context (``TensorParallel.rows``): the MoE layers gather the step's rows,
 route them as one device does, and keep their own. Only the lead decides
 on admission and retirement. Every family is served (MLA from its latent
-blocks, the Mamba hybrid over its inner channels); a MoE whose experts do
-not divide the model axis is refused (``sharding.check_tensor_parallel``),
-and so is a prefix cache.
+blocks, the Mamba hybrid over its inner channels); a config whose heads,
+channels or experts do not divide the model axis is refused
+(``distrib.sharding.check_forward_split``), and so is a prefix cache.
 """
 from __future__ import annotations
 
@@ -223,9 +223,9 @@ class ServeEngine:
                                    device=self.device, sharding=sharding,
                                    name=cfg.name)
         if sharding is not None:
-            from repro_torch.serve.sharding import (RankParams,
-                                                    check_tensor_parallel)
-            check_tensor_parallel(cfg, sharding.model_size)
+            from repro_torch.distrib.sharding import (RankParams,
+                                                      check_forward_split)
+            check_forward_split(cfg, sharding.model_size)
             if not isinstance(params, RankParams):
                 params = sharding.take_params(params)
             self.params, self.param_specs = dict(params), params.specs

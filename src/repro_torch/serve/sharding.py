@@ -53,9 +53,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.distrib.sharding import (_axis_group, _sizes, block_of,
-                                          coordinates, forward_specs,
-                                          shard_params)
+from repro_torch.distrib.sharding import (RankParams, _axis_group, _sizes,
+                                          block_of, coordinates,
+                                          forward_specs, shard_params)
 from repro_torch.interop import flatten, map_tree
 from repro_torch.launch.mesh import host_ranks
 from repro_torch.models.common import TensorParallel
@@ -181,30 +181,6 @@ def device_bytes_estimate(template, specs, mesh) -> int:
             denom *= math.prod(sizes.get(a, 1) for a in group)
         total += nbytes // denom
     return int(total)
-
-
-def check_tensor_parallel(cfg, model_size: int = 1) -> None:
-    """Refuse a config that the tensor-parallel forward cannot split over
-    a ``model_size``-way model axis, which covers every family (dense
-    attention and MLA with their MLPs, RWKV-6, the Mamba hybrid, the
-    enc-dec, routed MoE): a MoE config whose experts do not divide the
-    axis raises ``ValueError``, since JAX's rule then keeps them whole on
-    every rank and the forward splits experts, never their channels."""
-    if cfg.moe is not None and cfg.eff_num_experts % model_size:
-        raise ValueError(
-            f"{cfg.name}: {cfg.eff_num_experts} routed experts do not split "
-            f"over a {model_size}-way model axis")
-
-
-class RankParams(dict):
-    """A rank's blocks of a parameter tree (``ServeSharding.take_params``),
-    with their ``specs`` (``forward_specs`` of the whole tree), which
-    ``ServeEngine(sharding=)`` takes as they are: a caller that cannot hold
-    every rank's whole tree at once cuts its blocks one rank at a time."""
-
-    def __init__(self, blocks, specs):
-        super().__init__(blocks)
-        self.specs = specs
 
 
 def shares_card(mesh) -> bool:

@@ -5,16 +5,24 @@ ROADMAP "State of the reference"), after tests/test_sharded_calibration.py.
 The port's ranks are spawned processes on the CPU (``gloo``), one spawn a
 world size: 2 ranks (meshes 1x2 and 2x1, and a checkpoint written under
 2x1), 4 ranks (2x2 on DeiT-Base, granite-8b and qwen3-moe, the latter also
-at its real capacity factor, where experts drop tokens; every phase, bf16
-taps, a 3-axis mesh, resume and the foreign 2x1 checkpoint) and 1 rank
-(1x1). They rendezvous through a ``file://`` store in the test's temporary
-directory and run ``tests/torch_dist_parity.py``, which imports no jax.
+at its real capacity factor, where experts drop tokens, with data shares
+that keep or cut its routing groups; every phase, bf16 taps, a 3-axis
+mesh, resume and the foreign 2x1 checkpoint; pass 1 of rwkv6-3b,
+deepseek-v3, jamba, seamless, gemma3 and internvl) and 1 rank (1x1). Every
+rank holds only its ``forward_specs`` blocks of the parameters and runs
+the forward tensor-parallel. The reduced configs with one kv head, which a
+2-way model axis could split only by replicating it
+(``distrib.sharding.check_forward_split``), run as 2-kv-head variants in
+both packages. The ranks rendezvous through a
+``file://`` store in the test's temporary directory and run
+``tests/torch_dist_parity.py``, which imports no jax.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import math
 import types
 
 import pytest
@@ -31,21 +39,42 @@ from repro.core import discover_units as jax_units  # noqa: E402
 from repro.core import ranking as jax_ranking  # noqa: E402
 from repro.core import stats as jax_stats  # noqa: E402
 from repro.configs import ARCH_IDS, get_config, reduced  # noqa: E402
+from repro.distrib.sharding import param_specs as jax_param_specs  # noqa: E402
 from repro.distrib.sharding import stats_specs as jax_stats_specs  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.core import stats as stats_mod  # noqa: E402
 from repro_torch.distrib import stats_specs  # noqa: E402
-from repro_torch.distrib.sharding import splits  # noqa: E402
+from repro_torch.distrib.sharding import (  # noqa: E402
+    check_forward_split, forward_specs, shard_params, splits)
+from repro_torch.interop import flatten  # noqa: E402
 from repro_torch.launch.mesh import launch  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import common as model_common  # noqa: E402
 from torch_dist_parity import (load_stats, stats_ranks,  # noqa: E402
                                write_job)
 from torch_parity import jax_params, to_port_cfg  # noqa: E402
 
 ARCHS = {"deit": "deit-base", "granite": "granite-8b",
          "moe": "qwen3-moe-235b-a22b"}
+# pass 1 of each other family on a 2x2 mesh, inside the same spawn; the
+# deeper ones cut to 2 layers that keep every kind of layer (deepseek's
+# dense and MoE layers, jamba's Mamba + dense MLP and attention + MoE,
+# gemma's window and global attention), for the JAX references' compiles
+FAMILIES = {"rwkv": ("rwkv6-3b", {}),
+            "mla": ("deepseek-v3-671b", dict(n_layers=2)),
+            "jamba": ("jamba-1.5-large-398b",
+                      dict(n_layers=2, pattern=("mamba", "attn"))),
+            "seamless": ("seamless-m4t-large-v2", {}),
+            "gemma": ("gemma3-1b", dict(n_layers=2, pattern=("swa", "attn"))),
+            "internvl": ("internvl2-26b", {})}
 TOL = 2e-4      # JAX's own sharded-vs-single tolerance
+
+
+def _cfg(arch, **kw):
+    """``tiny_cfg(arch, **kw)``; a reduced config with one kv head, which a
+    2-way model axis splits only by kv-head replication, as a 2-kv-head
+    variant."""
+    cfg = tiny_cfg(arch, **kw)
+    return cfg if cfg.mla is not None or cfg.n_kv_heads % 2 == 0 \
+        else tiny_cfg(arch, n_kv_heads=2, **kw)
 
 
 def _np_batches(cfg, n=3, **kw):
@@ -54,20 +83,20 @@ def _np_batches(cfg, n=3, **kw):
 
 
 def _dropping_moe():
-    """qwen3-moe at its real capacity factor 1.25 (``tiny_cfg`` sets 8.0,
-    where no expert can overflow), for batches of 3 x 685 tokens: routing
-    groups of 685 tokens (the largest divisor of 2055 up to 2048), one a
-    row, in which experts drop pairs. A 2-way data axis gives one rank two
-    rows, 1370 tokens, which routed as their own batch would be one group
-    of 1370 with other drops."""
-    cfg = tiny_cfg(ARCHS["moe"])
+    """qwen3-moe (2 kv heads) at its real capacity factor 1.25
+    (``tiny_cfg`` sets 8.0, where no expert can overflow), for batches of
+    3 x 685 tokens: routing groups of 685 tokens (the largest divisor of
+    2055 up to 2048), one a row, in which experts drop pairs. A 2-way data
+    axis gives one rank two rows, 1370 tokens, which routed as their own
+    batch would be one group of 1370 with other drops."""
+    cfg = _cfg(ARCHS["moe"])
     return cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
 
 
-def _jax_job(d, name, cfg=None, batches=None):
+def _jax_job(d, name, cfg=None, batches=None, pass1_only=False):
     """Weights, batches and the JAX package's single-device statistics of
     one config; writes the ranks' ``.npz``."""
-    cfg = tiny_cfg(ARCHS[name]) if cfg is None else cfg
+    cfg = _cfg(ARCHS[name]) if cfg is None else cfg
     params = jax_params(cfg, seed=3)
     batches = _np_batches(cfg) if batches is None else batches
     model, units = jax_build(cfg), jax_units(cfg)
@@ -76,8 +105,11 @@ def _jax_job(d, name, cfg=None, batches=None):
     def calib():
         return ({k: jnp.asarray(v) for k, v in b.items()} for b in batches)
 
-    ref = {"cfg": to_port_cfg(cfg),
+    ref = {"cfg": to_port_cfg(cfg), "params": params,
            "p1": JaxEngine(model, units, phase=1).run(jp, calib())}
+    if pass1_only:
+        write_job(d / f"{name}.npz", params, batches)
+        return ref
     plan, spec = {}, {}
     for u in units:
         if u.kind in ("attn", "mla", "cross"):
@@ -97,6 +129,27 @@ def _jax_job(d, name, cfg=None, batches=None):
     return ref
 
 
+# the 4-rank spawn's statistics tasks: tag -> (job, mesh, engine keywords)
+FOUR = {
+    "deit_p1": ("deit", (2, 2), {}),
+    "deit_placed": ("deit", (2, 2), dict(placed=True)),
+    "deit_p2": ("deit", (2, 2), dict(phase=2, plan="plan")),
+    "deit_p12": ("deit", (2, 2), dict(phase="1+2", spec_plan="spec")),
+    "deit_bf16": ("deit", (2, 2), dict(stats_dtype="bfloat16")),
+    "deit_3axis": ("deit", (2, 1, 2), {}),
+    "deit_resumed": ("deit", (2, 2), dict(ckpt="resume")),
+    "deit_foreign": ("deit", (2, 2), dict(ckpt="foreign")),
+    "granite_p1": ("granite", (2, 2), {}),
+    "granite_p2": ("granite", (2, 2), dict(phase=2, plan="plan")),
+    "moe_p1": ("moe", (2, 2), dict(expert_moments=True)),
+    "moe_drop_p1": ("moe_drop", (2, 2), dict(expert_moments=True)),
+    "moe_drop_p2": ("moe_drop", (2, 2), dict(phase=2, plan="plan")),
+    "moe_cut_p1": ("moe_cut", (2, 2), dict(expert_moments=True)),
+    **{f"{f}_p1": (f, (2, 2), dict(expert_moments=True)) for f in FAMILIES},
+    "gemma_p2": ("gemma", (4, 1), dict(phase=2, plan="plan")),
+}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("calib_sharded")
@@ -104,6 +157,15 @@ def runs(tmp_path_factory):
     drop = _dropping_moe()
     refs["moe_drop"] = _jax_job(d, "moe_drop", drop,
                                 _np_batches(drop, n=1, B=3, T=685))
+    # one routing group of 1200 tokens, which the data ranks' 2 and 1 rows
+    # cut
+    refs["moe_cut"] = _jax_job(d, "moe_cut", drop,
+                               _np_batches(drop, n=1, B=3, T=400),
+                               pass1_only=True)
+    for fam, (arch, kw) in FAMILIES.items():
+        cfg = _cfg(arch, **kw)
+        refs[fam] = _jax_job(d, fam, cfg, _np_batches(cfg, n=1, B=4, T=16),
+                             pass1_only=fam != "gemma")
     cfg = {name: r["cfg"] for name, r in refs.items()}
 
     def task(name, tag, shape, phase=1, **kw):
@@ -111,27 +173,19 @@ def runs(tmp_path_factory):
                     phase=phase, **kw)
 
     foreign = str(d / "ckpt_foreign")
+    ckpts = {"resume": (str(d / "ckpt"), 2), "foreign": (foreign, 0)}
     launch(stats_ranks, 2, backend="gloo", device="cpu",
            init_method=f"file://{d}/rdzv2", args=(str(d), [
                task("deit", "deit_1x2", (1, 2)),
                task("deit", "deit_2x1", (2, 1), ckpt=(foreign, 3))]))
+    four = []
+    for tag, (job, shape, kw) in FOUR.items():
+        kw = dict(kw)
+        if "ckpt" in kw:
+            kw["ckpt"] = ckpts[kw["ckpt"]]
+        four.append(task(job, tag, shape, **kw))
     launch(stats_ranks, 4, backend="gloo", device="cpu",
-           init_method=f"file://{d}/rdzv4", args=(str(d), [
-               task("deit", "deit_p1", (2, 2)),
-               task("deit", "deit_p2", (2, 2), phase=2, plan="plan"),
-               task("deit", "deit_p12", (2, 2), phase="1+2",
-                    spec_plan="spec"),
-               task("deit", "deit_bf16", (2, 2), stats_dtype="bfloat16"),
-               task("deit", "deit_3axis", (2, 1, 2)),
-               task("deit", "deit_resumed", (2, 2),
-                    ckpt=(str(d / "ckpt"), 2)),
-               task("deit", "deit_foreign", (2, 2), ckpt=(foreign, 0)),
-               task("granite", "granite_p1", (2, 2)),
-               task("granite", "granite_p2", (2, 2), phase=2, plan="plan"),
-               task("moe", "moe_p1", (2, 2), expert_moments=True),
-               task("moe_drop", "moe_drop_p1", (2, 2), expert_moments=True),
-               task("moe_drop", "moe_drop_p2", (2, 2), phase=2,
-                    plan="plan"),
+           init_method=f"file://{d}/rdzv4", args=(str(d), four + [
                {"remesh": [None, (1, 2), (8, 1)], "tag": "remesh"}]))
     launch(stats_ranks, 1, backend="gloo", device="cpu",
            init_method=f"file://{d}/rdzv1", args=(str(d), [
@@ -278,28 +332,118 @@ def test_moe_with_capacity_drops_routes_the_whole_batch_groups(runs):
     _close(runs.got("moe_drop_p2"), ref["p2"])
 
 
-def test_moe_row_share_routes_whole_groups_or_raises():
-    """A rank's share of a batch's rows (``model_common.row_share``) is
-    routed on the whole batch's groups: rows [0, 2) of 3 x 685 tokens (two
-    of its three groups) give the whole forward's first two rows. A share
-    that cuts a group raises by name where experts can overflow, and runs
-    where they cannot (capacity factor 8, ``tiny_cfg``)."""
-    rng = np.random.default_rng(0)
-    for cfg, T, ok in ((_dropping_moe(), 685, True),
-                       (_dropping_moe(), 24, False),
-                       (tiny_cfg(ARCHS["moe"]), 24, True)):
-        model = build_model(to_port_cfg(cfg))
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, T)))
-        whole = model.apply(params, {"tokens": tokens})[0]
-        with model_common.row_share(0, 2, 3):
-            if not ok:
-                with pytest.raises(ValueError,
-                                   match="routed MoE under a row split"):
-                    model.apply(params, {"tokens": tokens[:2]})
-                continue
-            part = model.apply(params, {"tokens": tokens[:2]})[0]
-        torch.testing.assert_close(part, whole[:2], rtol=1e-5, atol=1e-5)
+def test_moe_row_share_routes_whole_groups_or_raises(runs):
+    """A data rank's share that cuts a routing group no longer raises:
+    qwen3-moe at capacity factor 1.25 on batches of 3 x 400 tokens, one
+    group of 1200 in which experts drop pairs, of which the 2x2 mesh's data
+    ranks take 2 and 1 rows. Each rank gathers the batch's rows over the
+    data axis, routes the group as one device does and keeps its own rows
+    (``models.mlp._apply_moe_tp``), so pass 1 (expert moments and the
+    expert-removal moments) equals the JAX package's single-device engine
+    (an activity count within one, as in the whole-group case)."""
+    ref = runs.refs["moe_cut"]
+    cfg = _dropping_moe()
+    kept = sum(float(np.asarray(st["n"]).sum()) for st in ref["p1"].values()
+               if "ys2" in st)
+    assert 0 < kept < 3 * 400 * cfg.moe.top_k * cfg.n_layers
+    _close(runs.got("moe_cut_p1"), ref["p1"], na_within_one=True)
+
+
+@pytest.mark.parametrize("fam", list(FAMILIES))
+def test_family_pass1_on_placed_blocks_matches_single_device_jax(runs, fam):
+    """Pass 1 of every other family on a 2x2 mesh, each rank forwarding
+    over its blocks: RWKV-6 over its heads (``wkv6``), deepseek-v3's MLA
+    over its heads with the fused down-projection reduction, jamba's Mamba
+    over its inner channels beside attention and routed MoE, seamless's
+    encoder, decoder and cross attention, gemma3's window and qk-norm,
+    internvl's patch embeddings; within 2e-4 of the JAX package's
+    single-device engine."""
+    _close(runs.got(f"{fam}_p1"), runs.refs[fam]["p1"], na_within_one=True)
+
+
+def test_class3_pass2_under_a_data_axis_matches_single_device_jax(runs):
+    """gemma3's class-3 (rope + qk-norm) pass 2 on a 4 x 1 mesh (data axis
+    only, where no column block copies the leaves): its G and h are the
+    real parts of complex sums, which the batch axes' sum once read through
+    their strided view, so the ranks summed other words and folded
+    different weights; within 2e-4 of JAX's single-device engine."""
+    _close(runs.got("gemma_p2"), runs.refs["gemma"]["p2"])
+
+
+def _numel_block(shape, spec, sizes):
+    den = 1
+    for e in spec:
+        if e is not None:
+            den *= math.prod(sizes[a] for a in ((e,) if isinstance(e, str)
+                                                else e))
+    return math.prod(shape) // den
+
+
+class _DuckMesh:
+    """What JAX's ``param_specs`` reads of a mesh."""
+
+    def __init__(self, sizes):
+        self.axis_names = tuple(sizes)
+        self.devices = np.empty(tuple(sizes.values()))
+
+
+@pytest.mark.parametrize("tag", list(FOUR))
+def test_ranks_hold_forward_specs_blocks_at_jax_counts(runs, tag):
+    """Each rank of every 4-rank task placed, for its pass, the blocks that
+    ``forward_specs`` gives its coordinates (their shapes and bytes), and
+    each block holds the element count of JAX's ``param_specs`` block:
+    about a model axis' share of the tree, never the whole of it."""
+    job, shape, _ = FOUR[tag]
+    params = runs.refs[job]["params"]
+    sizes = dict(zip(("pod", "data", "model")[-len(shape):], shape))
+    flat = flatten(params)
+    jspecs = {"/".join(str(k.key) for k in kp): tuple(sp) for kp, sp in
+              jax.tree_util.tree_flatten_with_path(
+                  jax_param_specs(params, _DuckMesh(sizes)),
+                  is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+              [0]}
+    meta = {k: torch.empty(v.shape, device="meta") for k, v in flat.items()}
+    whole = sum(v.nbytes for v in flat.values())
+    for r, info in enumerate(runs.ranks(tag)):
+        blocks = flatten(shard_params(
+            jax.tree.map(lambda a: torch.empty(a.shape, device="meta"),
+                         params),
+            forward_specs(params, sizes), sizes, r))
+        assert {k: tuple(v) for k, v in info["param_shapes"].items()} \
+            == {k: tuple(b.shape) for k, b in blocks.items()}, r
+        assert info["param_bytes"] == sum(4 * b.numel()
+                                          for b in blocks.values())
+        assert info["param_bytes"] < whole if sizes["model"] > 1 \
+            else info["param_bytes"] == whole
+        for k, b in blocks.items():
+            spec = jspecs[k] + (None,) * (len(meta[k].shape) - len(jspecs[k]))
+            assert b.numel() == _numel_block(meta[k].shape, spec, sizes), k
+
+
+def test_one_kv_head_refuses_a_two_way_model_axis():
+    """The reduced granite's one kv head cannot split over a 2-way model
+    axis: the engine refuses it before any forward, naming the missing
+    kv-head replication, where it would otherwise run on other blocks than
+    its forward splits. Heads that do not divide the axis at all are a
+    ``ValueError`` naming them."""
+    cfg = to_port_cfg(tiny_cfg(ARCHS["granite"]))
+    with pytest.raises(NotImplementedError, match="kv-head replication"):
+        check_forward_split(cfg, 2)
+    check_forward_split(cfg, 1)
+    check_forward_split(to_port_cfg(_cfg(ARCHS["granite"])), 2)
+    with pytest.raises(ValueError, match="n_kv_heads 2"):
+        check_forward_split(to_port_cfg(_cfg(ARCHS["granite"])), 3)
+
+
+def test_blocks_placed_by_the_caller_give_the_same_statistics(runs):
+    """A caller that places its rank's blocks itself
+    (``CalibSharding.place``, one rank at a time where the host cannot
+    hold every rank's tree) and passes them gets bitwise the statistics of
+    the engine's own placement."""
+    ref, got = runs.got("deit_p1"), runs.got("deit_placed")
+    for u in ref:
+        for k in ref[u]:
+            np.testing.assert_array_equal(got[u][k], ref[u][k])
 
 
 @pytest.mark.parametrize("tag", ["deit_1x2", "deit_2x1", "deit_3axis"])

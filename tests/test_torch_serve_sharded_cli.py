@@ -103,18 +103,18 @@ def test_families_outside_the_slice_raise_by_name(tmp_path, arch, extra,
 
 
 def test_mamba_hybrid_raises_by_name_and_only_for_mamba():
-    """``check_tensor_parallel`` passes the Mamba hybrid and MLA at full
+    """``check_forward_split`` passes the Mamba hybrid and MLA at full
     width (jamba-1.5-large-398b, deepseek-v3-671b, at their expert counts'
     divisors) and still refuses a MoE whose experts do not divide the
     model axis; jamba's reduced config is still refused, as
     ``shard_ineligible``, for its one kv head."""
     from repro_torch.configs import resolve_config
-    from repro_torch.serve.sharding import check_tensor_parallel
+    from repro_torch.distrib.sharding import check_forward_split
     for arch in ("jamba-1.5-large-398b", "deepseek-v3-671b"):
         for m in (2, 4, 8):
-            check_tensor_parallel(resolve_config(arch), m)
+            check_forward_split(resolve_config(arch), m)
     with pytest.raises(ValueError, match="do not split"):
-        check_tensor_parallel(resolve_config(
+        check_forward_split(resolve_config(
             "qwen3-moe-235b-a22b-reduced"), 8)
     with pytest.raises(ValueError) as e:
         serve_cli.main(["--arch", "jamba-1.5-large-398b-reduced",

@@ -113,17 +113,18 @@ def _setup(job_dir, task, cache):
 
 
 def stats_ranks(device, job_dir, tasks):
-    """Calibration passes on meshes. Each task: ``job`` (the ``.npz``
-    name), ``cfg`` (the port's config), ``tag``, ``shape`` (the mesh),
-    ``phase``, and optionally ``plan`` / ``spec_plan`` (a plan name of the
-    job), ``stats_dtype``, ``expert_moments``, ``ckpt`` ((directory,
-    batches of a first, interrupted run, or 0): the pass checkpoints every
-    batch, is cut there and resumed), ``plain`` (rank 0 also runs the engine
-    without a mesh). Rank 0 writes ``<tag>.npz`` (and ``<tag>_plain.npz``);
-    every rank writes ``<tag>_rank<r>.json`` (fingerprint, its blocks'
-    shapes and bytes). A task ``{"remesh": hints, "tag": t}`` builds
-    ``fault.remesh(hint)`` for each hint; rank 0 writes their shapes and
-    axis names to ``<t>.json``."""
+    """Calibration passes on meshes. Each task: ``job`` (the ``.npz`` name),
+    ``cfg`` (the port's config), ``tag``, ``shape`` (the mesh), ``phase``,
+    and optionally ``plan`` / ``spec_plan`` (a plan name of the job),
+    ``stats_dtype``, ``expert_moments``, ``ckpt`` ((directory, batches of a
+    first, interrupted run, or 0): the pass checkpoints every batch, is cut
+    there and resumed), ``plain`` (rank 0 also runs the engine without a
+    mesh), ``placed`` (the rank places its blocks itself and passes them).
+    Rank 0 writes ``<tag>.npz`` (and ``<tag>_plain.npz``); every rank
+    writes ``<tag>_rank<r>.json`` (fingerprint, its statistics blocks' and
+    its placed parameter blocks' shapes and bytes). A task ``{"remesh":
+    hints, "tag": t}`` builds ``fault.remesh(hint)`` for each hint; rank 0
+    writes their shapes and axis names to ``<t>.json``."""
     torch.set_num_threads(1)
     cache = {}
     rank = dist.get_rank()
@@ -145,6 +146,8 @@ def stats_ranks(device, job_dir, tasks):
                   expert_moments=task.get("expert_moments", False))
         mesh = make_mesh(task["shape"], device_type=device.type)
         eng = CalibrationEngine(model, units, mesh=mesh, **kw)
+        if task.get("placed"):
+            params = eng.shard.place(params)
         if "ckpt" in task:
             ck, first = task["ckpt"]
             if first:
@@ -158,7 +161,9 @@ def stats_ranks(device, job_dir, tasks):
         with open(f"{tag}_rank{rank}.json", "w") as f:
             json.dump({"fingerprint": eng.fingerprint,
                        "local_shapes": eng.local_shapes,
-                       "local_bytes": eng.local_bytes}, f)
+                       "local_bytes": eng.local_bytes,
+                       "param_shapes": eng.param_shapes,
+                       "param_bytes": eng.param_bytes}, f)
         if rank == 0:
             save_tree(tag + ".npz", out)
             if task.get("plain"):
