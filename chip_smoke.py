@@ -23,7 +23,10 @@ Needs one CUDA card (Hopper, ``sm_90a``) and ``nvcc``. It
      autograd through the plain forward at DeiT-Base, Qwen2-1.5B,
      gemma3-1b (window 512, d 256), MLA (q/k 192, v 128) and
      cross-attention shapes (fp32 <= 1e-4, bf16 <= 2e-2 of max |grad|),
-     timed beside the plain version, SDPA's backward and its bound;
+     two calls bitwise equal, each case's launch plan (instance, grids,
+     shared memory) printed, the backward instances' registers and spills
+     read from the build's ptxas report (a spill fails), timed beside the
+     plain version, SDPA's backward and its bound;
      DeiT-Base at full width and depth in fp32 through ``python -m
      repro_torch.launch.train`` (8 steps of 32 images, a checkpoint every
      4), resumed from step 4 in another directory
@@ -5634,6 +5637,37 @@ TRAIN_ZOO = ["rwkv6-3b", "qwen3-moe-235b-a22b", "deepseek-v3-671b",
              "jamba-1.5-large-398b", "seamless-m4t-large-v2"]
 
 
+def ptxas_report(source, prefix):
+    """(kernel, registers, (spill store bytes, spill load bytes)) of each
+    kernel whose name starts with ``prefix`` that ``nvcc -Xptxas -v``
+    compiled from ``source`` in this process's build
+    (``_build.build_log``; empty for a cached build), named with its
+    template's two ints, e.g. ``bwd_dq_bf16<128, 128>``."""
+    from repro_torch.kernels import _build
+    part = _build.build_log.partition(f"== {source}\n")[2]
+    part = part.split("\n== ")[0]
+    out, fn, spill = [], None, (0, 0)
+    for line in part.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(rf"(?<=\d)({prefix}[a-z0-9_]*?)"
+                          rf"(?:ILi(\d+)ELi(\d+)E|E)",
+                          m.group(1))
+            fn = m.group(1) if t is None else t.group(1) if t.group(2) is \
+                None else f"{t.group(1)}<{t.group(2)}, {t.group(3)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), spill))
+            fn, spill = None, (0, 0)
+    return out
+
+
 def train_kernel_phase(dev, rows):
     """``[kernels train]``: the attention backward kernel against its plain
     version (``ref.attention_bwd`` on the plain logsumexp) and against
@@ -5650,6 +5684,14 @@ def train_kernel_phase(dev, rows):
     g = torch.Generator(device=dev).manual_seed(7)
     print("[kernels train] flash_attention backward against its plain "
           "version and autograd through the plain forward")
+    spilled = []
+    for fn, regs, spill in ptxas_report("flash_attention_bwd.cu", "bwd_"):
+        print(f"  ptxas flash_attention_bwd: {fn} {regs} registers, spill "
+              f"stores/loads {spill[0]}/{spill[1]} bytes")
+        if any(spill):
+            spilled.append(fn)
+    if spilled:
+        fail(f"flash_attention_bwd instances spill: {spilled}")
     cases = []
     for tag, (B, T, S, H, Hkv, dq, dv, causal, window, dt) in \
             TRAIN_KERNEL_CASES:
@@ -5666,7 +5708,15 @@ def train_kernel_phase(dev, rows):
                                     with_lse=True)
         lse_ref = flash_ref.logsumexp(q, k, **kw)
         lse_err = float((lse - lse_ref).abs().max())
+        pl = flash_bwd.Plan(B, T, S, H, Hkv, dq, dv, causal, window, dtype)
+        print(f"  flash_attention_bwd {tag} plan: instance {pl.instance}, "
+              f"streamed tiles of {pl.stream} rows, dK/dV grid "
+              f"{pl.grid_kv} x {pl.threads_kv} threads, {pl.smem_kv} B; dQ "
+              f"grid {pl.grid_q} x {pl.threads_q} threads, {pl.smem_q} B")
         got = flash_bwd.attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_bwd.attention_bwd(q, k, v, o, lse, do, **kw)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
         want = flash_ref.attention_bwd(
             q, k, v, flash_ref.attention(q, k, v, **kw), lse_ref, do, **kw)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -5679,16 +5729,17 @@ def train_kernel_phase(dev, rows):
                 errs.append(e)
                 rels.append(e / float(ref_g.float().abs().max()))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        ok = finite and max(rels) <= tol and lse_err <= 1e-3
+        ok = finite and bitwise and max(rels) <= tol and lse_err <= 1e-3
         print(f"  flash_attention_bwd {tag:<11} B={B} T={T} S={S} H={H}/"
               f"{Hkv} dq={dq} dv={dv} causal={causal} window={window} {dt}:"
               f" dq/dk/dv max rel err {max(rels):.3e} (vs plain "
               f"{max(rels[0::2]):.3e}, vs autograd {max(rels[1::2]):.3e}; "
-              f"tol {tol:g} of max |grad|), lse err {lse_err:.2e} "
+              f"tol {tol:g} of max |grad|), lse err {lse_err:.2e}, two "
+              f"calls {'bitwise equal' if bitwise else 'DIFFER'} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention_bwd {tag} disagrees with its plain "
-                 f"version")
+                 f"version or is not deterministic")
         del leaves, auto, want
         # timing: the kernel, the plain version, SDPA's backward (kv heads
         # repeated to H, a mask for the window)
@@ -5708,6 +5759,9 @@ def train_kernel_phase(dev, rows):
         reps = 10
         row = {"case": tag, "shape": [B, T, S, H, Hkv, dq, dv],
                "causal": causal, "window": window, "dtype": dt,
+               "instance": list(pl.instance), "grids": [pl.grid_kv,
+                                                         pl.grid_q],
+               "smem": [pl.smem_kv, pl.smem_q],
                "max_abs_err": max(errs[0::2]), "max_rel_err": max(rels),
                "ms": time_ms(lambda: flash_bwd.attention_bwd(
                    q, k, v, o, lse, do, **kw), reps=reps),

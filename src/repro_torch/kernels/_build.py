@@ -4,8 +4,9 @@ Every ``kernels/*/csrc/*.cu`` source has a plain C interface. They are
 compiled for Hopper (``sm_90a``), one ``nvcc`` per source, all started
 together, and linked into one shared library under ``build/`` at the repo
 root (a directory ``.gitignore`` lists). The library's name carries a hash
-of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded. A build failure raises: nothing falls back.
+of the sources, the ``csrc/*.cuh`` headers they include and the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded. A build failure raises: nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 Python wrappers raise when it is not 0.
@@ -45,8 +46,21 @@ def count(module, by=None):
             module.launches_by[by] += 1
 
 
-def sources():
-    return sorted(_PKG.glob("*/csrc/*.cu"))
+def sources(pkg: Path = _PKG):
+    """Every file the library is built from under ``pkg``: the ``.cu``
+    sources nvcc compiles and the ``.cuh`` headers they include."""
+    return sorted([*pkg.glob("*/csrc/*.cu"), *pkg.glob("*/csrc/*.cuh")])
+
+
+def rows16(t) -> bool:
+    """Whether a kernel may copy ``t``'s rows 16 bytes at a time: unit
+    last stride, every other stride (of a dim longer than 1) and the base
+    address 16-byte aligned."""
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and (t.shape[-1] == 1 or t.stride(-1) == 1)
+            and all(n == 1 or s % per == 0
+                    for n, s in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 def _nvcc() -> str:
@@ -77,7 +91,7 @@ def _build(srcs, target: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
-        for s in srcs:
+        for s in (s for s in srcs if s.suffix == ".cu"):
             obj = os.path.join(tmp, s.stem + ".o")
             objs.append(obj)
             procs.append((s, subprocess.Popen(

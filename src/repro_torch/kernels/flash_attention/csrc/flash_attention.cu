@@ -82,9 +82,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "tiles.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int BQ = 64;            // query rows of a block
 constexpr int BKV = 64;           // keys of a kv tile
@@ -110,71 +110,9 @@ struct Params {
   Strides st;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes < 16 reads that many and zero-fills the
-// rest (0: the chunk is all zeros)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <> __device__ __forceinline__ bf16 zero<bf16>() {
-  return __float2bfloat16(0.f);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Rows [r0, r0 + ROWS) of a (len, d) slice (row stride sr, element stride
-// sd) into dst (ROWS x ld), columns [0, DPAD): zero past d and past len.
-// vec: 16-byte cp.async chunks (sd == 1, rows 16-byte aligned), each thread
-// one column of chunks; else element loads by the same threads.
-template <typename T, int ROWS, int THREADS, int DPAD>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* p,
-                                          int64_t sr, int64_t sd, int r0,
-                                          int len, int d, bool vec, int tid) {
-  if (vec) {
-    constexpr int E = 16 / sizeof(T);
-    constexpr int CPR = DPAD / E;               // chunks per row
-    constexpr int STEP = THREADS / CPR;         // rows a pass covers
-    static_assert(THREADS % CPR == 0 && ROWS % STEP == 0, "tile shape");
-    const int col = (tid % CPR) * E;
-    const int bytes = col < d ? min(d - col, E) * static_cast<int>(sizeof(T))
-                              : 0;
-#pragma unroll
-    for (int it = 0; it < ROWS / STEP; ++it) {
-      const int r = tid / CPR + it * STEP;
-      const int row = r0 + r;
-      const bool in = row < len && bytes > 0;
-      cp_async16(dst + r * ld + col, in ? p + row * sr + col : p,
-                 in ? bytes : 0);
-    }
-  } else {
-    static_assert(ROWS * DPAD % THREADS == 0, "tile shape");
-#pragma unroll 4
-    for (int it = 0; it < ROWS * DPAD / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int r = e / DPAD, col = e % DPAD;
-      const int row = r0 + r;
-      dst[r * ld + col] =
-          (row < len && col < d) ? p[row * sr + col * sd] : zero<T>();
-    }
-  }
 }
 
 // The kv tiles [begin, end) that some row of query positions
@@ -203,33 +141,6 @@ __device__ __forceinline__ KvRange kv_range(int pos_lo, int pos_hi,
 // end.
 constexpr int TC_WARPS = 8;
 constexpr int TC_THREADS = 32 * TC_WARPS;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // DQ, DV: the head dims rounded up to 32/64/128 (64/128 for dv); shared
 // memory holds zeros past the real dims, so every loop has a fixed count.
@@ -420,10 +331,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_bf16(Params p) {
 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {           // 16 keys at a time
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      acc_to_a(pa, s, kk);
 #pragma unroll
       for (int n2 = 0; n2 < DV / 16; ++n2) {
         uint32_t bv[4];

@@ -25,6 +25,7 @@ import sys
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import rows16
 from repro_torch.kernels.flash_attention import backward as _backward
 from repro_torch.kernels.flash_attention import ref as _ref
 
@@ -34,17 +35,6 @@ MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-
-
-def rows16(t: torch.Tensor) -> bool:
-    """Whether the kernel may copy ``t``'s rows 16 bytes at a time: unit
-    last stride, every other stride (of a dim longer than 1) and the base
-    address 16-byte aligned."""
-    per = 16 // t.element_size()
-    return (t.data_ptr() % 16 == 0
-            and (t.shape[-1] == 1 or t.stride(-1) == 1)
-            and all(n == 1 or s % per == 0
-                    for n, s in zip(t.shape[:-1], t.stride()[:-1])))
 
 
 def attention(q, k, v, *, causal: bool = True, window=None, scale=None):

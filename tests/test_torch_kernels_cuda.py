@@ -805,6 +805,9 @@ _BWD_CASES = [
     (1, 64, 64, 2, 2, 192, 128, True, None),     # MLA's 192/128
     (1, 80, 80, 2, 1, 256, 256, True, 24),       # gemma's 256, window
     (1, 50, 20, 2, 1, 32, 32, True, None),       # rows with no valid key
+    (1, 65, 65, 2, 2, 64, 64, False, None),      # tile edge: 64 + 1
+    (1, 129, 129, 4, 2, 128, 128, True, None),   # tile edge: 128 + 1
+    (2, 197, 197, 3, 3, 64, 64, False, None),    # DeiT's 197 at d 64
 ]
 
 
@@ -843,6 +846,58 @@ def test_flash_backward_kernel_matches_plain(dev, case, dtype, tol):
     if not bool(seen.all()):     # rows without keys: zero query gradient
         empty = ~seen.permute(0, 2, 1)[..., None].expand_as(got[0])
         assert not bool(got[0][empty].any())
+
+
+def _bwd_inputs(dev, case, dtype, seed):
+    B, T, S, H, Hkv, dq, dv, causal, window = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k, v, do = r(B, T, H, dq), r(B, S, Hkv, dq), r(B, S, Hkv, dv), \
+        r(B, T, H, dv)
+    o, lse = flash_ops._forward(q, k, v, causal, window, dq ** -0.5,
+                                with_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [_BWD_CASES[1], _BWD_CASES[6]])
+def test_flash_backward_kernel_reads_unaligned_strided_inputs(dev, case,
+                                                              dtype, tol):
+    """q and dO as views one element into wider rows (not 16-byte
+    aligned: ``rows16`` is False) take the kernel's element-wise loads;
+    the gradients match the plain version as the aligned call's do."""
+    B, T, S, H, Hkv, dq, dv, causal, window = case
+    q, k, v, o, lse, do = _bwd_inputs(dev, case, dtype, seed=11)
+    qw = torch.zeros(B, T, H, dq + 3, dtype=dtype, device=dev)
+    dow = torch.zeros(B, T, H, dv + 3, dtype=dtype, device=dev)
+    qw[..., 1:dq + 1], dow[..., 1:dv + 1] = q, do
+    qs, dos = qw[..., 1:dq + 1], dow[..., 1:dv + 1]
+    assert not flash_ops.rows16(qs) and not flash_ops.rows16(dos)
+    kw = dict(causal=causal, window=window, scale=dq ** -0.5)
+    got = flash_bwd.attention_bwd(qs, k, v, o, lse, dos, **kw)
+    want = flash_ref.attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and bool(torch.isfinite(a).all())
+        m = b.float().abs().max().clamp_min(1e-30)
+        assert float((a.float() - b.float()).abs().max()) <= tol * m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [_BWD_CASES[2], _BWD_CASES[7],
+                                  _BWD_CASES[-1]])
+def test_flash_backward_kernel_is_deterministic(dev, case, dtype):
+    """No atomics: two calls on the same inputs give bitwise-equal dq, dk
+    and dv (the group's heads and the key tiles are summed in a fixed
+    order inside a block)."""
+    q, k, v, o, lse, do = _bwd_inputs(dev, case, dtype, seed=5)
+    kw = dict(causal=case[7], window=case[8], scale=case[5] ** -0.5)
+    first = flash_bwd.attention_bwd(q, k, v, o, lse, do, **kw)
+    second = flash_bwd.attention_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
